@@ -1,0 +1,22 @@
+"""hyperspace_tpu_torch -- the PyTorch/CUDA port of hyperspace_tpu.
+
+Covering indexes over parquet data lakes, built and probed on an NVIDIA
+GPU: the index build hash-partitions and sorts within buckets on the
+device, and indexed filter queries evaluate their predicates there, with
+hand-written CUDA kernels on the hot passes (ops/cuda_kernels.py). The
+on-disk layout and the operation log are the JAX package's, so either
+package reads the other's indexes.
+
+This package imports torch, numpy and pyarrow, and nothing of JAX or of
+``hyperspace_tpu``.
+"""
+
+from .api import Hyperspace, IndexConfig  # noqa: F401
+from .config import Conf, HyperspaceConf  # noqa: F401
+from .exceptions import HyperspaceException  # noqa: F401
+from .index.constants import IndexConstants, States  # noqa: F401
+from .plan.expr import col, lit  # noqa: F401
+from .schema import Field, Schema  # noqa: F401
+from .session import Session  # noqa: F401
+
+__version__ = "0.1.0"

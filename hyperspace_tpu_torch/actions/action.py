@@ -1,0 +1,79 @@
+"""Transactional action framework: the 2-phase protocol over the op log
+(counterpart of ``hyperspace_tpu/actions/action.py``). Every index
+mutation runs as
+
+    validate() → begin(): write transient state at baseId+1
+               → op():    do the work
+               → end():   write final state at baseId+2, refresh latestStable
+
+Concurrency control is optimistic: the transient write fails if another
+action already claimed baseId+1.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from ..exceptions import HyperspaceException
+from ..index.log_entry import IndexLogEntry
+from ..index.log_manager import IndexLogManager
+
+
+class Action:
+    transient_state: str = ""
+    final_state: str = ""
+
+    def __init__(self, session, log_manager: IndexLogManager):
+        self.session = session
+        self.log_manager = log_manager
+        self._base_id: Optional[int] = None
+
+    @property
+    def base_id(self) -> int:
+        if self._base_id is None:
+            latest = self.log_manager.get_latest_id()
+            self._base_id = -1 if latest is None else latest
+        return self._base_id
+
+    @property
+    def end_id(self) -> int:
+        return self.base_id + 2
+
+    @property
+    def log_entry(self) -> IndexLogEntry:
+        """The entry to persist; evaluated at begin() and again at end(), so
+        create-style actions can reflect work done by op()."""
+        raise NotImplementedError
+
+    def validate(self) -> None:
+        pass
+
+    def op(self) -> None:
+        raise NotImplementedError
+
+    def run(self) -> None:
+        self.validate()
+        self._begin()
+        self.op()
+        self._end()
+
+    def _begin(self) -> None:
+        entry = self.log_entry
+        entry.state = self.transient_state
+        self._save_entry(self.base_id + 1, entry)
+
+    def _end(self) -> None:
+        entry = self.log_entry
+        entry.state = self.final_state
+        if not self.log_manager.delete_latest_stable_log():
+            raise HyperspaceException("Could not delete latest stable log")
+        self._save_entry(self.end_id, entry)
+        self.log_manager.create_latest_stable_log(self.end_id)
+
+    def _save_entry(self, log_id: int, entry: IndexLogEntry) -> None:
+        entry.timestamp = int(time.time() * 1000)
+        if not self.log_manager.write_log(log_id, entry):
+            raise HyperspaceException(
+                "Could not acquire proper state; another concurrent operation "
+                f"may be running on this index (log id {log_id} exists)")

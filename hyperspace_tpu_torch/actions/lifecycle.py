@@ -1,0 +1,67 @@
+"""State-transition actions (counterpart of
+``hyperspace_tpu/actions/lifecycle.py``, Delete and Vacuum only):
+
+  Delete -- ACTIVE → DELETED (soft; queries stop considering the index)
+  Vacuum -- DELETED → DOESNOTEXIST (removes every index data version)
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..exceptions import HyperspaceException
+from ..index.constants import States
+from ..index.data_manager import IndexDataManager
+from ..index.log_entry import IndexLogEntry
+from ..index.log_manager import IndexLogManager
+from .action import Action
+
+
+class _TransitionAction(Action):
+    """An action whose entry is the latest stable entry with a new state."""
+
+    expected_states = ()
+
+    def __init__(self, session, log_manager: IndexLogManager,
+                 data_manager: Optional[IndexDataManager] = None):
+        super().__init__(session, log_manager)
+        self.data_manager = data_manager
+        self._prev: Optional[IndexLogEntry] = None
+
+    @property
+    def prev_entry(self) -> IndexLogEntry:
+        if self._prev is None:
+            entry = self.log_manager.get_latest_stable_log()
+            if entry is None:
+                raise HyperspaceException("No stable log entry found")
+            self._prev = entry
+        return self._prev
+
+    def validate(self) -> None:
+        if self.prev_entry.state not in self.expected_states:
+            raise HyperspaceException(
+                f"{type(self).__name__} is only supported in states "
+                f"{self.expected_states}; index is {self.prev_entry.state}")
+
+    @property
+    def log_entry(self) -> IndexLogEntry:
+        return IndexLogEntry.from_json(self.prev_entry.to_json())
+
+    def op(self) -> None:
+        pass
+
+
+class DeleteAction(_TransitionAction):
+    transient_state = States.DELETING
+    final_state = States.DELETED
+    expected_states = (States.ACTIVE,)
+
+
+class VacuumAction(_TransitionAction):
+    transient_state = States.VACUUMING
+    final_state = States.DOESNOTEXIST
+    expected_states = (States.DELETED,)
+
+    def op(self) -> None:
+        for version in self.data_manager.get_all_version_ids():
+            self.data_manager.delete(version)

@@ -1,0 +1,63 @@
+"""Runtime configuration (counterpart of ``hyperspace_tpu/config.py``).
+
+Every knob is a string conf read per call, so values can change at run
+time. Only the accessors this package reads are here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from .index.constants import IndexConstants
+
+
+class Conf:
+    """A mutable string-keyed configuration map (the SparkConf analogue)."""
+
+    def __init__(self, initial: Optional[Dict[str, str]] = None):
+        self._conf: Dict[str, str] = {k: str(v) for k, v in (initial or {}).items()}
+
+    def set(self, key: str, value: Any) -> "Conf":
+        self._conf[key] = str(value)
+        return self
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        return self._conf.get(key, default)
+
+
+class HyperspaceConf:
+    """Typed accessors over a :class:`Conf`."""
+
+    def __init__(self, conf: Conf):
+        self._conf = conf
+
+    def system_path(self) -> str:
+        path = self._conf.get(IndexConstants.INDEX_SYSTEM_PATH)
+        if not path:
+            raise ValueError(
+                f"Config '{IndexConstants.INDEX_SYSTEM_PATH}' is not set; it must point at "
+                "the root directory under which indexes are stored.")
+        return path
+
+    def num_bucket_count(self) -> int:
+        return int(self._conf.get(IndexConstants.INDEX_NUM_BUCKETS,
+                                  str(IndexConstants.INDEX_NUM_BUCKETS_DEFAULT)))
+
+    def index_row_group_size(self) -> int:
+        return int(self._conf.get(IndexConstants.INDEX_ROW_GROUP_SIZE,
+                                  str(IndexConstants.INDEX_ROW_GROUP_SIZE_DEFAULT)))
+
+    def max_chunk_rows(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_MAX_CHUNK_ROWS,
+                                  IndexConstants.TPU_MAX_CHUNK_ROWS_DEFAULT))
+
+    def use_bucket_spec_for_filter_rule(self) -> bool:
+        return self._get_bool(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC,
+                              IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT)
+
+    def case_sensitive(self) -> bool:
+        return self._get_bool(IndexConstants.CASE_SENSITIVE,
+                              IndexConstants.CASE_SENSITIVE_DEFAULT)
+
+    def _get_bool(self, key: str, default: str) -> bool:
+        return (self._conf.get(key, default) or "").strip().lower() == "true"

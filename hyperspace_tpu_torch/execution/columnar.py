@@ -1,0 +1,319 @@
+"""Device-resident columnar tables (counterpart of
+``hyperspace_tpu/execution/columnar.py``).
+
+Every column is a fixed-width torch tensor on the table's device.
+Variable-length strings are dictionary-encoded order-preserving at the
+host→device boundary (codes compare like the strings they stand for), dates
+are int32 days and decimals become float64. Host↔device crossings happen
+only at parquet read/write and at ``to_arrow``.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+import pyarrow.parquet as pq
+import torch
+
+from ..exceptions import HyperspaceException
+from ..schema import BOOL, DATE, FLOAT32, FLOAT64, INT32, INT64, STRING, Field, Schema
+
+DEVICE_DTYPE = {
+    INT32: torch.int32,
+    INT64: torch.int64,
+    FLOAT32: torch.float32,
+    FLOAT64: torch.float64,
+    BOOL: torch.bool,
+    DATE: torch.int32,
+    STRING: torch.int32,  # dictionary codes.
+}
+
+_NP_DTYPE = {INT32: np.int32, INT64: np.int64, FLOAT32: np.float32,
+             FLOAT64: np.float64, BOOL: np.bool_, DATE: np.int32, STRING: np.int32}
+
+
+@dataclass
+class Column:
+    """One device column: values (or dictionary codes) + optional validity."""
+
+    dtype: str  # logical type name from schema.py
+    data: torch.Tensor
+    validity: Optional[torch.Tensor] = None  # bool, True = valid; None = all valid
+    dictionary: Optional[np.ndarray] = None  # sorted unique strings (host)
+
+    def __post_init__(self):
+        if self.dtype == STRING and self.dictionary is None:
+            raise HyperspaceException("STRING columns require a dictionary")
+
+    def __len__(self):
+        return int(self.data.shape[0])
+
+    @property
+    def has_nulls(self) -> bool:
+        return self.validity is not None
+
+    def take(self, indices: torch.Tensor) -> "Column":
+        return Column(self.dtype, self.data[indices],
+                      None if self.validity is None else self.validity[indices],
+                      self.dictionary)
+
+    def slice(self, start: int, stop: int) -> "Column":
+        return Column(self.dtype, self.data[start:stop],
+                      None if self.validity is None else self.validity[start:stop],
+                      self.dictionary)
+
+    def to(self, device) -> "Column":
+        return Column(self.dtype, self.data.to(device),
+                      None if self.validity is None else self.validity.to(device),
+                      self.dictionary)
+
+
+@dataclass
+class Table:
+    """An ordered set of equal-length device columns."""
+
+    columns: Dict[str, Column]
+
+    def __post_init__(self):
+        lengths = {len(c) for c in self.columns.values()}
+        if len(lengths) > 1:
+            raise HyperspaceException(f"Ragged table: column lengths {lengths}")
+
+    @property
+    def num_rows(self) -> int:
+        if not self.columns:
+            return 0
+        return len(next(iter(self.columns.values())))
+
+    @property
+    def names(self) -> List[str]:
+        return list(self.columns.keys())
+
+    def column(self, name: str) -> Column:
+        if name not in self.columns:
+            raise HyperspaceException(
+                f"Unknown column '{name}'; available: {self.names}")
+        return self.columns[name]
+
+    def schema(self) -> Schema:
+        return Schema([Field(n, c.dtype, c.has_nulls)
+                       for n, c in self.columns.items()])
+
+    def select(self, names: Sequence[str]) -> "Table":
+        return Table({n: self.column(n) for n in names})
+
+    def take(self, indices: torch.Tensor) -> "Table":
+        return Table({n: c.take(indices) for n, c in self.columns.items()})
+
+    def filter(self, mask: torch.Tensor) -> "Table":
+        from ..ops import kernels
+        if mask.shape[0] != self.num_rows:
+            raise HyperspaceException(
+                f"filter mask length {mask.shape[0]} != rows {self.num_rows}")
+        return self.take(kernels.filter_indices(mask))
+
+    def slice(self, start: int, stop: int) -> "Table":
+        return Table({n: c.slice(start, stop) for n, c in self.columns.items()})
+
+    def to_host(self) -> "Table":
+        """Every column moved to the CPU at once, so that later per-bucket
+        slices are host slices, not device round trips."""
+        return Table({n: c.to("cpu") for n, c in self.columns.items()})
+
+    # ------------------------------------------------------------------
+    # Host boundary.
+    # ------------------------------------------------------------------
+
+    def to_arrow(self) -> pa.Table:
+        arrays = []
+        for name, col in self.columns.items():
+            np_data = col.data.cpu().numpy()
+            np_valid = None if col.validity is None else col.validity.cpu().numpy()
+            mask = None if np_valid is None else ~np_valid
+            if col.dtype == STRING:
+                codes = np_data
+                safe = np.where(codes >= 0, codes, 0)
+                values = col.dictionary[safe] if len(col.dictionary) else \
+                    np.array([""] * len(codes), dtype=object)
+                arr = pa.array(values, type=pa.string(),
+                               mask=mask if mask is not None else (codes < 0))
+            elif col.dtype == DATE:
+                arr = pa.array(np_data.astype("int32"), type=pa.int32(), mask=mask)
+                arr = arr.cast(pa.date32())
+            elif col.dtype == BOOL:
+                arr = pa.array(np_data.astype(bool), mask=mask)
+            else:
+                arr = pa.array(np_data, mask=mask)
+            arrays.append((name, arr))
+        return pa.table(dict(arrays))
+
+    @staticmethod
+    def from_arrow(table: pa.Table, device) -> "Table":
+        return Table({name: _encode_arrow_column(table.column(name), device)
+                      for name in table.column_names})
+
+
+# ---------------------------------------------------------------------------
+# Encoding (the JAX package's exact host-side rules, so both packages hold
+# the same values).
+# ---------------------------------------------------------------------------
+
+def _encode_arrow_column(chunked: pa.ChunkedArray, device) -> Column:
+    t = chunked.type
+    if pa.types.is_dictionary(t):
+        chunked = chunked.cast(t.value_type)
+        t = t.value_type
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        return _encode_string(chunked, device)
+    combined = chunked.combine_chunks() if chunked.num_chunks != 1 else chunked.chunk(0)
+    null_count = combined.null_count
+    if pa.types.is_date32(t):
+        np_data = combined.cast(pa.int32()).to_numpy(zero_copy_only=False)
+        dtype = DATE
+    elif pa.types.is_decimal(t):
+        np_data = combined.cast(pa.float64()).to_numpy(zero_copy_only=False)
+        dtype = FLOAT64
+    elif pa.types.is_timestamp(t):
+        np_data = combined.cast(pa.int64()).to_numpy(zero_copy_only=False)
+        dtype = INT64
+    elif pa.types.is_boolean(t):
+        np_data = combined.to_numpy(zero_copy_only=False)
+        dtype = BOOL
+    elif pa.types.is_integer(t):
+        # fill_null BEFORE to_numpy: the null path otherwise round-trips
+        # through float64, corrupting int64 values beyond ±2^53.
+        filled = combined.fill_null(0) if null_count else combined
+        wide = filled.cast(pa.int64()).to_numpy(zero_copy_only=False)
+        if t.bit_width <= 32:
+            np_data, dtype = wide.astype(np.int32), INT32
+        else:
+            np_data, dtype = wide, INT64
+    elif pa.types.is_floating(t):
+        np_data = combined.to_numpy(zero_copy_only=False)
+        dtype = FLOAT32 if t.bit_width == 32 else FLOAT64
+    else:
+        raise HyperspaceException(f"Unsupported arrow type: {t}")
+
+    validity = None
+    if null_count:
+        valid_np = ~np.asarray(combined.is_null())
+        np_data = np.where(valid_np, np.nan_to_num(np_data, nan=0)
+                           if np_data.dtype.kind == "f" else np_data, 0)
+        validity = torch.from_numpy(valid_np.copy()).to(device)
+    np_data = np.ascontiguousarray(np_data).astype(_NP_DTYPE[dtype], copy=False)
+    return Column(dtype, _to_device(np_data, device), validity)
+
+
+def _to_device(np_data: np.ndarray, device) -> torch.Tensor:
+    if not np_data.flags.writeable:
+        np_data = np_data.copy()
+    return torch.from_numpy(np_data).to(device)
+
+
+def _encode_string(chunked: pa.ChunkedArray, device) -> Column:
+    """Order-preserving dictionary encoding: codes sort like the strings."""
+    combined = chunked.combine_chunks() if chunked.num_chunks != 1 else chunked.chunk(0)
+    uniques = pc.unique(combined.drop_null())
+    dictionary = np.sort(np.asarray(uniques).astype(str)) if len(uniques) else \
+        np.array([], dtype=str)
+    values = np.asarray(combined.fill_null("")).astype(str)
+    codes = np.searchsorted(dictionary, values).astype(np.int32) \
+        if len(dictionary) else np.zeros(len(values), np.int32)
+    validity = None
+    if combined.null_count:
+        valid_np = ~np.asarray(combined.is_null())
+        codes = np.where(valid_np, codes, -1).astype(np.int32)
+        validity = torch.from_numpy(valid_np.copy()).to(device)
+    return Column(STRING, _to_device(codes, device), validity, dictionary)
+
+
+# ---------------------------------------------------------------------------
+# Parquet IO.
+# ---------------------------------------------------------------------------
+
+def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
+                 filters=None) -> Table:
+    """Read parquet ``files`` onto ``device``. ``filters`` is a pyarrow
+    expression: row groups whose statistics exclude it are skipped and the
+    rows read are filtered by it (the device filter still runs after)."""
+    if not files:
+        raise HyperspaceException("read_parquet: no files")
+    at = pq.read_table(list(files), columns=list(columns) if columns else None,
+                       filters=filters)
+    return Table.from_arrow(at, device)
+
+
+def parquet_row_counts(files: Sequence[str]) -> List[int]:
+    """Row count per file from parquet footers (no data read)."""
+    return [pq.ParquetFile(f).metadata.num_rows for f in files]
+
+
+def write_parquet(table: Table, path: str, row_group_size: Optional[int] = None) -> None:
+    pq.write_table(table.to_arrow(), path, row_group_size=row_group_size)
+
+
+def empty_table(schema: Schema, device) -> Table:
+    cols = {}
+    for f in schema.fields:
+        dictionary = np.array([], dtype=str) if f.dtype == STRING else None
+        cols[f.name] = Column(f.dtype, torch.zeros(0, dtype=DEVICE_DTYPE[f.dtype],
+                                                   device=device), None, dictionary)
+    return Table(cols)
+
+
+def dictionaries_equal(a: Optional[np.ndarray], b: Optional[np.ndarray]) -> bool:
+    return a is b or (a is not None and b is not None
+                      and len(a) == len(b) and bool(np.array_equal(a, b)))
+
+
+def translate_codes(target_dictionary: np.ndarray, col: Column) -> torch.Tensor:
+    """Re-map a STRING column's codes into ``target_dictionary``'s code space.
+    Strings absent from the target map to -2, which equals no valid code and
+    no null code (-1), so equality against translated codes is exact."""
+    src = col.dictionary
+    if len(src) == 0 or len(target_dictionary) == 0:
+        return torch.full(col.data.shape, -2, dtype=torch.int32, device=col.data.device)
+    pos = np.searchsorted(target_dictionary, src)
+    pos_c = np.clip(pos, 0, len(target_dictionary) - 1)
+    present = (pos < len(target_dictionary)) & (target_dictionary[pos_c] == src)
+    mapping = torch.from_numpy(np.where(present, pos_c, -2).astype(np.int32)).to(
+        col.data.device)
+    return torch.where(col.data >= 0, mapping[col.data.clamp(min=0).to(torch.int64)],
+                       torch.full_like(col.data, -2))
+
+
+def literal_to_device(value, dtype: str, dictionary: Optional[np.ndarray]):
+    """Encode a python literal for comparison against a device column.
+
+    For STRING columns returns ``(lo, hi)`` searchsorted bounds into the
+    dictionary: lo == searchsorted(dict, v, 'left'), hi == 'right' -- every
+    comparison op can be phrased over codes with these two ints.
+    """
+    if dtype == STRING:
+        if dictionary is None:
+            raise HyperspaceException("string literal against non-string column")
+        v = str(value)
+        lo = int(np.searchsorted(dictionary, v, side="left"))
+        hi = int(np.searchsorted(dictionary, v, side="right"))
+        return lo, hi
+    if dtype == DATE:
+        if isinstance(value, str):
+            value = datetime.date.fromisoformat(value)
+        if isinstance(value, datetime.date):
+            return int((value - datetime.date(1970, 1, 1)).days)
+        return int(value)
+    if dtype == BOOL:
+        return bool(value)
+    if dtype in (FLOAT32, FLOAT64):
+        return float(value)
+    if isinstance(value, float) and not value.is_integer():
+        # Fractional literal against an int column: int() truncation would
+        # change comparison semantics (5 < 5.5 but not 5 < int(5.5)); the
+        # evaluator promotes the column instead.
+        return value
+    return int(value)

@@ -1,0 +1,78 @@
+"""Predicate pushdown to the parquet reader (counterpart of
+``hyperspace_tpu/execution/pushdown.py``).
+
+Conjuncts of the form Col <op> Literal (and ORs of them) become pyarrow
+expressions handed to the parquet reader, which skips row groups whose
+min/max statistics cannot match. The device Filter stays in the plan:
+pushdown is an IO optimization, not a semantic transfer. This is where the
+covering index's within-bucket sort pays off: index files are sorted by the
+indexed columns, so row-group statistics are tight.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Optional
+
+import pyarrow.compute as pc
+
+from ..plan import expr as E
+from ..schema import DATE, Schema
+
+_OPS = {
+    "EqualTo": lambda f, v: f == v,
+    "LessThan": lambda f, v: f < v,
+    "LessThanOrEqual": lambda f, v: f <= v,
+    "GreaterThan": lambda f, v: f > v,
+    "GreaterThanOrEqual": lambda f, v: f >= v,
+}
+
+_FLIP = {
+    "EqualTo": "EqualTo",
+    "LessThan": "GreaterThan",
+    "LessThanOrEqual": "GreaterThanOrEqual",
+    "GreaterThan": "LessThan",
+    "GreaterThanOrEqual": "LessThanOrEqual",
+}
+
+_CMP_TYPES = tuple(getattr(E, n) for n in _OPS)
+
+
+def _literal(value, column: str, schema: Schema):
+    # Date columns accept ISO strings in the expression language; parquet
+    # statistics need a real date value.
+    if column in schema and schema.field(column).dtype == DATE \
+            and isinstance(value, str):
+        return datetime.date.fromisoformat(value)
+    return value
+
+
+def _translate(e: E.Expr, schema: Schema):
+    if isinstance(e, _CMP_TYPES):
+        op = type(e).__name__
+        left, right = e.left, e.right
+        if isinstance(left, E.Lit) and isinstance(right, E.Col):
+            left, right = right, left
+            op = _FLIP[op]
+        if isinstance(left, E.Col) and isinstance(right, E.Lit):
+            return _OPS[op](pc.field(left.column),
+                            _literal(right.value, left.column, schema))
+        return None
+    if isinstance(e, E.Or):
+        left = _translate(e.left, schema)
+        right = _translate(e.right, schema)
+        if left is not None and right is not None:
+            return left | right
+    return None
+
+
+def pushable_filter(condition: E.Expr, schema: Schema) -> Optional[pc.Expression]:
+    """AND of the translatable conjuncts, or None. Pushing a subset is
+    sound: each conjunct is a necessary condition, and the full device
+    filter still runs afterward."""
+    out = None
+    for conjunct in E.split_conjunctive_predicates(condition):
+        t = _translate(conjunct, schema)
+        if t is not None:
+            out = t if out is None else (out & t)
+    return out

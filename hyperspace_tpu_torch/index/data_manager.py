@@ -1,0 +1,37 @@
+"""Physical index data layout: immutable versioned directories
+(counterpart of ``hyperspace_tpu/index/data_manager.py``):
+
+    <indexPath>/v__=<version>/<bucket files>.parquet
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import List
+
+from ..util import file_utils
+from .constants import IndexConstants
+
+
+class IndexDataManager:
+    def __init__(self, index_path: str):
+        self._index_path = index_path
+        self._prefix = IndexConstants.INDEX_VERSION_DIRECTORY_PREFIX + "="
+
+    def get_all_version_ids(self) -> List[int]:
+        if not os.path.isdir(self._index_path):
+            return []
+        pattern = re.compile(re.escape(self._prefix) + r"(\d+)$")
+        out = []
+        for name in sorted(os.listdir(self._index_path)):
+            m = pattern.match(name)
+            if m and os.path.isdir(os.path.join(self._index_path, name)):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def get_path(self, version: int) -> str:
+        return os.path.join(self._index_path, f"{self._prefix}{version}")
+
+    def delete(self, version: int) -> None:
+        file_utils.delete_recursively(self.get_path(version))

@@ -1,0 +1,435 @@
+"""Index metadata model: the versioned, JSON-serialized operation-log entry
+(counterpart of ``hyperspace_tpu/index/log_entry.py``, covering indexes
+only).
+
+The JSON layout is the JAX package's, field for field, so either package
+reads an index the other wrote.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field as dc_field
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from ..exceptions import HyperspaceException
+from ..schema import Schema
+from ..util import file_utils, json_utils
+from .constants import IndexConstants
+
+HYPERSPACE_VERSION = "0.1.0-tpu"
+LOG_ENTRY_VERSION = "0.1"
+
+
+@dataclass(frozen=True)
+class FileInfo:
+    """A leaf file: name (or full path), size, mtime (ms), tracker id.
+    Equality and hash ignore ``id``, so files diff by (name, size, mtime)."""
+
+    name: str
+    size: int
+    modifiedTime: int
+    id: int = IndexConstants.UNKNOWN_FILE_ID
+
+    def __eq__(self, other):
+        return (isinstance(other, FileInfo)
+                and self.name == other.name
+                and self.size == other.size
+                and self.modifiedTime == other.modifiedTime)
+
+    def __hash__(self):
+        return hash((self.name, self.size, self.modifiedTime))
+
+    def to_json_dict(self) -> Dict:
+        return {"name": self.name, "size": self.size,
+                "modifiedTime": self.modifiedTime, "id": self.id}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "FileInfo":
+        return FileInfo(d["name"], d["size"], d["modifiedTime"],
+                        d.get("id", IndexConstants.UNKNOWN_FILE_ID))
+
+
+@dataclass
+class Directory:
+    """Tree node: directory name, leaf files, subdirectories."""
+
+    name: str
+    files: List[FileInfo] = dc_field(default_factory=list)
+    subDirs: List["Directory"] = dc_field(default_factory=list)
+
+    def to_json_dict(self) -> Dict:
+        return {"name": self.name,
+                "files": [f.to_json_dict() for f in self.files],
+                "subDirs": [d.to_json_dict() for d in self.subDirs]}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Directory":
+        return Directory(
+            d["name"],
+            [FileInfo.from_json_dict(f) for f in d.get("files", [])],
+            [Directory.from_json_dict(s) for s in d.get("subDirs", [])])
+
+    @staticmethod
+    def from_leaf_files(paths: Sequence[str],
+                        file_id_tracker: "FileIdTracker") -> "Directory":
+        """Build a rooted tree from a list of leaf-file paths."""
+        root = Directory(name="/")
+        dir_nodes: Dict[str, Directory] = {"/": root}
+
+        def node_for(dir_path: str) -> Directory:
+            dir_path = dir_path.rstrip("/") or "/"
+            if dir_path in dir_nodes:
+                return dir_nodes[dir_path]
+            parent = node_for(os.path.dirname(dir_path))
+            node = Directory(name=os.path.basename(dir_path))
+            parent.subDirs.append(node)
+            dir_nodes[dir_path] = node
+            return node
+
+        for p in sorted(os.path.abspath(p) for p in paths):
+            # Stat exactly once so the tracker key and the recorded FileInfo
+            # can never disagree if the file changes mid-listing.
+            full, size, mtime = file_utils.file_info_triple(p)
+            fid = file_id_tracker.add_file(full, size, mtime)
+            node_for(os.path.dirname(p)).files.append(
+                FileInfo(os.path.basename(full), size, mtime, fid))
+        return root
+
+
+@dataclass
+class NoOpFingerprint:
+    kind: str = "NoOp"
+    properties: Dict[str, str] = dc_field(default_factory=dict)
+
+    def to_json_dict(self) -> Dict:
+        return {"kind": self.kind, "properties": dict(self.properties)}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "NoOpFingerprint":
+        return NoOpFingerprint(d.get("kind", "NoOp"), d.get("properties", {}))
+
+
+@dataclass
+class Content:
+    """Directory tree + fingerprint; enumerates its leaf files with full
+    paths."""
+
+    root: Directory
+    fingerprint: NoOpFingerprint = dc_field(default_factory=NoOpFingerprint)
+
+    def _walk(self):
+        """Yield (full_path, FileInfo) for every leaf file in the tree."""
+
+        def rec(node: Directory, prefix: str):
+            base = os.path.join(prefix, node.name) if node.name != "/" else "/"
+            for f in node.files:
+                full = f.name if os.path.isabs(f.name) else os.path.join(base, f.name)
+                yield full, f
+            for sub in node.subDirs:
+                yield from rec(sub, base)
+
+        yield from rec(self.root, "")
+
+    @property
+    def files(self) -> List[str]:
+        return [full for full, _ in self._walk()]
+
+    @property
+    def file_infos(self) -> Set[FileInfo]:
+        return {FileInfo(full, f.size, f.modifiedTime, f.id) for full, f in self._walk()}
+
+    def to_json_dict(self) -> Dict:
+        return {"root": self.root.to_json_dict(),
+                "fingerprint": self.fingerprint.to_json_dict()}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Content":
+        return Content(Directory.from_json_dict(d["root"]),
+                       NoOpFingerprint.from_json_dict(d.get("fingerprint", {})))
+
+    @staticmethod
+    def from_directory(path: str, file_id_tracker: "FileIdTracker") -> "Content":
+        return Content(Directory.from_leaf_files(
+            file_utils.list_leaf_files(path), file_id_tracker))
+
+    @staticmethod
+    def from_leaf_files(paths: Sequence[str],
+                        file_id_tracker: "FileIdTracker") -> Optional["Content"]:
+        if not paths:
+            return None
+        return Content(Directory.from_leaf_files(paths, file_id_tracker))
+
+
+@dataclass
+class CoveringIndex:
+    """Bucketed+sorted columnar copy descriptor."""
+
+    indexed_columns: List[str]
+    included_columns: List[str]
+    schema: Schema
+    num_buckets: int
+    properties: Dict[str, str] = dc_field(default_factory=dict)
+
+    kind = "CoveringIndex"
+    kind_abbr = "CI"
+
+    def to_json_dict(self) -> Dict:
+        return {
+            "kind": self.kind,
+            "properties": {
+                "columns": {"indexed": list(self.indexed_columns),
+                            "included": list(self.included_columns)},
+                "schema": self.schema.to_json_dict(),
+                "numBuckets": self.num_buckets,
+                "properties": dict(self.properties),
+            },
+        }
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "CoveringIndex":
+        if d.get("kind") != CoveringIndex.kind:
+            raise HyperspaceException(f"Unsupported derived dataset kind: {d.get('kind')}")
+        p = d["properties"]
+        return CoveringIndex(
+            list(p["columns"]["indexed"]), list(p["columns"]["included"]),
+            Schema.from_json_dict(p["schema"]), p["numBuckets"],
+            dict(p.get("properties", {})))
+
+
+@dataclass(frozen=True)
+class Signature:
+    provider: str
+    value: str
+
+    def to_json_dict(self) -> Dict:
+        return {"provider": self.provider, "value": self.value}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Signature":
+        return Signature(d["provider"], d["value"])
+
+
+@dataclass
+class LogicalPlanFingerprint:
+    signatures: List[Signature]
+    kind: str = "LogicalPlan"
+
+    def to_json_dict(self) -> Dict:
+        return {"kind": self.kind,
+                "properties": {"signatures": [s.to_json_dict() for s in self.signatures]}}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "LogicalPlanFingerprint":
+        return LogicalPlanFingerprint(
+            [Signature.from_json_dict(s) for s in d["properties"]["signatures"]],
+            d.get("kind", "LogicalPlan"))
+
+
+@dataclass
+class Update:
+    """Appended/deleted source files since content capture."""
+
+    appendedFiles: Optional[Content] = None
+    deletedFiles: Optional[Content] = None
+
+    def to_json_dict(self) -> Dict:
+        return {
+            "appendedFiles": self.appendedFiles.to_json_dict() if self.appendedFiles else None,
+            "deletedFiles": self.deletedFiles.to_json_dict() if self.deletedFiles else None,
+        }
+
+    @staticmethod
+    def from_json_dict(d: Optional[Dict]) -> Optional["Update"]:
+        if not d:
+            return None
+        return Update(
+            Content.from_json_dict(d["appendedFiles"]) if d.get("appendedFiles") else None,
+            Content.from_json_dict(d["deletedFiles"]) if d.get("deletedFiles") else None)
+
+
+@dataclass
+class Hdfs:
+    content: Content
+    update: Optional[Update] = None
+    kind: str = "HDFS"
+
+    def to_json_dict(self) -> Dict:
+        return {"kind": self.kind,
+                "properties": {"content": self.content.to_json_dict(),
+                               "update": self.update.to_json_dict() if self.update else None}}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Hdfs":
+        p = d["properties"]
+        return Hdfs(Content.from_json_dict(p["content"]),
+                    Update.from_json_dict(p.get("update")), d.get("kind", "HDFS"))
+
+
+@dataclass
+class Relation:
+    """Source relation descriptor."""
+
+    rootPaths: List[str]
+    data: Hdfs
+    dataSchema: Schema
+    fileFormat: str
+    options: Dict[str, str] = dc_field(default_factory=dict)
+
+    def to_json_dict(self) -> Dict:
+        return {"rootPaths": list(self.rootPaths), "data": self.data.to_json_dict(),
+                "dataSchema": self.dataSchema.to_json_dict(),
+                "fileFormat": self.fileFormat, "options": dict(self.options)}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Relation":
+        return Relation(list(d["rootPaths"]), Hdfs.from_json_dict(d["data"]),
+                        Schema.from_json_dict(d["dataSchema"]), d["fileFormat"],
+                        dict(d.get("options", {})))
+
+
+@dataclass
+class SourcePlan:
+    """Source plan: relations + fingerprint."""
+
+    relations: List[Relation]
+    fingerprint: LogicalPlanFingerprint
+    rawPlan: Optional[str] = None
+    sql: Optional[str] = None
+    kind: str = "Plan"
+
+    def to_json_dict(self) -> Dict:
+        return {"kind": self.kind,
+                "properties": {"relations": [r.to_json_dict() for r in self.relations],
+                               "rawPlan": self.rawPlan, "sql": self.sql,
+                               "fingerprint": self.fingerprint.to_json_dict()}}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "SourcePlan":
+        p = d["properties"]
+        return SourcePlan(
+            [Relation.from_json_dict(r) for r in p["relations"]],
+            LogicalPlanFingerprint.from_json_dict(p["fingerprint"]),
+            p.get("rawPlan"), p.get("sql"), d.get("kind", "Plan"))
+
+
+@dataclass
+class Source:
+    plan: SourcePlan
+
+    def to_json_dict(self) -> Dict:
+        return {"plan": self.plan.to_json_dict()}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Source":
+        return Source(SourcePlan.from_json_dict(d["plan"]))
+
+
+@dataclass
+class IndexLogEntry:
+    """One committed version of an index's metadata."""
+
+    state: str = ""
+    id: int = 0
+    timestamp: int = 0
+    version: str = LOG_ENTRY_VERSION
+    name: str = ""
+    derivedDataset: CoveringIndex = None
+    content: Content = None
+    source: Source = None
+    properties: Dict[str, str] = dc_field(default_factory=dict)
+
+    @property
+    def relation(self) -> Relation:
+        if len(self.source.plan.relations) != 1:
+            raise HyperspaceException("An index entry must have exactly one relation")
+        return self.source.plan.relations[0]
+
+    @property
+    def index_files_size_in_bytes(self) -> int:
+        return sum(f.size for f in self.content.file_infos)
+
+    @property
+    def signature(self) -> LogicalPlanFingerprint:
+        return self.source.plan.fingerprint
+
+    @property
+    def num_buckets(self) -> int:
+        return self.derivedDataset.num_buckets
+
+    @property
+    def indexed_columns(self) -> List[str]:
+        return self.derivedDataset.indexed_columns
+
+    @property
+    def included_columns(self) -> List[str]:
+        return self.derivedDataset.included_columns
+
+    @property
+    def schema(self) -> Schema:
+        return self.derivedDataset.schema
+
+    @property
+    def log_version(self) -> int:
+        return int(self.properties.get(IndexConstants.INDEX_LOG_VERSION, self.id))
+
+    def with_log_version(self, version: int) -> "IndexLogEntry":
+        props = dict(self.properties)
+        props[IndexConstants.INDEX_LOG_VERSION] = str(version)
+        return IndexLogEntry(
+            state=self.state, id=self.id, timestamp=self.timestamp, version=self.version,
+            name=self.name, derivedDataset=self.derivedDataset, content=self.content,
+            source=self.source, properties=props)
+
+    def to_json_dict(self) -> Dict:
+        return {
+            "name": self.name,
+            "derivedDataset": self.derivedDataset.to_json_dict(),
+            "content": self.content.to_json_dict(),
+            "source": self.source.to_json_dict(),
+            "properties": dict(self.properties),
+            "state": self.state,
+            "id": self.id,
+            "timestamp": self.timestamp,
+            "version": self.version,
+        }
+
+    def to_json(self) -> str:
+        return json_utils.to_json(self.to_json_dict())
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "IndexLogEntry":
+        return IndexLogEntry(
+            state=d["state"], id=d["id"], timestamp=d.get("timestamp", 0),
+            version=d.get("version", LOG_ENTRY_VERSION), name=d["name"],
+            derivedDataset=CoveringIndex.from_json_dict(d["derivedDataset"]),
+            content=Content.from_json_dict(d["content"]),
+            source=Source.from_json_dict(d["source"]),
+            properties=dict(d.get("properties", {})))
+
+    @staticmethod
+    def from_json(text: str) -> "IndexLogEntry":
+        return IndexLogEntry.from_json_dict(json_utils.from_json(text))
+
+    @staticmethod
+    def create(name: str, derived_dataset, content: Content, source: Source,
+               properties: Dict[str, str]) -> "IndexLogEntry":
+        props = dict(properties)
+        props[IndexConstants.HYPERSPACE_VERSION_PROPERTY] = HYPERSPACE_VERSION
+        return IndexLogEntry(name=name, derivedDataset=derived_dataset, content=content,
+                             source=source, properties=props)
+
+
+class FileIdTracker:
+    """Generates unique ids per (path, size, mtime) triple."""
+
+    def __init__(self):
+        self._max_id = -1
+        self._file_to_id: Dict[Tuple[str, int, int], int] = {}
+
+    def add_file(self, path: str, size: int, mtime: int) -> int:
+        key = (path, size, mtime)
+        if key not in self._file_to_id:
+            self._max_id += 1
+            self._file_to_id[key] = self._max_id
+        return self._file_to_id[key]

@@ -1,0 +1,71 @@
+"""Index manager: dispatch to actions with per-index log/data managers and
+list indexes by scanning the system path (counterpart of
+``hyperspace_tpu/index/manager.py``: create, delete, vacuum and listing).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+from ..exceptions import HyperspaceException
+from .constants import IndexConstants
+from .data_manager import IndexDataManager
+from .log_entry import IndexLogEntry
+from .log_manager import IndexLogManager
+from .path_resolver import PathResolver
+
+
+class IndexCollectionManager:
+    def __init__(self, session):
+        self.session = session
+        self._path_resolver = PathResolver(session.hs_conf)
+
+    def _index_path(self, name: str) -> str:
+        return self._path_resolver.get_index_path(name)
+
+    def _log_manager(self, name: str, must_exist: bool = True) -> IndexLogManager:
+        path = self._index_path(name)
+        if must_exist and not os.path.isdir(path):
+            raise HyperspaceException(f"Index with name {name} could not be found.")
+        return IndexLogManager(path)
+
+    def _data_manager(self, name: str) -> IndexDataManager:
+        return IndexDataManager(self._index_path(name))
+
+    def create(self, df, index_config) -> None:
+        from ..actions.create import CreateAction
+        name = index_config.index_name
+        CreateAction(self.session, df, index_config,
+                     self._log_manager(name, must_exist=False),
+                     self._data_manager(name)).run()
+
+    def delete(self, index_name: str) -> None:
+        from ..actions.lifecycle import DeleteAction
+        DeleteAction(self.session, self._log_manager(index_name)).run()
+
+    def vacuum(self, index_name: str) -> None:
+        from ..actions.lifecycle import VacuumAction
+        VacuumAction(self.session, self._log_manager(index_name),
+                     self._data_manager(index_name)).run()
+
+    def _index_names(self) -> List[str]:
+        system_path = self._path_resolver.system_path
+        if not os.path.isdir(system_path):
+            return []
+        return sorted(
+            n for n in os.listdir(system_path)
+            if os.path.isdir(os.path.join(system_path, n, IndexConstants.HYPERSPACE_LOG)))
+
+    def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
+        out = []
+        for name in self._index_names():
+            entry = IndexLogManager(self._index_path(name)).get_latest_log()
+            if entry is not None and (states is None or entry.state in states):
+                out.append(entry)
+        return out
+
+    def get_index(self, index_name: str) -> Optional[IndexLogEntry]:
+        if index_name not in self._index_names():
+            return None
+        return self._log_manager(index_name).get_latest_log()

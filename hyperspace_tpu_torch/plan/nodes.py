@@ -1,0 +1,177 @@
+"""Logical plan IR (counterpart of ``hyperspace_tpu/plan/nodes.py``,
+trimmed to Scan, IndexScan, Filter and Project).
+
+Nodes carry resolved schemas (analysis happens at construction). The
+rewrite rules (rules/) pattern-match these nodes the way the reference
+matches Scan→Filter(→Project) subtrees.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import List, Sequence
+
+from ..exceptions import HyperspaceException
+from ..schema import BOOL, DATE, FLOAT64, INT64, STRING, Field, Schema
+from . import expr as E
+
+
+def infer_dtype(e: E.Expr, schema: Schema) -> str:
+    if isinstance(e, E.Col):
+        return schema.field(e.column).dtype
+    if isinstance(e, E.Lit):
+        v = e.value
+        if isinstance(v, bool):
+            return BOOL
+        if isinstance(v, int):
+            return INT64
+        if isinstance(v, float):
+            return FLOAT64
+        if isinstance(v, datetime.date):
+            return DATE
+        if isinstance(v, str):
+            return STRING
+        raise HyperspaceException(f"Cannot infer type of literal {v!r}")
+    if isinstance(e, (E.EqualTo, E.LessThan, E.LessThanOrEqual, E.GreaterThan,
+                      E.GreaterThanOrEqual, E.And, E.Or, E.Not)):
+        return BOOL
+    raise HyperspaceException(f"Cannot infer type of {e!r}")
+
+
+class LogicalPlan:
+    """Base node. ``schema`` is the resolved output schema."""
+
+    @property
+    def children(self) -> List["LogicalPlan"]:
+        return []
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    @property
+    def node_name(self) -> str:
+        return type(self).__name__
+
+    def collect_leaves(self) -> List["LogicalPlan"]:
+        if not self.children:
+            return [self]
+        out = []
+        for c in self.children:
+            out.extend(c.collect_leaves())
+        return out
+
+    def transform_up(self, fn) -> "LogicalPlan":
+        new_children = [c.transform_up(fn) for c in self.children]
+        node = self.with_children(new_children) if new_children != self.children else self
+        return fn(node)
+
+    def with_children(self, children: List["LogicalPlan"]) -> "LogicalPlan":
+        if children:
+            raise HyperspaceException(f"{self.node_name} has no children to replace")
+        return self
+
+    def simple_string(self) -> str:
+        return self.node_name
+
+    def tree_string(self, depth: int = 0) -> str:
+        lines = ["  " * depth + ("+- " if depth else "") + self.simple_string()]
+        for c in self.children:
+            lines.append(c.tree_string(depth + 1))
+        return "\n".join(lines)
+
+    # Plan-node names feed the PlanSignatureProvider fingerprint.
+    def node_names_preorder(self) -> List[str]:
+        out = [self.node_name]
+        for c in self.children:
+            out.extend(c.node_names_preorder())
+        return out
+
+
+class Scan(LogicalPlan):
+    """Leaf: scan a file-based relation."""
+
+    def __init__(self, relation):
+        self.relation = relation  # sources.FileBasedRelation
+
+    @property
+    def schema(self) -> Schema:
+        return self.relation.schema
+
+    def simple_string(self) -> str:
+        return f"Scan {self.relation.describe()}"
+
+
+class IndexScan(LogicalPlan):
+    """Leaf: scan the bucketed files of a covering index version, optionally
+    exposing the bucket spec so equality filters can prune buckets."""
+
+    def __init__(self, index_entry, schema: Schema, use_bucket_spec: bool = False):
+        self.index_entry = index_entry
+        self._schema = schema
+        self.use_bucket_spec = use_bucket_spec
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def simple_string(self) -> str:
+        e = self.index_entry
+        return (f"IndexScan Hyperspace(Type: {e.derivedDataset.kind_abbr}, "
+                f"Name: {e.name}, LogVersion: {e.log_version})")
+
+
+class Filter(LogicalPlan):
+    def __init__(self, condition: E.Expr, child: LogicalPlan):
+        for ref in condition.references:
+            if ref not in child.schema:
+                raise HyperspaceException(
+                    f"Filter references unknown column '{ref}'; "
+                    f"available: {child.schema.names}")
+        self.condition = condition
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def with_children(self, children):
+        return Filter(self.condition, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def simple_string(self) -> str:
+        return f"Filter ({self.condition!r})"
+
+
+class Project(LogicalPlan):
+    def __init__(self, exprs: Sequence[E.Expr], child: LogicalPlan):
+        self.exprs = [E.Col(e) if isinstance(e, str) else e for e in exprs]
+        for e in self.exprs:
+            for ref in e.references:
+                if ref not in child.schema:
+                    raise HyperspaceException(
+                        f"Project references unknown column '{ref}'; "
+                        f"available: {child.schema.names}")
+        self.child = child
+        names = [e.name for e in self.exprs]
+        if len(set(names)) != len(names):
+            raise HyperspaceException(f"Duplicate output columns in project: {names}")
+        self._schema = Schema(
+            [Field(e.name, infer_dtype(e, child.schema)) for e in self.exprs])
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def with_children(self, children):
+        return Project(self.exprs, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def simple_string(self) -> str:
+        return f"Project [{', '.join(e.name for e in self.exprs)}]"

@@ -1,0 +1,132 @@
+"""Session + DataFrame API (counterpart of ``hyperspace_tpu/session.py``).
+
+The session holds the conf, the device, the source-provider manager and
+the hyperspace switch; ``enable_hyperspace()`` turns the index rewrite on
+for every later query. DataFrames are thin wrappers over the logical plan
+IR; ``to_arrow()`` runs normalization → (hyperspace rewrite if enabled) →
+the executor.
+
+The device defaults to ``"cuda"``. A session asked for CUDA on a machine
+without it raises; it never carries on quietly on the CPU. Pass
+``device="cpu"`` to run the plain torch versions of the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Union as TUnion
+
+import torch
+
+from .config import Conf, HyperspaceConf
+from .exceptions import HyperspaceException
+from .index.constants import IndexConstants
+from .plan import expr as E
+from .plan.nodes import Filter, LogicalPlan, Project, Scan
+from .schema import Schema
+from .sources.default import DefaultFileBasedSourceBuilder
+from .sources.interfaces import FileBasedSourceProviderManager
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise HyperspaceException(
+            "CUDA is not available on this machine; pass device='cpu' to run "
+            "the plain torch versions of the kernels")
+    if dev.type not in ("cuda", "cpu"):
+        raise HyperspaceException(f"Unsupported device {dev}")
+    return dev
+
+
+class Session:
+    def __init__(self, conf: Optional[Dict[str, str]] = None,
+                 system_path: Optional[str] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.conf = Conf(conf)
+        if system_path is not None:
+            self.conf.set(IndexConstants.INDEX_SYSTEM_PATH, system_path)
+        self.hs_conf = HyperspaceConf(self.conf)
+        self._hyperspace_enabled = False
+        self.source_provider_manager = FileBasedSourceProviderManager(
+            [DefaultFileBasedSourceBuilder()])
+        from .index.manager import IndexCollectionManager
+        self.index_collection_manager = IndexCollectionManager(self)
+
+    @property
+    def read(self) -> "DataFrameReader":
+        return DataFrameReader(self)
+
+    def enable_hyperspace(self) -> "Session":
+        self._hyperspace_enabled = True
+        return self
+
+    def disable_hyperspace(self) -> "Session":
+        self._hyperspace_enabled = False
+        return self
+
+    def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        """Filter pushdown below projections, then the hyperspace rewrite
+        batch if enabled."""
+        from .rules.pushdown import push_filters
+        plan = push_filters(plan)
+        if self._hyperspace_enabled:
+            from .rules.apply_hyperspace import apply_hyperspace
+            plan = apply_hyperspace(self, plan)
+        return plan
+
+    def execute(self, plan: LogicalPlan):
+        from .execution.executor import execute
+        return execute(self.optimize(plan), self)
+
+
+class DataFrameReader:
+    def __init__(self, session: Session):
+        self._session = session
+
+    def parquet(self, *paths: str) -> "DataFrame":
+        relation = self._session.source_provider_manager.build_relation(
+            list(paths), "parquet", {})
+        return DataFrame(self._session, Scan(relation))
+
+
+class DataFrame:
+    def __init__(self, session: Session, plan: LogicalPlan):
+        self.session = session
+        self.plan = plan
+
+    @property
+    def schema(self) -> Schema:
+        return self.plan.schema
+
+    # Column names resolve case-insensitively against the schema
+    # (`hyperspace.caseSensitive=true` restores exact matching).
+    # Unresolvable names pass through unchanged so the plan constructors
+    # raise with the user's spelling.
+    def _spelling(self, name: str) -> str:
+        from .util.resolver import resolve
+        r = resolve(self.plan.schema.names, name, self.session.hs_conf.case_sensitive())
+        return r if r is not None else name
+
+    def _resolve_expr(self, e: E.Expr) -> E.Expr:
+        return E.rename_columns(e, self._spelling)
+
+    def filter(self, condition: E.Expr) -> "DataFrame":
+        return DataFrame(self.session, Filter(self._resolve_expr(condition), self.plan))
+
+    def select(self, *exprs: TUnion[str, E.Expr]) -> "DataFrame":
+        flat: List[TUnion[str, E.Expr]] = []
+        for e in exprs:
+            flat.extend(e if isinstance(e, (list, tuple)) else [e])
+        flat = [self._spelling(e) if isinstance(e, str) else self._resolve_expr(e)
+                for e in flat]
+        return DataFrame(self.session, Project(flat, self.plan))
+
+    def execute(self):
+        """Run the (possibly rewritten) plan; returns the device Table."""
+        return self.session.execute(self.plan)
+
+    def optimized_plan(self) -> LogicalPlan:
+        return self.session.optimize(self.plan)
+
+    def to_arrow(self):
+        return self.execute().to_arrow()

@@ -1,0 +1,77 @@
+"""Default file-based source provider: parquet directories on the local
+filesystem (counterpart of ``hyperspace_tpu/sources/default.py``, parquet
+only and without hive partition inference).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence
+
+import pyarrow.parquet as pq
+
+from ..exceptions import HyperspaceException
+from ..schema import Schema
+from ..util import file_utils
+from .interfaces import FileBasedRelation, FileBasedSourceProvider
+
+SUPPORTED_FORMATS = ("parquet",)
+
+
+class DefaultFileBasedRelation(FileBasedRelation):
+    def __init__(self, paths: Sequence[str], fmt: str = "parquet",
+                 options: Optional[Dict[str, str]] = None):
+        if fmt not in SUPPORTED_FORMATS:
+            raise HyperspaceException(f"Unsupported format: {fmt}")
+        self._root_paths = [os.path.abspath(p) for p in paths]
+        self._format = fmt
+        self._options = dict(options or {})
+        self._schema: Optional[Schema] = None
+        self._files: Optional[List[str]] = None
+
+    @property
+    def root_paths(self) -> List[str]:
+        return list(self._root_paths)
+
+    @property
+    def file_format(self) -> str:
+        return self._format
+
+    @property
+    def options(self) -> Dict[str, str]:
+        return dict(self._options)
+
+    @property
+    def schema(self) -> Schema:
+        if self._schema is None:
+            files = self.all_files()
+            if not files:
+                raise HyperspaceException(f"No data files under {self._root_paths}")
+            self._schema = Schema.from_arrow(pq.read_schema(files[0]))
+        return self._schema
+
+    def all_files(self) -> List[str]:
+        if self._files is None:
+            out: List[str] = []
+            for root in self._root_paths:
+                if os.path.isfile(root):
+                    out.append(os.path.abspath(root))
+                    continue
+                out.extend(f for f in file_utils.list_leaf_files(root)
+                           if f.endswith(".parquet"))
+            self._files = sorted(out)
+        return list(self._files)
+
+
+class DefaultFileBasedSourceBuilder(FileBasedSourceProvider):
+    def get_relation(self, plan_leaf) -> Optional[FileBasedRelation]:
+        relation = getattr(plan_leaf, "relation", None)
+        if isinstance(relation, DefaultFileBasedRelation):
+            return relation
+        return None
+
+    def build_relation(self, paths: Sequence[str], fmt: str,
+                       options: Dict[str, str]) -> Optional[FileBasedRelation]:
+        if fmt in SUPPORTED_FORMATS:
+            return DefaultFileBasedRelation(paths, fmt, options)
+        return None

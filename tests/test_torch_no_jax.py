@@ -1,0 +1,97 @@
+"""The port stands alone: with ``jax`` and ``hyperspace_tpu`` made
+unimportable, the slice still runs end to end on the CPU (in a subprocess,
+because conftest imports jax in this one); the default device refuses to
+run without CUDA; and chip_smoke.py prints no result without a card or
+without the repository beside it.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import hyperspace_tpu_torch as ht
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE = textwrap.dedent("""
+    import datetime, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants, col
+    root = tempfile.mkdtemp()
+    li_dir, n_li = chip_smoke.make_lineitem(root, 0.002)
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
+    s.conf.set(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC, "true")
+    hs = ht.Hyperspace(s)
+    li = s.read.parquet(li_dir)
+    s.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+    hs.create_index(li, ht.IndexConfig("li_idx", ["l_orderkey"],
+                                       ["l_extendedprice", "l_discount", "l_shipdate"]))
+    s.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 8)
+    hs.create_index(li, ht.IndexConfig("li_ship_idx", ["l_shipdate"],
+                                       ["l_orderkey", "l_extendedprice"]))
+    qs = [li.filter(col("l_shipdate").between(datetime.date(1995, 3, 1),
+                                               datetime.date(1995, 3, 31))),
+          li.filter(col("l_shipdate") > datetime.date(1995, 3, 15)),
+          li.filter(col("l_orderkey") == 7)]
+    for q in qs:
+        q = q.select("l_extendedprice")
+        s.enable_hyperspace()
+        plan = q.optimized_plan()
+        a = q.to_arrow()
+        s.disable_hyperspace()
+        b = q.to_arrow()
+        assert "IndexScan" in plan.collect_leaves()[0].simple_string()
+        assert a.sort_by("l_extendedprice").equals(b.sort_by("l_extendedprice"))
+    bad = [m for m, v in sys.modules.items() if v is not None and (
+        m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+        or m.startswith("hyperspace_tpu.") or m == "bench")]
+    assert not bad, bad
+    print("SLICE_OK", n_li)
+""")
+
+
+def test_slice_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "SLICE_OK 12000" in proc.stdout
+
+
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ht.HyperspaceException, match="CUDA is not available"):
+        ht.Session(system_path=str(tmp_path))
+    assert ht.Session(system_path=str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def _no_result(proc) -> bool:
+    return proc.returncode != 0 and '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--out", ""],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    assert _no_result(proc), proc.stdout[-2000:]
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Even where a card is reported, the script alone cannot import the
+    port, so it fails before printing a result."""
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    code = ("import runpy, sys, torch; torch.cuda.is_available = lambda: True; "
+            "sys.argv = ['chip_smoke.py', '--out', '']; "
+            "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=str(tmp_path), env=env)
+    assert _no_result(proc), proc.stdout[-2000:]
