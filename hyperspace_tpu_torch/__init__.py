@@ -1,9 +1,11 @@
 """hyperspace_tpu_torch -- the PyTorch/CUDA port of hyperspace_tpu.
 
-Covering indexes over parquet data lakes, built and probed on an NVIDIA
-GPU: the index build hash-partitions and sorts within buckets on the
-device, and indexed filter queries evaluate their predicates there, with
-hand-written CUDA kernels on the hot passes (ops/cuda_kernels.py). The
+Covering and data-skipping indexes over parquet data lakes, built and
+probed on an NVIDIA GPU: the covering build hash-partitions and sorts
+within buckets on the device, the sketch build reduces each source file's
+column there (MinMax, Bloom, value list), and filter queries evaluate
+their predicates there, with hand-written CUDA kernels on the hot passes
+(ops/cuda_kernels.py). Sketch probes at plan time are host numpy. The
 on-disk layout and the operation log are the JAX package's, so either
 package reads the other's indexes.
 
@@ -11,7 +13,8 @@ This package imports torch, numpy and pyarrow, and nothing of JAX or of
 ``hyperspace_tpu``.
 """
 
-from .api import Hyperspace, IndexConfig  # noqa: F401
+from .api import (BloomFilterSketch, DataSkippingIndexConfig, Hyperspace,  # noqa: F401
+                  IndexConfig, MinMaxSketch, SketchSpec, ValueListSketch)
 from .config import Conf, HyperspaceConf  # noqa: F401
 from .exceptions import HyperspaceException  # noqa: F401
 from .index.constants import IndexConstants, States  # noqa: F401

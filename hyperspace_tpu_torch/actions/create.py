@@ -43,6 +43,28 @@ def write_bucket_files(table: Table, bounds, num_buckets: int, out_dir: str,
                       row_group_size=row_group_size)
 
 
+def build_source(relation, plan, tracker: FileIdTracker) -> Source:
+    """The entry's source description: the relation's files (ids from
+    ``tracker``) and the plan's fingerprint."""
+    source_content = Content.from_leaf_files(relation.all_files(), tracker)
+    rel_meta = Relation(relation.root_paths, Hdfs(source_content),
+                        relation.schema, relation.file_format, relation.options)
+    provider = IndexSignatureProvider()
+    fingerprint = LogicalPlanFingerprint(
+        [Signature(provider.name(), provider.signature(plan))])
+    return Source(SourcePlan([rel_meta], fingerprint))
+
+
+def validate_source(session, plan) -> None:
+    """An index is built over a plain scan of a supported relation."""
+    if not isinstance(plan, Scan):
+        raise HyperspaceException(
+            "Only creating an index over a plain scan of a file-based "
+            "relation is supported (no filters/joins under createIndex)")
+    if not session.source_provider_manager.is_supported_relation(plan):
+        raise HyperspaceException(f"Relation is not supported: {plan.relation.describe()}")
+
+
 class CreateAction(Action):
     transient_state = States.CREATING
     final_state = States.ACTIVE
@@ -61,13 +83,7 @@ class CreateAction(Action):
 
     def validate(self) -> None:
         plan = self.df.plan
-        if not isinstance(plan, Scan):
-            raise HyperspaceException(
-                "Only creating an index over a plain scan of a file-based "
-                "relation is supported (no filters/joins under createIndex)")
-        if not self.session.source_provider_manager.is_supported_relation(plan):
-            raise HyperspaceException(
-                f"Relation is not supported: {plan.relation.describe()}")
+        validate_source(self.session, plan)
         self._resolve_columns()
         latest = self.log_manager.get_latest_log()
         if latest is not None and latest.state != States.DOESNOTEXIST:
@@ -121,17 +137,11 @@ class CreateAction(Action):
     def _build_entry(self, content: Content, tracker: FileIdTracker) -> IndexLogEntry:
         indexed, included = self._resolve_columns()
         relation = self.df.plan.relation
-        source_content = Content.from_leaf_files(relation.all_files(), tracker)
-        rel_meta = Relation(relation.root_paths, Hdfs(source_content),
-                            relation.schema, relation.file_format, relation.options)
-        provider = IndexSignatureProvider()
-        fingerprint = LogicalPlanFingerprint(
-            [Signature(provider.name(), provider.signature(self.df.plan))])
         index_schema = Schema([self.df.plan.schema.field(c) for c in indexed + included])
         derived = CoveringIndex(indexed, included, index_schema, self._num_buckets(),
                                 self._index_properties(relation))
         entry = IndexLogEntry.create(self.index_config.index_name, derived, content,
-                                     Source(SourcePlan([rel_meta], fingerprint)), {})
+                                     build_source(relation, self.df.plan, tracker), {})
         return entry.with_log_version(0)
 
     def op(self) -> None:

@@ -1,0 +1,190 @@
+"""CreateDataSkippingAction: build a per-file sketch table (counterpart of
+``hyperspace_tpu/actions/create_skipping.py``, create only; the full and
+incremental refresh actions are not ported yet). The sketch table holds
+one row per source data file:
+
+    _file (string, full path) | _file_id (int64)
+    | minmax__<col>__min / minmax__<col>__max   (source column type)
+    | bloom__<col>                              (binary packed bitset)
+    | valuelist__<col>                          (list of source type)
+
+stored as a single parquet file per index data version. Sketch values are
+device reductions over each file's column (ops/sketches.py); the table
+itself is tiny and is read host-side at plan time.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import pyarrow as pa
+import pyarrow.parquet as pq
+
+from ..exceptions import HyperspaceException
+from ..execution.columnar import read_parquet
+from ..index.constants import States
+from ..index.data_manager import IndexDataManager
+from ..index.log_entry import (Content, DataSkippingIndex, Directory, FileIdTracker,
+                               IndexLogEntry, Sketch)
+from ..index.log_manager import IndexLogManager
+from ..ops import sketches as sk
+from ..schema import INT64, STRING, Field, Schema
+from ..util.file_utils import file_info_triple
+from ..util.resolver import resolve_all
+from .action import Action
+from .create import build_source, validate_source
+
+SKETCH_FILE_NAME = "sketches.parquet"
+FILE_COL = "_file"
+FILE_ID_COL = "_file_id"
+
+
+def minmax_cols(column: str) -> tuple:
+    return f"minmax__{column}__min", f"minmax__{column}__max"
+
+
+def bloom_col(column: str) -> str:
+    return f"bloom__{column}"
+
+
+def valuelist_col(column: str) -> str:
+    return f"valuelist__{column}"
+
+
+def build_sketch_rows(relation, sketch_list: List[Sketch], files: List[str],
+                      tracker: FileIdTracker, device) -> Dict[str, list]:
+    """One sketch row per file, files read one by one in order (so the
+    tracker's ids and the row order, and with them the table's bytes, are
+    the JAX package's); device reductions per (file, sketch)."""
+    needed = sorted({s.column for s in sketch_list})
+    rows: Dict[str, list] = {FILE_COL: [], FILE_ID_COL: []}
+    for s in sketch_list:
+        if s.kind == "MinMax":
+            lo, hi = minmax_cols(s.column)
+            rows[lo] = []
+            rows[hi] = []
+        elif s.kind == "BloomFilter":
+            rows[bloom_col(s.column)] = []
+        elif s.kind == "ValueList":
+            rows[valuelist_col(s.column)] = []
+        else:
+            raise HyperspaceException(f"Unknown sketch kind: {s.kind}")
+    for path in files:
+        table = read_parquet([path], needed, device)
+        rows[FILE_COL].append(path)
+        rows[FILE_ID_COL].append(tracker.add_file(*file_info_triple(path)))
+        for s in sketch_list:
+            col = table.column(s.column)
+            if s.kind == "MinMax":
+                lo, hi = minmax_cols(s.column)
+                mn, mx = sk.minmax_values(col)
+                rows[lo].append(mn)
+                rows[hi].append(mx)
+            elif s.kind == "ValueList":
+                rows[valuelist_col(s.column)].append(
+                    sk.value_list(col, int(s.properties["maxValues"])))
+            else:
+                rows[bloom_col(s.column)].append(sk.bloom_build(
+                    col, int(s.properties["numBits"]),
+                    int(s.properties["numHashes"])).tobytes())
+    return rows
+
+
+def sketch_arrow_schema(relation_schema: Schema, sketch_list: List[Sketch]) -> pa.Schema:
+    fields = [pa.field(FILE_COL, pa.string()), pa.field(FILE_ID_COL, pa.int64())]
+    for s in sketch_list:
+        if s.kind in ("MinMax", "ValueList"):
+            arrow_t = Schema([relation_schema.field(s.column)]).to_arrow().field(0).type
+            if s.kind == "MinMax":
+                lo, hi = minmax_cols(s.column)
+                fields.append(pa.field(lo, arrow_t))
+                fields.append(pa.field(hi, arrow_t))
+            else:
+                # A null list (over-cardinality file) means "no information".
+                fields.append(pa.field(valuelist_col(s.column), pa.list_(arrow_t)))
+        else:
+            fields.append(pa.field(bloom_col(s.column), pa.binary()))
+    return pa.schema(fields)
+
+
+def write_sketch_table(rows: Dict[str, list], arrow_schema: pa.Schema,
+                       out_dir: str) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    table = pa.table({f.name: pa.array(rows[f.name], type=f.type)
+                      for f in arrow_schema}, schema=arrow_schema)
+    path = os.path.join(out_dir, SKETCH_FILE_NAME)
+    pq.write_table(table, path)
+    return path
+
+
+def logical_sketch_schema(relation_schema: Schema, sketch_list: List[Sketch]) -> Schema:
+    """The part of the sketch table describable in the logical type system
+    (bloom binary columns are carried by sketch properties instead)."""
+    fields = [Field(FILE_COL, STRING, False), Field(FILE_ID_COL, INT64, False)]
+    for s in sketch_list:
+        if s.kind == "MinMax":
+            src = relation_schema.field(s.column)
+            lo, hi = minmax_cols(s.column)
+            fields.append(Field(lo, src.dtype, True))
+            fields.append(Field(hi, src.dtype, True))
+    return Schema(fields)
+
+
+class CreateDataSkippingAction(Action):
+    transient_state = States.CREATING
+    final_state = States.ACTIVE
+
+    def __init__(self, session, df, index_config, log_manager: IndexLogManager,
+                 data_manager: IndexDataManager):
+        super().__init__(session, log_manager)
+        self.data_manager = data_manager
+        self.df = df
+        self.index_config = index_config
+        self._entry: Optional[IndexLogEntry] = None
+        self._sketches: Optional[List[Sketch]] = None
+
+    def _resolved_sketches(self) -> List[Sketch]:
+        if self._sketches is None:
+            names = self.df.plan.schema.names
+            cs = self.session.hs_conf.case_sensitive()
+            self._sketches = [
+                Sketch(spec.kind, resolve_all(names, [spec.column], case_sensitive=cs)[0],
+                       spec.properties())
+                for spec in self.index_config.sketches]
+        return self._sketches
+
+    def validate(self) -> None:
+        validate_source(self.session, self.df.plan)
+        self._resolved_sketches()
+        latest = self.log_manager.get_latest_log()
+        if latest is not None and latest.state != States.DOESNOTEXIST:
+            raise HyperspaceException(
+                f"Another index with name {self.index_config.index_name} already exists")
+
+    def _build_entry(self, content: Content, tracker: FileIdTracker) -> IndexLogEntry:
+        relation = self.df.plan.relation
+        sketch_list = self._resolved_sketches()
+        derived = DataSkippingIndex(
+            sketches=sketch_list,
+            schema=logical_sketch_schema(relation.schema, sketch_list))
+        entry = IndexLogEntry.create(self.index_config.index_name, derived, content,
+                                     build_source(relation, self.df.plan, tracker), {})
+        return entry.with_log_version(0)
+
+    def op(self) -> None:
+        relation = self.df.plan.relation
+        sketch_list = self._resolved_sketches()
+        tracker = FileIdTracker()
+        rows = build_sketch_rows(relation, sketch_list, relation.all_files(), tracker,
+                                 self.session.device)
+        out_dir = self.data_manager.get_path(0)
+        write_sketch_table(rows, sketch_arrow_schema(relation.schema, sketch_list), out_dir)
+        self._entry = self._build_entry(Content.from_directory(out_dir, tracker), tracker)
+
+    @property
+    def log_entry(self) -> IndexLogEntry:
+        if self._entry is not None:
+            return self._entry
+        # begin() runs before op(): write a placeholder entry.
+        return self._build_entry(Content(root=Directory("/")), FileIdTracker())

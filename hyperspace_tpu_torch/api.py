@@ -1,5 +1,5 @@
-"""User API facade (counterpart of ``hyperspace_tpu/api.py``: covering
-indexes; create, delete and vacuum)."""
+"""User API facade (counterpart of ``hyperspace_tpu/api.py``: covering and
+data-skipping indexes; create, delete and vacuum)."""
 
 from __future__ import annotations
 
@@ -29,12 +29,97 @@ class IndexConfig:
                 "Duplicate columns across indexed/included lists")
 
 
+@dataclass(frozen=True)
+class SketchSpec:
+    """One data-skipping sketch over one column (ops/sketches.py)."""
+
+    kind: str
+    column: str
+
+    def properties(self) -> dict:
+        return {}
+
+
+@dataclass(frozen=True)
+class MinMaxSketch(SketchSpec):
+    kind: str = field(default="MinMax", init=False)
+
+    def __init__(self, column: str):
+        object.__setattr__(self, "column", column)
+        object.__setattr__(self, "kind", "MinMax")
+
+
+@dataclass(frozen=True)
+class BloomFilterSketch(SketchSpec):
+    """Bloom membership sketch; sized from (expected_items, fpp)."""
+
+    kind: str = field(default="BloomFilter", init=False)
+    fpp: float = 0.01
+    expected_items: int = 100_000
+
+    def __init__(self, column: str, fpp: float = 0.01,
+                 expected_items: int = 100_000):
+        object.__setattr__(self, "column", column)
+        object.__setattr__(self, "kind", "BloomFilter")
+        object.__setattr__(self, "fpp", fpp)
+        object.__setattr__(self, "expected_items", expected_items)
+
+    def properties(self) -> dict:
+        from .ops.sketches import bloom_parameters
+        num_bits, num_hashes = bloom_parameters(self.expected_items, self.fpp)
+        return {"numBits": str(num_bits), "numHashes": str(num_hashes),
+                "fpp": str(self.fpp),
+                "expectedItems": str(self.expected_items)}
+
+
+@dataclass(frozen=True)
+class ValueListSketch(SketchSpec):
+    """Exact distinct-values sketch for low-cardinality columns: equality
+    and IN predicates prune a file unless the literal is IN its stored
+    value list (no false positives, unlike Bloom). Files whose cardinality
+    exceeds ``max_values`` store no list and are always kept."""
+
+    kind: str = field(default="ValueList", init=False)
+    max_values: int = 256
+
+    def __init__(self, column: str, max_values: int = 256):
+        object.__setattr__(self, "column", column)
+        object.__setattr__(self, "kind", "ValueList")
+        object.__setattr__(self, "max_values", int(max_values))
+
+    def properties(self) -> dict:
+        return {"maxValues": str(self.max_values)}
+
+
+@dataclass(frozen=True)
+class DataSkippingIndexConfig:
+    """Data-skipping index specification: per-source-file sketches."""
+
+    index_name: str
+    sketches: List[SketchSpec]
+
+    def __post_init__(self):
+        if not self.index_name:
+            raise HyperspaceException("Index name cannot be empty")
+        if not self.sketches:
+            raise HyperspaceException("At least one sketch is required")
+        seen = set()
+        for s in self.sketches:
+            key = (s.kind, s.column.lower())
+            if key in seen:
+                raise HyperspaceException(
+                    f"Duplicate sketch {s.kind} on column {s.column}")
+            seen.add(key)
+
+
 class Hyperspace:
     def __init__(self, session):
         self.session = session
         self.index_manager = session.index_collection_manager
 
-    def create_index(self, df, index_config: IndexConfig) -> None:
+    def create_index(self, df, index_config) -> None:
+        """Build an index: an ``IndexConfig`` (covering) or a
+        ``DataSkippingIndexConfig`` (per-file sketches)."""
         self.index_manager.create(df, index_config)
 
     def delete_index(self, index_name: str) -> None:

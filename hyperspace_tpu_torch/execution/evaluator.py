@@ -1,13 +1,14 @@
 """Vectorized predicate evaluation over device tables (counterpart of
-``hyperspace_tpu/execution/evaluator.py``, trimmed to comparisons, BETWEEN
-and Kleene boolean algebra).
+``hyperspace_tpu/execution/evaluator.py``, trimmed to comparisons, BETWEEN,
+IN lists and Kleene boolean algebra).
 
 Null semantics follow SQL for filters: a comparison touching a null is
 null, and Filter keeps only rows whose predicate is true-and-valid.
 
 There is one counted-mask path. Comparisons of a 32-bit column with a
 literal run the compare kernel, and ``col >(=) lo AND col <(=) hi`` runs the
-range kernel (ops/cuda_kernels.py); every other shape is plain torch.
+range kernel (ops/cuda_kernels.py); an IN list is an OR of such
+equalities. Every other shape is plain torch.
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ def eval_expr(table: Table, e: E.Expr) -> Column:
     if isinstance(e, E.Not):
         c = eval_expr(table, e.child)
         return Column(BOOL, ~c.data, c.validity)
+    if isinstance(e, E.In):
+        return _eval_in(table, e)
     raise HyperspaceException(f"Cannot evaluate expression: {e!r}")
 
 
@@ -177,6 +180,18 @@ def compare_literal(col: Column, op: str, value) -> torch.Tensor:
         # float32 and lose integer precision).
         data = data.to(torch.float64)
     return _TORCH_OP[op](data, lit)
+
+
+def _eval_in(table: Table, e: E.In) -> Column:
+    col = eval_expr(table, e.value)
+    values = [opt.value for opt in e.options]
+    if not values:
+        return Column(BOOL, torch.zeros(len(col), dtype=torch.bool, device=col.data.device),
+                      col.validity)
+    mask = compare_literal(col, "EqualTo", values[0])
+    for v in values[1:]:
+        mask = mask | compare_literal(col, "EqualTo", v)
+    return Column(BOOL, mask, col.validity)
 
 
 def _align_for_compare(lc: Column, rc: Column, op_name: str):

@@ -127,6 +127,10 @@ def _equality_values(conjunct, column: str):
         if isinstance(left, E.Col) and left.column == column \
                 and isinstance(right, E.Lit):
             return {right.value}
+    if isinstance(conjunct, E.In) and isinstance(conjunct.value, E.Col) \
+            and conjunct.value.column == column:
+        if all(isinstance(o, E.Lit) for o in conjunct.options):
+            return {o.value for o in conjunct.options}
     return None
 
 

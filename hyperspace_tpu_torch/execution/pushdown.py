@@ -1,12 +1,12 @@
 """Predicate pushdown to the parquet reader (counterpart of
 ``hyperspace_tpu/execution/pushdown.py``).
 
-Conjuncts of the form Col <op> Literal (and ORs of them) become pyarrow
-expressions handed to the parquet reader, which skips row groups whose
-min/max statistics cannot match. The device Filter stays in the plan:
-pushdown is an IO optimization, not a semantic transfer. This is where the
-covering index's within-bucket sort pays off: index files are sorted by the
-indexed columns, so row-group statistics are tight.
+Conjuncts of the form Col <op> Literal and Col IN (literals), and ORs of
+them, become pyarrow expressions handed to the parquet reader, which skips
+row groups whose min/max statistics cannot match. The device Filter stays
+in the plan: pushdown is an IO optimization, not a semantic transfer. This
+is where the covering index's within-bucket sort pays off: index files are
+sorted by the indexed columns, so row-group statistics are tight.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ def _translate(e: E.Expr, schema: Schema):
         if isinstance(left, E.Col) and isinstance(right, E.Lit):
             return _OPS[op](pc.field(left.column),
                             _literal(right.value, left.column, schema))
+        return None
+    if isinstance(e, E.In) and isinstance(e.value, E.Col):
+        values = [_literal(o.value, e.value.column, schema)
+                  for o in e.options if isinstance(o, E.Lit)]
+        if len(values) == len(e.options):
+            return pc.field(e.value.column).isin(values)
         return None
     if isinstance(e, E.Or):
         left = _translate(e.left, schema)

@@ -1,6 +1,6 @@
 """Index metadata model: the versioned, JSON-serialized operation-log entry
-(counterpart of ``hyperspace_tpu/index/log_entry.py``, covering indexes
-only).
+(counterpart of ``hyperspace_tpu/index/log_entry.py``: covering and
+data-skipping indexes).
 
 The JSON layout is the JAX package's, field for field, so either package
 reads an index the other wrote.
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 from ..exceptions import HyperspaceException
 from ..schema import Schema
@@ -188,13 +188,78 @@ class CoveringIndex:
 
     @staticmethod
     def from_json_dict(d: Dict) -> "CoveringIndex":
-        if d.get("kind") != CoveringIndex.kind:
-            raise HyperspaceException(f"Unsupported derived dataset kind: {d.get('kind')}")
         p = d["properties"]
         return CoveringIndex(
             list(p["columns"]["indexed"]), list(p["columns"]["included"]),
             Schema.from_json_dict(p["schema"]), p["numBuckets"],
             dict(p.get("properties", {})))
+
+
+@dataclass
+class Sketch:
+    """A single data-skipping sketch over one column."""
+
+    kind: str  # "MinMax" | "BloomFilter" | "ValueList"
+    column: str
+    properties: Dict[str, str] = dc_field(default_factory=dict)
+
+    def to_json_dict(self) -> Dict:
+        return {"kind": self.kind, "column": self.column,
+                "properties": dict(self.properties)}
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "Sketch":
+        return Sketch(d["kind"], d["column"], dict(d.get("properties", {})))
+
+
+@dataclass
+class DataSkippingIndex:
+    """Per-source-file sketches for scan pruning."""
+
+    sketches: List[Sketch]
+    schema: Schema  # schema of the sketch table.
+    properties: Dict[str, str] = dc_field(default_factory=dict)
+
+    kind = "DataSkippingIndex"
+    kind_abbr = "DS"
+
+    # A data-skipping index has no bucketing.
+    num_buckets = 1
+
+    @property
+    def indexed_columns(self) -> List[str]:
+        return [s.column for s in self.sketches]
+
+    @property
+    def included_columns(self) -> List[str]:
+        return []
+
+    def to_json_dict(self) -> Dict:
+        return {
+            "kind": self.kind,
+            "properties": {
+                "sketches": [s.to_json_dict() for s in self.sketches],
+                "schema": self.schema.to_json_dict(),
+                "properties": dict(self.properties),
+            },
+        }
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "DataSkippingIndex":
+        p = d["properties"]
+        return DataSkippingIndex(
+            [Sketch.from_json_dict(s) for s in p["sketches"]],
+            Schema.from_json_dict(p["schema"]),
+            dict(p.get("properties", {})))
+
+
+def derived_dataset_from_json(d: Dict) -> Union[CoveringIndex, DataSkippingIndex]:
+    kind = d.get("kind")
+    if kind == CoveringIndex.kind:
+        return CoveringIndex.from_json_dict(d)
+    if kind == DataSkippingIndex.kind:
+        return DataSkippingIndex.from_json_dict(d)
+    raise HyperspaceException(f"Unknown derived dataset kind: {kind}")
 
 
 @dataclass(frozen=True)
@@ -334,7 +399,7 @@ class IndexLogEntry:
     timestamp: int = 0
     version: str = LOG_ENTRY_VERSION
     name: str = ""
-    derivedDataset: CoveringIndex = None
+    derivedDataset: Union[CoveringIndex, DataSkippingIndex] = None
     content: Content = None
     source: Source = None
     properties: Dict[str, str] = dc_field(default_factory=dict)
@@ -402,7 +467,7 @@ class IndexLogEntry:
         return IndexLogEntry(
             state=d["state"], id=d["id"], timestamp=d.get("timestamp", 0),
             version=d.get("version", LOG_ENTRY_VERSION), name=d["name"],
-            derivedDataset=CoveringIndex.from_json_dict(d["derivedDataset"]),
+            derivedDataset=derived_dataset_from_json(d["derivedDataset"]),
             content=Content.from_json_dict(d["content"]),
             source=Source.from_json_dict(d["source"]),
             properties=dict(d.get("properties", {})))

@@ -34,11 +34,17 @@ class IndexCollectionManager:
         return IndexDataManager(self._index_path(name))
 
     def create(self, df, index_config) -> None:
-        from ..actions.create import CreateAction
+        from ..api import DataSkippingIndexConfig
+        if isinstance(index_config, DataSkippingIndexConfig):
+            from ..actions.create_skipping import CreateDataSkippingAction
+            action_cls = CreateDataSkippingAction
+        else:
+            from ..actions.create import CreateAction
+            action_cls = CreateAction
         name = index_config.index_name
-        CreateAction(self.session, df, index_config,
-                     self._log_manager(name, must_exist=False),
-                     self._data_manager(name)).run()
+        action_cls(self.session, df, index_config,
+                   self._log_manager(name, must_exist=False),
+                   self._data_manager(name)).run()
 
     def delete(self, index_name: str) -> None:
         from ..actions.lifecycle import DeleteAction

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels and their plain torch versions.
 
-The four kernels replace the TPU kernels of the index-build and filter
-path (``hyperspace_tpu/ops/pallas_kernels.py``):
+The five kernels replace the TPU kernels of the index-build, filter and
+sketch-build paths (``hyperspace_tpu/ops/pallas_kernels.py``):
 
 =================  ==========================  ===========================
 wrapper            CUDA source (csrc/)         replaces
@@ -10,6 +10,7 @@ hash_bucket        hash_bucket.cu              fused_hash_bucket
 bucket_histogram   bucket_histogram.cu         bucket_histogram
 compare_mask       compare_mask.cu             fused_compare_mask
 range_mask         range_mask.cu               fused_range_mask
+masked_minmax      masked_minmax.cu            masked_minmax
 =================  ==========================  ===========================
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
@@ -52,6 +53,7 @@ SOURCES = {
     "bucket_histogram": "bucket_histogram.cu",
     "compare_mask": "compare_mask.cu",
     "range_mask": "range_mask.cu",
+    "masked_minmax": "masked_minmax.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -139,6 +141,8 @@ _ARGTYPES = {
     "range_mask": ("hs_range_mask", [_VP, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
                                      ctypes.c_int, _VP, _VP]),
+    "masked_minmax": ("hs_masked_minmax", [_VP, _VP, ctypes.c_int, ctypes.c_longlong,
+                                           _VP, _VP, _VP]),
 }
 
 
@@ -350,3 +354,80 @@ def range_mask(x: torch.Tensor, lo, hi, lo_incl: bool = True,
     _launch("range_mask", x.device, x.data_ptr(), _DTYPE_CODE[x.dtype], x.shape[0],
             lo_bits, hi_bits, int(lo_incl), int(hi_incl), out.data_ptr())
     return out
+
+
+# ---------------------------------------------------------------------------
+# masked_minmax.
+# ---------------------------------------------------------------------------
+
+_MINMAX_DTYPES = (torch.int32, torch.float32)
+# Float dtype -> (same-width int dtype, every bit but the sign).
+_FLOAT_BITS = {torch.float32: (torch.int32, 0x7FFFFFFF),
+               torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF)}
+
+
+def minmax_sentinels(dtype: torch.dtype) -> Tuple[object, object]:
+    """(dtype min, dtype max): finfo's finite extremes for floats."""
+    info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
+    return info.min, info.max
+
+
+def _flip_negatives(bits: torch.Tensor, low_bits: int) -> torch.Tensor:
+    """Flip the bits below the sign of each negative integer: a float's
+    bits become an integer that orders as the float does (-0.0 below
+    +0.0; NaN aside), and that integer becomes the float's bits again."""
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1)) & low_bits)
+
+
+def masked_minmax_plain(x: torch.Tensor, valid: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version, for any int or float column (the MinMax
+    sketch also runs it over 64-bit columns): (min, max) over the valid
+    rows as 0-d tensors. The reduction starts from the dtype's sentinels
+    (max for the min, min for the max), -0.0 orders below +0.0, and a
+    valid NaN makes both results NaN."""
+    lo_sent, hi_sent = minmax_sentinels(x.dtype)
+    # The reduction's starting values: (dtype max, dtype min).
+    start = torch.tensor([hi_sent, lo_sent], dtype=x.dtype, device=x.device)
+    use = torch.ones_like(x, dtype=torch.bool) if valid is None else valid.clone()
+    keys = x
+    if x.dtype.is_floating_point:
+        nan = torch.isnan(x)
+        nan_seen = (nan & use).any()
+        use &= ~nan
+        int_dtype, low_bits = _FLOAT_BITS[x.dtype]
+        keys = _flip_negatives(x.view(int_dtype), low_bits)
+        start = _flip_negatives(start.view(int_dtype), low_bits)
+    lo, hi = start[0], start[1]
+    if x.shape[0]:
+        lo = torch.minimum(torch.where(use, keys, lo).amin(), lo)
+        hi = torch.maximum(torch.where(use, keys, hi).amax(), hi)
+    out = torch.stack([lo, hi])
+    if x.dtype.is_floating_point:
+        out = torch.where(nan_seen, float("nan"), _flip_negatives(out, low_bits).view(x.dtype))
+    return out[0], out[1]
+
+
+def masked_minmax(x: torch.Tensor, valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) over the valid rows of an int32/float32 column as two 0-d
+    tensors on its device; ``valid=None`` means every row is valid. No
+    valid row gives (dtype max, dtype min); a valid NaN gives (NaN, NaN)."""
+    _check_column(x, _MINMAX_DTYPES, "masked_minmax")
+    if valid is not None:
+        _check_column(valid, (torch.bool,), "masked_minmax validity")
+        if valid.shape != x.shape or valid.device != x.device:
+            raise HyperspaceException("masked_minmax: validity differs in length or device")
+    if _where(x) == "cpu":
+        return masked_minmax_plain(x, valid)
+    n = x.shape[0]
+    if n == 0:
+        lo_sent, hi_sent = minmax_sentinels(x.dtype)
+        out = torch.tensor([hi_sent, lo_sent], dtype=x.dtype, device=x.device)
+        return out[0], out[1]
+    out = torch.empty(2, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(4, dtype=torch.int32, device=x.device)
+    _launch("masked_minmax", x.device, x.data_ptr(),
+            None if valid is None else valid.data_ptr(), _DTYPE_CODE[x.dtype], n,
+            scratch.data_ptr(), out.data_ptr())
+    return out[0], out[1]

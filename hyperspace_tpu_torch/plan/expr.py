@@ -1,6 +1,6 @@
 """Expression tree for the logical plan IR (counterpart of
 ``hyperspace_tpu/plan/expr.py``, trimmed to column references, literals,
-the five comparisons and boolean algebra).
+the five comparisons, IN lists and boolean algebra).
 
 Every expression evaluates to a whole column (vectorized).
 """
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Any, List
+from typing import Any, List, Sequence
 
 from ..exceptions import HyperspaceException
 
@@ -46,6 +46,9 @@ class Expr:
 
     def __hash__(self):
         return hash(repr(self))
+
+    def isin(self, values: Sequence[Any]):
+        return In(self, [_wrap(v) for v in values])
 
     def between(self, low, high):
         return And(GreaterThanOrEqual(self, _wrap(low)),
@@ -164,6 +167,21 @@ class Not(Expr):
         return f"NOT({self.child!r})"
 
 
+class In(Expr):
+    op_name = "In"
+
+    def __init__(self, value: Expr, options: List[Expr]):
+        self.value = value
+        self.options = options
+
+    @property
+    def children(self) -> List[Expr]:
+        return [self.value] + list(self.options)
+
+    def __repr__(self):
+        return f"{self.value!r} IN ({', '.join(map(repr, self.options))})"
+
+
 def col(name: str) -> Col:
     return Col(name)
 
@@ -190,6 +208,8 @@ def map_children(e: Expr, fn) -> Expr:
         return type(e)(fn(e.left), fn(e.right))
     if isinstance(e, Not):
         return Not(fn(e.child))
+    if isinstance(e, In):
+        return In(fn(e.value), [fn(o) for o in e.options])
     raise HyperspaceException(f"Cannot rewrite expression {e!r}")
 
 

@@ -9,7 +9,7 @@ matches Scan→Filter(→Project) subtrees.
 from __future__ import annotations
 
 import datetime
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from ..exceptions import HyperspaceException
 from ..schema import BOOL, DATE, FLOAT64, INT64, STRING, Field, Schema
@@ -33,7 +33,7 @@ def infer_dtype(e: E.Expr, schema: Schema) -> str:
             return STRING
         raise HyperspaceException(f"Cannot infer type of literal {v!r}")
     if isinstance(e, (E.EqualTo, E.LessThan, E.LessThanOrEqual, E.GreaterThan,
-                      E.GreaterThanOrEqual, E.And, E.Or, E.Not)):
+                      E.GreaterThanOrEqual, E.And, E.Or, E.Not, E.In)):
         return BOOL
     raise HyperspaceException(f"Cannot infer type of {e!r}")
 
@@ -89,17 +89,23 @@ class LogicalPlan:
 
 
 class Scan(LogicalPlan):
-    """Leaf: scan a file-based relation."""
+    """Leaf: scan a file-based relation.
 
-    def __init__(self, relation):
+    ``skipping_note``: set by DataSkippingIndexRule when it narrows the
+    relation's file list, so explain renders the pruning (e.g. "[1/4 files
+    after skipping]")."""
+
+    def __init__(self, relation, skipping_note: Optional[str] = None):
         self.relation = relation  # sources.FileBasedRelation
+        self.skipping_note = skipping_note
 
     @property
     def schema(self) -> Schema:
         return self.relation.schema
 
     def simple_string(self) -> str:
-        return f"Scan {self.relation.describe()}"
+        return f"Scan {self.relation.describe()}" + \
+            (f" [{self.skipping_note}]" if self.skipping_note else "")
 
 
 class IndexScan(LogicalPlan):

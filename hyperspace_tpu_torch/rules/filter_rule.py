@@ -36,7 +36,8 @@ class FilterIndexRule:
         needed = set(project_cols) | set(filter_cols)
         candidates = [
             e for e in get_candidate_indexes(active, scan)
-            if e.indexed_columns[0] in filter_cols
+            if e.derivedDataset.kind == "CoveringIndex"
+            and e.indexed_columns[0] in filter_cols
             and not needed - (set(e.indexed_columns) | set(e.included_columns))]
         best = FilterIndexRanker.rank(candidates)
         if best is None:

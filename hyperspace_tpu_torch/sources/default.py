@@ -62,6 +62,12 @@ class DefaultFileBasedRelation(FileBasedRelation):
             self._files = sorted(out)
         return list(self._files)
 
+    def with_files(self, files: Sequence[str]) -> "DefaultFileBasedRelation":
+        pruned = DefaultFileBasedRelation(list(files), self._format, self._options)
+        pruned._schema = self.schema
+        pruned._files = sorted(os.path.abspath(f) for f in files)
+        return pruned
+
 
 class DefaultFileBasedSourceBuilder(FileBasedSourceProvider):
     def get_relation(self, plan_leaf) -> Optional[FileBasedRelation]:

@@ -43,6 +43,11 @@ class FileBasedRelation:
     def describe(self) -> str:
         return f"{self.file_format} {','.join(self.root_paths)}"
 
+    def with_files(self, files: Sequence[str]) -> "FileBasedRelation":
+        """A copy of this relation restricted to ``files`` (data-skipping
+        scan pruning). Schema is preserved even when files is empty."""
+        raise NotImplementedError
+
 
 class FileBasedSourceProvider:
     """Builds relations it understands; returns None for ones it doesn't."""

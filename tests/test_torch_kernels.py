@@ -270,6 +270,94 @@ def test_column_vs_column_compare_matches():
 
 
 # ---------------------------------------------------------------------------
+# masked_minmax.
+# ---------------------------------------------------------------------------
+
+FMAX = np.finfo(np.float32).max
+
+
+def minmax_input(n: int, kind: str, dtype, seed: int = 0) -> np.ndarray:
+    """A column of ``kind``: random values, random values with the edge
+    values planted (+-0.0, +-inf, +-FLT_MAX or int32 extremes), with a
+    NaN as well, only signed zeros, or only +inf / -inf."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        x = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+        if kind != "random":
+            x[rng.integers(0, n, 2)] = [2 ** 31 - 1, -2 ** 31]
+        return x
+    if kind == "zeros":
+        return np.where(rng.random(n) < 0.5, np.float32(0.0), np.float32(-0.0))
+    if kind in ("inf", "-inf"):
+        return np.full(n, np.float32(kind), dtype=np.float32)
+    x = (rng.standard_normal(n) * 100).astype(np.float32)
+    if kind in ("edges", "nan"):
+        x[rng.integers(0, n, 6)] = [0.0, -0.0, np.inf, -np.inf, FMAX, -FMAX]
+    if kind == "nan":
+        x[rng.integers(0, n)] = np.nan
+    return x
+
+
+def minmax_masks(x: np.ndarray, seed: int = 0):
+    rng = np.random.default_rng(seed + 1)
+    n = x.shape[0]
+    masks = {"none": None, "random": rng.random(n) < 0.5,
+             "all_invalid": np.zeros(n, dtype=bool)}
+    if x.dtype == np.float32:
+        masks["hides_nan"] = ~np.isnan(x)
+    return masks
+
+
+def same_minmax(got, want) -> bool:
+    """Equal bit patterns, or NaN in both (the port's NaN is the canonical
+    0x7FC00000; the Pallas kernel passes a NaN's sign and payload on)."""
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        if np.isnan(w).any() or np.isnan(g).any():
+            if not (np.isnan(g) and np.isnan(w)):
+                return False
+        elif g.tobytes() != w.tobytes() or g.dtype != w.dtype:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype,kind", [
+    (np.int32, "random"), (np.int32, "edges"),
+    (np.float32, "random"), (np.float32, "edges"), (np.float32, "nan"),
+    (np.float32, "zeros"), (np.float32, "inf"), (np.float32, "-inf")])
+def test_masked_minmax_matches_pallas(pallas_on, n, dtype, kind):
+    x = minmax_input(n, kind, dtype, seed=n)
+    for name, valid in minmax_masks(x, seed=n).items():
+        want = pallas_kernels.masked_minmax(
+            jnp.asarray(x), None if valid is None else jnp.asarray(valid))
+        got = ck.masked_minmax(torch.from_numpy(x),
+                               None if valid is None else torch.from_numpy(valid))
+        assert same_minmax([t.numpy() for t in got], [np.asarray(w) for w in want]), \
+            (name, [t.item() for t in got], [np.asarray(w).item() for w in want])
+
+
+@pytest.mark.parametrize("values,mn,mx", [
+    ([0.0, -0.0], "-0.0", "0.0"), ([-0.0, 0.0], "-0.0", "0.0"),
+    ([-0.0, -0.0], "-0.0", "-0.0"), ([1.0, float("nan"), 2.0], "nan", "nan")])
+def test_masked_minmax_signed_zero_and_nan(values, mn, mx):
+    for dtype in (torch.float32, torch.float64):
+        got = ck.masked_minmax_plain(torch.tensor(values, dtype=dtype))
+        for g, w in zip(got, (mn, mx)):
+            assert str(g.item()) == w
+
+
+def test_masked_minmax_starts_from_the_sentinels():
+    f = torch.finfo(torch.float32)
+    got = ck.masked_minmax(torch.tensor([float("inf")] * 3))
+    assert [t.item() for t in got] == [f.max, float("inf")]
+    got = ck.masked_minmax(torch.tensor([1.0, 2.0]), torch.tensor([False, False]))
+    assert [t.item() for t in got] == [f.max, f.min]
+    got = ck.masked_minmax(torch.zeros(0, dtype=torch.int32))
+    assert [t.item() for t in got] == [2 ** 31 - 1, -2 ** 31]
+
+
+# ---------------------------------------------------------------------------
 # Wrapper contract.
 # ---------------------------------------------------------------------------
 
@@ -287,6 +375,10 @@ def test_wrappers_check_their_arguments():
         ck.compare_mask(x, "<", 2 ** 40)
     with pytest.raises(Exception, match="num_buckets"):
         ck.bucket_histogram(x, 0)
+    with pytest.raises(Exception, match="dtype"):
+        ck.masked_minmax(x.to(torch.int64))
+    with pytest.raises(Exception, match="validity"):
+        ck.masked_minmax(x, torch.ones(9, dtype=torch.bool))
 
 
 def test_cpu_tensors_never_launch():
@@ -296,6 +388,7 @@ def test_cpu_tensors_never_launch():
     ck.range_mask(x, 5, 50)
     ck.bucket_histogram(x % 4, 4)
     ck.hash_bucket([x], 4)
+    ck.masked_minmax(x, x > 3)
     assert all(v == 0 for v in ck.LAUNCHES.values())
 
 

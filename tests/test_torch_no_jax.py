@@ -1,5 +1,6 @@
 """The port stands alone: with ``jax`` and ``hyperspace_tpu`` made
-unimportable, the slice still runs end to end on the CPU (in a subprocess,
+unimportable, the slices (covering indexes over lineitem, sketch indexes
+over orders) still run end to end on the CPU (in a subprocess,
 because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
 without the repository beside it.
@@ -27,7 +28,7 @@ SLICE = textwrap.dedent("""
     import hyperspace_tpu_torch as ht
     from hyperspace_tpu_torch import IndexConstants, col
     root = tempfile.mkdtemp()
-    li_dir, n_li = chip_smoke.make_lineitem(root, 0.002)
+    li_dir, od_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
     s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
     s.conf.set(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC, "true")
     hs = ht.Hyperspace(s)
@@ -51,11 +52,29 @@ SLICE = textwrap.dedent("""
         b = q.to_arrow()
         assert "IndexScan" in plan.collect_leaves()[0].simple_string()
         assert a.sort_by("l_extendedprice").equals(b.sort_by("l_extendedprice"))
+    od = s.read.parquet(od_dir)
+    hs.create_index(od, ht.DataSkippingIndexConfig(
+        "od_skip", [ht.MinMaxSketch("o_orderdate")]))
+    hs.create_index(od, ht.DataSkippingIndexConfig(
+        "od_bloom", [ht.BloomFilterSketch("o_orderkey", expected_items=100_000)]))
+    kept = []
+    for q in [od.filter(col("o_orderdate").between(datetime.date(1994, 6, 1),
+                                                    datetime.date(1994, 7, 31))),
+              od.filter(col("o_orderkey").isin([n_od // 5, n_od // 2, (4 * n_od) // 5]))]:
+        q = q.select("o_orderkey", "o_totalprice")
+        s.enable_hyperspace()
+        leaf = q.optimized_plan().collect_leaves()[0]
+        a = q.to_arrow()
+        s.disable_hyperspace()
+        b = q.to_arrow()
+        assert "files after skipping" in leaf.simple_string()
+        kept.append(len(leaf.relation.all_files()))
+        assert a.num_rows > 0 and a.sort_by("o_orderkey").equals(b.sort_by("o_orderkey"))
     bad = [m for m, v in sys.modules.items() if v is not None and (
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
-    print("SLICE_OK", n_li)
+    print("SLICE_OK", n_li, n_od, *kept)
 """)
 
 
@@ -63,7 +82,7 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000" in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
