@@ -9,7 +9,10 @@ Phases, each of which fails the run on any error:
               (one nvcc per source, all started together);
 2. kernels -- each kernel against its plain torch version on the card,
               at several sizes and edge shapes, exact equality (bit for
-              bit for masked_minmax's signed zeros and NaN);
+              bit for masked_minmax's words: signed zeros, NaN bit
+              patterns, sentinels, the any-valid word), and masked_minmax's
+              per-stream scratch reused across 100 calls on each of two
+              streams;
 3. datagen -- TPC-H lineitem and orders at ``--scale`` (SF10: 60,000,000
               lineitem rows in 4 parquet files, 15,000,000 orders rows in
               16 time-ordered files), the repository's benchmark generator
@@ -30,7 +33,19 @@ Phases, each of which fails the run on any error:
               both to fewer than 16);
 6. timing  -- each kernel beside its plain version and one PyTorch call
               computing the same function, at the inputs the main path
-              gave it and at full-size columns;
+              gave it and at full-size columns: ``ms`` is the mean of 20
+              back-to-back calls by CUDA events (the host-paced time the
+              main path pays; median of 3 rounds, with their spread), and
+              ``device_ms`` the card's own time per call, the sum of the
+              profiler's device records over 20 calls, read after every
+              host-paced time (a profiling session slows the process's
+              host path for good), which also count
+              the kernels and memsets each call puts on the stream (a
+              kernel without device records fails the run); a
+              device-to-device copy of the full column, the memory rate
+              reached in practice; and the microseconds of each piece of
+              a wrapper's host path, and of whole calls by the host clock
+              and by CUDA events;
 7. breakdown -- host spans and the profiler's device time for rebuilds
               of li_ship_idx, od_skip and od_bloom and for the four
               filter queries, indexed and scanned.
@@ -73,6 +88,10 @@ PATH_KERNELS = {
     "orders": ("hash_bucket", "bucket_histogram", "range_mask", "masked_minmax"),
 }
 SKIP_LO, SKIP_HI = datetime.date(1994, 6, 1), datetime.date(1994, 7, 31)
+
+# Kernels whose call must put exactly one kernel, and no memset or copy,
+# on the stream (checked with the profiler in phase 6).
+ONE_KERNEL_A_CALL = ("masked_minmax", "range_mask", "compare_mask", "hash_bucket")
 
 REPLACES = {
     "hash_bucket": "hyperspace_tpu/ops/pallas_kernels.py:146",
@@ -181,6 +200,7 @@ def check_kernels(errors: dict) -> int:
 
     sizes = (1, 3, 4, 5, 130, 4097, 32769, 1_000_003)
     for n in sizes:
+        checks += check_masks(n, g, errors)
         # hash_bucket: 1..8 columns, odd and even bucket counts, with and
         # without the hash output; the unaligned view starts 4 bytes in.
         words = [kernels.to_words(ints(n + 1, 0, 2 ** 32)) for _ in range(8)]
@@ -205,41 +225,60 @@ def check_kernels(errors: dict) -> int:
                 check_equal("bucket_histogram", ck.bucket_histogram(x, nb),
                             ck.bucket_histogram_plain(x, nb), errors)
                 checks += 1
-        # Masks: int32, uint32 and float32 (with NaN, +-0.0 and +-inf).
-        i32 = ints(n + 1, -1000, 1000).to(torch.int32)
-        f32 = (torch.randn(n + 1, generator=g, device=dev) * 100).to(torch.float32)
-        specials = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
-                                 -float("inf"), 3.0], device=dev)
-        f32[: min(6, n + 1)] = specials[: min(6, n + 1)]
-        columns = [
-            (i32, [0, 3, -1000, 999, 2 ** 31 - 1]),
-            (i32.view(torch.uint32), [0, 3, 2 ** 32 - 1, 2 ** 31]),
-            (f32, [0.0, -0.0, 3.0, 0.1, float("inf"), float("nan")]),
-        ]
-        for col, lits in columns:
-            for offset in (0, 1):
-                x = col[offset:offset + n]
-                for v in lits:
-                    for op in ck.OPS:
-                        check_equal("compare_mask", ck.compare_mask(x, op, v),
-                                    ck.compare_mask_plain(x, op, v), errors)
-                        checks += 1
-                    hi = lits[-2]
-                    for lo_incl in (True, False):
-                        for hi_incl in (True, False):
-                            check_equal("range_mask",
-                                        ck.range_mask(x, v, hi, lo_incl, hi_incl),
-                                        ck.range_mask_plain(x, v, hi, lo_incl, hi_incl),
-                                        errors)
-                            checks += 1
+    # A column long enough that every thread of the one-wave mask grid
+    # takes more than one grid-stride step.
+    checks += check_masks(8_650_755, g, errors)
     return checks + check_minmax(errors)
 
 
+def check_masks(n: int, g, errors: dict) -> int:
+    """compare_mask and range_mask against their plain versions over int32,
+    uint32 and float32 columns of n rows (with NaN, +-0.0 and +-inf),
+    aligned and unaligned."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    i32 = torch.randint(-1000, 1000, (n + 1,), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    f32 = (torch.randn(n + 1, generator=g, device=dev) * 100).to(torch.float32)
+    specials = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                             -float("inf"), 3.0], device=dev)
+    f32[: min(6, n + 1)] = specials[: min(6, n + 1)]
+    columns = [
+        (i32, [0, 3, -1000, 999, 2 ** 31 - 1]),
+        (i32.view(torch.uint32), [0, 3, 2 ** 32 - 1, 2 ** 31]),
+        (f32, [0.0, -0.0, 3.0, 0.1, float("inf"), float("nan")]),
+    ]
+    checks = 0
+    for col, lits in columns:
+        hi = lits[-2]
+        for offset in (0, 1):
+            x = col[offset:offset + n]
+            for v in lits:
+                for op in ck.OPS:
+                    check_equal("compare_mask", ck.compare_mask(x, op, v),
+                                ck.compare_mask_plain(x, op, v), errors)
+                    checks += 1
+                for lo_incl in (True, False):
+                    for hi_incl in (True, False):
+                        check_equal("range_mask", ck.range_mask(x, v, hi, lo_incl, hi_incl),
+                                    ck.range_mask_plain(x, v, hi, lo_incl, hi_incl), errors)
+                        checks += 1
+    return checks
+
+
 def check_minmax(errors: dict) -> int:
-    """masked_minmax against its plain version, bit for bit (torch.equal
-    would take NaN != NaN and -0.0 == 0.0): int32 and float32, no mask, a
-    random mask, an all-invalid mask and a mask that hides the NaNs; signed
-    zeros in both orders, +-inf, +-FLT_MAX and NaN; aligned and unaligned."""
+    """masked_minmax against its plain version, bit for bit over all four
+    output words (torch.equal would take NaN != NaN and -0.0 == 0.0), with
+    the JAX kernel's padding rule and with the sentinels forced (the
+    sketch's length classes): int32 and float32; no mask, a random mask,
+    all-True, one False, all-False and a mask that hides the NaNs; signed
+    zeros in both orders, +-inf, +-FLT_MAX, one NaN bit pattern (the
+    canonical NaN, -NaN, a signalling NaN) and several; all-+inf and all
+    -inf columns at 32,768 and 65,536 rows, where no lane pads; aligned and
+    unaligned."""
     import torch
 
     from hyperspace_tpu_torch.ops import cuda_kernels as ck
@@ -250,21 +289,25 @@ def check_minmax(errors: dict) -> int:
     fmax = torch.finfo(torch.float32).max
     specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), fmax, -fmax],
                             device=dev)
+    nan_bits = {"neg_nan": [-0x400000], "snan": [0x7F800001],
+                "several_nans": [0x7FC00001, -0x3FFFFF, 0x7F800001]}
     checks = 0
 
     def check(x, valid):
         nonlocal checks
-        got = torch.stack(ck.masked_minmax(x, valid))
-        want = torch.stack(ck.masked_minmax_plain(x, valid))
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(
-                f"masked_minmax: kernel {got.tolist()} != plain {want.tolist()} "
-                f"({x.dtype}[{x.shape[0]}], mask {valid is not None})")
+        for pad in (None, True):
+            got = ck.masked_minmax_words(x, valid, pad)
+            want = ck.masked_minmax_words_plain(x, valid, pad)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(
+                    f"masked_minmax: kernel words {got.view(torch.int32).tolist()} != plain "
+                    f"{want.view(torch.int32).tolist()} ({x.dtype}[{x.shape[0]}], mask "
+                    f"{valid is not None}, pad {pad})")
+            checks += 1
         errors["masked_minmax"] = errors.get("masked_minmax", 0.0)
-        checks += 1
 
-    for n in (1, 2, 3, 4, 5, 130, 4097, 32769, 1_000_003):
+    for n in (1, 2, 3, 4, 5, 130, 4097, 32768, 32769, 65536, 1_000_003):
         m = n + 1
         pos = torch.randint(0, m, (8,), generator=g, device=dev)
         base = torch.randn(m, generator=g, device=dev) * 100
@@ -272,9 +315,15 @@ def check_minmax(errors: dict) -> int:
         with_specials[pos[:6]] = specials
         with_nan = with_specials.clone()
         with_nan[pos[6]] = float("nan")
+        with_nan_bits = []
+        for bits in nan_bits.values():
+            col = with_specials.clone()
+            where = torch.randint(0, m, (len(bits),), generator=g, device=dev)
+            col.view(torch.int32)[where] = torch.tensor(bits, dtype=torch.int32, device=dev)
+            with_nan_bits.append(col)
         signed_zeros = torch.where(torch.rand(m, generator=g, device=dev) < 0.5,
                                    torch.tensor(0.0, device=dev), torch.tensor(-0.0, device=dev))
-        floats = [base, with_specials, with_nan, signed_zeros,
+        floats = [base, with_specials, with_nan, *with_nan_bits, signed_zeros,
                   signed_zeros.flip(0), torch.full((m,), float("inf"), device=dev),
                   torch.full((m,), -float("inf"), device=dev)]
         ints = torch.randint(-2 ** 31, 2 ** 31, (m,), generator=g, device=dev,
@@ -283,15 +332,66 @@ def check_minmax(errors: dict) -> int:
         int_edges[pos[:2]] = torch.tensor([2 ** 31 - 1, -2 ** 31], device=dev,
                                           dtype=torch.int32)
         random_mask = torch.rand(m, generator=g, device=dev) < 0.5
+        one_false = torch.ones(m, dtype=torch.bool, device=dev)
+        one_false[m // 2] = False
         no_nan_mask = ~torch.isnan(with_nan)
         for offset in (0, 1):
             masks = [None, random_mask[offset:offset + n],
+                     torch.ones(n, dtype=torch.bool, device=dev), one_false[offset:offset + n],
                      torch.zeros(n, dtype=torch.bool, device=dev),
                      no_nan_mask[offset:offset + n]]
             for col in floats + [ints, int_edges]:
                 x = col[offset:offset + n]
                 for valid in masks:
                     check(x, valid)
+    return checks + check_minmax_reuse()
+
+
+def check_minmax_reuse() -> int:
+    """masked_minmax's scratch words are kept per stream and put back to 0
+    by each launch: 100 calls in a row on each of two streams at once, the
+    inputs alternating between two columns of different results (a word
+    left over from one call would show in the next), each call's words
+    equal to the plain version's; afterwards every scratch buffer is 0."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    n = 937_500
+    a = torch.randn(n, generator=g, device=dev) * 100
+    b = torch.randn(n, generator=g, device=dev)
+    b[n // 3] = float("nan")
+    valid = torch.rand(n, generator=g, device=dev) < 0.5
+    cases = [(a, None), (b, valid), (a, valid), (b, None)]
+    want = [ck.masked_minmax_words_plain(x, v) for x, v in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = {i: [] for i in range(len(streams))}
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for call in range(100):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                x, v = cases[(call + i) % len(cases)]
+                got[i].append(ck.masked_minmax_words(x, v))
+    torch.cuda.synchronize()
+    checks = 0
+    for i in got:
+        for call, words in enumerate(got[i]):
+            expect = want[(call + i) % len(cases)]
+            if not torch.equal(words.view(torch.int32), expect.view(torch.int32)):
+                raise AssertionError(
+                    f"masked_minmax on stream {i}, call {call}: {words.view(torch.int32).tolist()}"
+                    f" != plain {expect.view(torch.int32).tolist()}")
+            checks += 1
+    handles = {s.cuda_stream for s in streams}
+    kept = [words for (_, stream), (words, _) in ck._SCRATCH.items() if stream in handles]
+    if len(kept) != len(streams):
+        raise AssertionError(f"{len(kept)} scratch buffers for {len(streams)} streams")
+    if any(bool(words.ne(0).any()) for words, _ in ck._SCRATCH.values()):
+        raise AssertionError("a masked_minmax scratch buffer was not put back to 0")
     return checks
 
 
@@ -526,19 +626,61 @@ def run_orders_path(session, hs, od_dir: str, n_od: int, results: dict):
 # Phase 6: timing.
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, rounds: int = 1):
+    """Mean ms per call of ``iters`` back-to-back calls, by CUDA events
+    around them (so a call that costs the host more than the card is
+    measured at the host's pace), after 3 warm-up calls. With ``rounds`` >
+    1: (median of the rounds, max - min of the rounds)."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / iters)
+    if rounds == 1:
+        return times[0]
+    return sorted(times)[rounds // 2], max(times) - min(times)
+
+
+def device_profile(fn, iters: int = 20) -> dict:
+    """The card's own time per call (ms) and the device records each call
+    puts on the stream: torch.profiler over ``iters`` calls after 3 warm-up
+    calls, device-side records only (kernels, memsets and copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
         fn()
-    stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    # A profiling session now and then comes back without device records;
+    # it is repeated, up to five times in all, and then the run fails.
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                   and e.key != "Activity Buffer Request"]
+        if records:
+            break
+    if not records:
+        raise AssertionError("torch.profiler gave no device records in five sessions")
+    memsets = sum(c for k, c, _ in records if k.startswith("Memset"))
+    copies = sum(c for k, c, _ in records if k.startswith("Memcpy"))
+    return {"device_ms": sum(t for _, _, t in records) / 1e3 / iters,
+            "kernels_per_call": (sum(c for _, c, _ in records) - memsets - copies) / iters,
+            "memsets_per_call": memsets / iters, "copies_per_call": copies / iters,
+            "device_records": [(k[:120], c) for k, c, _ in records]}
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -583,6 +725,7 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
     import torch
 
     from hyperspace_tpu_torch.ops import cuda_kernels as ck
+    from hyperspace_tpu_torch.ops import sketches
 
     lo, hi = (RANGE_LO - EPOCH).days, (RANGE_HI - EPOCH).days
     cut = (CUTOFF - EPOCH).days
@@ -595,36 +738,56 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
         r = [t for t in r if t is not None]
         return r[0] if len(r) == 1 else torch.stack(r)
 
+    pending = []  # (entry, call): profiled once every host-paced time is read
+
     def entry(name, x_desc, fn, plain, library, n_bytes, n_ops):
         check_equal(name, result(fn()), result(plain()), errors)
         b, by = bound(n_bytes, n_ops)
-        return {"name": name, "route": "cuda",
-                "source": f"hyperspace_tpu_torch/csrc/{ck.SOURCES[name]}",
-                "replaces": REPLACES[name],
-                "launches": sum(by_path[name] for by_path in launches.values()),
-                "launches_by_path": {path: by_path[name]
-                                     for path, by_path in launches.items()},
-                "max_abs_err": errors.get(name, 0.0),
-                "ms": time_ms(fn), "plain_ms": time_ms(plain), "bound_ms": b,
-                "bound_by": by, "library_ms": None if library is None else time_ms(library),
-                "input": x_desc}
+        ms, spread = time_ms(fn, rounds=3)
+        e = {"name": name, "route": "cuda",
+             "source": f"hyperspace_tpu_torch/csrc/{ck.SOURCES[name]}",
+             "replaces": REPLACES[name],
+             "launches": sum(by_path[name] for by_path in launches.values()),
+             "launches_by_path": {path: by_path[name] for path, by_path in launches.items()},
+             "max_abs_err": errors.get(name, 0.0),
+             "ms": ms, "ms_spread": spread,
+             "plain_ms": time_ms(plain), "bound_ms": b, "bound_by": by,
+             "library_ms": None if library is None else time_ms(library), "input": x_desc}
+        pending.append((e, fn))
+        return e
 
-    def filter_entries(x, tag):
+    def range_entry(x, tag):
         n = x.shape[0]
-        return [
-            entry("range_mask", f"l_shipdate int32[{n}] ({tag})",
-                  lambda: ck.range_mask(x, lo, hi),
-                  lambda: ck.range_mask_plain(x, lo, hi),
-                  lambda: (x >= lo) & (x <= hi), n * 5, n * 2),
-            entry("compare_mask", f"l_shipdate int32[{n}] ({tag})",
-                  lambda: ck.compare_mask(x, ">", cut),
-                  lambda: ck.compare_mask_plain(x, ">", cut),
-                  lambda: x > cut, n * 5, n),
-        ]
+        return entry("range_mask", f"l_shipdate int32[{n}] ({tag})",
+                     lambda: ck.range_mask(x, lo, hi),
+                     lambda: ck.range_mask_plain(x, lo, hi),
+                     lambda: (x >= lo) & (x <= hi), n * 5, n * 2)
+
+    def compare_entry(x, tag):
+        n = x.shape[0]
+        return entry("compare_mask", f"l_shipdate int32[{n}] ({tag})",
+                     lambda: ck.compare_mask(x, ">", cut),
+                     lambda: ck.compare_mask_plain(x, ">", cut),
+                     lambda: x > cut, n * 5, n)
+
+    def minmax_entry(x, tag):
+        # The call the MinMax sketch makes (ops/sketches.py minmax_values):
+        # the kernel's output words, with the sentinel rule of the JAX
+        # package's length classes. Beside it, the public (min, max) call,
+        # which adds two 0-d views.
+        n = x.shape[0]
+        pad = sketches.length_class(n) != n or ck.pallas_pads(n)
+        e = entry("masked_minmax", f"o_orderdate int32[{n}], no mask ({tag}); "
+                  "masked_minmax_words as minmax_values calls it",
+                  lambda: ck.masked_minmax_words(x, None, pad),
+                  lambda: ck.masked_minmax_words_plain(x, None, pad),
+                  lambda: torch.aminmax(x), n * 4 + 16, n * 2)
+        e["public_call_ms"], _ = time_ms(lambda: ck.masked_minmax(x), rounds=3)
+        return e
 
     folded, bids = inputs["folded_orderkey"], inputs["bids32"]
     n = folded.shape[0]
-    build_entries = [
+    main_path = [
         entry("hash_bucket", f"folded l_orderkey int32[{n}], 32 buckets",
               lambda: ck.hash_bucket([folded], 32),
               lambda: ck.hash_bucket_plain([folded], 32),
@@ -633,21 +796,107 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
               lambda: ck.bucket_histogram(bids, 32),
               lambda: ck.bucket_histogram_plain(bids, 32),
               lambda: torch.bincount(bids, minlength=32), n * 4 + 32 * 4, n * 2),
-    ]
-    def minmax_entry(x, tag):
-        n = x.shape[0]
-        return entry("masked_minmax", f"o_orderdate int32[{n}], no mask ({tag})",
-                     lambda: ck.masked_minmax(x), lambda: ck.masked_minmax_plain(x),
-                     lambda: torch.aminmax(x), n * 4 + 8, n * 2)
-
-    main_path = build_entries + [
-        filter_entries(inputs["shipdate_range"], "range query's rows")[0],
-        filter_entries(inputs["shipdate_cutoff"], "cutoff query's rows")[1],
+        range_entry(inputs["shipdate_range"], "range query's rows"),
+        compare_entry(inputs["shipdate_cutoff"], "cutoff query's rows"),
         minmax_entry(inputs["orderdate_file"], "one orders file"),
     ]
-    full = filter_entries(inputs["shipdate_full"], "all rows") + [
-        minmax_entry(inputs["orderdate_full"], "all orders rows")]
-    return main_path, full
+    full = [range_entry(inputs["shipdate_full"], "all rows"),
+            compare_entry(inputs["shipdate_full"], "all rows"),
+            minmax_entry(inputs["orderdate_full"], "all orders rows")]
+    copy = copy_rate(inputs["shipdate_full"])
+    host = host_path_us(inputs["orderdate_file"])
+    # The profiler comes last: after a profiling session every host path
+    # in the process runs slower (a plain allocation too), which would
+    # inflate the host-paced times above.
+    for e, fn in pending:
+        prof = device_profile(fn)
+        if e["name"] in ONE_KERNEL_A_CALL and (prof["kernels_per_call"] != 1
+                                               or prof["memsets_per_call"]
+                                               or prof["copies_per_call"]):
+            raise AssertionError(f"{e['name']} ({e['input']}): a call put "
+                                 f"{prof['device_records']} on the stream, not one kernel")
+        e.update(device_ms=prof["device_ms"], kernels_per_call=prof["kernels_per_call"],
+                 memsets_per_call=prof["memsets_per_call"],
+                 device_records=prof["device_records"])
+    return main_path, full, copy, host
+
+
+def host_path_us(x, iters: int = 3000) -> dict:
+    """Microseconds per call on the int32 column x, median of 5 rounds,
+    synchronized only between rounds (at this size the card's work per
+    call is shorter than the host's, so the host sets the pace). The
+    pieces of a wrapper's host path: host clock over ``iters`` calls. Whole
+    calls beside their library calls: the host clock and CUDA events
+    around the same loop, over 20 calls (as ``ms``) and over ``iters``."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+
+    dev = x.get_device()
+    out = x.new_empty(4)
+    launch = ck._entry("masked_minmax")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = ck._scratch(dev, stream)
+    n = x.shape[0]
+    pieces = {
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch.cuda.current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.empty(n, bool)": lambda: torch.empty(n, dtype=torch.bool, device=x.device),
+        "x.new_empty(4)": lambda: x.new_empty(4),
+        "two 0-d views": lambda: (out[0], out[1]),
+        "ctypes call with the launch": lambda: launch(x.data_ptr(), None, 0, n, 1,
+                                                      out.data_ptr(), scratch, stream),
+    }
+    calls = {
+        "masked_minmax_words": lambda: ck.masked_minmax_words(x, None, True),
+        "masked_minmax": lambda: ck.masked_minmax(x),
+        "torch.aminmax": lambda: torch.aminmax(x),
+        "range_mask": lambda: ck.range_mask(x, 9000, 9030),
+        "(x >= lo) & (x <= hi)": lambda: (x >= 9000) & (x <= 9030),
+    }
+
+    def median_of_5(fn, k):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        host, event = [], []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(k):
+                fn()
+            stop.record()
+            host.append((time.perf_counter() - t0) / k * 1e6)
+            torch.cuda.synchronize()
+            event.append(start.elapsed_time(stop) / k * 1e3)
+        return sorted(host)[2], sorted(event)[2]
+
+    result = {name: median_of_5(fn, iters)[0] for name, fn in pieces.items()}
+    for name, fn in calls.items():
+        for k in (20, iters):
+            result[f"{name}: host, {k} calls"], result[f"{name}: events, {k} calls"] = \
+                median_of_5(fn, k)
+    log("us a call: " + "; ".join(f"{k} {v:.2f}" for k, v in result.items()))
+    return result
+
+
+def copy_rate(x) -> dict:
+    """The memory rate this card reaches in practice: a device-to-device
+    copy of the column (torch's copy_), read and written once, timed as
+    the kernels are."""
+    import torch
+
+    dst = torch.empty_like(x)
+    copy_ms = time_ms(lambda: dst.copy_(x))
+    n_bytes = 2 * x.numel() * x.element_size()
+    out = {"ms": copy_ms, "bytes": n_bytes, "bytes_per_s": n_bytes / (copy_ms / 1e3)}
+    log(f"copy of the column: {copy_ms:.4f} ms, {out['bytes_per_s'] / 1e12:.3f} TB/s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -716,7 +965,8 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
               (create, "write_bucket_files", "write bucket parquet files")]),
             ("build od_skip", lambda: drop("od_skip"),
              lambda: hs.create_index(od, skip_config),
-             sketch_spans + [(cuda_kernels, "masked_minmax", "minmax reduction (device)")]),
+             sketch_spans + [(cuda_kernels, "masked_minmax_words",
+                              "minmax reduction (device)")]),
             ("build od_bloom", lambda: drop("od_bloom"),
              lambda: hs.create_index(od, bloom_config),
              sketch_spans + [(sketches, "bloom_bits", "bloom hash + scatter + pack (device)")])]
@@ -854,7 +1104,8 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         inputs = kernel_inputs(li_dir, od_dir)
-        main_path, full = time_kernels(inputs, launches, errors)
+        main_path, full, results["copy"], results["host_path_us"] = time_kernels(
+            inputs, launches, errors)
         results["kernels_full_rows"] = full
         log(f"phase 6: timed in {time.perf_counter() - t0:.1f} s")
         del inputs
@@ -868,10 +1119,13 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    for k in full:
-        log(f"full-size {k['name']}: {k['input']}: {k['ms']:.4f} ms "
-            f"(plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
-            f"bound {k['bound_ms']:.4f})")
+    for k in main_path + full:
+        log(f"{k['name']}: {k['input']}: {k['ms']:.4f} ms (spread {k['ms_spread']:.4f}; "
+            f"device {k['device_ms']}, {k['kernels_per_call']} kernels and "
+            f"{k['memsets_per_call']} memsets a call; plain {k['plain_ms']:.4f}, "
+            f"library {k['library_ms']}, bound {k['bound_ms']:.4f}"
+            + (f"; public call {k['public_call_ms']:.4f}" if "public_call_ms" in k else "")
+            + ")")
     print(json.dumps({"builds": results["builds"], "queries": results["queries"],
                       "total_s": results["total_s"]}))
     print(json.dumps({"kernels": main_path}))

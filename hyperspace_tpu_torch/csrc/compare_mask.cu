@@ -8,8 +8,9 @@
 //
 // What bounds it on the card: bytes (4 read + 1 written per row); one
 // comparison per row is nothing to the ALUs. Design: the op is a template
-// parameter (no per-row branch) and rows move four at a time, 16-byte
-// loads and 4-byte stores (mask_common.cuh).
+// parameter (no per-row branch) and rows move sixteen at a time per
+// thread, four 16-byte loads and one 16-byte store, over a one-wave grid
+// (mask_common.cuh).
 #include "mask_common.cuh"
 
 enum Op { kEq = 0, kNe = 1, kLt = 2, kLe = 3, kGt = 4, kGe = 5 };

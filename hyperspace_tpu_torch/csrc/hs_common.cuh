@@ -1,7 +1,7 @@
 // Shared launch helpers for the hand-written Hopper kernels.
 //
 // Every kernel here is a grid-stride loop over a 1-D column: the grid is
-// capped at a few waves of blocks per SM and each thread walks the column
+// capped at what the card holds at once and each thread walks the column
 // with the grid's stride, so neighbouring threads touch neighbouring
 // addresses (coalesced) at every step.
 #pragma once
@@ -13,9 +13,8 @@ namespace hs {
 
 constexpr int kThreads = 256;
 
-// Blocks for `work` items: enough to fill the card (16 blocks of 256
-// threads per SM), never more than the work needs.
-inline int grid_for(long long work) {
+// Streaming multiprocessors of the current device (read once).
+inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -23,11 +22,38 @@ inline int grid_for(long long work) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
   }
+  return sms;
+}
+
+// Blocks for `work` items: enough to fill the card (16 blocks of 256
+// threads per SM), never more than the work needs.
+inline int grid_for(long long work) {
   long long want = (work + kThreads - 1) / kThreads;
-  long long cap = 16LL * sms;
+  long long cap = 16LL * sm_count();
   if (want > cap) want = cap;
   if (want < 1) want = 1;
   return static_cast<int>(want);
+}
+
+// Blocks of `threads` threads for `units` units of one thread each, at
+// most `per_sm` blocks on each SM: never more than one wave.
+inline int one_wave(long long units, int threads, int per_sm) {
+  long long want = (units + threads - 1) / threads;
+  long long cap = static_cast<long long>(per_sm) * sm_count();
+  if (want > cap) want = cap;
+  if (want < 1) want = 1;
+  return static_cast<int>(want);
+}
+
+// Blocks of `kernel` that one SM holds at once with `threads` threads each
+// (registers permitting); at least 1.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0) !=
+          cudaSuccess || blocks < 1)
+    blocks = 1;
+  return blocks;
 }
 
 inline bool aligned(const void* p, uintptr_t bytes) {

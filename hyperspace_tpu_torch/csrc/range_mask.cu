@@ -8,8 +8,9 @@
 //
 // What bounds it on the card: bytes (4 read + 1 written per row). One pass
 // replaces two compare passes and an AND, which would move the column
-// twice and two intermediate masks. Rows move four at a time, 16-byte
-// loads and 4-byte stores (mask_common.cuh).
+// twice and two intermediate masks. Rows move sixteen at a time per
+// thread, four 16-byte loads and one 16-byte store, over a one-wave grid
+// (mask_common.cuh).
 #include "mask_common.cuh"
 
 template <typename T, bool LO_INCL, bool HI_INCL>

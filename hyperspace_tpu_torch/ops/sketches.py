@@ -12,7 +12,9 @@ no work worth a device round trip.
 
 There is no shape-class padding here (the JAX package pads each file's
 column to a length class so that files share one compiled program): a
-column is reduced at its own length.
+column is reduced at its own length, and the MinMax sketch takes the
+length class into account only where it changes the result (the
+sentinels that padded rows bring in, :func:`length_class`).
 """
 
 from __future__ import annotations
@@ -117,15 +119,34 @@ def value_list(col: Column, max_values: int) -> Optional[list]:
     return [v.item() for v in uniq]
 
 
-def _to_host(*scalars: torch.Tensor) -> list:
-    """0-d device tensors as numpy scalars, in one device->host copy."""
-    raw = to_host(torch.cat([t.reshape(1).view(torch.uint8) for t in scalars]))
-    out, at = [], 0
-    for t in scalars:
-        np_dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(raw[at:at + np_dtype.itemsize].view(np_dtype)[0])
-        at += np_dtype.itemsize
-    return out
+# The JAX package's default shape-bucketing parameters
+# (hyperspace_tpu/index/constants.py:185-197, the shapeBucketing.* conf
+# defaults). A JAX session that sets other values pads to other classes,
+# and its MinMax sketches of +-inf columns then differ from these.
+SHAPE_MIN_PAD = 1024
+SHAPE_GROWTH_FACTOR = 2.0
+SHAPE_MAX_WASTE_RATIO = 0.25
+SHAPE_EXACT_FALLBACK_ROWS = 4 * 1024 * 1024
+
+
+def length_class(n: int) -> int:
+    """The JAX package's length class of an ``n``-row column at its default
+    shape parameters (``hyperspace_tpu/execution/shapes.py``
+    padded_length): the first rung of the geometric ladder from
+    ``SHAPE_MIN_PAD`` at or above ``n``, or ``n`` itself from
+    ``SHAPE_EXACT_FALLBACK_ROWS`` on where the rung would pad by more than
+    ``SHAPE_MAX_WASTE_RATIO`` of ``n``. The JAX MinMax sketch pads each
+    file's column to its class with invalid rows, and the padded rows bring
+    the sentinels into the reduction; so does :func:`minmax_values` here,
+    without the padding."""
+    if n <= 0:
+        return n
+    c = SHAPE_MIN_PAD
+    while c < n:
+        c = int(math.ceil(c * SHAPE_GROWTH_FACTOR))
+    if n >= SHAPE_EXACT_FALLBACK_ROWS and c - n > SHAPE_MAX_WASTE_RATIO * n:
+        return n
+    return c
 
 
 def minmax_values(col: Column) -> Tuple[Optional[object], Optional[object]]:
@@ -136,20 +157,25 @@ def minmax_values(col: Column) -> Tuple[Optional[object], Optional[object]]:
     32-bit columns (int32, float32, dates, string codes) run the
     masked_minmax kernel, with the validity as its mask only when the
     column has nulls; 64-bit columns take the plain path with the same
-    semantics. One device->host copy per call."""
-    if len(col) == 0:
+    semantics. The sentinels enter where the JAX package's would: when the
+    column is shorter than its length class, or (32-bit columns, which the
+    JAX package reduces with its Pallas kernel) not a multiple of that
+    kernel's block. One device->host copy per call, of the kernel's output
+    words (min, max, any row valid)."""
+    n = len(col)
+    if n == 0:
         return None, None
     data, valid = col.data, col.validity
+    pad = length_class(n) != n
     if data.dtype in (torch.int32, torch.float32):
-        mn, mx = cuda_kernels.masked_minmax(data, valid)
+        words = cuda_kernels.masked_minmax_words(
+            data, valid, pad or cuda_kernels.pallas_pads(n))
     else:
-        mn, mx = cuda_kernels.masked_minmax_plain(data, valid)
-    if valid is None:
-        mn, mx = _to_host(mn, mx)
-    else:
-        mn, mx, any_valid = _to_host(mn, mx, valid.any())
-        if not any_valid:
-            return None, None
+        words = cuda_kernels.masked_minmax_words_plain(data, valid, pad)
+    raw = to_host(words)
+    if valid is not None and not raw.view(f"i{raw.itemsize}")[2]:
+        return None, None
+    mn, mx = raw[0], raw[1]
     if col.dtype == STRING:
         return str(col.dictionary[int(mn)]), str(col.dictionary[int(mx)])
     if col.dtype == DATE:

@@ -19,7 +19,9 @@ from ..execution.columnar import DEVICE_DTYPE, Column, Table
 NumpyColumns = Dict[str, Tuple[str, np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]]
 
 
-def table_from_numpy(columns: NumpyColumns, device="cpu") -> Table:
+def table_from_numpy(columns: NumpyColumns, device="cuda") -> Table:
+    """The columns as a ``Table`` on ``device`` (the card by default, as
+    ``Session``; tests on the CPU pass ``device="cpu"``)."""
     out = {}
     for name, (dtype, data, validity, dictionary) in columns.items():
         tensor = torch.from_numpy(np.array(data, copy=True)).to(device)

@@ -309,14 +309,13 @@ def minmax_masks(x: np.ndarray, seed: int = 0):
 
 
 def same_minmax(got, want) -> bool:
-    """Equal bit patterns, or NaN in both (the port's NaN is the canonical
-    0x7FC00000; the Pallas kernel passes a NaN's sign and payload on)."""
+    """Equal bit patterns and dtypes. A NaN result carries its input's bits
+    in both packages, so NaN compares bit for bit too; every input here has
+    at most one NaN bit pattern (several are test_masked_minmax_several_
+    nan_patterns's)."""
     for g, w in zip(got, want):
         g, w = np.asarray(g), np.asarray(w)
-        if np.isnan(w).any() or np.isnan(g).any():
-            if not (np.isnan(g) and np.isnan(w)):
-                return False
-        elif g.tobytes() != w.tobytes() or g.dtype != w.dtype:
+        if g.tobytes() != w.tobytes() or g.dtype != w.dtype:
             return False
     return True
 
@@ -347,14 +346,104 @@ def test_masked_minmax_signed_zero_and_nan(values, mn, mx):
             assert str(g.item()) == w
 
 
-def test_masked_minmax_starts_from_the_sentinels():
-    f = torch.finfo(torch.float32)
-    got = ck.masked_minmax(torch.tensor([float("inf")] * 3))
-    assert [t.item() for t in got] == [f.max, float("inf")]
-    got = ck.masked_minmax(torch.tensor([1.0, 2.0]), torch.tensor([False, False]))
-    assert [t.item() for t in got] == [f.max, f.min]
-    got = ck.masked_minmax(torch.zeros(0, dtype=torch.int32))
-    assert [t.item() for t in got] == [2 ** 31 - 1, -2 ** 31]
+def one_false(n: int) -> np.ndarray:
+    valid = np.ones(n, dtype=bool)
+    valid[n // 2] = False
+    return valid
+
+
+SENTINEL_MASKS = {"none": lambda n: None, "all_true": lambda n: np.ones(n, dtype=bool),
+                  "one_false": one_false, "all_false": lambda n: np.zeros(n, dtype=bool)}
+
+
+@pytest.mark.parametrize("mask", sorted(SENTINEL_MASKS))
+@pytest.mark.parametrize("value", [np.inf, -np.inf])
+@pytest.mark.parametrize("n", [3, 32768, 65536])
+def test_masked_minmax_sentinels_enter_only_with_invalid_lanes(pallas_on, n, value, mask):
+    """The Pallas kernel meets its sentinels only in invalid lanes: padding
+    (a length that is not a multiple of 32,768) or a False mask value. So
+    an all-+inf column gives (+inf, +inf) at 32,768 and 65,536 rows with no
+    invalid lane, and (FLT_MAX, +inf) otherwise; an all-False mask gives
+    (FLT_MAX, -FLT_MAX)."""
+    x = np.full(n, value, dtype=np.float32)
+    valid = SENTINEL_MASKS[mask](n)
+    want = pallas_kernels.masked_minmax(
+        jnp.asarray(x), None if valid is None else jnp.asarray(valid))
+    tv = None if valid is None else torch.from_numpy(valid)
+    got = ck.masked_minmax(torch.from_numpy(x), tv)
+    assert same_minmax([t.numpy() for t in got], [np.asarray(w) for w in want]), \
+        ([t.item() for t in got], [np.asarray(w).item() for w in want])
+    words = ck.masked_minmax_words(torch.from_numpy(x), tv)
+    assert words[2].view(torch.int32).item() == int(mask != "all_false")
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_masked_minmax_of_an_empty_column(pallas_on, dtype):
+    want = pallas_kernels.masked_minmax(jnp.zeros(0, dtype=dtype))
+    got = ck.masked_minmax(torch.from_numpy(np.zeros(0, dtype=dtype)))
+    assert same_minmax([t.numpy() for t in got], [np.asarray(w) for w in want])
+
+
+def f32_from_bits(bits) -> np.ndarray:
+    return np.array(bits, dtype=np.uint32).view(np.float32)
+
+
+ONE, TWO = 0x3F800000, 0x40000000
+
+
+@pytest.mark.parametrize("bits", [
+    [ONE, 0xFFC00000],                        # -NaN: the sign is kept
+    [0x7F800001, ONE, 0x7F800001],            # signalling NaN, not quieted
+    [0x7FC00123, TWO, ONE, 0x7FC00123],       # payload kept
+    [0xFFFFFFFF, ONE],                        # all bits set
+    [ONE] * 40000 + [0xFFC00001],             # past the first 32,768 lanes
+])
+@pytest.mark.parametrize("mask", ["none", "all_true", "hides_first_nan"])
+def test_masked_minmax_nan_bits_match_pallas(pallas_on, bits, mask):
+    """With one NaN bit pattern among the valid rows, both results are that
+    pattern in both packages."""
+    x = f32_from_bits(bits)
+    valid = None
+    if mask != "none":
+        valid = np.ones(x.shape[0], dtype=bool)
+        if mask == "hides_first_nan":
+            valid[np.flatnonzero(np.isnan(x))[0]] = False
+    want = pallas_kernels.masked_minmax(
+        jnp.asarray(x), None if valid is None else jnp.asarray(valid))
+    got = ck.masked_minmax(torch.from_numpy(x),
+                           None if valid is None else torch.from_numpy(valid))
+    assert same_minmax([t.numpy() for t in got], [np.asarray(w) for w in want]), \
+        ([hex(t.numpy().view(np.uint32)) for t in got],
+         [hex(np.asarray(w).view(np.uint32)) for w in want])
+
+
+@pytest.mark.parametrize("bits,mn,mx,as_pallas", [
+    ([0xFFC00001, ONE, 0xFFC00002], 0xFFC00001, 0xFFC00002, False),
+    ([0xFFC00002, ONE, 0xFFC00001], 0xFFC00001, 0xFFC00002, False),
+    ([0x7FC00001, ONE, 0x7FC00002], 0x7FC00001, 0x7FC00002, True),
+    ([0x7FC00001, ONE, 0xFFC00002], 0x7FC00001, 0xFFC00002, True),
+    ([0xFFC00002, ONE, 0x7FC00001], 0x7FC00001, 0xFFC00002, True),
+    ([0x7F800001, 0xFFFFFFFF, 0x7FC00000], 0x7F800001, 0xFFFFFFFF, True),
+])
+def test_masked_minmax_several_nan_patterns(pallas_on, bits, mn, mx, as_pallas):
+    """Several NaN bit patterns: the port's rule is the pattern smallest as
+    an unsigned integer for the min and the largest for the max, in the
+    kernel's plain version and in the sketch's 64-bit plain path alike. The
+    Pallas kernel's choice there follows its reduction tree, not a rule on
+    the bits (ROADMAP queue C); where it agrees on these inputs, that is
+    checked too."""
+    x = f32_from_bits(bits)
+    got = ck.masked_minmax(torch.from_numpy(x))
+    assert [int(t.numpy().view(np.uint32)) for t in got] == [mn, mx]
+    if as_pallas:
+        want = pallas_kernels.masked_minmax(jnp.asarray(x))
+        assert same_minmax([t.numpy() for t in got], [np.asarray(w) for w in want])
+    with np.errstate(invalid="ignore"):  # a signalling NaN is quieted
+        wide = x.astype(np.float64)
+    got = ck.masked_minmax_plain(torch.from_numpy(wide))
+    nan_bits = wide.view(np.uint64)[np.isnan(wide)]
+    assert [int(t.numpy().view(np.uint64)) for t in got] == \
+        [int(nan_bits.min()), int(nan_bits.max())]
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +470,30 @@ def test_wrappers_check_their_arguments():
         ck.masked_minmax(x, torch.ones(9, dtype=torch.bool))
 
 
+NP_DTYPE = {torch.int32: np.int32, torch.uint32: np.uint32, torch.float32: np.float32}
+EDGE_LITERALS = {
+    torch.int32: [0, 7, -1, 2 ** 31 - 1, -2 ** 31, True, False],
+    torch.uint32: [0, 12345, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, True, False],
+    torch.float32: [0.0, -0.0, float("inf"), -float("inf"), float("nan"), -float("nan"),
+                    0.1, -2.5, 1e-46, 1.4e-45, 5e-324, 3.4028234663852886e38,
+                    3.4028235e38, 3.4028235677973366e38, 1e39, -1e39,
+                    0.30000001192092896, 16777217.0, 16777217, -16777219, 2 ** 31 - 1,
+                    -2 ** 31, 2 ** 60 + 2 ** 36 + 1, -(2 ** 63), 2 ** 64 - 1, True, False, 0],
+}
+
+
+@pytest.mark.parametrize("dtype,value", [(d, v) for d, vs in EDGE_LITERALS.items() for v in vs],
+                         ids=lambda p: repr(p))
+def test_literal_bits_equal_the_numpy_cast(dtype, value):
+    """The wrappers' literal bits, computed without numpy, equal numpy's
+    cast of the literal to the column's dtype (as the JAX kernels' cast
+    is): rounding to nearest even, +-inf past float32's range, NaN's sign,
+    bools as 0 and 1, the int32 and uint32 extremes."""
+    with np.errstate(over="ignore"):
+        want = int(np.asarray(value).astype(NP_DTYPE[dtype]).view(np.uint32))
+    assert ck._literal_bits(value, dtype) == want
+
+
 def test_cpu_tensors_never_launch():
     ck.reset_launches()
     x = torch.arange(100, dtype=torch.int32)
@@ -404,7 +517,7 @@ def test_interop_table_equals_own_read():
     cols = {n: (c.dtype, np.asarray(c.data),
                 None if c.validity is None else np.asarray(c.validity), c.dictionary)
             for n, c in jt.columns.items()}
-    via = table_from_numpy(cols).to_arrow()
+    via = table_from_numpy(cols, device="cpu").to_arrow()
     assert_tables_equal(via, TTable.from_arrow(at, "cpu").to_arrow())
     assert_tables_equal(via, jt.to_arrow())
 

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import pyarrow.parquet as pq
 import pytest
 import torch
@@ -111,6 +112,48 @@ def test_minmax_values_match(pallas_mode, n, name):
     assert all(same_value(w, g) for w, g in zip(want, got)), (want, got)
 
 
+def infinite_column(n: int, value: float, nulls: bool) -> pa.Table:
+    """n copies of +-inf as float32, with one null in the middle if asked."""
+    data = pa.array(np.full(n, value, dtype=np.float32))
+    if nulls:
+        mask = np.zeros(n, dtype=bool)
+        mask[n // 2] = True
+        data = pc.if_else(pa.array(mask), pa.scalar(None, pa.float32()), data)
+    return pa.table({"f": data})
+
+
+@pytest.mark.parametrize("pallas_mode", ["on", "off"], indirect=True)
+@pytest.mark.parametrize("nulls", [False, True])
+@pytest.mark.parametrize("value", [np.inf, -np.inf])
+@pytest.mark.parametrize("n", [3, 32768, 65536, 937500])
+def test_minmax_values_of_infinite_columns_match(pallas_mode, n, value, nulls):
+    """The sentinels enter where the JAX package's do: a column shorter than
+    its length class (3 rows pad to 1,024 and 937,500 to 1,048,576), or one
+    with a null, gives FLT_MAX for an all-+inf min; 32,768 and 65,536 rows
+    without a null give +inf."""
+    jc, tc = both_columns(infinite_column(n, value, nulls), "f")
+    want, got = jsk.minmax_values(jc), tsk.minmax_values(tc)
+    assert all(same_value(w, g) for w, g in zip(want, got)), (want, got)
+    assert math.isinf(got[0] if value > 0 else got[1]) == (n in (32768, 65536) and not nulls)
+
+
+@pytest.mark.parametrize("pallas_mode", ["on"], indirect=True)
+@pytest.mark.parametrize("nulls", [False, True])
+@pytest.mark.parametrize("value", [np.inf, -np.inf])
+@pytest.mark.parametrize("n", [5_000_000, 5_013_504])
+def test_minmax_values_of_long_infinite_columns_match(pallas_mode, n, value, nulls):
+    """Past the exact fallback (4,194,304 rows) a column pads by more than
+    a quarter to its next class, so it keeps its own length and only the
+    Pallas kernel's block padding, or a null, brings the sentinels in:
+    5,000,000 rows (no multiple of 32,768) give FLT_MAX for an all-+inf
+    min, 5,013,504 rows (153 x 32,768) without a null give +inf. The port
+    follows the kernel (the JAX package's plain path pads nothing here)."""
+    jc, tc = both_columns(infinite_column(n, value, nulls), "f")
+    want, got = jsk.minmax_values(jc), tsk.minmax_values(tc)
+    assert all(same_value(w, g) for w, g in zip(want, got)), (want, got)
+    assert math.isinf(got[0] if value > 0 else got[1]) == (n == 5_013_504 and not nulls)
+
+
 def test_minmax_values_of_an_empty_column():
     at = sketch_columns(5, seed=0).slice(0, 0)
     for name in MINMAX_COLUMNS:
@@ -192,7 +235,10 @@ def probe_lake(tmp_path_factory):
         sketches += [api.BloomFilterSketch("i64", expected_items=100),
                      api.BloomFilterSketch("s", expected_items=100),
                      api.ValueListSketch("s", max_values=4)]
-        pkg.Hyperspace(session).create_index(df, api.DataSkippingIndexConfig("sk", sketches))
+        # A name no other test file uses: the JAX rule caches sketch tables
+        # per process by (index name, log id).
+        pkg.Hyperspace(session).create_index(df, api.DataSkippingIndexConfig("probe_sk",
+                                                                             sketches))
         out[key] = (session, df.plan.relation)
     return out
 
@@ -236,7 +282,7 @@ def test_probe_keep_masks_match(probe_lake, i):
         session, relation = probe_lake[key]
         entry = session.index_collection_manager.get_indexes(["ACTIVE"])[0] \
             if key == "torch" else JLogManager(
-                os.path.join(probe_lake["root"], "jax", "sk")).get_latest_stable_log()
+                os.path.join(probe_lake["root"], "jax", "probe_sk")).get_latest_stable_log()
         cond = predicates(E)[i]
         results.append(rule.evaluate_sketch_predicate(
             entry, cond, relation.all_files(), relation.schema))
@@ -257,7 +303,7 @@ def test_probe_prunes_something(probe_lake):
 
 
 def test_sketch_tables_with_every_kind_equal(probe_lake):
-    path = os.path.join("sk", "v__=0", "sketches.parquet")
+    path = os.path.join("probe_sk", "v__=0", "sketches.parquet")
     want = pq.read_table(os.path.join(probe_lake["root"], "jax", path), partitioning=None)
     got = pq.read_table(os.path.join(probe_lake["root"], "torch", path), partitioning=None)
     assert got.schema.equals(want.schema)
@@ -419,9 +465,10 @@ def test_indexed_equals_scanned(lake, name):
 
 def test_minmax_build_runs_the_kernel_wrapper_once_per_file(lake, tmp_path, monkeypatch):
     calls = []
-    real = cuda_kernels.masked_minmax
-    monkeypatch.setattr(cuda_kernels, "masked_minmax",
-                        lambda x, valid=None: calls.append((x.dtype, valid)) or real(x, valid))
+    real = cuda_kernels.masked_minmax_words
+    monkeypatch.setattr(cuda_kernels, "masked_minmax_words",
+                        lambda x, valid=None, pad=None:
+                        calls.append((x.dtype, valid)) or real(x, valid, pad))
     session = ht.Session(conf=dict(CONF), system_path=str(tmp_path / "ix"), device="cpu")
     ht.Hyperspace(session).create_index(session.read.parquet(lake["od_dir"]),
                                         sketch_configs(ht, lake["n_od"])[0])
