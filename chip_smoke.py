@@ -13,24 +13,31 @@ Phases, each of which fails the run on any error:
               patterns, sentinels, the any-valid word), and masked_minmax's
               per-stream scratch reused across 100 calls on each of two
               streams;
-3. datagen -- TPC-H lineitem and orders at ``--scale`` (SF10: 60,000,000
-              lineitem rows in 4 parquet files, 15,000,000 orders rows in
-              16 time-ordered files), the repository's benchmark generator
-              (bench.py make_tpch_like, same formulas and seed), copied here;
+3. datagen -- TPC-H lineitem, orders and part at ``--scale`` (SF10:
+              60,000,000 lineitem rows in 4 parquet files, 15,000,000
+              orders rows in 16 time-ordered files, 2,000,000 part rows in
+              one), the repository's benchmark generator (bench.py
+              make_tpch_like, same formulas and seed), copied here;
 4. build   -- through the public API: the covering indexes li_idx
               (l_orderkey; 32 buckets), li_ship_idx (l_shipdate; 8
-              buckets) and od_idx (o_orderkey; 32 buckets), and the
-              data-skipping indexes od_skip (MinMax on o_orderdate) and
-              od_bloom (Bloom on o_orderkey); od_skip's sketch table must
-              hold each file's pyarrow min and max;
-5. queries -- the range, cutoff and point queries over lineitem, and the
+              buckets), od_idx (o_orderkey; 32 buckets), li_pk_idx
+              (l_partkey; 32 buckets) and pt_idx (p_partkey; 32 buckets),
+              and the data-skipping indexes od_skip (MinMax on
+              o_orderdate) and od_bloom (Bloom on o_orderkey); od_skip's
+              sketch table must hold each file's pyarrow min and max;
+5. queries -- the range, cutoff and point queries over lineitem, the
               skipping (o_orderdate BETWEEN) and bloom (o_orderkey IN)
-              queries over orders, indexed and scanned: results equal a
-              pyarrow reference, every lineitem plan holds an IndexScan,
-              and each orders plan is a Scan narrowed by its sketches
-              (MinMax to exactly the files whose date range meets the
-              filter, Bloom to a superset of the files holding a key,
-              both to fewer than 16);
+              queries over orders, and TPC-H Q3 and Q17 (bench.py's
+              texts), indexed and scanned: results equal a pyarrow
+              reference (Q3 and Q17: keys exact, float64 within 1e-9
+              relative), every lineitem plan holds an IndexScan, each
+              orders plan is a Scan narrowed by its sketches (MinMax to
+              exactly the files whose date range meets the filter, Bloom to
+              a superset of the files holding a key, both to fewer than
+              16), Q3's plan joins li_idx and od_idx with the bucket spec
+              and Q17's reads li_pk_idx and pt_idx under its first join and
+              li_pk_idx under its threshold; two indexed runs of Q3 or Q17
+              give the same bytes;
 6. timing  -- each kernel beside its plain version and one PyTorch call
               computing the same function, at the inputs the main path
               gave it and at full-size columns: ``ms`` is the mean of 20
@@ -46,12 +53,16 @@ Phases, each of which fails the run on any error:
               reached in practice; and the microseconds of each piece of
               a wrapper's host path, and of whole calls by the host clock
               and by CUDA events;
-7. breakdown -- host spans and the profiler's device time for rebuilds
-              of li_ship_idx, od_skip and od_bloom and for the four
-              filter queries, indexed and scanned.
+7. breakdown -- host spans, peak device memory and the profiler's
+              device time for rebuilds of li_ship_idx, li_pk_idx, pt_idx,
+              od_skip and od_bloom and for the four filter queries and Q3
+              and Q17, indexed and scanned;
+8. parity  -- Q3 and Q17 on a small lake on the card and through the
+              port on the CPU (which the tests hold to the JAX package),
+              reported bit for bit.
 
-Launch counters are reset just before each path (lineitem, then orders)
-of phases 4-5 and read just after it.
+Launch counters are reset just before each path (lineitem, orders, then
+joins) of phases 4-5 and read just after it.
 The last lines of standard output are the ``kernels`` JSON object, the
 card's name and power limit as nvidia-smi reports them, and the status
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -86,7 +97,13 @@ ORDERS_PARTS = 16
 PATH_KERNELS = {
     "lineitem": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
     "orders": ("hash_bucket", "bucket_histogram", "range_mask", "masked_minmax"),
+    "joins": ("hash_bucket", "bucket_histogram", "compare_mask"),
 }
+# Float64 results against the pyarrow reference, and indexed against
+# scanned: the same values summed in another order.
+REL_TOL = 1e-9
+# The card against the port on the CPU, bit for bit, on a lake this small.
+PARITY_SCALE = 0.01
 SKIP_LO, SKIP_HI = datetime.date(1994, 6, 1), datetime.date(1994, 7, 31)
 
 # Kernels whose call must put exactly one kernel, and no memset or copy,
@@ -112,9 +129,10 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 def make_tpch(root: str, scale: float, seed: int = 0):
-    """TPC-H-shaped lineitem (4 parquet files) and orders (16 files,
-    time-ordered: each file covers a range of o_orderdate). Returns
-    (lineitem dir, orders dir, lineitem rows, orders rows)."""
+    """TPC-H-shaped lineitem (4 parquet files), orders (16 files,
+    time-ordered: each file covers a range of o_orderdate) and part (one
+    file). Returns (lineitem dir, orders dir, part dir, lineitem rows,
+    orders rows)."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -157,7 +175,57 @@ def make_tpch(root: str, scale: float, seed: int = 0):
     })
     li_dir = os.path.join(root, "lineitem")
     write_parts(lineitem, li_dir, 4, lambda i: f"part{i}.parquet")
-    return li_dir, od_dir, n_li, n_od
+    del lineitem, l_orderkey, l_shipdate
+
+    part = pa.table({
+        "p_partkey": pa.array(np.arange(n_pt, dtype=np.int64)),
+        "p_brand": pa.array(rng.choice(
+            ["Brand#11", "Brand#23", "Brand#34", "Brand#45", "Brand#52"], n_pt)),
+        "p_container": pa.array(rng.choice(
+            ["SM BOX", "MED BOX", "LG BOX", "SM CASE", "MED CASE", "LG CASE",
+             "JUMBO PKG"], n_pt)),
+    })
+    pt_dir = os.path.join(root, "part")
+    write_parts(part, pt_dir, 1, lambda i: f"part{i}.parquet")
+    return li_dir, od_dir, pt_dir, n_li, n_od
+
+
+def build_q3(session, li_dir: str, od_dir: str):
+    """TPC-H Q3 as bench.py writes it: lineitem shipped after the cutoff
+    joined to orders placed before it, revenue per (order, date,
+    priority), the ten largest."""
+    from hyperspace_tpu_torch import col, sum_
+
+    li = session.read.parquet(li_dir)
+    od = session.read.parquet(od_dir)
+    return (li.filter(col("l_shipdate") > CUTOFF)
+            .join(od.filter(col("o_orderdate") < CUTOFF),
+                  on=col("l_orderkey") == col("o_orderkey"))
+            .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(sum_(col("l_extendedprice") * (1 - col("l_discount"))).alias("revenue"))
+            .sort(("revenue", False), "o_orderdate")
+            .limit(10))
+
+
+def build_q17(session, li_dir: str, pt_dir: str):
+    """TPC-H Q17 as bench.py writes it: the per-part average quantity as a
+    group-by joined back, lineitem of one brand and container below a
+    fifth of its part's average, the yearly price."""
+    from hyperspace_tpu_torch import avg, col, sum_
+
+    li = session.read.parquet(li_dir)
+    pt = session.read.parquet(pt_dir)
+    thr = (li.group_by("l_partkey")
+           .agg(avg(col("l_quantity")).alias("avg_qty"))
+           .select(col("l_partkey").alias("t_partkey"),
+                   (col("avg_qty") * 0.2).alias("qty_thr")))
+    return (li.join(pt.filter((col("p_brand") == "Brand#23")
+                              & (col("p_container") == "MED BOX")),
+                    on=col("l_partkey") == col("p_partkey"))
+            .join(thr, on=col("l_partkey") == col("t_partkey"))
+            .filter(col("l_quantity") < col("qty_thr"))
+            .agg(sum_(col("l_extendedprice")).alias("price_sum"))
+            .select((col("price_sum") / 7.0).alias("avg_yearly")))
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +691,257 @@ def run_orders_path(session, hs, od_dir: str, n_od: int, results: dict):
 
 
 # ---------------------------------------------------------------------------
+# Phases 4-5, joins: TPC-H Q3 and Q17 over covering-index joins.
+# ---------------------------------------------------------------------------
+
+Q3_COLUMNS = ["l_orderkey", "o_orderdate", "o_shippriority", "revenue"]
+
+
+def q3_reference(li_dir: str, od_dir: str):
+    """Q3 by pyarrow alone: its ten rows as a dict of columns, and whether
+    the 10th and 11th revenues lie within REL_TOL (then the 10th's key is
+    not decided by the tolerance)."""
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+
+    li = ds.dataset(li_dir, format="parquet").to_table(
+        columns=["l_orderkey", "l_extendedprice", "l_discount"],
+        filter=pc.field("l_shipdate") > CUTOFF)
+    od = ds.dataset(od_dir, format="parquet").to_table(
+        columns=["o_orderkey", "o_orderdate", "o_shippriority"],
+        filter=pc.field("o_orderdate") < CUTOFF)
+    j = li.join(od, keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+    j = j.append_column("rev", pc.multiply(j["l_extendedprice"],
+                                           pc.subtract(1.0, j["l_discount"])))
+    g = j.group_by(["l_orderkey", "o_orderdate", "o_shippriority"]).aggregate([("rev", "sum")])
+    top = g.sort_by([("rev_sum", "descending"), ("o_orderdate", "ascending")]) \
+        .slice(0, 11).rename_columns(Q3_COLUMNS).to_pydict()
+    tied_last = len(top["revenue"]) > 10 and close(top["revenue"][9], top["revenue"][10])
+    return {c: v[:10] for c, v in top.items()}, tied_last
+
+
+def q17_reference(li_dir: str, pt_dir: str) -> float:
+    """Q17's avg_yearly by pyarrow alone."""
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+
+    li = ds.dataset(li_dir, format="parquet").to_table(
+        columns=["l_partkey", "l_quantity", "l_extendedprice"])
+    avg = li.group_by("l_partkey").aggregate([("l_quantity", "mean")])
+    pt = ds.dataset(pt_dir, format="parquet").to_table(
+        columns=["p_partkey"], filter=(pc.field("p_brand") == "Brand#23")
+        & (pc.field("p_container") == "MED BOX"))
+    j = li.join(pt, keys="l_partkey", right_keys="p_partkey", join_type="inner")
+    j = j.join(avg, keys="l_partkey", join_type="inner")
+    keep = pc.less(pc.cast(j["l_quantity"], "double"),
+                   pc.multiply(j["l_quantity_mean"], 0.2))
+    return pc.sum(j.filter(keep)["l_extendedprice"]).as_py() / 7.0
+
+
+def close(a: float, b: float) -> bool:
+    return abs(a - b) <= REL_TOL * max(abs(a), abs(b))
+
+
+def check_q3(got, ref: dict, tied_last: bool, what: str) -> None:
+    """Keys, dates and row count exact, revenue within REL_TOL of ``ref``
+    (columns as Q3's); the last key may differ only where the pyarrow
+    reference's 10th and 11th revenues lie within REL_TOL of each other
+    (``tied_last``)."""
+    if got.num_rows != 10 or got.column_names != Q3_COLUMNS:
+        raise AssertionError(f"Q3 ({what}): {got.num_rows} rows, columns {got.column_names}")
+    g = got.to_pydict()
+    for i in range(10):
+        if not close(g["revenue"][i], ref["revenue"][i]):
+            raise AssertionError(f"Q3 ({what}) row {i}: revenue {g['revenue'][i]!r} != "
+                                 f"{ref['revenue'][i]!r}")
+        if i == 9 and tied_last:
+            continue
+        for c in Q3_COLUMNS[:3]:
+            if g[c][i] != ref[c][i]:
+                raise AssertionError(f"Q3 ({what}) row {i}: {c} {g[c][i]!r} != {ref[c][i]!r}")
+
+
+def check_q17(got, ref: float, what: str) -> None:
+    value = got.column("avg_yearly").to_pylist()
+    if got.num_rows != 1 or value[0] is None or not close(value[0], ref):
+        raise AssertionError(f"Q17 ({what}): {value} != {ref!r}")
+
+
+def float_bits(table) -> dict:
+    import numpy as np
+    return {n: table.column(n).to_numpy().view(np.int64).tolist()
+            for n in table.column_names if str(table.column(n).type) == "double"}
+
+
+def plan_index_names(plan) -> list:
+    return [leaf.index_entry.name if hasattr(leaf, "index_entry") else None
+            for leaf in plan.collect_leaves()]
+
+
+def check_join_plans(q3_plan, q17_plan) -> None:
+    """Q3: one Join of IndexScans of li_idx and od_idx with the bucket
+    spec. Q17: li_pk_idx and pt_idx under the first join, li_pk_idx under
+    the threshold's Aggregate."""
+    from hyperspace_tpu_torch.plan.nodes import Aggregate, IndexScan, Join
+
+    def nodes(plan, kind):
+        out = [plan] if isinstance(plan, kind) else []
+        for c in plan.children:
+            out += nodes(c, kind)
+        return out
+
+    joins = nodes(q3_plan, Join)
+    leaves = joins[0].collect_leaves() if len(joins) == 1 else []
+    if [getattr(leaf, "index_entry", None) and leaf.index_entry.name for leaf in leaves] \
+            != ["li_idx", "od_idx"] or not all(
+                isinstance(leaf, IndexScan) and leaf.use_bucket_spec for leaf in leaves):
+        raise AssertionError(f"Q3: plan is not a bucketed join of li_idx and od_idx:\n"
+                             f"{q3_plan.tree_string()}")
+    joins = nodes(q17_plan, Join)
+    first = [j for j in joins if not nodes(j.left, Join) and not nodes(j.right, Join)]
+    aggs = [a for a in nodes(q17_plan, Aggregate) if a.group_cols == ["l_partkey"]]
+    if len(first) != 1 or plan_index_names(first[0]) != ["li_pk_idx", "pt_idx"] \
+            or len(aggs) != 1 or plan_index_names(aggs[0]) != ["li_pk_idx"]:
+        raise AssertionError(f"Q17: plan does not read li_pk_idx and pt_idx under its first "
+                             f"join and li_pk_idx under the threshold:\n"
+                             f"{q17_plan.tree_string()}")
+
+
+def build_join_indexes(session, hs, li_dir: str, pt_dir: str, builds: dict, log_it=True):
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants
+    import pyarrow.parquet as pq
+    import torch
+
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+    for name, src, indexed, included in (
+            ("li_pk_idx", li_dir, ["l_partkey"], ["l_quantity", "l_extendedprice"]),
+            ("pt_idx", pt_dir, ["p_partkey"], ["p_brand", "p_container"])):
+        rows = sum(pq.ParquetFile(os.path.join(src, f)).metadata.num_rows
+                   for f in os.listdir(src))
+        if session.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs.create_index(session.read.parquet(src), IndexConfig(name, indexed, included))
+        if session.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        builds[name] = {"seconds": secs, "rows_per_s": rows / secs, "rows": rows,
+                        "buckets": 32,
+                        "files": len(hs.index_manager.get_index(name).content.files)}
+        if log_it:
+            log(f"built {name}: {secs:.3f} s ({rows / secs:,.0f} rows/s)")
+
+
+def run_joins_path(session, hs, li_dir: str, od_dir: str, pt_dir: str, results: dict):
+    """Phases 4-5 for the joins: the li_pk_idx and pt_idx builds, then Q3
+    and Q17 indexed and scanned, twice each. Returns the queries for
+    phase 7."""
+    import torch
+
+    build_join_indexes(session, hs, li_dir, pt_dir, results["builds"])
+    queries = {"q3": build_q3(session, li_dir, od_dir),
+               "q17": build_q17(session, li_dir, pt_dir)}
+    session.enable_hyperspace()
+    plans = {name: df.optimized_plan() for name, df in queries.items()}
+    session.disable_hyperspace()
+    check_join_plans(plans["q3"], plans["q17"])
+
+    t0 = time.perf_counter()
+    q3_ref, tied_last = q3_reference(li_dir, od_dir)
+    refs = {"q3": q3_ref, "q17": q17_reference(li_dir, pt_dir)}
+    results["join_reference_s"] = time.perf_counter() - t0
+    log(f"pyarrow references in {results['join_reference_s']:.1f} s")
+
+    def check(name, got, ref, what):
+        if name == "q3":
+            check_q3(got, ref, tied_last, what)
+        else:
+            check_q17(got, ref, what)
+
+    for name, df in queries.items():
+        times, peaks, tables = {}, {}, {}
+        for mode in ("indexed", "scanned"):
+            (session.enable_hyperspace if mode == "indexed" else session.disable_hyperspace)()
+            runs, peak, outs = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                outs.append(df.to_arrow())
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+                peak.append(torch.cuda.max_memory_allocated() - base)
+            session.disable_hyperspace()
+            times[mode], peaks[mode], tables[mode] = runs, peak, outs
+            for out in outs:
+                check(name, out, refs[name], mode)
+        first, second = tables["indexed"]
+        if not (first.equals(second) and float_bits(first) == float_bits(second)):
+            raise AssertionError(f"{name}: the two indexed runs differ in their bytes")
+        # Indexed against scanned, under the same rule.
+        indexed = tables["indexed"][0]
+        check(name, tables["scanned"][0],
+              indexed.to_pydict() if name == "q3" else indexed.column(0)[0].as_py(),
+              "scanned against indexed")
+        out = tables["indexed"][0]
+        results["queries"][name] = {
+            "rows": out.num_rows, "indexed_s": times["indexed"], "scanned_s": times["scanned"],
+            "peak_bytes_indexed": peaks["indexed"], "peak_bytes_scanned": peaks["scanned"],
+            "indexes": [n for n in plan_index_names(plans[name]) if n],
+            "result": out.to_pydict()}
+        log(f"{name}: {out.num_rows} rows; indexed {times['indexed']} s, scanned "
+            f"{times['scanned']} s; peak device bytes above the base: indexed "
+            f"{peaks['indexed']}, scanned {peaks['scanned']}")
+    return queries
+
+
+def card_against_cpu(root: str) -> dict:
+    """Q3 and Q17 at PARITY_SCALE on the card and through the port on the
+    CPU, indexed and scanned: equal bit for bit, or the largest relative
+    difference of a float value (the CPU tests hold the CPU path equal to
+    the JAX package's)."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants
+
+    li_dir, od_dir, pt_dir, n_li, _ = make_tpch(os.path.join(root, "parity_data"), PARITY_SCALE)
+    out = {}
+    tables = {}
+    for i, device in enumerate(("cuda", "cpu")):
+        session = ht.Session(system_path=os.path.join(root, f"parity_indexes{i}"),
+                             device=device)
+        session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+        hs = ht.Hyperspace(session)
+        hs.create_index(session.read.parquet(li_dir), IndexConfig(
+            "li_idx", ["l_orderkey"], ["l_extendedprice", "l_discount", "l_shipdate"]))
+        hs.create_index(session.read.parquet(od_dir), IndexConfig(
+            "od_idx", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_shippriority"]))
+        build_join_indexes(session, hs, li_dir, pt_dir, {}, log_it=False)
+        for name, df in (("q3", build_q3(session, li_dir, od_dir)),
+                         ("q17", build_q17(session, li_dir, pt_dir))):
+            for indexed in (True, False):
+                (session.enable_hyperspace if indexed else session.disable_hyperspace)()
+                tables[(device, name, indexed)] = df.to_arrow()
+                session.disable_hyperspace()
+    for name in ("q3", "q17"):
+        for indexed in (True, False):
+            card, cpu = tables[("cuda", name, indexed)], tables[("cpu", name, indexed)]
+            rel = 0.0
+            for c in cpu.column_names:
+                if str(cpu.column(c).type) == "double":
+                    for a, b in zip(card.column(c).to_pylist(), cpu.column(c).to_pylist()):
+                        rel = max(rel, abs(a - b) / max(abs(b), 1e-300))
+            out[f"{name} {'indexed' if indexed else 'scanned'}"] = {
+                "bitwise_equal": card.equals(cpu) and float_bits(card) == float_bits(cpu),
+                "keys_equal": all(card.column(c).equals(cpu.column(c))
+                                  for c in cpu.column_names
+                                  if str(cpu.column(c).type) != "double"),
+                "max_rel_diff": rel}
+    log(f"card against the CPU at scale {PARITY_SCALE} ({n_li} lineitem rows): {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: timing.
 # ---------------------------------------------------------------------------
 
@@ -903,11 +1222,14 @@ def copy_rate(x) -> dict:
 # Phase 7: where the time goes.
 # ---------------------------------------------------------------------------
 
-def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict:
-    """Host timers around the layers of rebuilds of li_ship_idx, od_skip
-    and od_bloom and of the cutoff, range, skipping and bloom queries (each
-    timer synchronizes the device), then torch.profiler over the same work
-    for the device's own time."""
+def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
+              n_od: int) -> dict:
+    """Host timers around the layers of rebuilds of li_ship_idx, li_pk_idx,
+    pt_idx, od_skip and od_bloom and of the cutoff, range, skipping, bloom,
+    Q3 and Q17
+    queries (each timer synchronizes the device), the peak device memory
+    of the timed run, then torch.profiler over the same work for the
+    device's own time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -918,7 +1240,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
     from hyperspace_tpu_torch.execution import executor
     from hyperspace_tpu_torch.execution.columnar import Table
     from hyperspace_tpu_torch.index.manager import IndexCollectionManager
-    from hyperspace_tpu_torch.ops import cuda_kernels, index_build, sketches
+    from hyperspace_tpu_torch.ops import cuda_kernels, index_build, kernels, sketches
     from hyperspace_tpu_torch.rules import data_skipping_rule
 
     spans: dict = {}
@@ -934,15 +1256,14 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
                 spans[label] = spans.get(label, 0.0) + time.perf_counter() - t0
         return wrapper
 
-    def drop(name):
+    def drop(name, buckets=8):
         hs.delete_index(name)
         hs.vacuum_index(name)
-        session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 8)
+        session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, buckets)
 
-    def rebuild():
-        hs.create_index(session.read.parquet(li_dir),
-                        IndexConfig("li_ship_idx", ["l_shipdate"],
-                                    ["l_orderkey", "l_extendedprice"]))
+    def rebuild(src, name, indexed, included):
+        return lambda: hs.create_index(session.read.parquet(src),
+                                       IndexConfig(name, indexed, included))
 
     def run(name, indexed):
         (session.enable_hyperspace if indexed else session.disable_hyperspace)()
@@ -958,11 +1279,19 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
     sketch_spans = [(create_skipping, "read_parquet", "read file -> device"),
                     (sketches, "to_host", "device -> host"),
                     (create_skipping, "write_sketch_table", "write sketch table")]
-    work = [("build li_ship_idx", lambda: drop("li_ship_idx"), rebuild,
-             [(create, "read_parquet", "read source -> device"),
-              (index_build, "build_sorted_buckets", "hash + sort + histogram (device)"),
-              (Table, "to_host", "device -> host"),
-              (create, "write_bucket_files", "write bucket parquet files")]),
+    covering_spans = [(create, "read_parquet", "read source -> device"),
+                      (index_build, "build_sorted_buckets", "hash + sort + histogram (device)"),
+                      (Table, "to_host", "device -> host"),
+                      (create, "write_bucket_files", "write bucket parquet files")]
+    work = [("build li_ship_idx", lambda: drop("li_ship_idx"),
+             rebuild(li_dir, "li_ship_idx", ["l_shipdate"], ["l_orderkey", "l_extendedprice"]),
+             covering_spans),
+            ("build li_pk_idx", lambda: drop("li_pk_idx", 32),
+             rebuild(li_dir, "li_pk_idx", ["l_partkey"], ["l_quantity", "l_extendedprice"]),
+             covering_spans),
+            ("build pt_idx", lambda: drop("pt_idx", 32),
+             rebuild(pt_dir, "pt_idx", ["p_partkey"], ["p_brand", "p_container"]),
+             covering_spans),
             ("build od_skip", lambda: drop("od_skip"),
              lambda: hs.create_index(od, skip_config),
              sketch_spans + [(cuda_kernels, "masked_minmax_words",
@@ -970,11 +1299,19 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
             ("build od_bloom", lambda: drop("od_bloom"),
              lambda: hs.create_index(od, bloom_config),
              sketch_spans + [(sketches, "bloom_bits", "bloom hash + scatter + pack (device)")])]
-    for name in ("cutoff", "range", "skipping", "bloom"):
+    join_spans = [(executor, "_probe_keys", "join: keys, null drop, composite or sort (device)"),
+                  (kernels, "merge_join_indices", "join: bounds + expansion (device)"),
+                  (executor, "_gather_join_output", "join: gathers (device)"),
+                  (executor, "_execute_aggregate", "aggregate (device)"),
+                  (executor, "_execute_sort", "sort + limit (device)"),
+                  (executor, "_execute_limit", "sort + limit (device)")]
+    for name in ("cutoff", "range", "skipping", "bloom", "q3", "q17"):
         for indexed in (True, False):
             spans_of = [(executor, "read_parquet", "parquet read -> device"),
                         (executor, "_filter_table", "filter (device)"),
                         (Table, "to_arrow", "result -> host arrow")]
+            if name in ("q3", "q17"):
+                spans_of += join_spans
             if indexed:
                 spans_of.append((IndexCollectionManager, "get_indexes",
                                  "index log reads (host)"))
@@ -993,10 +1330,13 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
             if prep:
                 prep()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
         finally:
             for obj, attr, orig in saved:
                 setattr(obj, attr, orig)
@@ -1019,13 +1359,13 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, n_od: int) -> dict
                          and e.key != "Activity Buffer Request"),
                         key=lambda kv: -kv[1])
         busy = sum(t for _, t in device)
-        out[label] = {"wall_s": wall, "spans_s": dict(spans),
+        out[label] = {"wall_s": wall, "spans_s": dict(spans), "peak_bytes": peak,
                       "other_s": wall - sum(spans.values()),
                       "profiled_wall_s": prof_wall,
                       "device_s": busy if device else None,
                       "device_busy_share": busy / prof_wall if device else None,
                       "top_device_ops": device[:6]}
-        log(f"breakdown {label}: wall {wall:.3f} s; " + "; ".join(
+        log(f"breakdown {label}: wall {wall:.3f} s; peak {peak / 2 ** 30:.3f} GiB; " + "; ".join(
             f"{k} {v:.3f}" for k, v in spans.items()) +
             (f"; device busy {busy:.3f} s of {prof_wall:.3f} s profiled "
              f"({busy / prof_wall:.1%})" if device else "; device time not measured"))
@@ -1078,11 +1418,11 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(prefix="hs_chip_smoke_")
     try:
         t0 = time.perf_counter()
-        li_dir, od_dir, n_li, n_od = make_tpch(os.path.join(root, "data"), args.scale)
+        li_dir, od_dir, pt_dir, n_li, n_od = make_tpch(os.path.join(root, "data"), args.scale)
         results["lineitem_rows"], results["orders_rows"] = n_li, n_od
         results["datagen_s"] = time.perf_counter() - t0
-        log(f"phase 3: lineitem {n_li:,} rows, orders {n_od:,} rows in "
-            f"{results['datagen_s']:.1f} s")
+        log(f"phase 3: lineitem {n_li:,} rows, orders {n_od:,} rows, part "
+            f"{max(n_li // 30, 200):,} rows in {results['datagen_s']:.1f} s")
 
         # Each path runs with the counts at 0 and is read just after.
         ck.reset_launches()
@@ -1092,6 +1432,9 @@ def main(argv=None) -> int:
         ck.reset_launches()
         queries.update(run_orders_path(session, hs, od_dir, n_od, results))
         launches["orders"] = dict(ck.LAUNCHES)
+        ck.reset_launches()
+        queries.update(run_joins_path(session, hs, li_dir, od_dir, pt_dir, results))
+        launches["joins"] = dict(ck.LAUNCHES)
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
         missing = [f"{k} ({path})" for path, names in PATH_KERNELS.items()
@@ -1109,7 +1452,8 @@ def main(argv=None) -> int:
         results["kernels_full_rows"] = full
         log(f"phase 6: timed in {time.perf_counter() - t0:.1f} s")
         del inputs
-        results["breakdown"] = breakdown(session, hs, queries, li_dir, od_dir, n_od)
+        results["breakdown"] = breakdown(session, hs, queries, li_dir, od_dir, pt_dir, n_od)
+        results["card_against_cpu"] = card_against_cpu(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1118,7 +1462,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
+            json.dump(results, f, indent=1, default=str)
     for k in main_path + full:
         log(f"{k['name']}: {k['input']}: {k['ms']:.4f} ms (spread {k['ms_spread']:.4f}; "
             f"device {k['device_ms']}, {k['kernels_per_call']} kernels and "
@@ -1127,7 +1471,8 @@ def main(argv=None) -> int:
             + (f"; public call {k['public_call_ms']:.4f}" if "public_call_ms" in k else "")
             + ")")
     print(json.dumps({"builds": results["builds"], "queries": results["queries"],
-                      "total_s": results["total_s"]}))
+                      "card_against_cpu": results["card_against_cpu"],
+                      "total_s": results["total_s"]}, default=str))
     print(json.dumps({"kernels": main_path}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,12 @@
 Covering and data-skipping indexes over parquet data lakes, built and
 probed on an NVIDIA GPU: the covering build hash-partitions and sorts
 within buckets on the device, the sketch build reduces each source file's
-column there (MinMax, Bloom, value list), and filter queries evaluate
-their predicates there, with hand-written CUDA kernels on the hot passes
-(ops/cuda_kernels.py). Sketch probes at plan time are host numpy. The
+column there (MinMax, Bloom, value list), and queries evaluate their
+predicates there, with hand-written CUDA kernels on the hot passes
+(ops/cuda_kernels.py). Joins, group-bys and sorts are torch ops on the
+device; an equi-join over two covering indexes on its keys merges their
+buckets without sorting either side. Sketch probes at plan time are host
+numpy. The
 on-disk layout and the operation log are the JAX package's, so either
 package reads the other's indexes.
 
@@ -18,7 +21,7 @@ from .api import (BloomFilterSketch, DataSkippingIndexConfig, Hyperspace,  # noq
 from .config import Conf, HyperspaceConf  # noqa: F401
 from .exceptions import HyperspaceException  # noqa: F401
 from .index.constants import IndexConstants, States  # noqa: F401
-from .plan.expr import col, lit  # noqa: F401
+from .plan.expr import avg, col, lit, sum_  # noqa: F401
 from .schema import Field, Schema  # noqa: F401
 from .session import Session  # noqa: F401
 

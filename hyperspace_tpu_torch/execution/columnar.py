@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -75,9 +75,16 @@ class Column:
 
 @dataclass
 class Table:
-    """An ordered set of equal-length device columns."""
+    """An ordered set of equal-length device columns.
+
+    ``bucket_order`` is a physical-layout hint: ``(num_buckets, key
+    columns)`` means the rows are grouped by ascending bucket id (the hash
+    of the key columns) and sorted by the key columns within each bucket,
+    the covering index's layout. Joins and group-bys on those keys use it
+    to skip a sort. A row subsequence keeps it; a permutation drops it."""
 
     columns: Dict[str, Column]
+    bucket_order: Optional[Tuple[int, Tuple[str, ...]]] = None
 
     def __post_init__(self):
         lengths = {len(c) for c in self.columns.values()}
@@ -105,7 +112,9 @@ class Table:
                        for n, c in self.columns.items()])
 
     def select(self, names: Sequence[str]) -> "Table":
-        return Table({n: self.column(n) for n in names})
+        order = self.bucket_order
+        keep = order if order and all(k in names for k in order[1]) else None
+        return Table({n: self.column(n) for n in names}, keep)
 
     def take(self, indices: torch.Tensor) -> "Table":
         return Table({n: c.take(indices) for n, c in self.columns.items()})
@@ -115,10 +124,11 @@ class Table:
         if mask.shape[0] != self.num_rows:
             raise HyperspaceException(
                 f"filter mask length {mask.shape[0]} != rows {self.num_rows}")
-        return self.take(kernels.filter_indices(mask))
+        return Table(self.take(kernels.filter_indices(mask)).columns, self.bucket_order)
 
     def slice(self, start: int, stop: int) -> "Table":
-        return Table({n: c.slice(start, stop) for n, c in self.columns.items()})
+        return Table({n: c.slice(start, stop) for n, c in self.columns.items()},
+                     self.bucket_order)
 
     def to_host(self) -> "Table":
         """Every column moved to the CPU at once, so that later per-bucket

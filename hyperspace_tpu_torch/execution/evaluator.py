@@ -1,6 +1,6 @@
-"""Vectorized predicate evaluation over device tables (counterpart of
+"""Vectorized expression evaluation over device tables (counterpart of
 ``hyperspace_tpu/execution/evaluator.py``, trimmed to comparisons, BETWEEN,
-IN lists and Kleene boolean algebra).
+IN lists, Kleene boolean algebra, arithmetic and aliases).
 
 Null semantics follow SQL for filters: a comparison touching a null is
 null, and Filter keeps only rows whose predicate is true-and-valid.
@@ -20,7 +20,7 @@ import torch
 from ..exceptions import HyperspaceException
 from ..ops import cuda_kernels, kernels
 from ..plan import expr as E
-from ..schema import BOOL, STRING
+from ..schema import BOOL, FLOAT64, INT64, STRING
 from .columnar import Column, Table, dictionaries_equal, literal_to_device, translate_codes
 
 _COMPARISONS = (E.EqualTo, E.LessThan, E.LessThanOrEqual, E.GreaterThan,
@@ -30,6 +30,8 @@ _KERNEL_DTYPES = (torch.int32, torch.float32, torch.uint32)
 
 _SYMBOL = {"EqualTo": "==", "LessThan": "<", "LessThanOrEqual": "<=",
            "GreaterThan": ">", "GreaterThanOrEqual": ">="}
+
+_ARITH = {"Add": torch.add, "Subtract": torch.sub, "Multiply": torch.mul}
 
 _TORCH_OP = {"EqualTo": torch.eq, "LessThan": torch.lt, "LessThanOrEqual": torch.le,
              "GreaterThan": torch.gt, "GreaterThanOrEqual": torch.ge}
@@ -46,6 +48,10 @@ def eval_predicate_mask(table: Table, condition: E.Expr) -> torch.Tensor:
 def eval_expr(table: Table, e: E.Expr) -> Column:
     if isinstance(e, E.Col):
         return table.column(e.column)
+    if isinstance(e, E.Alias):
+        return eval_expr(table, e.child)
+    if isinstance(e, (E.Add, E.Subtract, E.Multiply, E.Divide)):
+        return _eval_arith(table, e)
     if isinstance(e, _COMPARISONS):
         return _eval_comparison(table, e)
     if isinstance(e, (E.And, E.Or)):
@@ -192,6 +198,48 @@ def _eval_in(table: Table, e: E.In) -> Column:
     for v in values[1:]:
         mask = mask | compare_literal(col, "EqualTo", v)
     return Column(BOOL, mask, col.validity)
+
+
+def _eval_arith(table: Table, e) -> Column:
+    def operand(x):
+        if isinstance(x, E.Lit):
+            return None, x.value
+        c = eval_expr(table, x)
+        if c.dtype == STRING:
+            raise HyperspaceException("Arithmetic on string column")
+        return c, c.data
+
+    lcol, ld = operand(e.left)
+    rcol, rd = operand(e.right)
+    if lcol is None and rcol is None:
+        raise HyperspaceException("Arithmetic between two literals")
+    if isinstance(e, E.Divide):
+        dev = (ld if lcol is not None else rd).device
+        data = torch.div(_as_float64(ld, dev), _as_float64(rd, dev))
+    else:
+        data = _ARITH[type(e).__name__](_promote(ld, rd), _promote(rd, ld))
+    validity = _merge_validity(None if lcol is None else lcol.validity,
+                               None if rcol is None else rcol.validity)
+    if data.is_floating_point():
+        return Column(FLOAT64, data.to(torch.float64), validity)
+    return Column(INT64, data.to(torch.int64), validity)
+
+
+def _as_float64(x, device) -> torch.Tensor:
+    """A literal becomes a 0-d tensor on the device: divided by a Python
+    float, torch multiplies by its reciprocal on the card (and for
+    ``3 / x`` on the CPU too), one bit off the JAX package's quotient."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64)
+    return torch.full((), float(x), dtype=torch.float64, device=device)
+
+
+def _promote(x, other):
+    """An integer column meeting a float literal computes in float64."""
+    if isinstance(x, torch.Tensor) and not x.is_floating_point() \
+            and isinstance(other, float):
+        return x.to(torch.float64)
+    return x
 
 
 def _align_for_compare(lc: Column, rc: Column, op_name: str):

@@ -1,24 +1,37 @@
 """Eager columnar plan executor (counterpart of
-``hyperspace_tpu/execution/executor.py``: Scan, IndexScan, Filter and
-Project).
+``hyperspace_tpu/execution/executor.py``: Scan, IndexScan, Filter,
+Project, inner equi-Join, Aggregate, Sort and Limit).
 
 Executes a logical plan bottom-up over device-resident tables. A Filter
 directly over a scan pushes its prunable conjuncts into the parquet read;
 over an IndexScan with the bucket spec exposed, equality predicates on the
 indexed columns also prune whole bucket files before any IO.
+
+An IndexScan whose buckets are one file each yields a table in bucket
+order (``Table.bucket_order``). A join whose side is in bucket order on
+its one join key probes that side without sorting it (the shuffle-free
+merge join), and a group-by whose keys are the bucket keys skips its sort
+(or, with more keys, sorts only the runs of equal keys). The host syncs
+are the JAX package's: one for a filter's survivor count, one for a join's
+output length (and one for the fast path's key-width check), one for a
+group count.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import torch
 
 from ..exceptions import HyperspaceException
 from ..ops import kernels
 from ..ops.index_build import bucket_id_from_file
 from ..plan import expr as E
-from ..plan.nodes import Filter, IndexScan, LogicalPlan, Project, Scan
-from ..schema import STRING
-from .columnar import Table, empty_table, literal_to_device, read_parquet
+from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
+                          Project, Scan, Sort)
+from ..schema import DATE, FLOAT64, INT32, INT64, STRING
+from .columnar import (Column, Table, dictionaries_equal, empty_table,
+                       literal_to_device, read_parquet, translate_codes)
 from .evaluator import eval_expr, eval_predicate_mask
 from .pushdown import pushable_filter
 
@@ -53,7 +66,30 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], device) -> Table:
         for e in plan.exprs:
             child_needed.update(e.references)
         table = _execute(plan.child, child_needed, device)
-        return Table({e.name: eval_expr(table, e) for e in plan.exprs})
+        out = Table({e.name: eval_expr(table, e) for e in plan.exprs})
+        # Pass-through columns, renamed or not, keep the bucket order.
+        order = table.bucket_order
+        if order:
+            renamed: Dict[str, str] = {}
+            for e in plan.exprs:
+                inner = e.child if isinstance(e, E.Alias) else e
+                if isinstance(inner, E.Col):
+                    renamed.setdefault(inner.column, e.name)
+            if all(k in renamed for k in order[1]):
+                out = Table(out.columns, (order[0], tuple(renamed[k] for k in order[1])))
+        return out
+    if isinstance(plan, Join):
+        return _execute_join(plan, needed, device)
+    if isinstance(plan, Aggregate):
+        child_needed = set(plan.group_cols)
+        for a in plan.aggs:
+            child_needed.update(a.references)
+        return _execute_aggregate(plan, _execute(plan.child, child_needed, device))
+    if isinstance(plan, Sort):
+        child_needed = None if needed is None else needed | {c for c, _ in plan.orders}
+        return _execute_sort(plan, _execute(plan.child, child_needed, device))
+    if isinstance(plan, Limit):
+        return _execute_limit(plan, _execute(plan.child, needed, device))
     raise HyperspaceException(f"Cannot execute plan node {plan.node_name}")
 
 
@@ -141,10 +177,349 @@ def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
     # Files in bucket order.
     keyed = sorted(((bucket_id_from_file(f), f) for f in entry.content.files),
                    key=lambda t: (t[0] is None, t[0] or 0, t[1]))
+    single_file_buckets = all(b is not None for b, _ in keyed) \
+        and len({b for b, _ in keyed}) == len(keyed)
     if bucket_subset is not None:
         keyed = [(b, f) for b, f in keyed if b in bucket_subset]
     cols = _read_columns(plan.schema.names if needed is None else entry.schema.names,
                          needed)
     if not keyed:
         return empty_table(entry.schema.select(cols), device)
-    return read_parquet([f for _, f in keyed], cols, device, filters=pa_filter)
+    table = read_parquet([f for _, f in keyed], cols, device, filters=pa_filter)
+    if single_file_buckets and all(c in table.names for c in entry.indexed_columns):
+        # Files in bucket order, rows sorted by the indexed columns within
+        # each: the covering index's layout.
+        table = Table(table.columns, (entry.num_buckets, tuple(entry.indexed_columns)))
+    return table
+
+
+# ---------------------------------------------------------------------------
+# Join.
+# ---------------------------------------------------------------------------
+
+def _string_join_keys(lc: Column, rc: Column):
+    if dictionaries_equal(lc.dictionary, rc.dictionary):
+        return lc.data, rc.data
+    return lc.data, translate_codes(lc.dictionary, rc)
+
+
+def _comparable_concat(lc: Column, rc: Column) -> torch.Tensor:
+    """Left ++ right key values in one comparable space."""
+    if (lc.dtype == STRING) != (rc.dtype == STRING):
+        raise HyperspaceException("Join key type mismatch")
+    if lc.dtype == STRING:
+        return torch.cat(_string_join_keys(lc, rc))
+    ldata, rdata = lc.data, rc.data
+    if ldata.is_floating_point() != rdata.is_floating_point():
+        raise HyperspaceException(f"Join key type mismatch: {lc.dtype} vs {rc.dtype}")
+    wide = torch.float64 if ldata.is_floating_point() else torch.int64
+    return torch.cat([ldata.to(wide), rdata.to(wide)])
+
+
+def _join_key_arrays(left: Table, right: Table, pairs: List[Tuple[str, str]]):
+    """Device key arrays for the join, in a shared comparable space: one
+    key as it is, two int32/date keys packed into one int64, any other
+    tuple dense-ranked over both sides."""
+    if len(pairs) == 1:
+        lc, rc = left.column(pairs[0][0]), right.column(pairs[0][1])
+        if lc.dtype == STRING or rc.dtype == STRING:
+            if lc.dtype != rc.dtype:
+                raise HyperspaceException("Join key type mismatch")
+            return _string_join_keys(lc, rc)
+        return lc.data, rc.data
+    cols = [(left.column(a), right.column(b)) for a, b in pairs]
+    if len(pairs) == 2 and all(c.dtype in (INT32, DATE) for pair in cols for c in pair):
+        return (kernels.pack2_int32(cols[0][0].data, cols[1][0].data),
+                kernels.pack2_int32(cols[0][1].data, cols[1][1].data))
+    ranks = kernels.dense_rank([_comparable_concat(lc, rc) for lc, rc in cols])
+    return ranks[:left.num_rows], ranks[left.num_rows:]
+
+
+def _keys_validity(table: Table, names: Sequence[str]) -> Optional[torch.Tensor]:
+    v = None
+    for n in names:
+        cv = table.column(n).validity
+        if cv is not None:
+            v = cv if v is None else (v & cv)
+    return v
+
+
+def _bucketed_merge_keys(left: Table, right: Table, pairs, lkeys, rkeys):
+    """When one side is in bucket order on its one join key (a covering
+    index), (bucket, key) composite probe keys that let the merge join run
+    without sorting that side: (left keys, right keys, swapped), or None.
+    The key must be an integer or a date that fits in 32 bits."""
+    if len(pairs) != 1:
+        return None
+    lname, rname = pairs[0]
+    lcol, rcol = left.column(lname), right.column(rname)
+    if lcol.dtype not in (INT32, INT64, DATE) or rcol.dtype != lcol.dtype:
+        return None
+
+    def ordered_on(table: Table, name: str) -> bool:
+        return table.bucket_order is not None and table.bucket_order[1] == (name,)
+
+    if ordered_on(right, rname):
+        swapped, num_buckets = False, right.bucket_order[0]
+    elif ordered_on(left, lname):
+        swapped, num_buckets = True, left.bucket_order[0]
+    else:
+        return None
+    lcomp, l_fits = kernels.bucket_composite_keys(lkeys, lcol.dtype, num_buckets)
+    rcomp, r_fits = kernels.bucket_composite_keys(rkeys, rcol.dtype, num_buckets)
+    fits = [f for f in (l_fits, r_fits) if f is not None]
+    if fits and not bool(torch.stack(fits).all()):  # HOST SYNC (single scalar).
+        return None
+    return lcomp, rcomp, swapped
+
+
+def _execute_join(plan: Join, needed: Optional[Set[str]], device) -> Table:
+    pairs = E.extract_equi_join_keys(plan.condition)
+    if pairs is None:
+        raise HyperspaceException(
+            f"Only conjunctive equi-joins are supported; got {plan.condition!r}")
+    left_names = set(plan.left.schema.names)
+    right_names = set(plan.right.schema.names)
+    norm: List[Tuple[str, str]] = []
+    for a, b in pairs:
+        if a in left_names and b in right_names:
+            norm.append((a, b))
+        elif b in left_names and a in right_names:
+            norm.append((b, a))
+        else:
+            raise HyperspaceException(
+                f"Join keys ({a}, {b}) do not split across the two sides")
+    lneed = None if needed is None else \
+        {n for n in needed if n in left_names} | {p[0] for p in norm}
+    rneed = None if needed is None else \
+        {n for n in needed if n in right_names} | {p[1] for p in norm}
+    left = _execute(plan.left, lneed, device)
+    right = _execute(plan.right, rneed, device)
+    left, right, lkeys, rkeys = _probe_keys(left, right, norm)
+    li, ri = kernels.merge_join_indices(lkeys, rkeys)
+    del lkeys, rkeys
+    return _gather_join_output(plan, left, right, li, ri)
+
+
+def _probe_keys(left: Table, right: Table, norm: List[Tuple[str, str]]):
+    """(probe side, build side sorted by its keys, probe keys, sorted build
+    keys). Rows with a null key are dropped (they match nothing); a side
+    in bucket order on its key is probed by (bucket, key) composites
+    without a sort, the other side becoming the probe side."""
+    lkeys, rkeys = _join_key_arrays(left, right, norm)
+    lvalid = _keys_validity(left, [p[0] for p in norm])
+    if lvalid is not None:
+        idx = kernels.filter_indices(lvalid)
+        left, lkeys = left.take(idx), lkeys[idx]
+    rvalid = _keys_validity(right, [p[1] for p in norm])
+    if rvalid is not None:
+        idx = kernels.filter_indices(rvalid)
+        right, rkeys = right.take(idx), rkeys[idx]
+    fast = _bucketed_merge_keys(left, right, norm, lkeys, rkeys)
+    if fast is not None:
+        lcomp, rcomp, swapped = fast
+        if swapped:
+            return right, left, rcomp, lcomp
+        return left, right, lcomp, rcomp
+    order = kernels.lex_sort_indices([rkeys])
+    return left, right.take(order), lkeys, rkeys[order]
+
+
+def _gather_join_output(plan: Join, left: Table, right: Table, li: torch.Tensor,
+                        ri: torch.Tensor) -> Table:
+    taken_left, taken_right = left.take(li), right.take(ri)
+    out = {}
+    for n in plan.schema.names:
+        # The sides were column-pruned; emit only what they produced.
+        if n in taken_left.columns:
+            out[n] = taken_left.columns[n]
+        elif n in taken_right.columns:
+            out[n] = taken_right.columns[n]
+    # The output follows the probe (left) side's row order, so its bucket
+    # order survives for a group-by on those keys downstream.
+    order_out = left.bucket_order
+    if order_out is not None and not all(k in out for k in order_out[1]):
+        order_out = None
+    return Table(out, order_out)
+
+
+# ---------------------------------------------------------------------------
+# Aggregate and Sort.
+# ---------------------------------------------------------------------------
+
+def _null_aware_keys(c: Column) -> List[torch.Tensor]:
+    """Sort keys for one column with null as its own value, before every
+    real one: (validity flag, null-masked data) when nullable."""
+    if c.validity is None:
+        return [c.data]
+    return [c.validity.to(torch.int32),
+            torch.where(c.validity, c.data, torch.zeros((), dtype=c.data.dtype,
+                                                        device=c.data.device))]
+
+
+def _group_sort_keys(cols: Sequence[Column]) -> List[torch.Tensor]:
+    return [k for c in cols for k in _null_aware_keys(c)]
+
+
+def _unwrap_agg(agg: E.Expr) -> E.AggExpr:
+    while isinstance(agg, E.Alias):
+        agg = agg.child
+    if not isinstance(agg, E.AggExpr):
+        raise HyperspaceException(f"Aggregate list requires agg functions; got {agg!r}")
+    return agg
+
+
+def _agg_child_column(agg: E.AggExpr, table: Table) -> Column:
+    child = eval_expr(table, agg.child)
+    if child.dtype == STRING and not isinstance(agg, (E.Min, E.Max)):
+        raise HyperspaceException("sum/avg over string column")
+    return child
+
+
+def _sum_dtype(values: torch.Tensor) -> str:
+    return FLOAT64 if values.is_floating_point() else INT64
+
+
+def _eval_agg(agg_expr: E.Expr, table: Table, gids: torch.Tensor, num_groups: int) -> Column:
+    agg = _unwrap_agg(agg_expr)
+    if isinstance(agg, E.Count):
+        validity = None if agg.child is None else eval_expr(table, agg.child).validity
+        return Column(INT64, kernels.segment_count(gids, num_groups, validity))
+    child = _agg_child_column(agg, table)
+    if isinstance(agg, (E.Sum, E.Avg)):
+        value, counts = kernels.segment_agg(child.data, child.validity, gids, num_groups,
+                                            "mean" if isinstance(agg, E.Avg) else "sum")
+        # SQL: a group with no valid values aggregates to NULL.
+        validity = None if child.validity is None else counts > 0
+        return Column(FLOAT64 if isinstance(agg, E.Avg) else _sum_dtype(value),
+                      value, validity)
+    if isinstance(agg, (E.Min, E.Max)):
+        value, counts = kernels.segment_agg(child.data, child.validity, gids, num_groups,
+                                            "min" if isinstance(agg, E.Min) else "max",
+                                            widen=False)
+        validity = None if child.validity is None else counts > 0
+        return Column(child.dtype, value, validity, child.dictionary)
+    raise HyperspaceException(f"Unknown aggregate {agg!r}")
+
+
+def _execute_aggregate(plan: Aggregate, table: Table) -> Table:
+    if not plan.group_cols:
+        gids = torch.zeros(table.num_rows, dtype=torch.int64,
+                           device=_table_device(table))
+        return Table({a.name: _eval_agg(a, table, gids, 1) for a in plan.aggs})
+    key_cols = [table.column(g) for g in plan.group_cols]
+    order = table.bucket_order
+    keys_non_null = all(c.validity is None for c in key_cols)
+    if order is not None and set(order[1]) == set(plan.group_cols) and keys_non_null:
+        # Rows sorted by (bucket, keys): equal key tuples are contiguous
+        # (a tuple lives in one bucket), so no sort is needed. Nullable
+        # keys fall through: their fill values would meet real zeros.
+        sorted_table, sorted_keys = table, [c.data for c in key_cols]
+    elif order is not None and set(order[1]) < set(plan.group_cols) and keys_non_null:
+        # The bucket keys are a strict subset of the group keys (Q3: the
+        # join output in l_orderkey order, grouped by three keys): equal
+        # tuples come in runs, so only the runs are sorted.
+        return _execute_aggregate_two_phase(plan, table, key_cols)
+    else:
+        perm = kernels.lex_sort_indices(_group_sort_keys(key_cols))
+        sorted_table = table.take(perm)
+        sorted_keys = _group_sort_keys([sorted_table.column(g) for g in plan.group_cols])
+    gids, num_groups = kernels.group_ids_from_sorted(sorted_keys)
+    if num_groups == 0:
+        return empty_table(plan.schema, _table_device(table))
+    arrays, spec = [], []
+    for g in plan.group_cols:
+        c = sorted_table.column(g)
+        arrays.append(c.data)
+        spec.append((g, "d"))
+        if c.validity is not None:
+            arrays.append(c.validity)
+            spec.append((g, "v"))
+    heads = dict(zip(spec, kernels.segment_heads(gids, arrays, num_groups)))
+    out = {}
+    for g in plan.group_cols:
+        c = sorted_table.column(g)
+        out[g] = Column(c.dtype, heads[(g, "d")], heads.get((g, "v")), c.dictionary)
+    for agg in plan.aggs:
+        out[agg.name] = _eval_agg(agg, sorted_table, gids, num_groups)
+    return Table(out)
+
+
+def _execute_aggregate_two_phase(plan: Aggregate, table: Table,
+                                 key_cols: List[Column]) -> Table:
+    """Phase 1 reduces each run of consecutive equal key tuples to
+    partials without a sort; phase 2 sorts only the runs and combines the
+    partials of equal tuples in that order. Output is key-sorted, as the
+    full-sort path's is."""
+    run_keys = [c.data for c in key_cols]
+    rids, num_runs = kernels.group_ids_from_sorted(run_keys)
+    if num_runs == 0:
+        return empty_table(plan.schema, _table_device(table))
+    run_vals = kernels.segment_heads(rids, run_keys, num_runs)
+    order2 = kernels.lex_sort_indices(run_vals)
+    sorted_vals = [v[order2] for v in run_vals]
+    gids2, num_groups = kernels.group_ids_from_sorted(sorted_vals)
+
+    def combine(run_partial: torch.Tensor, op: str) -> torch.Tensor:
+        return kernels.gather_segment(run_partial, order2, gids2, num_groups, op)
+
+    out = {}
+    for g, gv in zip(plan.group_cols, kernels.segment_heads(gids2, sorted_vals, num_groups)):
+        src = table.column(g)
+        out[g] = Column(src.dtype, gv, None, src.dictionary)
+    for agg_expr in plan.aggs:
+        agg = _unwrap_agg(agg_expr)
+        if isinstance(agg, E.Count):
+            validity = None if agg.child is None else eval_expr(table, agg.child).validity
+            out[agg_expr.name] = Column(
+                INT64, combine(kernels.segment_count(rids, num_runs, validity), "sum"))
+            continue
+        child = _agg_child_column(agg, table)
+        validity = child.validity
+        out_validity = None
+        if isinstance(agg, (E.Sum, E.Avg)):
+            run_sums, run_valid = kernels.segment_agg(child.data, validity, rids,
+                                                      num_runs, "sum")
+            total_valid = None
+            if run_valid is not None:
+                total_valid = combine(run_valid, "sum")
+                out_validity = total_valid > 0
+            sums = combine(run_sums, "sum")
+            if isinstance(agg, E.Sum):
+                out[agg_expr.name] = Column(_sum_dtype(sums), sums, out_validity)
+                continue
+            if total_valid is None:
+                total_valid = combine(kernels.segment_count(rids, num_runs), "sum")
+            out[agg_expr.name] = Column(
+                FLOAT64, sums.to(torch.float64) / total_valid.clamp(min=1).to(torch.float64),
+                out_validity)
+        elif isinstance(agg, (E.Min, E.Max)):
+            op = "min" if isinstance(agg, E.Min) else "max"
+            run_m, run_valid = kernels.segment_agg(child.data, validity, rids, num_runs, op,
+                                                   widen=False)
+            if run_valid is not None:
+                out_validity = combine(run_valid, "sum") > 0
+            out[agg_expr.name] = Column(child.dtype, combine(run_m, op), out_validity,
+                                        child.dictionary)
+        else:
+            raise HyperspaceException(f"Unknown aggregate {agg!r}")
+    return Table(out)
+
+
+def _table_device(table: Table):
+    return next(iter(table.columns.values())).data.device
+
+
+def _execute_sort(plan: Sort, table: Table) -> Table:
+    """Stable; nulls first ascending and last descending (Spark's
+    default), by sorting the null-aware keys in the requested direction."""
+    keys, ascending = [], []
+    for name, asc in plan.orders:
+        for k in _null_aware_keys(table.column(name)):
+            keys.append(k)
+            ascending.append(asc)
+    return table.take(kernels.lex_sort_indices(keys, ascending))
+
+
+def _execute_limit(plan: Limit, table: Table) -> Table:
+    return table.slice(0, min(plan.n, table.num_rows))

@@ -1,6 +1,6 @@
 """Plain torch compute ops the engine is built from (counterpart of
-``hyperspace_tpu/ops/kernels.py``, trimmed to hashing, sorting and the
-filter front end).
+``hyperspace_tpu/ops/kernels.py``, trimmed to hashing, sorting, the filter
+front end, the merge join and the segment aggregates).
 
 uint32 arithmetic: torch has no ``>>``, ``<<``, ``+`` or ``%`` for
 ``torch.uint32``, so a 32-bit word travels as an ``int32`` tensor holding
@@ -138,14 +138,210 @@ def hash32_value_host(value, dtype: str) -> int:
     raise HyperspaceException(f"Cannot hash dtype {dtype}")
 
 
-def lex_sort_indices(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Indices that stably sort by keys[0], then keys[1], ... (ascending):
-    chained stable sorts, last key first. Floats order as the JAX
-    package's sort does: -0.0 ties 0.0 and NaN sorts last."""
+def _sort_key_view(data: torch.Tensor, ascending: bool) -> torch.Tensor:
+    """The key an ascending sort orders in the requested direction: a
+    descending key is negated (not sorted with ``descending=True``), as in
+    the JAX package, so NaN still sorts last, -0.0 and 0.0 still tie, and
+    the integer minimum wraps to itself and sorts first."""
+    if data.dtype == torch.bool:
+        data = data.to(torch.int32)
+    return data if ascending else -data
+
+
+def lex_sort_indices(keys: Sequence[torch.Tensor],
+                     ascending: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """Indices that stably sort by keys[0], then keys[1], ... (each
+    ascending unless ``ascending`` says otherwise): chained stable sorts,
+    last key first. Floats order as the JAX package's sort does: -0.0 ties
+    0.0 and NaN sorts last."""
+    if ascending is None:
+        ascending = [True] * len(keys)
     perm = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in reversed(keys):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
+    for k, asc in reversed(list(zip(keys, ascending))):
+        perm = perm[torch.sort(_sort_key_view(k, asc)[perm], stable=True).indices]
     return perm
+
+
+# ---------------------------------------------------------------------------
+# Merge join over sorted keys.
+# ---------------------------------------------------------------------------
+
+def merge_join_indices(left_keys: torch.Tensor, right_keys_sorted: torch.Tensor):
+    """Inner equi-join: (left_idx, right_idx) gather indices of every
+    (left row, matching right row) pair, ascending by left row and, within
+    one, by right row. ``right_keys_sorted`` must be ascending. One host
+    sync, for the output length."""
+    if left_keys.dtype != right_keys_sorted.dtype:
+        wide = torch.promote_types(left_keys.dtype, right_keys_sorted.dtype)
+        left_keys, right_keys_sorted = left_keys.to(wide), right_keys_sorted.to(wide)
+    lo = torch.searchsorted(right_keys_sorted, left_keys, side="left")
+    counts = torch.searchsorted(right_keys_sorted, left_keys, side="right") - lo
+    total = int(counts.sum())  # HOST SYNC (single scalar).
+    return _expand_matches(counts, lo, total)
+
+
+def _expand_matches(counts: torch.Tensor, lo: torch.Tensor, total: int):
+    dev = counts.device
+    left_idx = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts,
+                                       output_size=total)
+    starts = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts,
+                                     output_size=total)
+    right_idx = torch.repeat_interleave(lo, counts, output_size=total) \
+        + (torch.arange(total, device=dev) - starts)
+    return left_idx, right_idx
+
+
+def pack2_int32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two int32 key columns packed into one int64 key that orders as (a,
+    b) does: ``b`` is sign-biased (XOR 0x80000000) into the low word."""
+    b_biased = (b.to(torch.int64) ^ 0x80000000) & M32
+    return (a.to(torch.int64) << 32) | b_biased
+
+
+def bucket_composite_keys(keys: torch.Tensor, dtype: str, num_buckets: int):
+    """(bucket << 32 | biased key) probe keys for the shuffle-free merge
+    join, which order as a covering index's rows do, and for int64 keys a
+    0-d bool tensor, whether every key lies in (-2**31, 2**31), where the
+    packing is exact (None for narrower keys). The JAX package tests the
+    largest |key| instead, which misses the int64 minimum (its absolute
+    value wraps to itself). The bucket ids come from the hash+bucket
+    kernel."""
+    from . import cuda_kernels
+    _, bids = cuda_kernels.hash_bucket([fold_u32(keys, dtype).contiguous()], num_buckets)
+    comp = pack2_int32(bids, keys.to(torch.int32))
+    fits = None
+    if keys.dtype == torch.int64 and keys.shape[0]:
+        fits = (keys.max() < 2 ** 31) & (keys.min() > -2 ** 31)
+    return comp, fits
+
+
+def change_mask(sorted_keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """True where a row's key tuple differs from the previous row's (rows
+    sorted by the keys); row 0 is False."""
+    change = torch.zeros(sorted_keys[0].shape[0], dtype=torch.bool,
+                         device=sorted_keys[0].device)
+    for k in sorted_keys:
+        change[1:] |= k[1:] != k[:-1]
+    return change
+
+
+def dense_rank(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Dense int32 rank of each row's key tuple in lexicographic order:
+    equal tuples get equal ranks, so a multi-column equi-join becomes a
+    join on one rank column. No host sync."""
+    n = keys[0].shape[0]
+    out = torch.zeros(n, dtype=torch.int32, device=keys[0].device)
+    if n:
+        order = lex_sort_indices(keys)
+        out[order] = torch.cumsum(change_mask([k[order] for k in keys]), 0).to(torch.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grouping and segment aggregates over rows sorted by group.
+#
+# Group ids are ascending and contiguous (0, 0, 1, 2, 2, ...), as
+# group_ids_from_sorted makes them. A float sum adds each segment's values
+# one by one in row order, starting from 0.0: the order in which the JAX
+# package's scatter-add accumulates on the CPU, so float64 sums equal its
+# bit for bit. torch.segment_reduce over an (n, 1) view runs one thread
+# per segment in that order on the card too, so a query gives the same
+# bytes on every run (index_add_ and scatter_add_ use float atomics, whose
+# order changes from run to run). Integer sums, counts, min and max do not
+# depend on the order.
+# ---------------------------------------------------------------------------
+
+def group_ids_from_sorted(keys: Sequence[torch.Tensor]):
+    """(int64 group id per row, number of groups) for rows sorted by
+    ``keys``. One host sync, for the group count."""
+    if keys[0].shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int64, device=keys[0].device), 0
+    gids = torch.cumsum(change_mask(keys), 0)
+    return gids, int(gids[-1]) + 1  # HOST SYNC (single scalar).
+
+
+def segment_offsets(gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Start of each segment, and the row count last: int64[num_groups + 1]."""
+    return torch.searchsorted(gids, torch.arange(num_groups + 1, device=gids.device))
+
+
+def _segment_float(data: torch.Tensor, gids: torch.Tensor, num_groups: int,
+                   reduce: str) -> torch.Tensor:
+    # unsafe: the offsets are valid by construction, and the checks of
+    # the safe call would read them back on the host.
+    return torch.segment_reduce(data.reshape(-1, 1), reduce,
+                                offsets=segment_offsets(gids, num_groups),
+                                axis=0, unsafe=True).reshape(-1)
+
+
+def segment_sum(data: torch.Tensor, gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    if data.is_floating_point():
+        return _segment_float(data, gids, num_groups, "sum")
+    return torch.zeros(num_groups, dtype=data.dtype, device=data.device) \
+        .index_add_(0, gids, data)
+
+
+def _segment_minmax(data: torch.Tensor, gids: torch.Tensor, num_groups: int,
+                    op: str) -> torch.Tensor:
+    if data.is_floating_point():
+        return _segment_float(data, gids, num_groups, op)
+    return torch.zeros(num_groups, dtype=data.dtype, device=data.device).scatter_reduce_(
+        0, gids, data, "amin" if op == "min" else "amax", include_self=False)
+
+
+def segment_count(gids: torch.Tensor, num_groups: int,
+                  validity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int64 rows (or valid rows) per segment."""
+    if validity is None:
+        return torch.diff(segment_offsets(gids, num_groups))
+    return segment_sum(validity.to(torch.int64), gids, num_groups)
+
+
+def _sentinel(dtype: torch.dtype, largest: bool):
+    info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
+    return info.max if largest else info.min
+
+
+def segment_agg(data: torch.Tensor, validity: Optional[torch.Tensor], gids: torch.Tensor,
+                num_groups: int, op: str, widen: bool = True):
+    """Null-aware per-segment "sum", "mean", "min" or "max": (value,
+    per-segment valid counts, or None when there is no validity and op is
+    not a mean). Sums and means widen floats to float64 and integers to
+    int64; invalid rows add zero, and min/max see them as the dtype's
+    far end."""
+    counts = None
+    if validity is not None or op == "mean":
+        counts = segment_count(gids, num_groups, validity)
+    if op in ("sum", "mean"):
+        acc = data
+        if widen:
+            acc = data.to(torch.float64 if data.is_floating_point() else torch.int64)
+        if validity is not None:
+            acc = torch.where(validity, acc, torch.zeros((), dtype=acc.dtype, device=acc.device))
+        sums = segment_sum(acc, gids, num_groups)
+        if op == "sum":
+            return sums, counts
+        return sums.to(torch.float64) / counts.clamp(min=1).to(torch.float64), counts
+    if validity is not None:
+        data = torch.where(validity, data, torch.full(
+            (), _sentinel(data.dtype, op == "min"), dtype=data.dtype, device=data.device))
+    return _segment_minmax(data, gids, num_groups, op), counts
+
+
+def segment_heads(gids: torch.Tensor, arrays: Sequence[torch.Tensor], num_groups: int):
+    """Each segment's first row's value, for every array."""
+    firsts = segment_offsets(gids, num_groups)[:-1]
+    return [a[firsts] for a in arrays]
+
+
+def gather_segment(partial: torch.Tensor, order: torch.Tensor, gids: torch.Tensor,
+                   num_groups: int, op: str) -> torch.Tensor:
+    """The two-phase aggregate's combine: ``partial`` gathered through
+    ``order``, then reduced per segment ("sum", "min" or "max")."""
+    taken = partial[order]
+    if op == "sum":
+        return segment_sum(taken, gids, num_groups)
+    return _segment_minmax(taken, gids, num_groups, op)
 
 
 def filter_indices(mask: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Expression tree for the logical plan IR (counterpart of
 ``hyperspace_tpu/plan/expr.py``, trimmed to column references, literals,
-the five comparisons, IN lists and boolean algebra).
+the five comparisons, IN lists, boolean algebra, arithmetic, aliases and
+the Sum/Count/Min/Max/Avg aggregates).
 
 Every expression evaluates to a whole column (vectorized).
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 from ..exceptions import HyperspaceException
 
@@ -44,6 +45,27 @@ class Expr:
     def __invert__(self):
         return Not(self)
 
+    def __add__(self, other):
+        return Add(self, _wrap(other))
+
+    def __radd__(self, other):
+        return Add(_wrap(other), self)
+
+    def __sub__(self, other):
+        return Subtract(self, _wrap(other))
+
+    def __rsub__(self, other):
+        return Subtract(_wrap(other), self)
+
+    def __mul__(self, other):
+        return Multiply(self, _wrap(other))
+
+    def __rmul__(self, other):
+        return Multiply(_wrap(other), self)
+
+    def __truediv__(self, other):
+        return Divide(self, _wrap(other))
+
     def __hash__(self):
         return hash(repr(self))
 
@@ -53,6 +75,9 @@ class Expr:
     def between(self, low, high):
         return And(GreaterThanOrEqual(self, _wrap(low)),
                    LessThanOrEqual(self, _wrap(high)))
+
+    def alias(self, name: str):
+        return Alias(self, name)
 
     @property
     def references(self) -> List[str]:
@@ -153,6 +178,22 @@ class Or(_Binary):
     op_name, symbol = "Or", "OR"
 
 
+class Add(_Binary):
+    op_name, symbol = "Add", "+"
+
+
+class Subtract(_Binary):
+    op_name, symbol = "Subtract", "-"
+
+
+class Multiply(_Binary):
+    op_name, symbol = "Multiply", "*"
+
+
+class Divide(_Binary):
+    op_name, symbol = "Divide", "/"
+
+
 class Not(Expr):
     op_name = "Not"
 
@@ -182,12 +223,92 @@ class In(Expr):
         return f"{self.value!r} IN ({', '.join(map(repr, self.options))})"
 
 
+@dataclass(frozen=True, eq=False, repr=False)
+class Alias(Expr):
+    child: Expr
+    alias_name: str
+
+    @property
+    def children(self) -> List[Expr]:
+        return [self.child]
+
+    @property
+    def name(self) -> str:
+        return self.alias_name
+
+    def __repr__(self):
+        return f"{self.child!r} AS {self.alias_name}"
+
+
+# ---------------------------------------------------------------------------
+# Aggregates.
+# ---------------------------------------------------------------------------
+
+class AggExpr(Expr):
+    agg_name = "?"
+
+    def __init__(self, child: Optional[Expr]):
+        self.child = child
+
+    @property
+    def children(self) -> List[Expr]:
+        return [self.child] if self.child is not None else []
+
+    @property
+    def name(self) -> str:
+        inner = self.child.name if self.child is not None else "*"
+        return f"{self.agg_name.lower()}({inner})"
+
+    def __repr__(self):
+        return self.name
+
+
+class Sum(AggExpr):
+    agg_name = "Sum"
+
+
+class Count(AggExpr):
+    agg_name = "Count"
+
+
+class Min(AggExpr):
+    agg_name = "Min"
+
+
+class Max(AggExpr):
+    agg_name = "Max"
+
+
+class Avg(AggExpr):
+    agg_name = "Avg"
+
+
 def col(name: str) -> Col:
     return Col(name)
 
 
 def lit(value) -> Lit:
     return Lit(value)
+
+
+def sum_(e) -> Sum:
+    return Sum(_wrap(e))
+
+
+def count(e=None) -> Count:
+    return Count(None if e is None else _wrap(e))
+
+
+def min_(e) -> Min:
+    return Min(_wrap(e))
+
+
+def max_(e) -> Max:
+    return Max(_wrap(e))
+
+
+def avg(e) -> Avg:
+    return Avg(_wrap(e))
 
 
 def rename_columns(e: Expr, rename) -> Expr:
@@ -210,6 +331,10 @@ def map_children(e: Expr, fn) -> Expr:
         return Not(fn(e.child))
     if isinstance(e, In):
         return In(fn(e.value), [fn(o) for o in e.options])
+    if isinstance(e, Alias):
+        return Alias(fn(e.child), e.alias_name)
+    if isinstance(e, AggExpr):
+        return e if e.child is None else type(e)(fn(e.child))
     raise HyperspaceException(f"Cannot rewrite expression {e!r}")
 
 
@@ -218,3 +343,24 @@ def split_conjunctive_predicates(e: Expr) -> List[Expr]:
     if isinstance(e, And):
         return split_conjunctive_predicates(e.left) + split_conjunctive_predicates(e.right)
     return [e]
+
+
+def conjoin(parts: Sequence[Expr]) -> Expr:
+    """Left-fold a non-empty predicate list back into one AND tree."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out & p
+    return out
+
+
+def extract_equi_join_keys(condition: Expr) -> Optional[List[Tuple[str, str]]]:
+    """The (left, right) column-name pairs of a conjunction of column =
+    column equalities, or None for any other condition."""
+    pairs: List[Tuple[str, str]] = []
+    for pred in split_conjunctive_predicates(condition):
+        if isinstance(pred, EqualTo) and isinstance(pred.left, Col) \
+                and isinstance(pred.right, Col):
+            pairs.append((pred.left.column, pred.right.column))
+        else:
+            return None
+    return pairs

@@ -1,5 +1,6 @@
 """Logical plan IR (counterpart of ``hyperspace_tpu/plan/nodes.py``,
-trimmed to Scan, IndexScan, Filter and Project).
+trimmed to Scan, IndexScan, Filter, Project, inner Join, Aggregate, Sort
+and Limit).
 
 Nodes carry resolved schemas (analysis happens at construction). The
 rewrite rules (rules/) pattern-match these nodes the way the reference
@@ -9,16 +10,19 @@ matches Scan→Filter(→Project) subtrees.
 from __future__ import annotations
 
 import datetime
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from ..exceptions import HyperspaceException
-from ..schema import BOOL, DATE, FLOAT64, INT64, STRING, Field, Schema
+from ..schema import BOOL, DATE, FLOAT32, FLOAT64, INT64, STRING, Field, Schema
 from . import expr as E
 
 
 def infer_dtype(e: E.Expr, schema: Schema) -> str:
+    """Output type of ``e`` under the JAX package's x64 promotion."""
     if isinstance(e, E.Col):
         return schema.field(e.column).dtype
+    if isinstance(e, E.Alias):
+        return infer_dtype(e.child, schema)
     if isinstance(e, E.Lit):
         v = e.value
         if isinstance(v, bool):
@@ -35,6 +39,17 @@ def infer_dtype(e: E.Expr, schema: Schema) -> str:
     if isinstance(e, (E.EqualTo, E.LessThan, E.LessThanOrEqual, E.GreaterThan,
                       E.GreaterThanOrEqual, E.And, E.Or, E.Not, E.In)):
         return BOOL
+    if isinstance(e, (E.Add, E.Subtract, E.Multiply)):
+        kinds = {infer_dtype(c, schema) for c in e.children}
+        return FLOAT64 if kinds & {FLOAT64, FLOAT32} else INT64
+    if isinstance(e, (E.Divide, E.Avg)):
+        return FLOAT64
+    if isinstance(e, E.Count):
+        return INT64
+    if isinstance(e, E.Sum):
+        return FLOAT64 if infer_dtype(e.child, schema) in (FLOAT64, FLOAT32) else INT64
+    if isinstance(e, (E.Min, E.Max)):
+        return infer_dtype(e.child, schema)
     raise HyperspaceException(f"Cannot infer type of {e!r}")
 
 
@@ -181,3 +196,120 @@ class Project(LogicalPlan):
 
     def simple_string(self) -> str:
         return f"Project [{', '.join(e.name for e in self.exprs)}]"
+
+
+class Join(LogicalPlan):
+    """Inner equi-join. The JAX package's outer, semi, anti and cross joins
+    are not ported yet and are refused here, where a plan first names them."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, condition: E.Expr,
+                 join_type: str = "inner"):
+        if join_type != "inner":
+            raise HyperspaceException(
+                f"The {join_type} join is not supported by hyperspace_tpu_torch yet; "
+                "only the inner join is")
+        if condition is None:
+            raise HyperspaceException("inner join requires a condition")
+        overlap = set(left.schema.names) & set(right.schema.names)
+        if overlap:
+            raise HyperspaceException(
+                f"Ambiguous join output columns {sorted(overlap)}; rename before joining")
+        combined = list(left.schema.fields) + list(right.schema.fields)
+        names = {f.name for f in combined}
+        for ref in condition.references:
+            if ref not in names:
+                raise HyperspaceException(f"Join condition references unknown '{ref}'")
+        self.left = left
+        self.right = right
+        self.condition = condition
+        self.join_type = join_type
+        self._schema = Schema(combined)
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.left, self.right]
+
+    def with_children(self, children):
+        return Join(children[0], children[1], self.condition, self.join_type)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def simple_string(self) -> str:
+        return f"Join {self.join_type} ({self.condition!r})"
+
+
+class Aggregate(LogicalPlan):
+    def __init__(self, group_cols: Sequence[str], aggs: Sequence[E.Expr],
+                 child: LogicalPlan):
+        self.group_cols = list(group_cols)
+        self.aggs = list(aggs)
+        for g in self.group_cols:
+            if g not in child.schema:
+                raise HyperspaceException(f"Group column '{g}' not in {child.schema.names}")
+        self.child = child
+        fields = [child.schema.field(g) for g in self.group_cols]
+        for a in self.aggs:
+            fields.append(Field(a.name, infer_dtype(a, child.schema)))
+        self._schema = Schema(fields)
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def with_children(self, children):
+        return Aggregate(self.group_cols, self.aggs, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def simple_string(self) -> str:
+        return (f"Aggregate [{', '.join(self.group_cols)}] "
+                f"[{', '.join(a.name for a in self.aggs)}]")
+
+
+class Sort(LogicalPlan):
+    def __init__(self, orders: Sequence[Tuple[str, bool]], child: LogicalPlan):
+        # orders: (column, ascending)
+        self.orders = [(c, asc) for c, asc in orders]
+        for c, _ in self.orders:
+            if c not in child.schema:
+                raise HyperspaceException(f"Sort column '{c}' not in {child.schema.names}")
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def with_children(self, children):
+        return Sort(self.orders, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def simple_string(self) -> str:
+        parts = [f"{c} {'ASC' if a else 'DESC'}" for c, a in self.orders]
+        return f"Sort [{', '.join(parts)}]"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.child = child
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def with_children(self, children):
+        return Limit(self.n, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def simple_string(self) -> str:
+        return f"Limit {self.n}"

@@ -1,5 +1,5 @@
-"""Filter pushdown through Project (counterpart of
-``hyperspace_tpu/rules/pushdown.py``, without the join case).
+"""Filter pushdown through Project and inner Join (counterpart of
+``hyperspace_tpu/rules/pushdown.py``).
 
 The index rules match ``Scan → Filter (→ Project)`` shapes, so a query
 written ``select(...).filter(...)`` -- a Filter above a Project -- is
@@ -9,17 +9,20 @@ predicate and the filter re-parented below the projection,
     Filter(cond, Project(exprs, child))
       → Project(exprs, Filter(subst(cond), child))
 
-recursively, so a filter sinks through any number of projections.
-Adjacent filters merge into one node.
+recursively, so a filter sinks through any number of projections. The
+conjuncts of a filter above an inner join move to the side whose columns
+they reference, so a WHERE written above a join prunes each input before
+it and the per-side index rules see it. Adjacent filters merge into one
+node.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from ..exceptions import HyperspaceException
 from ..plan import expr as E
-from ..plan.nodes import Filter, LogicalPlan, Project
+from ..plan.nodes import Filter, Join, LogicalPlan, Project
 
 
 def _substitute(e: E.Expr, mapping: Dict[str, E.Expr]) -> Optional[E.Expr]:
@@ -43,9 +46,34 @@ def push_filters(plan: LogicalPlan) -> LogicalPlan:
         plan = plan.with_children([push_filters(c) for c in children])
     if isinstance(plan, Filter) and isinstance(plan.child, Project):
         proj = plan.child
-        cond = _substitute(plan.condition, {ex.name: ex for ex in proj.exprs})
+        mapping = {ex.name: ex.child if isinstance(ex, E.Alias) else ex
+                   for ex in proj.exprs}
+        cond = None if any(isinstance(ex, E.AggExpr) for ex in mapping.values()) \
+            else _substitute(plan.condition, mapping)
         if cond is not None:
             return Project(proj.exprs, push_filters(Filter(cond, proj.child)))
+    if isinstance(plan, Filter) and isinstance(plan.child, Join):
+        join = plan.child
+        l_names = set(join.left.schema.names)
+        r_names = set(join.right.schema.names)
+        to_left: List[E.Expr] = []
+        to_right: List[E.Expr] = []
+        stay: List[E.Expr] = []
+        for conj in E.split_conjunctive_predicates(plan.condition):
+            refs = set(conj.references)
+            if refs and refs <= l_names:
+                to_left.append(conj)
+            elif refs and refs <= r_names:
+                to_right.append(conj)
+            else:
+                stay.append(conj)
+        if to_left or to_right:
+            left = push_filters(Filter(E.conjoin(to_left), join.left)) \
+                if to_left else join.left
+            right = push_filters(Filter(E.conjoin(to_right), join.right)) \
+                if to_right else join.right
+            out: LogicalPlan = Join(left, right, join.condition, join.join_type)
+            return Filter(E.conjoin(stay), out) if stay else out
     if isinstance(plan, Filter) and isinstance(plan.child, Filter):
         inner = plan.child
         return push_filters(Filter(plan.condition & inner.condition, inner.child))

@@ -3,8 +3,8 @@
 The session holds the conf, the device, the source-provider manager and
 the hyperspace switch; ``enable_hyperspace()`` turns the index rewrite on
 for every later query. DataFrames are thin wrappers over the logical plan
-IR; ``to_arrow()`` runs normalization → (hyperspace rewrite if enabled) →
-the executor.
+IR; ``to_arrow()`` runs normalization (filter pushdown, column pruning) →
+(hyperspace rewrite if enabled) → the executor.
 
 The device defaults to ``"cuda"``. A session asked for CUDA on a machine
 without it raises; it never carries on quietly on the CPU. Pass
@@ -13,7 +13,7 @@ without it raises; it never carries on quietly on the CPU. Pass
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union as TUnion
+from typing import Dict, List, Optional, Tuple, Union as TUnion
 
 import torch
 
@@ -21,7 +21,7 @@ from .config import Conf, HyperspaceConf
 from .exceptions import HyperspaceException
 from .index.constants import IndexConstants
 from .plan import expr as E
-from .plan.nodes import Filter, LogicalPlan, Project, Scan
+from .plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort
 from .schema import Schema
 from .sources.default import DefaultFileBasedSourceBuilder
 from .sources.interfaces import FileBasedSourceProviderManager
@@ -65,10 +65,13 @@ class Session:
         return self
 
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
-        """Filter pushdown below projections, then the hyperspace rewrite
-        batch if enabled."""
+        """Filter pushdown below projections and inner joins, column
+        pruning (the join rule's coverage check sees each side's true
+        column set only after it), then the hyperspace rewrite batch if
+        enabled."""
+        from .rules.column_pruning import prune_columns
         from .rules.pushdown import push_filters
-        plan = push_filters(plan)
+        plan = prune_columns(push_filters(plan))
         if self._hyperspace_enabled:
             from .rules.apply_hyperspace import apply_hyperspace
             plan = apply_hyperspace(self, plan)
@@ -102,13 +105,14 @@ class DataFrame:
     # (`hyperspace.caseSensitive=true` restores exact matching).
     # Unresolvable names pass through unchanged so the plan constructors
     # raise with the user's spelling.
-    def _spelling(self, name: str) -> str:
+    def _spelling(self, name: str, names: Optional[List[str]] = None) -> str:
         from .util.resolver import resolve
-        r = resolve(self.plan.schema.names, name, self.session.hs_conf.case_sensitive())
+        avail = names if names is not None else self.plan.schema.names
+        r = resolve(avail, name, self.session.hs_conf.case_sensitive())
         return r if r is not None else name
 
-    def _resolve_expr(self, e: E.Expr) -> E.Expr:
-        return E.rename_columns(e, self._spelling)
+    def _resolve_expr(self, e: E.Expr, names: Optional[List[str]] = None) -> E.Expr:
+        return E.rename_columns(e, lambda n: self._spelling(n, names))
 
     def filter(self, condition: E.Expr) -> "DataFrame":
         return DataFrame(self.session, Filter(self._resolve_expr(condition), self.plan))
@@ -121,6 +125,30 @@ class DataFrame:
                 for e in flat]
         return DataFrame(self.session, Project(flat, self.plan))
 
+    def join(self, other: "DataFrame", on: E.Expr, how: str = "inner") -> "DataFrame":
+        both = list(self.plan.schema.names) + list(other.plan.schema.names)
+        return DataFrame(self.session,
+                         Join(self.plan, other.plan, self._resolve_expr(on, both), how))
+
+    def group_by(self, *cols: str) -> "GroupedData":
+        return GroupedData(self, [self._spelling(c) for c in cols])
+
+    def agg(self, *aggs: E.Expr) -> "DataFrame":
+        """A global aggregate: one row."""
+        return DataFrame(self.session,
+                         Aggregate([], [self._resolve_expr(a) for a in aggs], self.plan))
+
+    def sort(self, *orders: TUnion[str, Tuple[str, bool]]) -> "DataFrame":
+        """Sort by columns, each a name (ascending) or (name, ascending)."""
+        normalized: List[Tuple[str, bool]] = []
+        for o in orders:
+            name, asc = (o, True) if isinstance(o, str) else o
+            normalized.append((self._spelling(name), asc))
+        return DataFrame(self.session, Sort(normalized, self.plan))
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, Limit(n, self.plan))
+
     def execute(self):
         """Run the (possibly rewritten) plan; returns the device Table."""
         return self.session.execute(self.plan)
@@ -130,3 +158,15 @@ class DataFrame:
 
     def to_arrow(self):
         return self.execute().to_arrow()
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, group_cols: List[str]):
+        self._df = df
+        self._group_cols = group_cols
+
+    def agg(self, *aggs: E.Expr) -> DataFrame:
+        return DataFrame(self._df.session,
+                         Aggregate(self._group_cols,
+                                   [self._df._resolve_expr(a) for a in aggs],
+                                   self._df.plan))

@@ -1,6 +1,8 @@
 """The port stands alone: with ``jax`` and ``hyperspace_tpu`` made
 unimportable, the slices (covering indexes over lineitem, sketch indexes
-over orders) still run end to end on the CPU (in a subprocess,
+over orders, TPC-H Q3 and Q17 over covering-index joins) still run end to
+end on the CPU, with the join, group-by, column-pruning and score-based
+rule modules imported (in a subprocess,
 because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
 without the repository beside it.
@@ -28,7 +30,7 @@ SLICE = textwrap.dedent("""
     import hyperspace_tpu_torch as ht
     from hyperspace_tpu_torch import IndexConstants, col
     root = tempfile.mkdtemp()
-    li_dir, od_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
     s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
     s.conf.set(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC, "true")
     hs = ht.Hyperspace(s)
@@ -70,11 +72,31 @@ SLICE = textwrap.dedent("""
         assert "files after skipping" in leaf.simple_string()
         kept.append(len(leaf.relation.all_files()))
         assert a.num_rows > 0 and a.sort_by("o_orderkey").equals(b.sort_by("o_orderkey"))
+    s.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+    hs.create_index(od, ht.IndexConfig("od_idx", ["o_orderkey"],
+                                       ["o_custkey", "o_orderdate", "o_shippriority"]))
+    hs.create_index(s.read.parquet(pt_dir),
+                    ht.IndexConfig("pt_idx", ["p_partkey"], ["p_brand", "p_container"]))
+    hs.create_index(li, ht.IndexConfig("li_pk_idx", ["l_partkey"],
+                                       ["l_quantity", "l_extendedprice"]))
+    from hyperspace_tpu_torch.rules import (column_pruning, groupby_rule, index_filters,
+                                            join_rule, score_optimizer)
+    rows = []
+    for q in (chip_smoke.build_q3(s, li_dir, od_dir), chip_smoke.build_q17(s, li_dir, pt_dir)):
+        s.enable_hyperspace()
+        leaves = [leaf.index_entry.name for leaf in q.optimized_plan().collect_leaves()
+                  if hasattr(leaf, "index_entry")]
+        a = q.to_arrow()
+        s.disable_hyperspace()
+        b = q.to_arrow()
+        assert len(leaves) >= 2, leaves
+        assert a.column_names == b.column_names and a.num_rows == b.num_rows
+        rows.append(a.num_rows)
     bad = [m for m, v in sys.modules.items() if v is not None and (
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
-    print("SLICE_OK", n_li, n_od, *kept)
+    print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1])
 """)
 
 
@@ -82,7 +104,7 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000 3000 2 3" in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -197,11 +197,13 @@ def test_delete_and_vacuum(lake, tmp_path):
 
 
 def test_chip_smoke_generator_matches_bench(lake, tmp_path):
-    li_dir, od_dir, n_li, n_od = chip_smoke.make_tpch(str(tmp_path), SCALE)
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(str(tmp_path), SCALE)
     assert n_li == lake["n_li"] and n_od == n_li // 4
-    bench_od_dir = os.path.join(os.path.dirname(lake["li_dir"]), "orders")
+    bench_dir = os.path.dirname(lake["li_dir"])
     for got_dir, want_dir, n_files in ((li_dir, lake["li_dir"], 4),
-                                       (od_dir, bench_od_dir, chip_smoke.ORDERS_PARTS)):
+                                       (od_dir, os.path.join(bench_dir, "orders"),
+                                        chip_smoke.ORDERS_PARTS),
+                                       (pt_dir, os.path.join(bench_dir, "part"), 1)):
         names = sorted(os.listdir(want_dir))
         assert names == sorted(os.listdir(got_dir)) and len(names) == n_files
         for f in names:
