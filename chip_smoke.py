@@ -57,12 +57,31 @@ Phases, each of which fails the run on any error:
               device time for rebuilds of li_ship_idx, li_pk_idx, pt_idx,
               od_skip and od_bloom and for the four filter queries and Q3
               and Q17, indexed and scanned;
+   mutations -- after every other path, since appends change every
+              source signature; a session at the default device budget
+              (8,388,608 rows), so builds and filtered scans of lineitem
+              and orders stream in chunks. Lineitem gets bench.py's append
+              (BASELINE config #5): the range, cutoff and Q3 queries under
+              Hybrid Scan (the IndexScans say hybrid(+1 appended, -0
+              deleted files); results equal scanned and a pyarrow
+              reference; Q3's appended rows merge into li_idx's bucket
+              order and its join stays shuffle-free); quick and incremental
+              refresh of li_ship_idx; a chunked build of li_chunk_idx over
+              all 63M rows (files checked bucket by bucket, device rows
+              within the budget, spans per stage) and a small lake built
+              chunked and in memory to equal files. Orders: od_lin_idx
+              built chunked with lineage, one file deleted and one
+              appended, a key query under Hybrid Scan, the od_skip and
+              od_bloom refreshes with their queries, then quick,
+              incremental (masked rebuild, then append-only), optimize and
+              full refresh of od_lin_idx, each checked against the files
+              and a reference;
 8. parity  -- Q3 and Q17 on a small lake on the card and through the
               port on the CPU (which the tests hold to the JAX package),
               reported bit for bit.
 
-Launch counters are reset just before each path (lineitem, orders, then
-joins) of phases 4-5 and read just after it.
+Launch counters are reset just before each path (lineitem, orders and
+joins of phases 4-5, then mutations) and read just after it.
 The last lines of standard output are the ``kernels`` JSON object, the
 card's name and power limit as nvidia-smi reports them, and the status
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -98,6 +117,8 @@ PATH_KERNELS = {
     "lineitem": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
     "orders": ("hash_bucket", "bucket_histogram", "range_mask", "masked_minmax"),
     "joins": ("hash_bucket", "bucket_histogram", "compare_mask"),
+    "mutations": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
+                  "masked_minmax"),
 }
 # Float64 results against the pyarrow reference, and indexed against
 # scanned: the same values summed in another order.
@@ -471,6 +492,62 @@ def sorted_table(t):
     return t.sort_by([(c, "ascending") for c in t.column_names])
 
 
+def _sorted_columns_on_card(t) -> list:
+    """A table's columns sorted lexicographically by all of them, as
+    tensors on the card (chained stable sorts, last column first)."""
+    import pyarrow as pa
+    import torch
+
+    cols = []
+    for name in t.column_names:
+        arr = t.column(name)
+        if pa.types.is_date32(arr.type):
+            arr = arr.cast(pa.int32())
+        cols.append(torch.from_numpy(arr.to_numpy().copy()).to("cuda"))
+    perm = torch.arange(t.num_rows, device="cuda")
+    for k in reversed(cols):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return [k[perm] for k in cols]
+
+
+def same_rows(a, b) -> bool:
+    """The same rows in any order: the tables sorted by every column are
+    equal. Results of a million rows or more (the cutoff query's 32M) are
+    sorted on the card, where pyarrow's sort would take tens of seconds;
+    columns without nulls of numeric or date types there."""
+    import torch
+
+    if a.column_names != b.column_names or a.num_rows != b.num_rows \
+            or a.schema.types != b.schema.types:
+        return False
+    if a.num_rows < 1_000_000:
+        return sorted_table(a).equals(sorted_table(b))
+    if any(a.column(c).null_count or b.column(c).null_count for c in a.column_names):
+        raise AssertionError("same_rows: nulls in a result sorted on the card")
+    return all(torch.equal(x, y) for x, y in zip(_sorted_columns_on_card(a),
+                                                _sorted_columns_on_card(b)))
+
+
+def run_twice(session, df, indexed: bool):
+    """Two runs: (tables, seconds, peak device bytes above the base)."""
+    import torch
+    (session.enable_hyperspace if indexed else session.disable_hyperspace)()
+    tables, secs, peaks = [], [], []
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            tables.append(df.to_arrow())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+    finally:
+        session.disable_hyperspace()
+    return tables, secs, peaks
+
+
 def reference(data_dir: str, condition, columns):
     """The query answered by pyarrow alone, from the source files."""
     import pyarrow.dataset as ds
@@ -535,26 +612,14 @@ def run_main_path(li_dir: str, n_li: int, system_path: str, results: dict):
         leaves = [leaf.simple_string() for leaf in df.optimized_plan().collect_leaves()]
         if not any("IndexScan" in s and f"Name: {index_name}," in s for s in leaves):
             raise AssertionError(f"{name}: plan was not rewritten to {index_name}: {leaves}")
-        times = {}
-        tables = {}
+        times, tables = {}, {}
         for mode in ("indexed", "scanned"):
-            if mode == "indexed":
-                session.enable_hyperspace()
-            else:
-                session.disable_hyperspace()
-            runs = []
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                tables[mode] = df.to_arrow()
-                torch.cuda.synchronize()
-                runs.append(time.perf_counter() - t0)
-            times[mode] = runs
-        session.disable_hyperspace()
-        ref = sorted_table(reference(li_dir, pa_cond, columns))
-        if not sorted_table(tables["indexed"]).equals(sorted_table(tables["scanned"])):
+            outs, times[mode], _ = run_twice(session, df, mode == "indexed")
+            tables[mode] = outs[-1]
+        ref = reference(li_dir, pa_cond, columns)
+        if not same_rows(tables["indexed"], tables["scanned"]):
             raise AssertionError(f"{name}: indexed result differs from scanned result")
-        if not sorted_table(tables["scanned"]).equals(ref):
+        if not same_rows(tables["scanned"], ref):
             raise AssertionError(f"{name}: result differs from the pyarrow reference")
         if name != "point" and tables["indexed"].num_rows == 0:
             raise AssertionError(f"{name}: matched no rows")
@@ -664,16 +729,8 @@ def run_orders_path(session, hs, od_dir: str, n_od: int, results: dict):
                                  f"{sorted(set(holding) - set(kept))}")
         times, tables = {}, {}
         for mode in ("indexed", "scanned"):
-            (session.enable_hyperspace if mode == "indexed" else session.disable_hyperspace)()
-            runs = []
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                tables[mode] = df.to_arrow()
-                torch.cuda.synchronize()
-                runs.append(time.perf_counter() - t0)
-            times[mode] = runs
-        session.disable_hyperspace()
+            outs, times[mode], _ = run_twice(session, df, mode == "indexed")
+            tables[mode] = outs[-1]
         ref = sorted_table(reference(od_dir, pa_cond, columns))
         for mode in ("indexed", "scanned"):
             if not sorted_table(tables[mode]).equals(ref):
@@ -778,28 +835,35 @@ def plan_index_names(plan) -> list:
             for leaf in plan.collect_leaves()]
 
 
-def check_join_plans(q3_plan, q17_plan) -> None:
-    """Q3: one Join of IndexScans of li_idx and od_idx with the bucket
-    spec. Q17: li_pk_idx and pt_idx under the first join, li_pk_idx under
-    the threshold's Aggregate."""
-    from hyperspace_tpu_torch.plan.nodes import Aggregate, IndexScan, Join
+def _nodes(plan, kind):
+    out = [plan] if isinstance(plan, kind) else []
+    for c in plan.children:
+        out += _nodes(c, kind)
+    return out
 
-    def nodes(plan, kind):
-        out = [plan] if isinstance(plan, kind) else []
-        for c in plan.children:
-            out += nodes(c, kind)
-        return out
 
-    joins = nodes(q3_plan, Join)
+def check_q3_plan(q3_plan) -> None:
+    """Q3: one Join of IndexScans of li_idx and od_idx with the bucket spec."""
+    from hyperspace_tpu_torch.plan.nodes import IndexScan, Join
+
+    joins = _nodes(q3_plan, Join)
     leaves = joins[0].collect_leaves() if len(joins) == 1 else []
     if [getattr(leaf, "index_entry", None) and leaf.index_entry.name for leaf in leaves] \
             != ["li_idx", "od_idx"] or not all(
                 isinstance(leaf, IndexScan) and leaf.use_bucket_spec for leaf in leaves):
         raise AssertionError(f"Q3: plan is not a bucketed join of li_idx and od_idx:\n"
                              f"{q3_plan.tree_string()}")
-    joins = nodes(q17_plan, Join)
-    first = [j for j in joins if not nodes(j.left, Join) and not nodes(j.right, Join)]
-    aggs = [a for a in nodes(q17_plan, Aggregate) if a.group_cols == ["l_partkey"]]
+
+
+def check_join_plans(q3_plan, q17_plan) -> None:
+    """Q3 as check_q3_plan. Q17: li_pk_idx and pt_idx under the first join,
+    li_pk_idx under the threshold's Aggregate."""
+    from hyperspace_tpu_torch.plan.nodes import Aggregate, Join
+
+    check_q3_plan(q3_plan)
+    joins = _nodes(q17_plan, Join)
+    first = [j for j in joins if not _nodes(j.left, Join) and not _nodes(j.right, Join)]
+    aggs = [a for a in _nodes(q17_plan, Aggregate) if a.group_cols == ["l_partkey"]]
     if len(first) != 1 or plan_index_names(first[0]) != ["li_pk_idx", "pt_idx"] \
             or len(aggs) != 1 or plan_index_names(aggs[0]) != ["li_pk_idx"]:
         raise AssertionError(f"Q17: plan does not read li_pk_idx and pt_idx under its first "
@@ -836,8 +900,6 @@ def run_joins_path(session, hs, li_dir: str, od_dir: str, pt_dir: str, results: 
     """Phases 4-5 for the joins: the li_pk_idx and pt_idx builds, then Q3
     and Q17 indexed and scanned, twice each. Returns the queries for
     phase 7."""
-    import torch
-
     build_join_indexes(session, hs, li_dir, pt_dir, results["builds"])
     queries = {"q3": build_q3(session, li_dir, od_dir),
                "q17": build_q17(session, li_dir, pt_dir)}
@@ -861,20 +923,8 @@ def run_joins_path(session, hs, li_dir: str, od_dir: str, pt_dir: str, results: 
     for name, df in queries.items():
         times, peaks, tables = {}, {}, {}
         for mode in ("indexed", "scanned"):
-            (session.enable_hyperspace if mode == "indexed" else session.disable_hyperspace)()
-            runs, peak, outs = [], [], []
-            for _ in range(2):
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                t0 = time.perf_counter()
-                outs.append(df.to_arrow())
-                torch.cuda.synchronize()
-                runs.append(time.perf_counter() - t0)
-                peak.append(torch.cuda.max_memory_allocated() - base)
-            session.disable_hyperspace()
-            times[mode], peaks[mode], tables[mode] = runs, peak, outs
-            for out in outs:
+            tables[mode], times[mode], peaks[mode] = run_twice(session, df, mode == "indexed")
+            for out in tables[mode]:
                 check(name, out, refs[name], mode)
         first, second = tables["indexed"]
         if not (first.equals(second) and float_bits(first) == float_bits(second)):
@@ -939,6 +989,464 @@ def card_against_cpu(root: str) -> dict:
                 "max_rel_diff": rel}
     log(f"card against the CPU at scale {PARITY_SCALE} ({n_li} lineitem rows): {out}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The mutations path: appends, deletes, refreshes, optimize, the chunked
+# build and Hybrid Scan at the default device budget.
+# ---------------------------------------------------------------------------
+
+def append_lineitem_files(li_dir: str, n_li: int, seed: int = 99) -> int:
+    """BASELINE config #5's append, as bench.py makes it: about 5% new rows
+    in one fresh part file (inside the 0.3 Hybrid Scan appended-bytes
+    ratio)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    n_new = max(n_li // 20, 1000)
+    base = (datetime.date(1992, 1, 1) - datetime.date(1970, 1, 1)).days
+    t = pa.table({
+        "l_orderkey": pa.array(rng.integers(0, max(n_li // 4, 1), n_new)
+                               .astype("int64")),
+        "l_partkey": pa.array(rng.integers(0, max(n_li // 30, 200), n_new)
+                              .astype("int64")),
+        "l_quantity": pa.array(rng.integers(1, 51, n_new).astype("int64")),
+        "l_extendedprice": pa.array(
+            (rng.uniform(900, 105000, n_new)).round(2)),
+        "l_discount": pa.array((rng.uniform(0, 0.1, n_new)).round(2)),
+        "l_shipdate": pa.array((rng.integers(0, 2520, n_new) + base)
+                               .astype("int32"), type=pa.int32())
+        .cast(pa.date32()),
+    })
+    pq.write_table(t, os.path.join(li_dir, "part-appended.parquet"))
+    return n_new
+
+
+def append_orders_file(od_dir: str, n_rows: int, first_key: int, part: int,
+                       seed: int) -> str:
+    """One more orders file of ``n_rows`` rows: new keys from ``first_key``
+    on and the newest dates (after every existing file's)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    base = (datetime.date(1992, 1, 1) - EPOCH).days + 2400 + 30 * part
+    path = os.path.join(od_dir, f"part{part:02d}.parquet")
+    pq.write_table(pa.table({
+        "o_orderkey": pa.array(np.arange(first_key, first_key + n_rows, dtype=np.int64)),
+        "o_custkey": pa.array(rng.integers(0, max(n_rows // 10, 1), n_rows).astype(np.int64)),
+        "o_orderdate": pa.array(np.sort(rng.integers(0, 30, n_rows) + base).astype(np.int32),
+                                type=pa.int32()).cast(pa.date32()),
+        "o_shippriority": pa.array(np.zeros(n_rows, dtype=np.int32)),
+        "o_totalprice": pa.array(np.round(rng.uniform(1000, 400000, n_rows), 2)),
+    }), path)
+    return path
+
+
+class Spans:
+    """Host-clock seconds per label around the wrapped functions, the
+    device synchronized before and after each call; a generator's time is
+    counted per item it yields."""
+
+    def __init__(self, patches):
+        self.patches = patches
+        self.spans: dict = {}
+
+    def _add(self, label, t0):
+        import torch
+        torch.cuda.synchronize()
+        self.spans[label] = self.spans.get(label, 0.0) + time.perf_counter() - t0
+
+    def _wrap(self, label, fn):
+        import inspect
+
+        import torch
+
+        def gen(it):
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    self._add(label, t0)
+                    return
+                self._add(label, t0)
+                yield item
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+            finally:
+                self._add(label, t0)
+            return gen(out) if inspect.isgenerator(out) else out
+        return wrapper
+
+    def __enter__(self):
+        self.saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in self.patches]
+        for (obj, attr, label), (_, _, orig) in zip(self.patches, self.saved):
+            setattr(obj, attr, self._wrap(label, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, orig in self.saved:
+            setattr(obj, attr, orig)
+
+
+def check_bucket_layout(entry, key: str, files=None, one_file_per_bucket=True) -> int:
+    """Every file of the index (or ``files``) holds only its own bucket's
+    keys (bucket ids recomputed on the card by the plain torch hash, not by
+    the kernel that built the files), with rows sorted by the key, and one
+    file per bucket if asked. Returns the rows."""
+    import pyarrow.parquet as pq
+    import torch
+
+    from hyperspace_tpu_torch.execution.columnar import Table
+    from hyperspace_tpu_torch.ops import cuda_kernels, index_build, kernels
+
+    files = list(entry.content.files) if files is None else files
+    buckets = [index_build.bucket_id_from_file(f) for f in files]
+    if one_file_per_bucket and len(set(buckets)) != len(buckets):
+        raise AssertionError(f"{entry.name}: a bucket holds several files: {sorted(files)}")
+    rows = 0
+    for f, b in zip(files, buckets):
+        t = Table.from_arrow(pq.ParquetFile(f).read(columns=[key]), "cuda")
+        c = t.column(key)
+        _, bids = cuda_kernels.hash_bucket_plain(
+            [kernels.fold_u32(c.data, c.dtype, c.dictionary).contiguous()], entry.num_buckets)
+        if not bool((bids == b).all()):
+            raise AssertionError(f"{entry.name}: {f} holds keys of another bucket")
+        if c.data.shape[0] > 1 and not bool((c.data[1:] >= c.data[:-1]).all()):
+            raise AssertionError(f"{entry.name}: {f} is not sorted by {key}")
+        rows += t.num_rows
+    torch.cuda.synchronize()
+    return rows
+
+
+def parquet_rows(data_dir: str) -> int:
+    import pyarrow.parquet as pq
+    return sum(pq.ParquetFile(os.path.join(data_dir, f)).metadata.num_rows
+               for f in os.listdir(data_dir))
+
+
+def timed_step(steps: dict, name: str, fn, rows: int) -> None:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps[name] = {"seconds": secs, "rows": rows, "rows_per_s": rows / secs}
+    log(f"mutations: {name}: {secs:.3f} s ({rows:,} rows, {rows / secs:,.0f} rows/s)")
+
+
+def leaf_strings(session, df) -> list:
+    session.enable_hyperspace()
+    try:
+        return [leaf.simple_string() for leaf in df.optimized_plan().collect_leaves()]
+    finally:
+        session.disable_hyperspace()
+
+
+def chunked_build_parity(root: str) -> dict:
+    """The chunked and the in-memory build of one lineitem index on the
+    card over a small lake: the bucket files must be equal tables."""
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants
+    from hyperspace_tpu_torch.ops import index_build
+
+    li_dir, _, _, n_li, _ = make_tpch(os.path.join(root, "chunk_parity_data"), PARITY_SCALE)
+    dirs = {}
+    for mode, budget in (("chunked", n_li // 7), ("in_memory", n_li)):
+        system_path = os.path.join(root, f"chunk_parity_{mode}")
+        s = ht.Session(system_path=system_path, device="cuda")
+        s.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+        s.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, budget)
+        index_build.CHUNK_STATS.update(max_device_rows=0, chunks=0)
+        ht.Hyperspace(s).create_index(s.read.parquet(li_dir), IndexConfig(
+            "li_idx", ["l_orderkey"], ["l_extendedprice", "l_discount", "l_shipdate"]))
+        if (index_build.CHUNK_STATS["chunks"] > 0) != (mode == "chunked"):
+            raise AssertionError(f"chunk parity: the {mode} build took the wrong route")
+        dirs[mode] = os.path.join(system_path, "li_idx", "v__=0")
+    files = sorted(os.listdir(dirs["chunked"]))
+    if files != sorted(os.listdir(dirs["in_memory"])) or len(files) != 32:
+        raise AssertionError(f"chunk parity: bucket files differ: {files}")
+    for f in files:
+        a = pq.ParquetFile(os.path.join(dirs["chunked"], f)).read()
+        b = pq.ParquetFile(os.path.join(dirs["in_memory"], f)).read()
+        if not a.equals(b):
+            raise AssertionError(f"chunk parity: {f} differs between the chunked and the "
+                                 "in-memory build")
+    return {"rows": n_li, "budget": n_li // 7, "files": len(files)}
+
+
+def run_mutations_path(root: str, system_path: str, li_dir: str, od_dir: str, n_li: int,
+                       n_od: int, results: dict) -> None:
+    """Appends, deletes, every refresh, optimize, the chunked build and
+    Hybrid Scan, through a session at the JAX package's default device
+    budget (so builds and filtered scans above 8,388,608 rows stream in
+    chunks)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants, col
+    from hyperspace_tpu_torch.execution import executor
+    from hyperspace_tpu_torch.index.data_manager import IndexDataManager
+    from hyperspace_tpu_torch.ops import index_build
+
+    session = ht.Session(system_path=system_path, device="cuda")
+    session.conf.set(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC, "true")
+    session.conf.set(IndexConstants.INDEX_ROW_GROUP_SIZE, max(4096, int(n_li / 32 / 8)))
+    hs = ht.Hyperspace(session)
+    budget = session.hs_conf.max_chunk_rows()
+    out = {"budget": budget, "steps": {}, "queries": {}}
+    steps = out["steps"]
+    results["mutations"] = out
+
+    def hybrid(on: bool):
+        session.conf.set(IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true" if on else "false")
+
+    def versions(name):
+        return IndexDataManager(os.path.join(system_path, name)).get_all_version_ids()
+
+    def entry(name):
+        return hs.index_manager.get_index(name)
+
+    # Lineitem: BASELINE config #5, one appended file.
+    n_new = append_lineitem_files(li_dir, n_li)
+    n_li_now = n_li + n_new
+    out["lineitem_appended_rows"] = n_new
+    log(f"mutations: appended {n_new:,} lineitem rows")
+    hybrid(True)
+    li = session.read.parquet(li_dir)
+    shipdate = pc.field("l_shipdate")
+    filters = {
+        "range": (li.filter(col("l_shipdate").between(RANGE_LO, RANGE_HI))
+                  .select("l_orderkey", "l_extendedprice"),
+                  (shipdate >= RANGE_LO) & (shipdate <= RANGE_HI)),
+        "cutoff": (li.filter(col("l_shipdate") > CUTOFF).select("l_orderkey", "l_extendedprice"),
+                   shipdate > CUTOFF)}
+    columns = ["l_orderkey", "l_extendedprice"]
+    suffix = "hybrid(+1 appended, -0 deleted files)"
+    for name, (df, pa_cond) in filters.items():
+        leaves = leaf_strings(session, df)
+        if not any("Name: li_ship_idx," in s and suffix in s for s in leaves):
+            raise AssertionError(f"hybrid {name}: no Hybrid Scan of li_ship_idx: {leaves}")
+        indexed, i_secs, i_peak = run_twice(session, df, True)
+        scanned, s_secs, s_peak = run_twice(session, df, False)
+        ref = reference(li_dir, pa_cond, columns)
+        for t in indexed + scanned:
+            if not same_rows(t, ref):
+                raise AssertionError(f"hybrid {name}: result differs from the pyarrow reference")
+        out["queries"][f"hybrid {name}"] = {
+            "rows": ref.num_rows, "indexed_s": i_secs, "scanned_s": s_secs,
+            "peak_bytes_indexed": i_peak, "peak_bytes_scanned": s_peak, "leaves": leaves}
+        log(f"mutations: hybrid {name}: {ref.num_rows} rows; indexed {i_secs} s, scanned "
+            f"{s_secs} s; peak {i_peak} / {s_peak} bytes")
+    q3 = build_q3(session, li_dir, od_dir)
+    session.enable_hyperspace()
+    q3_plan = q3.optimized_plan()
+    session.disable_hyperspace()
+    check_q3_plan(q3_plan)
+    li_leaf = [leaf for leaf in q3_plan.collect_leaves()
+               if getattr(leaf, "index_entry", None) and leaf.index_entry.name == "li_idx"][0]
+    if suffix not in li_leaf.simple_string():
+        raise AssertionError(f"hybrid Q3: li_idx is not a Hybrid Scan:\n{q3_plan.tree_string()}")
+    merges, fast = executor.HYBRID_MERGE_COUNT, executor.FAST_JOIN_COUNT
+    indexed, i_secs, i_peak = run_twice(session, q3, True)
+    merges, fast = executor.HYBRID_MERGE_COUNT - merges, executor.FAST_JOIN_COUNT - fast
+    scanned, s_secs, s_peak = run_twice(session, q3, False)
+    ref, tied_last = q3_reference(li_dir, od_dir)
+    for t in indexed + scanned:
+        check_q3(t, ref, tied_last, "hybrid")
+    if merges < 2 or fast < 2:
+        raise AssertionError(f"hybrid Q3: {merges} order-preserving merges and {fast} "
+                             "shuffle-free joins in two indexed runs")
+    out["queries"]["hybrid q3"] = {
+        "indexed_s": i_secs, "scanned_s": s_secs, "peak_bytes_indexed": i_peak,
+        "peak_bytes_scanned": s_peak, "hybrid_merges": merges, "fast_joins": fast,
+        "plan": q3_plan.tree_string()}
+    log(f"mutations: hybrid Q3: indexed {i_secs} s, scanned {s_secs} s; {merges} merges, "
+        f"{fast} shuffle-free joins; peak {i_peak} / {s_peak} bytes")
+
+    # Quick refresh: metadata only; then incremental: eight new files.
+    range_df, range_cond = filters["range"]
+    range_ref = reference(li_dir, range_cond, columns)
+    timed_step(steps, "quick refresh li_ship_idx",
+               lambda: hs.refresh_index("li_ship_idx", "quick"), n_new)
+    if versions("li_ship_idx") != [0] or not entry("li_ship_idx").appended_files:
+        raise AssertionError(f"quick refresh wrote data or recorded no append: "
+                             f"{versions('li_ship_idx')}")
+    session.enable_hyperspace()
+    got = range_df.to_arrow()
+    session.disable_hyperspace()
+    if not same_rows(got, range_ref):
+        raise AssertionError("range after the quick refresh differs from the reference")
+    timed_step(steps, "incremental refresh li_ship_idx",
+               lambda: hs.refresh_index("li_ship_idx", "incremental"), n_new)
+    hybrid(False)
+    e = entry("li_ship_idx")
+    new_files = [f for f in e.content.files if "/v__=1/" in f]
+    if versions("li_ship_idx") != [0, 1] or len(new_files) != 8:
+        raise AssertionError(f"incremental refresh: versions {versions('li_ship_idx')}, "
+                             f"{len(new_files)} new files")
+    if check_bucket_layout(e, "l_shipdate", new_files) != n_new:
+        raise AssertionError("incremental refresh: the new files do not hold the appended rows")
+    leaves = leaf_strings(session, range_df)
+    if not any("Name: li_ship_idx," in s and "hybrid" not in s for s in leaves):
+        raise AssertionError(f"range after the incremental refresh is not rewritten: {leaves}")
+    session.enable_hyperspace()
+    got = range_df.to_arrow()
+    session.disable_hyperspace()
+    if not same_rows(got, range_ref):
+        raise AssertionError("range after the incremental refresh differs from the reference")
+
+    # The chunked build at the default budget, with its spans.
+    spans = Spans([(index_build, "iter_parquet_chunks", "chunk read (host decode -> device)"),
+                   (index_build, "build_sorted_buckets", "hash + sort (device)"),
+                   (index_build, "_spill_runs", "spill write (device -> host, parquet)"),
+                   (index_build, "read_parquet", "spill read (parquet -> device)"),
+                   (index_build, "_sort_batch", "final sort (device)"),
+                   (index_build, "_write_batch", "bucket write (device -> host, parquet)")])
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+    index_build.CHUNK_STATS.update(max_device_rows=0, chunks=0, spill_bytes=0)
+    with spans:
+        timed_step(steps, "chunked build li_chunk_idx", lambda: hs.create_index(
+            li, IndexConfig("li_chunk_idx", ["l_orderkey"],
+                            ["l_extendedprice", "l_discount", "l_shipdate"])), n_li_now)
+    stats = dict(index_build.CHUNK_STATS)
+    steps["chunked build li_chunk_idx"].update(spans_s=spans.spans, chunk_stats=stats)
+    log(f"mutations: chunked build spans {spans.spans}; {stats}")
+    if stats["max_device_rows"] > budget or stats["chunks"] != -(-n_li_now // budget):
+        raise AssertionError(f"chunked build: {stats} at a budget of {budget}")
+    if check_bucket_layout(entry("li_chunk_idx"), "l_orderkey") != n_li_now:
+        raise AssertionError("chunked build: the bucket files do not hold every source row")
+    out["chunked_build_parity"] = chunked_build_parity(root)
+    log(f"mutations: chunked and in-memory builds equal: {out['chunked_build_parity']}")
+
+    # Orders, with lineage: one file deleted and one appended.
+    session.conf.set(IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    od = session.read.parquet(od_dir)
+    timed_step(steps, "chunked build od_lin_idx (lineage)", lambda: hs.create_index(
+        od, IndexConfig("od_lin_idx", ["o_orderkey"], ["o_orderdate", "o_totalprice"])), n_od)
+    session.conf.set(IndexConstants.INDEX_LINEAGE_ENABLED, "false")
+    if check_bucket_layout(entry("od_lin_idx"), "o_orderkey") != n_od:
+        raise AssertionError("od_lin_idx: the bucket files do not hold every source row")
+    per_file = n_od // ORDERS_PARTS
+    os.remove(os.path.join(od_dir, "part00.parquet"))
+    append_orders_file(od_dir, per_file, n_od, ORDERS_PARTS, seed=101)
+    keys = [per_file // 2, n_od // 2, n_od + per_file // 2]  # deleted, kept, appended.
+    ocols = ["o_orderkey", "o_orderdate", "o_totalprice"]
+
+    def check_point(what: str, hybrid_on: bool, versions_want=None, files_want=None):
+        # A fresh read: a relation lists its files once.
+        point_df = session.read.parquet(od_dir).filter(col("o_orderkey").isin(keys)) \
+            .select(*ocols)
+        hybrid(hybrid_on)
+        leaves = leaf_strings(session, point_df)
+        ok = [s for s in leaves if "Name: od_lin_idx," in s]
+        want = "hybrid(+1 appended, -1 deleted files)" if hybrid_on else None
+        if not ok or (want and want not in ok[0]) or (not want and "hybrid" in ok[0]):
+            raise AssertionError(f"orders {what}: not the expected scan of od_lin_idx: {leaves}")
+        indexed, i_secs, _ = run_twice(session, point_df, True)
+        ref = sorted_table(reference(od_dir, pc.field("o_orderkey").isin(keys), ocols))
+        for t in indexed:
+            if not sorted_table(t).equals(ref):
+                raise AssertionError(f"orders {what}: result differs from the reference")
+        if ref.num_rows != 2 or keys[0] in ref.column("o_orderkey").to_pylist():
+            raise AssertionError(f"orders {what}: reference holds {ref.to_pydict()}")
+        out["queries"][f"orders point ({what})"] = {"indexed_s": i_secs, "leaves": leaves}
+        hybrid(False)
+        if versions_want is not None and versions("od_lin_idx") != versions_want:
+            raise AssertionError(f"orders {what}: versions {versions('od_lin_idx')}")
+        if files_want is not None and len(entry("od_lin_idx").content.files) != files_want:
+            raise AssertionError(f"orders {what}: {len(entry('od_lin_idx').content.files)} "
+                                 f"files, not {files_want}")
+
+    check_point("hybrid", True, [0], 32)
+
+    # The sketch refreshes; their queries as in the orders path.
+    timed_step(steps, "incremental refresh od_skip",
+               lambda: hs.refresh_index("od_skip", "incremental"), per_file)
+    timed_step(steps, "full refresh od_bloom",
+               lambda: hs.refresh_index("od_bloom", "full"), n_od)
+    current = sorted(os.path.join(od_dir, f) for f in os.listdir(od_dir))
+    od = session.read.parquet(od_dir)
+    sk_files = pa.concat_tables([pq.read_table(f, partitioning=None)
+                                 for f in entry("od_skip").content.files]
+                                ).column("_file").to_pylist()
+    if sorted(sk_files) != current:
+        raise AssertionError(f"od_skip after its refresh sketches {sorted(sk_files)}")
+    check_minmax_sketch(hs, od_dir)
+    sketch_queries = {
+        "skipping": (od.filter(col("o_orderdate").between(SKIP_LO, SKIP_HI))
+                     .select("o_orderkey", "o_custkey"),
+                     (pc.field("o_orderdate") >= SKIP_LO) & (pc.field("o_orderdate") <= SKIP_HI),
+                     ["o_orderkey", "o_custkey"],
+                     files_meeting(od_dir, "o_orderdate", lambda c: (
+                         pc.min(c).as_py() <= SKIP_HI and pc.max(c).as_py() >= SKIP_LO))),
+        "bloom": (od.filter(col("o_orderkey").isin(keys[1:])).select("o_orderkey", "o_custkey"),
+                  pc.field("o_orderkey").isin(keys[1:]), ["o_orderkey", "o_custkey"],
+                  files_meeting(od_dir, "o_orderkey", lambda c: pc.any(
+                      pc.is_in(c, value_set=pa.array(keys[1:]))).as_py()))}
+    for name, (df, pa_cond, cols, holding) in sketch_queries.items():
+        session.enable_hyperspace()
+        leaves = df.optimized_plan().collect_leaves()
+        got = df.to_arrow()
+        session.disable_hyperspace()
+        if len(leaves) != 1 or not getattr(leaves[0], "skipping_note", None):
+            raise AssertionError(f"{name} after the sketch refresh: not narrowed: "
+                                 f"{[leaf.simple_string() for leaf in leaves]}")
+        kept = leaves[0].relation.all_files()
+        if (name == "skipping" and kept != holding) or set(holding) - set(kept) \
+                or len(kept) >= len(current):
+            raise AssertionError(f"{name} after the sketch refresh kept {kept}; holding "
+                                 f"{holding}")
+        if not sorted_table(got).equals(sorted_table(reference(od_dir, pa_cond, cols))):
+            raise AssertionError(f"{name} after the sketch refresh differs from the reference")
+        out["queries"][f"{name} after refresh"] = {"files_kept": len(kept),
+                                                   "note": leaves[0].skipping_note}
+
+    # od_lin_idx through every refresh and optimize.
+    n_now = parquet_rows(od_dir)
+    timed_step(steps, "quick refresh od_lin_idx",
+               lambda: hs.refresh_index("od_lin_idx", "quick"), per_file)
+    check_point("after quick refresh", True, [0], 32)
+    timed_step(steps, "incremental refresh od_lin_idx (deletes)",
+               lambda: hs.refresh_index("od_lin_idx", "incremental"), n_now)
+    check_point("after the masked rebuild", False, [0, 1], 32)
+    if check_bucket_layout(entry("od_lin_idx"), "o_orderkey") != n_now:
+        raise AssertionError("od_lin_idx after the masked rebuild: rows do not add up")
+    append_orders_file(od_dir, per_file, n_od + per_file, ORDERS_PARTS + 1, seed=102)
+    n_now = parquet_rows(od_dir)
+    timed_step(steps, "incremental refresh od_lin_idx (appends)",
+               lambda: hs.refresh_index("od_lin_idx", "incremental"), per_file)
+    check_point("after the append-only refresh", False, [0, 1, 2], 64)
+    if check_bucket_layout(entry("od_lin_idx"), "o_orderkey",
+                           one_file_per_bucket=False) != n_now:
+        raise AssertionError("od_lin_idx after the append-only refresh: rows do not add up")
+    timed_step(steps, "optimize od_lin_idx (quick)",
+               lambda: hs.optimize_index("od_lin_idx", "quick"), n_now)
+    check_point("after optimize", False, [0, 1, 2, 3], 32)
+    if check_bucket_layout(entry("od_lin_idx"), "o_orderkey") != n_now:
+        raise AssertionError("od_lin_idx after optimize: rows do not add up")
+    os.remove(os.path.join(od_dir, "part01.parquet"))
+    n_now = parquet_rows(od_dir)
+    timed_step(steps, "full refresh od_lin_idx",
+               lambda: hs.refresh_index("od_lin_idx", "full"), n_now)
+    keys[0] = per_file + per_file // 2  # part01's, deleted now.
+    check_point("after the full refresh", False, [0, 1, 2, 3, 4], 32)
+    if check_bucket_layout(entry("od_lin_idx"), "o_orderkey") != n_now:
+        raise AssertionError("od_lin_idx after the full refresh: rows do not add up")
 
 
 # ---------------------------------------------------------------------------
@@ -1243,19 +1751,6 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     from hyperspace_tpu_torch.ops import cuda_kernels, index_build, kernels, sketches
     from hyperspace_tpu_torch.rules import data_skipping_rule
 
-    spans: dict = {}
-
-    def timed(label, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                spans[label] = spans.get(label, 0.0) + time.perf_counter() - t0
-        return wrapper
-
     def drop(name, buckets=8):
         hs.delete_index(name)
         hs.vacuum_index(name)
@@ -1322,11 +1817,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
                          lambda n=name, i=indexed: run(n, i), spans_of))
     out = {}
     for label, prep, fn, patches in work:
-        spans.clear()
-        saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
-        for (obj, attr, span), (_, _, orig) in zip(patches, saved):
-            setattr(obj, attr, timed(span, orig))
-        try:
+        with Spans(patches) as timer:
             if prep:
                 prep()
             torch.cuda.synchronize()
@@ -1337,9 +1828,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() - base
-        finally:
-            for obj, attr, orig in saved:
-                setattr(obj, attr, orig)
+        spans = timer.spans
         # The profiled run is timed on its own: the busy share compares the
         # device's time with the wall time of the same run.
         if prep:
@@ -1437,8 +1926,8 @@ def main(argv=None) -> int:
         launches["joins"] = dict(ck.LAUNCHES)
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
-        missing = [f"{k} ({path})" for path, names in PATH_KERNELS.items()
-                   for k in names if launches[path][k] <= 0]
+        missing = [f"{k} ({path})" for path in launches for k in PATH_KERNELS[path]
+                   if launches[path][k] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
         if launches["orders"]["masked_minmax"] != ORDERS_PARTS:
@@ -1453,6 +1942,22 @@ def main(argv=None) -> int:
         log(f"phase 6: timed in {time.perf_counter() - t0:.1f} s")
         del inputs
         results["breakdown"] = breakdown(session, hs, queries, li_dir, od_dir, pt_dir, n_od)
+        # The appends invalidate every earlier path's signatures: this path
+        # runs after them all.
+        t0 = time.perf_counter()
+        ck.reset_launches()
+        run_mutations_path(root, os.path.join(root, "indexes"), li_dir, od_dir, n_li, n_od,
+                           results)
+        launches["mutations"] = dict(ck.LAUNCHES)
+        results["mutations"]["seconds"] = time.perf_counter() - t0
+        log(f"mutations: launches {launches['mutations']}; "
+            f"{results['mutations']['seconds']:.1f} s")
+        missing = [k for k in PATH_KERNELS["mutations"] if launches["mutations"][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the mutations path: {missing}")
+        for e in main_path:
+            e["launches_by_path"]["mutations"] = launches["mutations"][e["name"]]
+            e["launches"] = sum(e["launches_by_path"].values())
         results["card_against_cpu"] = card_against_cpu(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1470,7 +1975,12 @@ def main(argv=None) -> int:
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f}"
             + (f"; public call {k['public_call_ms']:.4f}" if "public_call_ms" in k else "")
             + ")")
+    mutations = {k: v for k, v in results["mutations"].items() if k != "queries"}
+    mutations["queries"] = {k: {f: v[f] for f in ("indexed_s", "scanned_s", "hybrid_merges",
+                                                  "fast_joins", "files_kept") if f in v}
+                            for k, v in results["mutations"]["queries"].items()}
     print(json.dumps({"builds": results["builds"], "queries": results["queries"],
+                      "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
     print(json.dumps({"kernels": main_path}))

@@ -7,8 +7,11 @@ column there (MinMax, Bloom, value list), and queries evaluate their
 predicates there, with hand-written CUDA kernels on the hot passes
 (ops/cuda_kernels.py). Joins, group-bys and sorts are torch ops on the
 device; an equi-join over two covering indexes on its keys merges their
-buckets without sorting either side. Sketch probes at plan time are host
-numpy. The
+buckets without sorting either side. Indexes are refreshed (full,
+incremental, quick) and optimized as their sources change, and Hybrid
+Scan reads an index whose source gained or (with lineage) lost files;
+inputs above the device budget stream in chunks. Sketch probes at plan
+time are host numpy. The
 on-disk layout and the operation log are the JAX package's, so either
 package reads the other's indexes.
 

@@ -7,7 +7,8 @@ mutation runs as
                → end():   write final state at baseId+2, refresh latestStable
 
 Concurrency control is optimistic: the transient write fails if another
-action already claimed baseId+1.
+action already claimed baseId+1. ``NoChangesException`` from validate()
+makes the action a no-op that returns quietly.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-from ..exceptions import HyperspaceException
+from ..exceptions import HyperspaceException, NoChangesException
 from ..index.log_entry import IndexLogEntry
 from ..index.log_manager import IndexLogManager
 
@@ -53,10 +54,13 @@ class Action:
         raise NotImplementedError
 
     def run(self) -> None:
-        self.validate()
-        self._begin()
-        self.op()
-        self._end()
+        try:
+            self.validate()
+            self._begin()
+            self.op()
+            self._end()
+        except NoChangesException:
+            pass
 
     def _begin(self) -> None:
         entry = self.log_entry

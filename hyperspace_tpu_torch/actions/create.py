@@ -1,11 +1,11 @@
 """CreateAction: validate + build a covering index on the device
-(counterpart of ``hyperspace_tpu/actions/create.py``, in-memory build
-only: no chunked build, no mesh build, no lineage column).
+(counterpart of ``hyperspace_tpu/actions/create.py``; the mesh build is
+not ported).
 
-The JAX package streams a source above ``hyperspace.tpu.maxChunkRows``
-rows through its chunked build (``build_sorted_buckets_chunked``). That
-path is not ported yet, so such a source is refused with an error naming
-it rather than built in memory.
+``CreateActionBase`` is the machinery create shares with the refresh and
+optimize actions: the projected read with the optional lineage column, the
+in-memory build, the chunked build for a source above
+``hyperspace.tpu.maxChunkRows`` rows, and the log entry's assembly.
 """
 
 from __future__ import annotations
@@ -13,8 +13,12 @@ from __future__ import annotations
 import os
 from typing import List, Optional
 
+import numpy as np
+import pyarrow.parquet as pq
+import torch
+
 from ..exceptions import HyperspaceException
-from ..execution.columnar import (Table, parquet_row_counts, read_parquet,
+from ..execution.columnar import (Column, Table, parquet_row_counts, read_parquet,
                                   write_parquet)
 from ..index.constants import IndexConstants, States
 from ..index.data_manager import IndexDataManager
@@ -25,7 +29,8 @@ from ..index.log_manager import IndexLogManager
 from ..index.signatures import IndexSignatureProvider
 from ..ops import index_build
 from ..plan.nodes import Scan
-from ..schema import Schema
+from ..schema import INT64, Field, Schema
+from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
 
@@ -65,38 +70,110 @@ def validate_source(session, plan) -> None:
         raise HyperspaceException(f"Relation is not supported: {plan.relation.describe()}")
 
 
-class CreateAction(Action):
+class CreateActionBase(Action):
+    """What create and the full and incremental refreshes share."""
+
+    def __init__(self, session, log_manager: IndexLogManager,
+                 data_manager: IndexDataManager):
+        super().__init__(session, log_manager)
+        self.data_manager = data_manager
+
+    def _num_buckets(self) -> int:
+        return self.session.hs_conf.num_bucket_count()
+
+    def _lineage_enabled(self) -> bool:
+        return self.session.hs_conf.index_lineage_enabled()
+
+    def _load_projected(self, relation, indexed: List[str], included: List[str],
+                        tracker: FileIdTracker, files: Optional[List[str]] = None) -> Table:
+        """The index columns of ``files`` (default: all the relation's) on
+        the device, with the lineage column when enabled: each row's
+        source-file id, numbered by ``tracker`` in file order."""
+        files = list(files) if files is not None else relation.all_files()
+        table = read_parquet(files, indexed + included, self.session.device)
+        if self._lineage_enabled():
+            ids = [tracker.add_file(*file_info_triple(f)) for f in files]
+            lineage = np.repeat(np.asarray(ids, np.int64),
+                                np.asarray(parquet_row_counts(files), np.int64))
+            table = table.with_column(
+                IndexConstants.DATA_FILE_NAME_ID,
+                Column(INT64, torch.from_numpy(lineage).to(self.session.device)))
+        return table
+
+    def _write_index_files(self, table: Table, indexed: List[str], version: int) -> str:
+        """Hash-partition + sort on the device, then one parquet file per
+        bucket under the version's directory."""
+        num_buckets = self._num_buckets()
+        out_dir = self.data_manager.get_path(version)
+        os.makedirs(out_dir, exist_ok=True)
+        sorted_table, bounds = index_build.build_sorted_buckets(table, indexed, num_buckets)
+        # One wholesale fetch; the per-bucket writes then slice host memory.
+        write_bucket_files(sorted_table.to_host(), bounds, num_buckets, out_dir,
+                           self.session.hs_conf.index_row_group_size())
+        return out_dir
+
+    def _build_chunked(self, relation, indexed: List[str], included: List[str],
+                       tracker: FileIdTracker, version: int,
+                       files: Optional[List[str]] = None) -> bool:
+        """The chunked build when the source holds more rows than the
+        device budget; False (nothing done) when the in-memory build
+        should run instead."""
+        files = list(files) if files is not None else relation.all_files()
+        if not files:
+            return False
+        physical = set(pq.read_schema(files[0]).names)
+        if any(c not in physical for c in indexed + included):
+            return False
+        chunk_rows = self.session.hs_conf.max_chunk_rows()
+        if sum(parquet_row_counts(files)) <= chunk_rows:
+            return False
+        lineage_ids = None
+        if self._lineage_enabled():
+            lineage_ids = [tracker.add_file(*file_info_triple(f)) for f in files]
+        out_dir = self.data_manager.get_path(version)
+        os.makedirs(out_dir, exist_ok=True)
+        index_build.build_sorted_buckets_chunked(
+            files, indexed + included, indexed, self._num_buckets(), chunk_rows, out_dir,
+            self.session.hs_conf.index_row_group_size(), self.session.device,
+            lineage_ids=lineage_ids, lineage_col=IndexConstants.DATA_FILE_NAME_ID)
+        return True
+
+    def _base_index_properties(self, relation) -> dict:
+        props = {}
+        if self._lineage_enabled():
+            props[IndexConstants.LINEAGE_PROPERTY] = "true"
+        if relation.file_format == "parquet":
+            props[IndexConstants.HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY] = "true"
+        return props
+
+    def _build_entry(self, name: str, relation, plan, indexed: List[str],
+                     included: List[str], index_schema: Schema, tracker: FileIdTracker,
+                     index_content: Content) -> IndexLogEntry:
+        derived = CoveringIndex(indexed, included, index_schema, self._num_buckets(),
+                                self._base_index_properties(relation))
+        return IndexLogEntry.create(name, derived, index_content,
+                                    build_source(relation, plan, tracker), {})
+
+
+class CreateAction(CreateActionBase):
     transient_state = States.CREATING
     final_state = States.ACTIVE
 
     def __init__(self, session, df, index_config, log_manager: IndexLogManager,
                  data_manager: IndexDataManager):
-        super().__init__(session, log_manager)
-        self.data_manager = data_manager
+        super().__init__(session, log_manager, data_manager)
         self.df = df
         self.index_config = index_config
         self._entry: Optional[IndexLogEntry] = None
         self._resolved: Optional[tuple] = None
 
-    def _num_buckets(self) -> int:
-        return self.session.hs_conf.num_bucket_count()
-
     def validate(self) -> None:
-        plan = self.df.plan
-        validate_source(self.session, plan)
+        validate_source(self.session, self.df.plan)
         self._resolve_columns()
         latest = self.log_manager.get_latest_log()
         if latest is not None and latest.state != States.DOESNOTEXIST:
             raise HyperspaceException(
                 f"Another index with name {self.index_config.index_name} already exists")
-        rows = sum(parquet_row_counts(plan.relation.all_files()))
-        budget = self.session.hs_conf.max_chunk_rows()
-        if rows > budget:
-            raise HyperspaceException(
-                f"Source has {rows} rows, above {IndexConstants.TPU_MAX_CHUNK_ROWS}"
-                f"={budget}: the chunked build (build_sorted_buckets_chunked) is "
-                "not ported to this package yet; raise the budget to build in "
-                "device memory")
 
     def _resolve_columns(self):
         if self._resolved is None:
@@ -113,48 +190,34 @@ class CreateAction(Action):
             self._resolved = (indexed, included)
         return self._resolved
 
-    def _write_index_files(self, relation, indexed: List[str],
-                           included: List[str]) -> None:
-        """Read the index columns, hash-partition + sort on the device,
-        then write one parquet file per bucket."""
-        table = read_parquet(relation.all_files(), indexed + included,
-                             self.session.device)
-        num_buckets = self._num_buckets()
-        out_dir = self.data_manager.get_path(0)
-        os.makedirs(out_dir, exist_ok=True)
-        sorted_table, bounds = index_build.build_sorted_buckets(
-            table, indexed, num_buckets)
-        # One wholesale fetch; the per-bucket writes then slice host memory.
-        write_bucket_files(sorted_table.to_host(), bounds, num_buckets, out_dir,
-                           self.session.hs_conf.index_row_group_size())
-
-    def _index_properties(self, relation) -> dict:
-        props = {}
-        if relation.file_format == "parquet":
-            props[IndexConstants.HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY] = "true"
-        return props
-
-    def _build_entry(self, content: Content, tracker: FileIdTracker) -> IndexLogEntry:
+    def _index_schema(self, with_lineage: bool) -> Schema:
         indexed, included = self._resolve_columns()
-        relation = self.df.plan.relation
-        index_schema = Schema([self.df.plan.schema.field(c) for c in indexed + included])
-        derived = CoveringIndex(indexed, included, index_schema, self._num_buckets(),
-                                self._index_properties(relation))
-        entry = IndexLogEntry.create(self.index_config.index_name, derived, content,
-                                     build_source(relation, self.df.plan, tracker), {})
-        return entry.with_log_version(0)
+        schema = Schema([self.df.plan.schema.field(c) for c in indexed + included])
+        if with_lineage:
+            schema = schema.append(Field(IndexConstants.DATA_FILE_NAME_ID, INT64, False))
+        return schema
 
     def op(self) -> None:
         indexed, included = self._resolve_columns()
-        self._write_index_files(self.df.plan.relation, indexed, included)
-        # The final entry records the index files just written.
+        relation = self.df.plan.relation
         tracker = FileIdTracker()
+        if not self._build_chunked(relation, indexed, included, tracker, version=0):
+            table = self._load_projected(relation, indexed, included, tracker)
+            self._write_index_files(table, indexed, version=0)
+        # The final entry records the index files just written.
         content = Content.from_directory(self.data_manager.get_path(0), tracker)
-        self._entry = self._build_entry(content, tracker)
+        self._entry = self._build_entry(
+            self.index_config.index_name, relation, self.df.plan, indexed, included,
+            self._index_schema(self._lineage_enabled()), tracker, content
+        ).with_log_version(0)
 
     @property
     def log_entry(self) -> IndexLogEntry:
         if self._entry is not None:
             return self._entry
         # begin() runs before op(): write a placeholder entry.
-        return self._build_entry(Content(root=Directory("/")), FileIdTracker())
+        indexed, included = self._resolve_columns()
+        return self._build_entry(
+            self.index_config.index_name, self.df.plan.relation, self.df.plan, indexed,
+            included, self._index_schema(False), FileIdTracker(),
+            Content(root=Directory("/"))).with_log_version(0)

@@ -1,6 +1,6 @@
-"""CreateDataSkippingAction: build a per-file sketch table (counterpart of
-``hyperspace_tpu/actions/create_skipping.py``, create only; the full and
-incremental refresh actions are not ported yet). The sketch table holds
+"""Data-skipping index actions: create, full refresh and incremental
+refresh of a per-file sketch table (counterpart of
+``hyperspace_tpu/actions/create_skipping.py``). The sketch table holds
 one row per source data file:
 
     _file (string, full path) | _file_id (int64)
@@ -29,11 +29,13 @@ from ..index.log_entry import (Content, DataSkippingIndex, Directory, FileIdTrac
                                IndexLogEntry, Sketch)
 from ..index.log_manager import IndexLogManager
 from ..ops import sketches as sk
+from ..plan.nodes import Scan
 from ..schema import INT64, STRING, Field, Schema
 from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
 from .create import build_source, validate_source
+from .refresh import RefreshActionBase
 
 SKETCH_FILE_NAME = "sketches.parquet"
 FILE_COL = "_file"
@@ -108,11 +110,18 @@ def sketch_arrow_schema(relation_schema: Schema, sketch_list: List[Sketch]) -> p
     return pa.schema(fields)
 
 
+def sketch_table(rows: Dict[str, list], arrow_schema: pa.Schema) -> pa.Table:
+    return pa.table({f.name: pa.array(rows[f.name], type=f.type) for f in arrow_schema},
+                    schema=arrow_schema)
+
+
 def write_sketch_table(rows: Dict[str, list], arrow_schema: pa.Schema,
                        out_dir: str) -> str:
+    return _write_sketch_file(sketch_table(rows, arrow_schema), out_dir)
+
+
+def _write_sketch_file(table: pa.Table, out_dir: str) -> str:
     os.makedirs(out_dir, exist_ok=True)
-    table = pa.table({f.name: pa.array(rows[f.name], type=f.type)
-                      for f in arrow_schema}, schema=arrow_schema)
     path = os.path.join(out_dir, SKETCH_FILE_NAME)
     pq.write_table(table, path)
     return path
@@ -188,3 +197,59 @@ class CreateDataSkippingAction(Action):
             return self._entry
         # begin() runs before op(): write a placeholder entry.
         return self._build_entry(Content(root=Directory("/")), FileIdTracker())
+
+
+class RefreshDataSkippingAction(RefreshActionBase):
+    """Full refresh: the whole sketch table rebuilt over the current file
+    listing at a new data version."""
+
+    def _commit(self, table: pa.Table, tracker: FileIdTracker) -> None:
+        """Write the sketch table at a new data version; the entry over it."""
+        prev = self.previous_entry
+        version = self._new_version()
+        out_dir = self.data_manager.get_path(version)
+        _write_sketch_file(table, out_dir)
+        source = build_source(self.relation, Scan(self.relation), tracker)
+        self._entry = IndexLogEntry.create(
+            prev.name, prev.derivedDataset, Content.from_directory(out_dir, tracker),
+            source, {}).with_log_version(version)
+
+    def op(self) -> None:
+        tracker = FileIdTracker()
+        sketch_list = self.previous_entry.derivedDataset.sketches
+        rows = build_sketch_rows(self.relation, sketch_list, self.relation.all_files(),
+                                 tracker, self.session.device)
+        self._commit(sketch_table(rows, sketch_arrow_schema(self.relation.schema,
+                                                            sketch_list)), tracker)
+
+
+class RefreshDataSkippingIncrementalAction(RefreshDataSkippingAction):
+    """Incremental refresh: the sketch rows of unchanged files kept, those
+    of deleted files dropped, the appended files sketched. Rows are keyed
+    by file, so deletes need no lineage."""
+
+    def op(self) -> None:
+        prev = self.previous_entry
+        tracker = self._seeded_tracker()
+        sketch_list = prev.derivedDataset.sketches
+        # partitioning=None: the file lies under a "v__=<n>" directory,
+        # which pyarrow would otherwise read as a column.
+        old = pq.read_table(_sketch_file(prev), partitioning=None)
+        deleted = {f.name for f in self.deleted_files}
+        kept = old.filter(pa.array([name not in deleted
+                                    for name in old.column(FILE_COL).to_pylist()]))
+        arrow_schema = sketch_arrow_schema(self.relation.schema, sketch_list)
+        new_rows = build_sketch_rows(self.relation, sketch_list,
+                                     [f.name for f in self.appended_files], tracker,
+                                     self.session.device)
+        self._commit(pa.concat_tables([kept.cast(arrow_schema),
+                                       sketch_table(new_rows, arrow_schema)]), tracker)
+
+
+def _sketch_file(entry: IndexLogEntry) -> str:
+    files = [f for f in entry.content.files if os.path.basename(f) == SKETCH_FILE_NAME]
+    if len(files) != 1:
+        raise HyperspaceException(
+            f"Data-skipping index {entry.name} must have exactly one sketch "
+            f"table file; found {len(files)}")
+    return files[0]

@@ -1,8 +1,11 @@
 """State-transition actions (counterpart of
-``hyperspace_tpu/actions/lifecycle.py``, Delete and Vacuum only):
+``hyperspace_tpu/actions/lifecycle.py``):
 
-  Delete -- ACTIVE → DELETED (soft; queries stop considering the index)
-  Vacuum -- DELETED → DOESNOTEXIST (removes every index data version)
+  Delete  -- ACTIVE → DELETED (soft; queries stop considering the index)
+  Restore -- DELETED → ACTIVE
+  Vacuum  -- DELETED → DOESNOTEXIST (removes every index data version)
+  Cancel  -- a transient state left by an action that died (a refresh
+             stuck in REFRESHING, say) back to the last stable entry
 """
 
 from __future__ import annotations
@@ -10,7 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..exceptions import HyperspaceException
-from ..index.constants import States
+from ..index.constants import STABLE_STATES, States
 from ..index.data_manager import IndexDataManager
 from ..index.log_entry import IndexLogEntry
 from ..index.log_manager import IndexLogManager
@@ -57,6 +60,12 @@ class DeleteAction(_TransitionAction):
     expected_states = (States.ACTIVE,)
 
 
+class RestoreAction(_TransitionAction):
+    transient_state = States.RESTORING
+    final_state = States.ACTIVE
+    expected_states = (States.DELETED,)
+
+
 class VacuumAction(_TransitionAction):
     transient_state = States.VACUUMING
     final_state = States.DOESNOTEXIST
@@ -65,3 +74,36 @@ class VacuumAction(_TransitionAction):
     def op(self) -> None:
         for version in self.data_manager.get_all_version_ids():
             self.data_manager.delete(version)
+
+
+class CancelAction(_TransitionAction):
+    """Roll a stuck transient state back to the last stable entry: begin
+    and end write the stable entry with its own state as the final one,
+    so latestStable points past the wreck."""
+
+    transient_state = States.CANCELLING
+    final_state = ""  # the stable entry's state, set in validate().
+
+    @property
+    def prev_entry(self) -> IndexLogEntry:
+        if self._prev is None:
+            entry = self.log_manager.get_latest_stable_log()
+            if entry is None:
+                # A first create that never committed: the only stable
+                # state to return to is DOESNOTEXIST.
+                latest = self.log_manager.get_latest_log()
+                if latest is None:
+                    raise HyperspaceException("No log entry found for index")
+                entry = IndexLogEntry.from_json(latest.to_json())
+                entry.state = States.DOESNOTEXIST
+            self._prev = entry
+        return self._prev
+
+    def validate(self) -> None:
+        latest = self.log_manager.get_latest_log()
+        if latest is None:
+            raise HyperspaceException("No log entry found for index")
+        if latest.state in STABLE_STATES:
+            raise HyperspaceException(
+                f"Cancel is not needed: index is in stable state {latest.state}")
+        self.final_state = self.prev_entry.state

@@ -1,5 +1,6 @@
 """User API facade (counterpart of ``hyperspace_tpu/api.py``: covering and
-data-skipping indexes; create, delete and vacuum)."""
+data-skipping indexes; create, delete, restore, vacuum, refresh, optimize
+and cancel)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 from .exceptions import HyperspaceException
+from .index.constants import IndexConstants
 
 
 @dataclass(frozen=True)
@@ -125,5 +127,27 @@ class Hyperspace:
     def delete_index(self, index_name: str) -> None:
         self.index_manager.delete(index_name)
 
+    def restore_index(self, index_name: str) -> None:
+        self.index_manager.restore(index_name)
+
     def vacuum_index(self, index_name: str) -> None:
         self.index_manager.vacuum(index_name)
+
+    def refresh_index(self, index_name: str,
+                      mode: str = IndexConstants.REFRESH_MODE_FULL) -> None:
+        """Bring an index up to its source: ``full`` rebuilds it,
+        ``incremental`` indexes the appended files (and, with lineage, drops
+        the rows of deleted ones), ``quick`` only records the change for
+        Hybrid Scan."""
+        self.index_manager.refresh(index_name, mode)
+
+    def optimize_index(self, index_name: str,
+                       mode: str = IndexConstants.OPTIMIZE_MODE_QUICK) -> None:
+        """Merge each bucket's small files (``quick``) or all its files
+        (``full``) into one sorted file."""
+        self.index_manager.optimize(index_name, mode)
+
+    def cancel(self, index_name: str) -> None:
+        """Roll an index stuck in a transient state back to its last stable
+        entry."""
+        self.index_manager.cancel(index_name)

@@ -51,6 +51,28 @@ class HyperspaceConf:
         return int(self._conf.get(IndexConstants.TPU_MAX_CHUNK_ROWS,
                                   IndexConstants.TPU_MAX_CHUNK_ROWS_DEFAULT))
 
+    def hybrid_scan_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.INDEX_HYBRID_SCAN_ENABLED,
+                              IndexConstants.INDEX_HYBRID_SCAN_ENABLED_DEFAULT)
+
+    def hybrid_scan_deleted_ratio_threshold(self) -> float:
+        return float(self._conf.get(
+            IndexConstants.INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD,
+            IndexConstants.INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD_DEFAULT))
+
+    def hybrid_scan_appended_ratio_threshold(self) -> float:
+        return float(self._conf.get(
+            IndexConstants.INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD,
+            IndexConstants.INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD_DEFAULT))
+
+    def index_lineage_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.INDEX_LINEAGE_ENABLED,
+                              IndexConstants.INDEX_LINEAGE_ENABLED_DEFAULT)
+
+    def optimize_file_size_threshold(self) -> int:
+        return int(self._conf.get(IndexConstants.OPTIMIZE_FILE_SIZE_THRESHOLD,
+                                  str(IndexConstants.OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT)))
+
     def use_bucket_spec_for_filter_rule(self) -> bool:
         return self._get_bool(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC,
                               IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT)

@@ -130,6 +130,37 @@ class Table:
         return Table({n: c.slice(start, stop) for n, c in self.columns.items()},
                      self.bucket_order)
 
+    def with_column(self, name: str, col: Column) -> "Table":
+        out = dict(self.columns)
+        out[name] = col
+        return Table(out, self.bucket_order)
+
+    @staticmethod
+    def concat(tables: Sequence["Table"]) -> "Table":
+        """Rows of schema-aligned tables, one after another; string
+        dictionaries are unified (codes keep sorting like their strings).
+        The bucket order is dropped, unless only one table has rows."""
+        tables = [t for t in tables if t.num_rows > 0] or list(tables[:1])
+        if len(tables) == 1:
+            return tables[0]
+        out: Dict[str, Column] = {}
+        for name in tables[0].names:
+            cols = [t.column(name) for t in tables]
+            dtype = cols[0].dtype
+            if any(c.dtype != dtype for c in cols):
+                raise HyperspaceException(f"concat dtype mismatch on '{name}'")
+            if dtype == STRING:
+                out[name] = _concat_string_columns(cols)
+                continue
+            validity = None
+            if any(c.validity is not None for c in cols):
+                validity = torch.cat([
+                    c.validity if c.validity is not None
+                    else torch.ones(len(c), dtype=torch.bool, device=c.data.device)
+                    for c in cols])
+            out[name] = Column(dtype, torch.cat([c.data for c in cols]), validity)
+        return Table(out)
+
     def to_host(self) -> "Table":
         """Every column moved to the CPU at once, so that later per-bucket
         slices are host slices, not device round trips."""
@@ -242,6 +273,26 @@ def _encode_string(chunked: pa.ChunkedArray, device) -> Column:
     return Column(STRING, _to_device(codes, device), validity, dictionary)
 
 
+def _concat_string_columns(cols: List[Column]) -> Column:
+    """One STRING column over the union of the parts' dictionaries."""
+    merged = np.unique(np.concatenate([c.dictionary for c in cols])) \
+        if any(len(c.dictionary) for c in cols) else np.array([], dtype=str)
+    datas, validities = [], []
+    for c in cols:
+        if len(c.dictionary):
+            remap = torch.from_numpy(
+                np.searchsorted(merged, c.dictionary).astype(np.int32)).to(c.data.device)
+            codes = torch.where(c.data >= 0, remap[c.data.clamp(min=0).to(torch.int64)],
+                                torch.full_like(c.data, -1))
+        else:
+            codes = c.data
+        datas.append(codes)
+        validities.append(c.validity if c.validity is not None
+                          else torch.ones(len(c), dtype=torch.bool, device=c.data.device))
+    validity = torch.cat(validities) if any(c.validity is not None for c in cols) else None
+    return Column(STRING, torch.cat(datas), validity, merged)
+
+
 # ---------------------------------------------------------------------------
 # Parquet IO.
 # ---------------------------------------------------------------------------
@@ -261,6 +312,61 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
 def parquet_row_counts(files: Sequence[str]) -> List[int]:
     """Row count per file from parquet footers (no data read)."""
     return [pq.ParquetFile(f).metadata.num_rows for f in files]
+
+
+def _rebatch(pieces, chunk_rows: int):
+    """(arrow table, provenance) batches of ``chunk_rows`` rows (the last
+    may be shorter) from (file index, arrow table) pieces, in order; the
+    provenance lists (file index, rows taken from that file)."""
+    batch: List[pa.Table] = []
+    batch_rows = 0
+    provenance: List[Tuple[int, int]] = []
+    for fi, t in pieces:
+        start = 0
+        while start < t.num_rows:
+            take = min(t.num_rows - start, chunk_rows - batch_rows)
+            batch.append(t.slice(start, take))
+            if provenance and provenance[-1][0] == fi:
+                provenance[-1] = (fi, provenance[-1][1] + take)
+            else:
+                provenance.append((fi, take))
+            batch_rows += take
+            start += take
+            if batch_rows >= chunk_rows:
+                yield pa.concat_tables(batch), provenance
+                batch, batch_rows, provenance = [], 0, []
+    if batch:
+        yield pa.concat_tables(batch), provenance
+
+
+def iter_parquet_chunks(files: Sequence[str], columns: Optional[Sequence[str]],
+                        chunk_rows: int, device):
+    """Stream ``files`` as tables of at most ``chunk_rows`` rows on
+    ``device``, row group by row group, each with its provenance: a list
+    of (index into ``files``, rows taken from that file), so a caller can
+    give every row its source file's id (lineage)."""
+    read_cols = list(columns) if columns else None
+    pieces = ((fi, pf.read_row_group(rg, columns=read_cols))
+              for fi, pf in enumerate(pq.ParquetFile(f) for f in files)
+              for rg in range(pf.num_row_groups))
+    for at, provenance in _rebatch(pieces, chunk_rows):
+        yield Table.from_arrow(at, device), provenance
+
+
+def iter_dataset_chunks(files: Sequence[str], columns: Optional[Sequence[str]],
+                        chunk_rows: int, device, filters=None):
+    """Stream ``files`` as tables of at most ``chunk_rows`` rows on
+    ``device``, in file order, with the pyarrow expression ``filters``
+    pushed into the scan: row groups whose statistics exclude it are never
+    decoded, and the rows read are filtered by it."""
+    import pyarrow.dataset as pa_ds
+
+    scanner = pa_ds.dataset(list(files), format="parquet").scanner(
+        columns=list(columns) if columns else None, filter=filters,
+        batch_size=max(chunk_rows, 1))
+    pieces = ((0, pa.Table.from_batches([rb])) for rb in scanner.to_batches())
+    for at, _ in _rebatch(pieces, chunk_rows):
+        yield Table.from_arrow(at, device)
 
 
 def write_parquet(table: Table, path: str, row_group_size: Optional[int] = None) -> None:

@@ -5,7 +5,15 @@ Project, inner equi-Join, Aggregate, Sort and Limit).
 Executes a logical plan bottom-up over device-resident tables. A Filter
 directly over a scan pushes its prunable conjuncts into the parquet read;
 over an IndexScan with the bucket spec exposed, equality predicates on the
-indexed columns also prune whole bucket files before any IO.
+indexed columns also prune whole bucket files before any IO. A filtered
+scan or index scan over more rows than the device budget
+(``hyperspace.tpu.maxChunkRows``) streams its files in chunks and keeps
+only each chunk's survivors.
+
+Under Hybrid Scan an IndexScan drops the rows whose lineage id is a
+deleted source file's and merges in the rows of appended source files:
+sorted alone by (bucket, key) and merged into the index's bucket order, so
+a join on that key keeps its shuffle-free path.
 
 An IndexScan whose buckets are one file each yields a table in bucket
 order (``Table.bucket_order``). A join whose side is in bucket order on
@@ -19,32 +27,37 @@ group count.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
+import pyarrow.parquet as pq
 import torch
 
 from ..exceptions import HyperspaceException
 from ..ops import kernels
-from ..ops.index_build import bucket_id_from_file
+from ..index.constants import IndexConstants
+from ..ops.index_build import bucket_id_from_file, bucket_ids_for
 from ..plan import expr as E
 from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
                           Project, Scan, Sort)
 from ..schema import DATE, FLOAT64, INT32, INT64, STRING
-from .columnar import (Column, Table, dictionaries_equal, empty_table,
-                       literal_to_device, read_parquet, translate_codes)
+from .columnar import (Column, Table, dictionaries_equal, empty_table, iter_dataset_chunks,
+                       literal_to_device, parquet_row_counts, read_parquet,
+                       translate_codes)
 from .evaluator import eval_expr, eval_predicate_mask
 from .pushdown import pushable_filter
 
 
 def execute(plan: LogicalPlan, session) -> Table:
-    return _execute(plan, None, session.device)
+    return _execute(plan, None, session)
 
 
-def _execute(plan: LogicalPlan, needed: Optional[Set[str]], device) -> Table:
+def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
     if isinstance(plan, Scan):
-        return _execute_scan(plan, needed, device)
+        return _execute_scan(plan, needed, session.device)
     if isinstance(plan, IndexScan):
-        return _execute_index_scan(plan, needed, device)
+        return _execute_index_scan(plan, needed, session.device)
     if isinstance(plan, Filter):
         child_needed = None if needed is None else \
             needed | set(plan.condition.references)
@@ -52,20 +65,30 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], device) -> Table:
         if isinstance(child, (Scan, IndexScan)):
             # Push row-group-prunable conjuncts into the parquet read.
             pa_filter = pushable_filter(plan.condition, child.schema)
+            chunk_rows = session.hs_conf.max_chunk_rows()
             if isinstance(child, Scan):
-                table = _execute_scan(child, child_needed, device, pa_filter)
+                chunked = _chunked_filtered_scan(child, child_needed, plan.condition,
+                                                 pa_filter, chunk_rows, session.device)
+                if chunked is not None:
+                    return chunked
+                table = _execute_scan(child, child_needed, session.device, pa_filter)
             else:
-                table = _execute_index_scan(
-                    child, child_needed, device, pa_filter,
-                    bucket_subset=_equality_bucket_subset(child, plan.condition))
+                buckets = _equality_bucket_subset(child, plan.condition)
+                chunked = _chunked_filtered_index_scan(
+                    child, child_needed, plan.condition, pa_filter, buckets, chunk_rows,
+                    session.device)
+                if chunked is not None:
+                    return chunked
+                table = _execute_index_scan(child, child_needed, session.device,
+                                            pa_filter, bucket_subset=buckets)
         else:
-            table = _execute(child, child_needed, device)
+            table = _execute(child, child_needed, session)
         return _filter_table(table, plan.condition)
     if isinstance(plan, Project):
         child_needed = set()
         for e in plan.exprs:
             child_needed.update(e.references)
-        table = _execute(plan.child, child_needed, device)
+        table = _execute(plan.child, child_needed, session)
         out = Table({e.name: eval_expr(table, e) for e in plan.exprs})
         # Pass-through columns, renamed or not, keep the bucket order.
         order = table.bucket_order
@@ -79,17 +102,17 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], device) -> Table:
                 out = Table(out.columns, (order[0], tuple(renamed[k] for k in order[1])))
         return out
     if isinstance(plan, Join):
-        return _execute_join(plan, needed, device)
+        return _execute_join(plan, needed, session)
     if isinstance(plan, Aggregate):
         child_needed = set(plan.group_cols)
         for a in plan.aggs:
             child_needed.update(a.references)
-        return _execute_aggregate(plan, _execute(plan.child, child_needed, device))
+        return _execute_aggregate(plan, _execute(plan.child, child_needed, session))
     if isinstance(plan, Sort):
         child_needed = None if needed is None else needed | {c for c, _ in plan.orders}
-        return _execute_sort(plan, _execute(plan.child, child_needed, device))
+        return _execute_sort(plan, _execute(plan.child, child_needed, session))
     if isinstance(plan, Limit):
-        return _execute_limit(plan, _execute(plan.child, needed, device))
+        return _execute_limit(plan, _execute(plan.child, needed, session))
     raise HyperspaceException(f"Cannot execute plan node {plan.node_name}")
 
 
@@ -114,6 +137,151 @@ def _execute_scan(plan: Scan, needed: Optional[Set[str]], device,
     if not files:
         return empty_table(relation.schema.select(cols), device)
     return read_parquet(files, cols, device, filters=pa_filter)
+
+
+# The chunked scans' device footprint: tests hold max_device_rows to the
+# chunk budget. Concurrent queries update it under the lock.
+CHUNK_SCAN_STATS = {"max_device_rows": 0, "chunks": 0}
+_CHUNK_STATS_LOCK = threading.Lock()
+
+
+def _note_chunk_scan(rows: int) -> None:
+    with _CHUNK_STATS_LOCK:
+        CHUNK_SCAN_STATS["max_device_rows"] = max(CHUNK_SCAN_STATS["max_device_rows"], rows)
+        CHUNK_SCAN_STATS["chunks"] += 1
+
+
+def _chunked_filtered_scan(plan: Scan, needed: Optional[Set[str]], condition, pa_filter,
+                           chunk_rows: int, device) -> Optional[Table]:
+    """Filter over a scan of more rows than the device budget: the files
+    stream in chunks (row groups the pushed filter excludes are never
+    decoded), each chunk is masked on the device and only its survivors
+    are kept. None when the source fits the budget (the in-memory read is
+    cheaper) or a needed column is not a physical one."""
+    relation = plan.relation
+    files = relation.all_files()
+    if not files:
+        return None
+    cols = _read_columns(relation.schema.names, needed)
+    if any(c not in set(pq.read_schema(files[0]).names) for c in cols):
+        return None
+    if sum(parquet_row_counts(files)) <= chunk_rows:
+        return None
+    parts: List[Table] = []
+    for chunk in iter_dataset_chunks(files, cols, chunk_rows, device, pa_filter):
+        _note_chunk_scan(chunk.num_rows)
+        parts.append(chunk.filter(eval_predicate_mask(chunk, condition)))
+    if not parts:
+        return empty_table(relation.schema.select(cols), device)
+    return Table.concat(parts)
+
+
+def _index_scan_layout(plan: IndexScan, needed: Optional[Set[str]],
+                       bucket_subset: Optional[Set[int]]):
+    """(index files in bucket order, explicit read columns, whether every
+    bucket is one file) for an index scan. After an incremental refresh a
+    bucket's rows can span several version directories; bucket-grouped
+    order is what the bucket-aware operators expect. The lineage column
+    is read when deleted files' rows must be dropped."""
+    entry = plan.index_entry
+    keyed = sorted(((bucket_id_from_file(f), f) for f in entry.content.files),
+                   key=lambda t: (t[0] is None, t[0] or 0, t[1]))
+    single_file_buckets = all(b is not None for b, _ in keyed) \
+        and len({b for b, _ in keyed}) == len(keyed)
+    if bucket_subset is not None:
+        keyed = [(b, f) for b, f in keyed if b in bucket_subset]
+    cols = _read_columns(plan.schema.names if needed is None else entry.schema.names,
+                         needed)
+    if plan.deleted_file_ids and IndexConstants.DATA_FILE_NAME_ID not in cols:
+        cols = cols + [IndexConstants.DATA_FILE_NAME_ID]
+    return [f for _, f in keyed], cols, single_file_buckets
+
+
+def _with_bucket_order(entry, table: Table, single_file_buckets: bool) -> Table:
+    """Files in bucket order, rows sorted by the indexed columns within
+    each: the covering index's layout, kept by a row subsequence."""
+    if single_file_buckets and all(c in table.names for c in entry.indexed_columns):
+        return Table(table.columns, (entry.num_buckets, tuple(entry.indexed_columns)))
+    return table
+
+
+def _deleted_ids(plan: IndexScan, device) -> Optional[torch.Tensor]:
+    if not plan.deleted_file_ids:
+        return None
+    return torch.from_numpy(np.sort(np.asarray(plan.deleted_file_ids, dtype=np.int64))).to(
+        device)
+
+
+def _not_deleted(table: Table, deleted: torch.Tensor) -> torch.Tensor:
+    lineage = table.column(IndexConstants.DATA_FILE_NAME_ID).data.to(torch.int64)
+    return ~kernels.isin_sorted(lineage, deleted)
+
+
+def _with_unknown_lineage(appended: Table, device) -> Table:
+    """Appended source rows have no index lineage: they get the unknown id."""
+    return appended.with_column(IndexConstants.DATA_FILE_NAME_ID, Column(
+        INT64, torch.full((appended.num_rows,), IndexConstants.UNKNOWN_FILE_ID,
+                          dtype=torch.int64, device=device)))
+
+
+def _drop_unwanted_lineage(plan: IndexScan, table: Table,
+                           needed: Optional[Set[str]]) -> Table:
+    wanted = needed if needed is not None else set(plan.schema.names)
+    lineage = IndexConstants.DATA_FILE_NAME_ID
+    if lineage in table.names and lineage not in wanted:
+        return table.select([n for n in table.names if n != lineage])
+    return table
+
+
+def _chunked_filtered_index_scan(plan: IndexScan, needed: Optional[Set[str]], condition,
+                                 pa_filter, bucket_subset: Optional[Set[int]],
+                                 chunk_rows: int, device) -> Optional[Table]:
+    """Filter over an index scan of more rows (index and appended files
+    together) than the device budget: the bucket-ordered index files
+    stream in chunks, each masked by the predicate and the deleted-row
+    mask; the appended files stream under the same budget and their
+    survivors merge into the bucket order. None when everything fits the
+    budget."""
+    entry = plan.index_entry
+    index_files, cols, single_file_buckets = _index_scan_layout(plan, needed, bucket_subset)
+    if not index_files:
+        return None
+    if sum(parquet_row_counts(index_files + list(plan.appended_files))) <= chunk_rows:
+        return None
+    lineage = IndexConstants.DATA_FILE_NAME_ID
+    deleted = _deleted_ids(plan, device)
+    parts: List[Table] = []
+    for chunk in iter_dataset_chunks(index_files, cols, chunk_rows, device, pa_filter):
+        _note_chunk_scan(chunk.num_rows)
+        mask = eval_predicate_mask(chunk, condition)
+        if deleted is not None:
+            mask = mask & _not_deleted(chunk, deleted)
+        parts.append(chunk.filter(mask))
+    app_parts: List[Table] = []
+    if plan.appended_files:
+        app_cols = [c for c in cols if c != lineage]
+        for chunk in iter_dataset_chunks(list(plan.appended_files), app_cols, chunk_rows,
+                                         device):
+            _note_chunk_scan(chunk.num_rows)
+            appended = chunk.filter(eval_predicate_mask(chunk, condition))
+            if lineage in cols:
+                appended = _with_unknown_lineage(appended, device)
+            app_parts.append(appended.select(cols))
+    parts = [p for p in parts if p.num_rows > 0]
+    app_parts = [p for p in app_parts if p.num_rows > 0]
+    if not parts and not app_parts:
+        return empty_table(entry.schema.select([c for c in cols if c != lineage]), device)
+    table = Table.concat(parts) if parts else empty_table(entry.schema.select(cols), device)
+    # Chunks stream the files in bucket order; survivors keep it.
+    table = _with_bucket_order(entry, table, single_file_buckets)
+    if app_parts:
+        app_table = Table.concat(app_parts)
+        merged = _merge_appended_preserving_order(entry, table, app_table)
+        if merged is not None:
+            table = merged
+        else:
+            table = Table.concat([table, app_table]) if table.num_rows else app_table
+    return _drop_unwanted_lineage(plan, table, needed)
 
 
 def _equality_bucket_subset(plan: IndexScan, condition) -> Optional[Set[int]]:
@@ -174,23 +342,91 @@ def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
                         pa_filter=None,
                         bucket_subset: Optional[Set[int]] = None) -> Table:
     entry = plan.index_entry
-    # Files in bucket order.
-    keyed = sorted(((bucket_id_from_file(f), f) for f in entry.content.files),
-                   key=lambda t: (t[0] is None, t[0] or 0, t[1]))
-    single_file_buckets = all(b is not None for b, _ in keyed) \
-        and len({b for b, _ in keyed}) == len(keyed)
-    if bucket_subset is not None:
-        keyed = [(b, f) for b, f in keyed if b in bucket_subset]
-    cols = _read_columns(plan.schema.names if needed is None else entry.schema.names,
-                         needed)
-    if not keyed:
-        return empty_table(entry.schema.select(cols), device)
-    table = read_parquet([f for _, f in keyed], cols, device, filters=pa_filter)
-    if single_file_buckets and all(c in table.names for c in entry.indexed_columns):
-        # Files in bucket order, rows sorted by the indexed columns within
-        # each: the covering index's layout.
-        table = Table(table.columns, (entry.num_buckets, tuple(entry.indexed_columns)))
-    return table
+    index_files, cols, single_file_buckets = _index_scan_layout(plan, needed, bucket_subset)
+    if not index_files and bucket_subset is not None and not plan.appended_files:
+        return empty_table(entry.schema.select(
+            [c for c in cols if c != IndexConstants.DATA_FILE_NAME_ID]), device)
+    if not index_files:
+        table = empty_table(entry.schema.select(cols), device)
+    else:
+        table = read_parquet(index_files, cols, device, filters=pa_filter)
+    table = _with_bucket_order(entry, table, single_file_buckets)
+    deleted = _deleted_ids(plan, device)
+    if deleted is not None:
+        table = table.filter(_not_deleted(table, deleted))
+    if plan.appended_files:
+        appended = read_parquet(plan.appended_files,
+                                [c for c in cols if c != IndexConstants.DATA_FILE_NAME_ID],
+                                device)
+        if IndexConstants.DATA_FILE_NAME_ID in cols:
+            appended = _with_unknown_lineage(appended, device)
+        merged = _merge_appended_preserving_order(entry, table, appended)
+        if merged is not None:
+            table = merged
+        else:
+            table = Table.concat([table, appended.select(table.names)])
+    return _drop_unwanted_lineage(plan, table, needed)
+
+
+# How often the shuffle-free paths were taken (tests and chip_smoke.py
+# hold them): appended rows merged without losing the bucket order, and
+# joins that probed a bucket-ordered side without sorting it.
+HYBRID_MERGE_COUNT = 0
+FAST_JOIN_COUNT = 0
+
+
+def _merge_appended_preserving_order(entry, table: Table,
+                                     appended: Table) -> Optional[Table]:
+    """Hybrid Scan without losing the merge join: the appended rows are
+    bucketed on the device (the hash+bucket kernel), sorted alone by
+    (bucket, key) and merged into the (bucket, key)-sorted index rows, so
+    ``bucket_order`` survives and a join on the key still skips its sort.
+
+    The merge is two searchsorted passes over packed (bucket << 32 |
+    biased key) int64 keys, index rows first on ties, then one scatter of
+    row positions. None (the caller concatenates, dropping the order)
+    unless the index rows are in bucket order on one int32, int64 or date
+    key whose values all lie in (-2**31, 2**31), where the packing is
+    exact. The JAX package tests the largest |key|, which wraps for the
+    int64 minimum; one host sync either way."""
+    global HYBRID_MERGE_COUNT
+    if table.bucket_order is None or len(entry.indexed_columns) != 1:
+        return None
+    key = entry.indexed_columns[0]
+    if key not in table.names or key not in appended.names:
+        return None
+    icol = table.column(key)
+    if icol.dtype not in (INT32, INT64, DATE):
+        return None
+    if table.num_rows == 0 or appended.num_rows == 0:
+        return None
+    appended = appended.select(table.names)
+    num_buckets = table.bucket_order[0]
+    wide = [c.data for c in (icol, appended.column(key)) if c.data.dtype == torch.int64]
+    if wide:
+        outside = torch.stack([((a <= -2 ** 31) | (a >= 2 ** 31)).any() for a in wide])
+        if bool(outside.any()):  # HOST SYNC (single scalar).
+            return None
+
+    def composite(t: Table) -> torch.Tensor:
+        bids = bucket_ids_for(t, [key], num_buckets)
+        return kernels.pack2_int32(bids, t.column(key).data.to(torch.int32))
+
+    # Sort only the appended rows; the index rows are sorted already.
+    comp_a = composite(appended)
+    perm_a = kernels.lex_sort_indices([comp_a])
+    appended = appended.take(perm_a)
+    comp_a = comp_a[perm_a]
+    comp_i = composite(table)
+    n_i, n_a = table.num_rows, appended.num_rows
+    dev = comp_i.device
+    pos_i = torch.arange(n_i, device=dev) + torch.searchsorted(comp_a, comp_i, side="left")
+    pos_a = torch.arange(n_a, device=dev) + torch.searchsorted(comp_i, comp_a, side="right")
+    union = Table.concat([table, appended])  # unifies string dictionaries.
+    gather = torch.empty(n_i + n_a, dtype=torch.int64, device=dev)
+    gather[torch.cat([pos_i, pos_a])] = torch.arange(n_i + n_a, device=dev)
+    HYBRID_MERGE_COUNT += 1
+    return Table(union.take(gather).columns, (num_buckets, (key,)))
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +509,7 @@ def _bucketed_merge_keys(left: Table, right: Table, pairs, lkeys, rkeys):
     return lcomp, rcomp, swapped
 
 
-def _execute_join(plan: Join, needed: Optional[Set[str]], device) -> Table:
+def _execute_join(plan: Join, needed: Optional[Set[str]], session) -> Table:
     pairs = E.extract_equi_join_keys(plan.condition)
     if pairs is None:
         raise HyperspaceException(
@@ -293,8 +529,8 @@ def _execute_join(plan: Join, needed: Optional[Set[str]], device) -> Table:
         {n for n in needed if n in left_names} | {p[0] for p in norm}
     rneed = None if needed is None else \
         {n for n in needed if n in right_names} | {p[1] for p in norm}
-    left = _execute(plan.left, lneed, device)
-    right = _execute(plan.right, rneed, device)
+    left = _execute(plan.left, lneed, session)
+    right = _execute(plan.right, rneed, session)
     left, right, lkeys, rkeys = _probe_keys(left, right, norm)
     li, ri = kernels.merge_join_indices(lkeys, rkeys)
     del lkeys, rkeys
@@ -306,6 +542,7 @@ def _probe_keys(left: Table, right: Table, norm: List[Tuple[str, str]]):
     keys). Rows with a null key are dropped (they match nothing); a side
     in bucket order on its key is probed by (bucket, key) composites
     without a sort, the other side becoming the probe side."""
+    global FAST_JOIN_COUNT
     lkeys, rkeys = _join_key_arrays(left, right, norm)
     lvalid = _keys_validity(left, [p[0] for p in norm])
     if lvalid is not None:
@@ -317,6 +554,7 @@ def _probe_keys(left: Table, right: Table, norm: List[Tuple[str, str]]):
         right, rkeys = right.take(idx), rkeys[idx]
     fast = _bucketed_merge_keys(left, right, norm, lkeys, rkeys)
     if fast is not None:
+        FAST_JOIN_COUNT += 1
         lcomp, rcomp, swapped = fast
         if swapped:
             return right, left, rcomp, lcomp

@@ -14,8 +14,12 @@ class States:
     CREATING = "CREATING"
     DELETING = "DELETING"
     DELETED = "DELETED"
+    REFRESHING = "REFRESHING"
     VACUUMING = "VACUUMING"
+    RESTORING = "RESTORING"
+    OPTIMIZING = "OPTIMIZING"
     DOESNOTEXIST = "DOESNOTEXIST"
+    CANCELLING = "CANCELLING"
 
 
 STABLE_STATES = frozenset({States.ACTIVE, States.DELETED, States.DOESNOTEXIST})
@@ -30,6 +34,15 @@ class IndexConstants:
     INDEX_NUM_BUCKETS = "hyperspace.index.numBuckets"
     INDEX_NUM_BUCKETS_DEFAULT = 200
 
+    INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+    INDEX_HYBRID_SCAN_ENABLED_DEFAULT = "false"
+
+    INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD = "hyperspace.index.hybridscan.maxDeletedRatio"
+    INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD_DEFAULT = "0.2"
+
+    INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD = "hyperspace.index.hybridscan.maxAppendedRatio"
+    INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD_DEFAULT = "0.3"
+
     INDEX_FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
     INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = "false"
 
@@ -38,9 +51,27 @@ class IndexConstants:
     LATEST_STABLE_LOG_NAME = "latestStable"
     INDEX_VERSION_DIRECTORY_PREFIX = "v__"
 
+    # Lineage: a column of source-file ids in every index row, which lets
+    # a refresh or Hybrid Scan drop the rows of deleted source files.
+    DATA_FILE_NAME_ID = "_data_file_id"
+    INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+    INDEX_LINEAGE_ENABLED_DEFAULT = "false"
+
+    REFRESH_MODE_INCREMENTAL = "incremental"
+    REFRESH_MODE_FULL = "full"
+    REFRESH_MODE_QUICK = "quick"
+    REFRESH_MODES = (REFRESH_MODE_INCREMENTAL, REFRESH_MODE_FULL, REFRESH_MODE_QUICK)
+
+    OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
+    OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024
+    OPTIMIZE_MODE_QUICK = "quick"
+    OPTIMIZE_MODE_FULL = "full"
+    OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
+
     UNKNOWN_FILE_ID = -1
 
     # JSON property names used in index metadata.
+    LINEAGE_PROPERTY = "lineage"
     HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY = "hasParquetAsSourceFormat"
     HYPERSPACE_VERSION_PROPERTY = "hyperspaceVersion"
     INDEX_LOG_VERSION = "indexLogVersion"
@@ -53,8 +84,8 @@ class IndexConstants:
     INDEX_ROW_GROUP_SIZE = "hyperspace.index.rowGroupSize"
     INDEX_ROW_GROUP_SIZE_DEFAULT = 65536
 
-    # Device-footprint budget. The JAX package streams a build above it
-    # (its chunked build); this package has no chunked build yet and
-    # refuses such a source instead (actions/create.py).
+    # Device-footprint budget in rows: a build, a filtered scan or a
+    # filtered index scan over more rows streams its input in chunks of at
+    # most this many (ops/index_build.py, execution/executor.py).
     TPU_MAX_CHUNK_ROWS = "hyperspace.tpu.maxChunkRows"
     TPU_MAX_CHUNK_ROWS_DEFAULT = str(8 * 1024 * 1024)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import List
+from typing import List, Optional
 
 from ..util import file_utils
 from .constants import IndexConstants
@@ -18,6 +18,10 @@ class IndexDataManager:
     def __init__(self, index_path: str):
         self._index_path = index_path
         self._prefix = IndexConstants.INDEX_VERSION_DIRECTORY_PREFIX + "="
+
+    def get_latest_version_id(self) -> Optional[int]:
+        versions = self.get_all_version_ids()
+        return max(versions) if versions else None
 
     def get_all_version_ids(self) -> List[int]:
         if not os.path.isdir(self._index_path):

@@ -58,6 +58,22 @@ class Directory:
     files: List[FileInfo] = dc_field(default_factory=list)
     subDirs: List["Directory"] = dc_field(default_factory=list)
 
+    def merge(self, other: "Directory") -> "Directory":
+        """This tree and ``other``'s: files of both, subdirectories of the
+        same name merged, the rest side by side in name order."""
+        if self.name != other.name:
+            raise HyperspaceException(
+                f"Merging directories with names {self.name} and {other.name} failed.")
+        mine = {d.name: d for d in self.subDirs}
+        theirs = {d.name: d for d in other.subDirs}
+        merged_subdirs = []
+        for dir_name in sorted(set(mine) | set(theirs)):
+            if dir_name in mine and dir_name in theirs:
+                merged_subdirs.append(mine[dir_name].merge(theirs[dir_name]))
+            else:
+                merged_subdirs.append(mine.get(dir_name) or theirs[dir_name])
+        return Directory(self.name, list(self.files) + list(other.files), merged_subdirs)
+
     def to_json_dict(self) -> Dict:
         return {"name": self.name,
                 "files": [f.to_json_dict() for f in self.files],
@@ -138,6 +154,9 @@ class Content:
     @property
     def file_infos(self) -> Set[FileInfo]:
         return {FileInfo(full, f.size, f.modifiedTime, f.id) for full, f in self._walk()}
+
+    def merge(self, other: "Content") -> "Content":
+        return Content(self.root.merge(other.root), self.fingerprint)
 
     def to_json_dict(self) -> Dict:
         return {"root": self.root.to_json_dict(),
@@ -411,8 +430,32 @@ class IndexLogEntry:
         return self.source.plan.relations[0]
 
     @property
+    def source_file_info_set(self) -> Set[FileInfo]:
+        return self.relation.data.content.file_infos
+
+    @property
     def index_files_size_in_bytes(self) -> int:
         return sum(f.size for f in self.content.file_infos)
+
+    @property
+    def source_update(self) -> Optional[Update]:
+        return self.relation.data.update
+
+    @property
+    def appended_files(self) -> Set[FileInfo]:
+        """Source files a quick refresh recorded as appended."""
+        u = self.source_update
+        return u.appendedFiles.file_infos if u and u.appendedFiles else set()
+
+    @property
+    def deleted_files(self) -> Set[FileInfo]:
+        """Source files a quick refresh recorded as deleted."""
+        u = self.source_update
+        return u.deletedFiles.file_infos if u and u.deletedFiles else set()
+
+    def has_lineage_column(self) -> bool:
+        return self.derivedDataset.properties.get(
+            IndexConstants.LINEAGE_PROPERTY, "false").lower() == "true"
 
     @property
     def signature(self) -> LogicalPlanFingerprint:
@@ -491,6 +534,24 @@ class FileIdTracker:
     def __init__(self):
         self._max_id = -1
         self._file_to_id: Dict[Tuple[str, int, int], int] = {}
+
+    def add_file_info(self, files: Set[FileInfo]) -> None:
+        """Seed the tracker with already-numbered files (a refresh keeps
+        the previous entry's source ids); new files then number past them."""
+        for f in files:
+            if f.id == IndexConstants.UNKNOWN_FILE_ID:
+                raise HyperspaceException(
+                    f"Cannot add file info with unknown id. (file: {f.name}).")
+            key = (f.name, f.size, f.modifiedTime)
+            existing = self._file_to_id.get(key)
+            if existing is not None:
+                if existing != f.id:
+                    raise HyperspaceException(
+                        "Adding file info with a conflicting id. "
+                        f"(existing id: {existing}, new id: {f.id}, file: {f.name}).")
+            else:
+                self._file_to_id[key] = f.id
+                self._max_id = max(self._max_id, f.id)
 
     def add_file(self, path: str, size: int, mtime: int) -> int:
         key = (path, size, mtime)

@@ -1,6 +1,7 @@
 """Index manager: dispatch to actions with per-index log/data managers and
 list indexes by scanning the system path (counterpart of
-``hyperspace_tpu/index/manager.py``: create, delete, vacuum and listing).
+``hyperspace_tpu/index/manager.py``: create, delete, restore, vacuum,
+cancel, refresh, optimize and listing).
 """
 
 from __future__ import annotations
@@ -50,10 +51,53 @@ class IndexCollectionManager:
         from ..actions.lifecycle import DeleteAction
         DeleteAction(self.session, self._log_manager(index_name)).run()
 
+    def restore(self, index_name: str) -> None:
+        from ..actions.lifecycle import RestoreAction
+        RestoreAction(self.session, self._log_manager(index_name)).run()
+
     def vacuum(self, index_name: str) -> None:
         from ..actions.lifecycle import VacuumAction
         VacuumAction(self.session, self._log_manager(index_name),
                      self._data_manager(index_name)).run()
+
+    def cancel(self, index_name: str) -> None:
+        from ..actions.lifecycle import CancelAction
+        CancelAction(self.session, self._log_manager(index_name)).run()
+
+    def refresh(self, index_name: str, mode: str = IndexConstants.REFRESH_MODE_FULL) -> None:
+        if mode not in IndexConstants.REFRESH_MODES:
+            raise HyperspaceException(
+                f"Unsupported refresh mode: {mode}; "
+                f"choose from {IndexConstants.REFRESH_MODES}")
+        log_mgr = self._log_manager(index_name)
+        latest = log_mgr.get_latest_stable_log()
+        if latest is not None and latest.derivedDataset.kind == "DataSkippingIndex":
+            from ..actions.create_skipping import (RefreshDataSkippingAction,
+                                                   RefreshDataSkippingIncrementalAction)
+            if mode == IndexConstants.REFRESH_MODE_QUICK:
+                raise HyperspaceException(
+                    "Quick refresh is not supported for data-skipping "
+                    "indexes; use full or incremental.")
+            cls = {IndexConstants.REFRESH_MODE_FULL: RefreshDataSkippingAction,
+                   IndexConstants.REFRESH_MODE_INCREMENTAL:
+                       RefreshDataSkippingIncrementalAction}[mode]
+        else:
+            from ..actions.refresh import (RefreshAction, RefreshIncrementalAction,
+                                           RefreshQuickAction)
+            cls = {IndexConstants.REFRESH_MODE_FULL: RefreshAction,
+                   IndexConstants.REFRESH_MODE_INCREMENTAL: RefreshIncrementalAction,
+                   IndexConstants.REFRESH_MODE_QUICK: RefreshQuickAction}[mode]
+        cls(self.session, log_mgr, self._data_manager(index_name)).run()
+
+    def optimize(self, index_name: str,
+                 mode: str = IndexConstants.OPTIMIZE_MODE_QUICK) -> None:
+        from ..actions.optimize import OptimizeAction
+        if mode not in IndexConstants.OPTIMIZE_MODES:
+            raise HyperspaceException(
+                f"Unsupported optimize mode: {mode}; "
+                f"choose from {IndexConstants.OPTIMIZE_MODES}")
+        OptimizeAction(self.session, self._log_manager(index_name),
+                       self._data_manager(index_name), mode).run()
 
     def _index_names(self) -> List[str]:
         system_path = self._path_resolver.system_path

@@ -344,6 +344,15 @@ def gather_segment(partial: torch.Tensor, order: torch.Tensor, gids: torch.Tenso
     return _segment_minmax(taken, gids, num_groups, op)
 
 
+def isin_sorted(data: torch.Tensor, sorted_values: torch.Tensor) -> torch.Tensor:
+    """Membership of each ``data`` value in the ascending ``sorted_values``
+    (the lineage anti-filter of deleted source files)."""
+    if sorted_values.shape[0] == 0:
+        return torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    pos = torch.searchsorted(sorted_values, data).clamp(0, sorted_values.shape[0] - 1)
+    return sorted_values[pos] == data
+
+
 def filter_indices(mask: torch.Tensor) -> torch.Tensor:
     """Row indices of a keep mask's True entries (the nonzero/gather front
     end of the JAX package's mask_count_nonzero; one host sync for the

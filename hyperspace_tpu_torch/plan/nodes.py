@@ -125,12 +125,18 @@ class Scan(LogicalPlan):
 
 class IndexScan(LogicalPlan):
     """Leaf: scan the bucketed files of a covering index version, optionally
-    exposing the bucket spec so equality filters can prune buckets."""
+    exposing the bucket spec so equality filters can prune buckets. Under
+    Hybrid Scan it also reads ``appended_files`` (source files the index
+    lacks) and drops the rows whose lineage id is in ``deleted_file_ids``."""
 
-    def __init__(self, index_entry, schema: Schema, use_bucket_spec: bool = False):
+    def __init__(self, index_entry, schema: Schema, use_bucket_spec: bool = False,
+                 deleted_file_ids: Optional[Sequence[int]] = None,
+                 appended_files: Optional[Sequence[str]] = None):
         self.index_entry = index_entry
         self._schema = schema
         self.use_bucket_spec = use_bucket_spec
+        self.deleted_file_ids = list(deleted_file_ids or [])
+        self.appended_files = list(appended_files or [])
 
     @property
     def schema(self) -> Schema:
@@ -138,8 +144,12 @@ class IndexScan(LogicalPlan):
 
     def simple_string(self) -> str:
         e = self.index_entry
+        extra = ""
+        if self.deleted_file_ids or self.appended_files:
+            extra = (f", hybrid(+{len(self.appended_files)} appended,"
+                     f" -{len(self.deleted_file_ids)} deleted files)")
         return (f"IndexScan Hyperspace(Type: {e.derivedDataset.kind_abbr}, "
-                f"Name: {e.name}, LogVersion: {e.log_version})")
+                f"Name: {e.name}, LogVersion: {e.log_version}{extra})")
 
 
 class Filter(LogicalPlan):

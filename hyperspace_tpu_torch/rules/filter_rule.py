@@ -34,7 +34,8 @@ def try_rewrite_filter(session, plan: LogicalPlan, ctx: ReasonCollector,
     """The filter-index rewrite at this plan root: (new plan, applied index)
     or None. ``candidates_for`` gives a scan's candidate indexes."""
     scan = _extract_filter_node(plan)
-    if scan is None or get_relation(session, scan) is None:
+    relation = None if scan is None else get_relation(session, scan)
+    if relation is None:
         return None
     project_cols, filter_cols = collect_filter_project_columns(plan)
     if not filter_cols:
@@ -55,8 +56,8 @@ def try_rewrite_filter(session, plan: LogicalPlan, ctx: ReasonCollector,
                     f"Index does not cover required columns {sorted(missing)}.")
             continue
         candidates.append(e)
-    best = FilterIndexRanker.rank(candidates)
+    best = FilterIndexRanker.rank(session, relation, candidates)
     if best is None:
         return None
     return transform_plan_to_use_index(
-        best, plan, session.hs_conf.use_bucket_spec_for_filter_rule()), best
+        session, best, plan, session.hs_conf.use_bucket_spec_for_filter_rule()), best

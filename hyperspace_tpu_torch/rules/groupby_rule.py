@@ -48,12 +48,13 @@ class GroupByIndexRule:
             for a in node.aggs:
                 top_needed |= set(a.references)
             matched = _scan_level_needed(node.child, top_needed)
-            if matched is None or get_relation(session, matched[0]) is None:
+            relation = None if matched is None else get_relation(session, matched[0])
+            if relation is None:
                 return node
             scan, needed = matched
             group_set = set(node.group_cols)
             candidates = []
-            for e in get_candidate_indexes(active_indexes(session), scan, ctx):
+            for e in get_candidate_indexes(session, active_indexes(session), scan, ctx):
                 if e.derivedDataset.kind != "CoveringIndex":
                     continue
                 if set(e.indexed_columns) != group_set:
@@ -67,10 +68,10 @@ class GroupByIndexRule:
                             f"Index does not cover required columns {sorted(missing)}.")
                     continue
                 candidates.append(e)
-            best = FilterIndexRanker.rank(candidates)
+            best = FilterIndexRanker.rank(session, relation, candidates)
             if best is None:
                 return node
             return Aggregate(node.group_cols, node.aggs, transform_plan_to_use_index(
-                best, node.child, use_bucket_spec=True))
+                session, best, node.child, use_bucket_spec=True))
 
         return plan.transform_up(rewrite)

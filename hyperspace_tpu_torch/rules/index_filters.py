@@ -32,7 +32,9 @@ class ReasonCollector:
 class CandidateIndexCollector:
     """Per supported Scan leaf, the indexes whose indexed and included
     columns all exist in the relation's schema and whose recorded source
-    fingerprint equals the relation's."""
+    matches the relation's: exactly, or within the Hybrid Scan thresholds
+    when it is on (the JAX package's ColumnSchemaFilter and
+    FileSignatureFilter)."""
 
     @staticmethod
     def collect(session, plan: LogicalPlan, indexes: List[IndexLogEntry],
@@ -54,7 +56,7 @@ class CandidateIndexCollector:
                             f"{sorted(leaf.relation.schema.names)}.")
                 else:
                     remaining.append(entry)
-            remaining = get_candidate_indexes(remaining, leaf, ctx)
+            remaining = get_candidate_indexes(session, remaining, leaf, ctx)
             if remaining:
                 out[id(leaf)] = (leaf, remaining)
         return out

@@ -93,7 +93,8 @@ def try_rewrite_join(session, join: Join, ctx: ReasonCollector,
     if not pairs or not (is_plan_linear(join.left) and is_plan_linear(join.right)):
         return None
     l_scan, r_scan = join.left.collect_leaves()[0], join.right.collect_leaves()[0]
-    if get_relation(session, l_scan) is None or get_relation(session, r_scan) is None:
+    l_rel, r_rel = get_relation(session, l_scan), get_relation(session, r_scan)
+    if l_rel is None or r_rel is None:
         return None
     mapping = _column_mapping(join, pairs)
     if mapping is None:
@@ -123,7 +124,8 @@ def try_rewrite_join(session, join: Join, ctx: ReasonCollector,
                     "No compatible index pair: indexed-column order does not match the "
                     "other side's under the join-column mapping.")
         return None
-    l_entry, r_entry = JoinIndexRanker.rank(compatible)
-    new_left = transform_plan_to_use_index(l_entry, join.left, use_bucket_spec=True)
-    new_right = transform_plan_to_use_index(r_entry, join.right, use_bucket_spec=True)
+    l_entry, r_entry = JoinIndexRanker.rank(session, l_rel, r_rel, compatible)
+    new_left = transform_plan_to_use_index(session, l_entry, join.left, use_bucket_spec=True)
+    new_right = transform_plan_to_use_index(session, r_entry, join.right,
+                                            use_bucket_spec=True)
     return Join(new_left, new_right, join.condition, join.join_type), (l_entry, r_entry)

@@ -1,14 +1,21 @@
 """Shared rule machinery: candidate selection, plan transformation and
-the base-column walk of linear plans (counterpart of the parts of
-``hyperspace_tpu/rules/rule_utils.py`` the filter, join and group-by rules
-call; no Hybrid Scan).
+the base-column walk of linear plans (counterpart of
+``hyperspace_tpu/rules/rule_utils.py``; versioned sources' time travel is
+not ported).
+
+Without Hybrid Scan an index applies when its recorded source fingerprint
+equals the scan's. With it, an index applies while its source shares files
+with the scan and the appended and deleted bytes stay within their
+thresholds (deletes only with lineage); the rewritten IndexScan then
+carries the appended files and the deleted files' lineage ids.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
-from ..index.log_entry import IndexLogEntry
+from ..index.constants import IndexConstants
+from ..index.log_entry import FileInfo, IndexLogEntry
 from ..index.signatures import LogicalPlanSignatureProvider
 from ..plan import expr as E
 from ..plan.nodes import Filter, IndexScan, LogicalPlan, Project, Scan
@@ -33,41 +40,103 @@ def _plan_signature(entry: IndexLogEntry, scan: Scan) -> Optional[str]:
     return LogicalPlanSignatureProvider.create(recorded[0].provider).signature(scan)
 
 
-def get_candidate_indexes(indexes: List[IndexLogEntry], scan: Scan,
+def _current_file_infos(relation) -> List[FileInfo]:
+    return [FileInfo(p, size, mtime) for p, size, mtime in relation.all_file_infos()]
+
+
+def get_candidate_indexes(session, indexes: List[IndexLogEntry], scan: Scan,
                           ctx=None) -> List[IndexLogEntry]:
-    """Indexes whose recorded source fingerprint equals the scan's; ``ctx``
-    (a ReasonCollector) records why the others were dropped."""
+    """Indexes applicable to this scan: equal fingerprints, or with Hybrid
+    Scan on, bounded file overlap. ``ctx`` (a ReasonCollector) records why
+    the others were dropped."""
+    hybrid = session.hs_conf.hybrid_scan_enabled()
     out = []
     for entry in indexes:
-        sig = _plan_signature(entry, scan)
-        if sig is not None and sig == entry.signature.signatures[0].value:
+        if not hybrid:
+            sig = _plan_signature(entry, scan)
+            if sig is not None and sig == entry.signature.signatures[0].value:
+                out.append(entry)
+            elif ctx is not None:
+                ctx.add("SOURCE_DATA_CHANGED", entry,
+                        "Source fingerprint mismatch (files were added, removed, or "
+                        "modified since the index was built); enable hybrid scan or "
+                        "refresh the index.")
+            continue
+        ok, appended, deleted = hybrid_scan_file_diff(session, entry, scan.relation)
+        if ok:
             out.append(entry)
         elif ctx is not None:
             ctx.add("SOURCE_DATA_CHANGED", entry,
-                    "Source fingerprint mismatch (files were added, removed, or "
-                    "modified since the index was built); refresh the index.")
+                    f"Hybrid Scan not applicable: {len(appended)} appended"
+                    f" / {len(deleted)} deleted files exceed thresholds, "
+                    "no common files, or deletes without lineage.")
     return out
+
+
+def hybrid_scan_file_diff(session, entry: IndexLogEntry, relation
+                          ) -> Tuple[bool, List[FileInfo], List[FileInfo]]:
+    """(applicable?, appended files, deleted files) under the Hybrid Scan
+    rules: some common file, deletes only with lineage, and appended and
+    deleted bytes each within their ratio of the common bytes plus their
+    own."""
+    current = set(_current_file_infos(relation))
+    logged = entry.source_file_info_set
+    common = current & logged
+    if not common:
+        return False, [], []
+    appended = sorted(current - logged, key=lambda f: f.name)
+    deleted = sorted(logged - common, key=lambda f: f.name)
+    if deleted and not entry.has_lineage_column():
+        return False, [], []
+    common_bytes = sum(f.size for f in common)
+    appended_bytes = sum(f.size for f in appended)
+    deleted_bytes = sum(f.size for f in deleted)
+    appended_ratio = appended_bytes / (appended_bytes + common_bytes) if appended_bytes else 0.0
+    deleted_ratio = deleted_bytes / (deleted_bytes + common_bytes) if deleted_bytes else 0.0
+    if appended_ratio > session.hs_conf.hybrid_scan_appended_ratio_threshold():
+        return False, [], []
+    if deleted_ratio > session.hs_conf.hybrid_scan_deleted_ratio_threshold():
+        return False, [], []
+    return True, appended, deleted
+
+
+def common_source_bytes(entry: IndexLogEntry, relation) -> int:
+    current = set(_current_file_infos(relation))
+    return sum(f.size for f in (current & entry.source_file_info_set))
 
 
 def index_scan_schema(entry: IndexLogEntry, like: Schema) -> Schema:
     """The index schema exposed to the plan, its columns ordered as in
     ``like`` (the replaced Scan's): the rewrite changes the plan's physical
-    source, never its output column order."""
+    source, never its output columns. The lineage column is hidden."""
     inner = set(entry.schema.names)
     ordered = [n for n in like.names if n in inner]
     ordered += [n for n in entry.schema.names if n not in set(ordered)]
-    return entry.schema.select(ordered)
+    return entry.schema.select([n for n in ordered if n != IndexConstants.DATA_FILE_NAME_ID])
 
 
-def transform_plan_to_use_index(entry: IndexLogEntry, plan: LogicalPlan,
+def transform_plan_to_use_index(session, entry: IndexLogEntry, plan: LogicalPlan,
                                 use_bucket_spec: bool) -> LogicalPlan:
-    """Replace the plan's Scan leaf with an IndexScan over ``entry``."""
+    """Replace the plan's Scan leaf with an IndexScan over ``entry``: an
+    index-only scan when the source is unchanged, else (Hybrid Scan) one
+    that also reads the appended files and drops the deleted files' rows."""
 
     def replace(node: LogicalPlan) -> LogicalPlan:
-        if isinstance(node, Scan):
-            return IndexScan(entry, index_scan_schema(entry, node.schema),
-                             use_bucket_spec=use_bucket_spec)
-        return node
+        if not isinstance(node, Scan):
+            return node
+        appended_paths: List[str] = []
+        deleted_ids: List[int] = []
+        if session.hs_conf.hybrid_scan_enabled():
+            ok, appended, deleted = hybrid_scan_file_diff(session, entry, node.relation)
+            if ok:
+                appended_paths = [f.name for f in appended]
+                if deleted:
+                    by_key = {(f.name, f.size, f.modifiedTime): f.id
+                              for f in entry.source_file_info_set}
+                    deleted_ids = [by_key[(f.name, f.size, f.modifiedTime)] for f in deleted]
+        return IndexScan(entry, index_scan_schema(entry, node.schema),
+                         use_bucket_spec=use_bucket_spec, deleted_file_ids=deleted_ids,
+                         appended_files=appended_paths)
 
     return plan.transform_up(replace)
 

@@ -4,12 +4,11 @@
 Each rule proposes a rewrite of a plan node with a score; the optimizer
 recurses over the tree (memoized) and keeps, at every node, the larger of
 the best rewrite there and the sum of its children's best scores. A
-filter rewrite scores 50 and a join rewrite 70 per side, so one join
-rewrite (140) beats filter rewrites of both sides (100). The JAX package
-scales each by the share of the relation's bytes the index covers, which
-is less than 1 only under Hybrid Scan; the port has no Hybrid Scan, so
-its candidates cover their relations whole. Equal scores go to the plan
-that reads fewer index bytes, then to the first found.
+filter rewrite scores 50 and a join rewrite 70 per side, each times the
+share of the relation's current bytes the index covers (below 1 only
+under Hybrid Scan), so one join rewrite (up to 140) beats filter rewrites
+of both sides (up to 100). Equal scores go to the plan that reads fewer
+index bytes, then to the first found.
 """
 
 from __future__ import annotations
@@ -21,9 +20,22 @@ from ..plan.nodes import IndexScan, Join, LogicalPlan, Scan
 from .filter_rule import try_rewrite_filter
 from .index_filters import ReasonCollector
 from .join_rule import try_rewrite_join
+from .rule_utils import common_source_bytes, get_relation
 
 FILTER_SCORE = 50.0
 JOIN_SCORE_PER_SIDE = 70.0
+
+
+def _coverage_ratio(entry: IndexLogEntry, relation, cache: dict) -> float:
+    """The share of the relation's current bytes the index covers: 1.0 for
+    an unchanged source, less under Hybrid Scan with appends. Memoized per
+    (entry, relation) for one optimizer pass."""
+    key = (entry.name, entry.log_version, id(relation))
+    if key not in cache:
+        total = sum(size for _, size, _ in relation.all_file_infos())
+        cache[key] = 1.0 if total <= 0 else \
+            min(1.0, common_source_bytes(entry, relation) / total)
+    return cache[key]
 
 
 def _plan_index_bytes(plan: LogicalPlan) -> int:
@@ -32,19 +44,29 @@ def _plan_index_bytes(plan: LogicalPlan) -> int:
 
 
 class FilterIndexRuleNG:
-    def apply(self, session, plan, candidates_for, ctx
+    def apply(self, session, plan, candidates_for, ctx, cache
               ) -> Tuple[Optional[LogicalPlan], float]:
         result = try_rewrite_filter(session, plan, ctx, candidates_for)
-        return (None, 0.0) if result is None else (result[0], FILTER_SCORE)
+        if result is None:
+            return None, 0.0
+        new_plan, entry = result
+        relation = get_relation(session, plan.collect_leaves()[0])
+        return new_plan, FILTER_SCORE * _coverage_ratio(entry, relation, cache)
 
 
 class JoinIndexRuleNG:
-    def apply(self, session, plan, candidates_for, ctx
+    def apply(self, session, plan, candidates_for, ctx, cache
               ) -> Tuple[Optional[LogicalPlan], float]:
         if not isinstance(plan, Join):
             return None, 0.0
         result = try_rewrite_join(session, plan, ctx, candidates_for)
-        return (None, 0.0) if result is None else (result[0], 2 * JOIN_SCORE_PER_SIDE)
+        if result is None:
+            return None, 0.0
+        new_plan, (l_entry, r_entry) = result
+        l_rel = get_relation(session, plan.left.collect_leaves()[0])
+        r_rel = get_relation(session, plan.right.collect_leaves()[0])
+        return new_plan, (JOIN_SCORE_PER_SIDE * _coverage_ratio(l_entry, l_rel, cache)
+                          + JOIN_SCORE_PER_SIDE * _coverage_ratio(r_entry, r_rel, cache))
 
 
 class ScoreBasedIndexPlanOptimizer:
@@ -59,6 +81,7 @@ class ScoreBasedIndexPlanOptimizer:
             return found[1] if found else []
 
         memo: Dict[int, Tuple[LogicalPlan, float]] = {}
+        file_stats_cache: Dict = {}
 
         def rec(node: LogicalPlan) -> Tuple[LogicalPlan, float]:
             cached = memo.get(id(node))
@@ -72,7 +95,8 @@ class ScoreBasedIndexPlanOptimizer:
                 best_plan, best_score = node, 0.0
             best_bytes = None
             for rule in self.rules:
-                rewritten, score = rule.apply(session, node, candidates_for, ctx)
+                rewritten, score = rule.apply(session, node, candidates_for, ctx,
+                                              file_stats_cache)
                 if rewritten is None:
                     continue
                 if score > best_score:

@@ -62,6 +62,9 @@ class DefaultFileBasedRelation(FileBasedRelation):
             self._files = sorted(out)
         return list(self._files)
 
+    def refresh(self) -> "DefaultFileBasedRelation":
+        return DefaultFileBasedRelation(self._root_paths, self._format, self._options)
+
     def with_files(self, files: Sequence[str]) -> "DefaultFileBasedRelation":
         pruned = DefaultFileBasedRelation(list(files), self._format, self._options)
         pruned._schema = self.schema

@@ -43,6 +43,11 @@ class FileBasedRelation:
     def describe(self) -> str:
         return f"{self.file_format} {','.join(self.root_paths)}"
 
+    def refresh(self) -> "FileBasedRelation":
+        """The same relation listed anew (a refresh diffs it against the
+        files the index recorded)."""
+        raise NotImplementedError
+
     def with_files(self, files: Sequence[str]) -> "FileBasedRelation":
         """A copy of this relation restricted to ``files`` (data-skipping
         scan pruning). Schema is preserved even when files is empty."""

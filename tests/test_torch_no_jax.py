@@ -1,6 +1,8 @@
 """The port stands alone: with ``jax`` and ``hyperspace_tpu`` made
 unimportable, the slices (covering indexes over lineitem, sketch indexes
-over orders, TPC-H Q3 and Q17 over covering-index joins) still run end to
+over orders, TPC-H Q3 and Q17 over covering-index joins, and the mutable
+slice: a chunked build with lineage, Hybrid Scan over a deleted and an
+appended file, every refresh mode and optimize) still run end to
 end on the CPU, with the join, group-by, column-pruning and score-based
 rule modules imported (in a subprocess,
 because conftest imports jax in this one); the default device refuses to
@@ -92,11 +94,51 @@ SLICE = textwrap.dedent("""
         assert len(leaves) >= 2, leaves
         assert a.column_names == b.column_names and a.num_rows == b.num_rows
         rows.append(a.num_rows)
+    # The mutable slice: a chunked build with lineage, a deleted and an
+    # appended file under Hybrid Scan, every refresh mode and optimize.
+    from hyperspace_tpu_torch.ops import index_build
+    s2 = ht.Session(system_path=os.path.join(root, "ix2"), device="cpu")
+    s2.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, 1000)
+    s2.conf.set(IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    s2.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 8)
+    hs2 = ht.Hyperspace(s2)
+    index_build.CHUNK_STATS.update(chunks=0, max_device_rows=0)
+    hs2.create_index(s2.read.parquet(od_dir), ht.IndexConfig(
+        "od_lin_idx", ["o_orderkey"], ["o_orderdate", "o_totalprice"]))
+    assert index_build.CHUNK_STATS["chunks"] == 3, index_build.CHUNK_STATS
+    per_file = n_od // chip_smoke.ORDERS_PARTS
+    os.remove(os.path.join(od_dir, "part00.parquet"))
+    chip_smoke.append_orders_file(od_dir, per_file, n_od, 16, seed=101)
+
+    def orders_point(hybrid):
+        s2.conf.set(IndexConstants.INDEX_HYBRID_SCAN_ENABLED, hybrid)
+        q = s2.read.parquet(od_dir).filter(col("o_orderkey").isin(
+            [5, n_od // 2, n_od + 3])).select("o_orderkey", "o_totalprice")
+        s2.enable_hyperspace()
+        leaf = q.optimized_plan().collect_leaves()[0].simple_string()
+        a = q.to_arrow()
+        s2.disable_hyperspace()
+        b = q.to_arrow()
+        assert a.num_rows == 2 and a.sort_by("o_orderkey").equals(b.sort_by("o_orderkey"))
+        return leaf
+
+    assert "hybrid(+1 appended, -1 deleted files)" in orders_point("true")
+    hs2.refresh_index("od_lin_idx", "quick")
+    assert "hybrid(+1 appended, -1 deleted files)" in orders_point("true")
+    hs2.refresh_index("od_lin_idx", "incremental")
+    chip_smoke.append_orders_file(od_dir, per_file, n_od + per_file, 17, seed=102)
+    hs2.refresh_index("od_lin_idx", "incremental")
+    assert "IndexScan" in orders_point("false")
+    hs2.optimize_index("od_lin_idx", "quick")
+    os.remove(os.path.join(od_dir, "part01.parquet"))
+    hs2.refresh_index("od_lin_idx", "full")
+    assert "IndexScan" in orders_point("false")
+    assert len(hs2.index_manager.get_index("od_lin_idx").content.files) == 8
     bad = [m for m, v in sys.modules.items() if v is not None and (
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
-    print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1])
+    print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1], "MUTABLE_OK")
 """)
 
 
@@ -104,7 +146,7 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1" in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 MUTABLE_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -170,12 +170,24 @@ def test_kernels_take_the_cpu_path(lake):
 
 
 def test_chunked_build_is_refused_not_built_in_memory(lake, tmp_path):
-    session = ht.Session(conf=dict(CONF), system_path=str(tmp_path / "ix"), device="cpu")
-    session.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, lake["n_li"] - 1)
-    li = session.read.parquet(lake["li_dir"])
-    with pytest.raises(HyperspaceException, match="build_sorted_buckets_chunked"):
-        ht.Hyperspace(session).create_index(li, ht.IndexConfig("big", ["l_orderkey"]))
-    assert not os.path.exists(tmp_path / "ix" / "big" / "v__=0")
+    """A source above the device budget is no longer refused: it streams
+    through the chunked build (never more rows on the device than the
+    budget), and its bucket files equal the JAX package's at that budget."""
+    from hyperspace_tpu_torch.ops import index_build
+    budget = lake["n_li"] - 1
+    index_build.CHUNK_STATS["max_device_rows"] = 0
+    for pkg, sub in ((ht, "torch"), (hst, "jax")):
+        kw = {"device": "cpu"} if pkg is ht else {}
+        session = pkg.Session(conf=dict(CONF), system_path=str(tmp_path / sub), **kw)
+        session.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, budget)
+        pkg.Hyperspace(session).create_index(session.read.parquet(lake["li_dir"]),
+                                             pkg.IndexConfig("big", ["l_orderkey"]))
+    assert 0 < index_build.CHUNK_STATS["max_device_rows"] <= budget
+    files = sorted(os.listdir(tmp_path / "jax" / "big" / "v__=0"))
+    assert files == sorted(os.listdir(tmp_path / "torch" / "big" / "v__=0")) and files
+    for f in files:
+        assert pq.read_table(tmp_path / "torch" / "big" / "v__=0" / f).equals(
+            pq.read_table(tmp_path / "jax" / "big" / "v__=0" / f)), f
 
 
 def test_delete_and_vacuum(lake, tmp_path):
@@ -209,3 +221,14 @@ def test_chip_smoke_generator_matches_bench(lake, tmp_path):
         for f in names:
             assert pq.read_table(os.path.join(got_dir, f)).equals(
                 pq.read_table(os.path.join(want_dir, f))), f
+
+
+def test_chip_smoke_append_matches_bench(lake, tmp_path):
+    """chip_smoke.py's copy of BASELINE config #5's append equals bench.py's."""
+    for sub, fn in (("bench", bench.append_lineitem_files),
+                    ("smoke", chip_smoke.append_lineitem_files)):
+        os.makedirs(tmp_path / sub)
+        assert fn(str(tmp_path / sub), lake["n_li"]) == max(lake["n_li"] // 20, 1000)
+    got = pq.read_table(tmp_path / "smoke" / "part-appended.parquet")
+    assert got.equals(pq.read_table(tmp_path / "bench" / "part-appended.parquet"))
+    assert got.num_rows == 1000
