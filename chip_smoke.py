@@ -53,6 +53,16 @@ Phases, each of which fails the run on any error:
               reached in practice; and the microseconds of each piece of
               a wrapper's host path, and of whole calls by the host clock
               and by CUDA events;
+   sources -- after the joins path: a copy of orders partitioned by
+              o_orderpriority (hive directories, 5 x 4 files) with the
+              struct o_attrs<o_orderdate, o_totalprice>; ohp_idx on the
+              leaf o_attrs.o_orderdate built in memory at the default
+              device budget; three queries (1-URGENT in June-July 1994,
+              whose scan keeps 4 of 20 files; after the Q3 cutoff; orders
+              and revenue per priority) indexed and scanned against a
+              hive-partitioned pyarrow dataset; then indexes(), index(),
+              explain(Q3) and why_not(Q17) on the run's lake, which must
+              leave the usage counts as they were;
 7. breakdown -- host spans, peak device memory and the profiler's
               device time for rebuilds of li_ship_idx, li_pk_idx, pt_idx,
               od_skip and od_bloom and for the four filter queries and Q3
@@ -80,8 +90,8 @@ Phases, each of which fails the run on any error:
               port on the CPU (which the tests hold to the JAX package),
               reported bit for bit.
 
-Launch counters are reset just before each path (lineitem, orders and
-joins of phases 4-5, then mutations) and read just after it.
+Launch counters are reset just before each path (lineitem, orders,
+joins and sources of phases 4-5, then mutations) and read just after it.
 The last lines of standard output are the ``kernels`` JSON object, the
 card's name and power limit as nvidia-smi reports them, and the status
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -117,6 +127,7 @@ PATH_KERNELS = {
     "lineitem": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
     "orders": ("hash_bucket", "bucket_histogram", "range_mask", "masked_minmax"),
     "joins": ("hash_bucket", "bucket_histogram", "compare_mask"),
+    "sources": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
     "mutations": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
                   "masked_minmax"),
 }
@@ -946,6 +957,226 @@ def run_joins_path(session, hs, li_dir: str, od_dir: str, pt_dir: str, results: 
     return queries
 
 
+# ---------------------------------------------------------------------------
+# The sources path: hive partitions and a struct column in one lake.
+# ---------------------------------------------------------------------------
+
+# O_ORDERPRIORITY's five values (TPC-H 4.2.3).
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+HIVE_FILES_PER_PARTITION = 4
+HIVE_INDEX = "ohp_idx"
+HIVE_INDEX_COLUMNS = (["o_attrs.o_orderdate"],
+                      ["o_orderkey", "o_orderpriority", "o_attrs.o_totalprice"])
+
+
+def make_orders_hive(od_dir: str, out_dir: str, seed: int = 0) -> int:
+    """A copy of the orders rows partitioned by o_orderpriority (drawn
+    uniformly from the five priorities, from ``seed``), 4 files a
+    partition, each holding o_orderkey, o_custkey and the struct
+    o_attrs<o_orderdate date32, o_totalprice float64>, rows in the orders'
+    order. Returns the rows."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    orders = pq.read_table(sorted(os.path.join(od_dir, f) for f in os.listdir(od_dir)),
+                           columns=["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"])
+    attrs = pa.StructArray.from_arrays(
+        [orders.column("o_orderdate").combine_chunks(),
+         orders.column("o_totalprice").combine_chunks()],
+        ["o_orderdate", "o_totalprice"])
+    table = pa.table({"o_orderkey": orders.column("o_orderkey"),
+                      "o_custkey": orders.column("o_custkey"), "o_attrs": attrs})
+    priority = np.random.default_rng(seed).integers(0, len(PRIORITIES), table.num_rows)
+    for p, name in enumerate(PRIORITIES):
+        part_dir = os.path.join(out_dir, f"o_orderpriority={name}")
+        os.makedirs(part_dir)
+        rows = np.nonzero(priority == p)[0]
+        for i, piece in enumerate(np.array_split(rows, HIVE_FILES_PER_PARTITION)):
+            pq.write_table(table.take(piece), os.path.join(part_dir, f"part-{i:02d}.parquet"))
+    return table.num_rows
+
+
+def sources_queries(df, col, count, sum_) -> dict:
+    """The sources path's three queries over the hive lake ``df``, written
+    with a package's ``col``, ``count`` and ``sum_``: 1-URGENT orders of
+    June and July 1994; orders after the Q3 cutoff; orders and revenue per
+    priority (TPC-H Q4's grouping)."""
+    return {
+        "urgent": df.filter((col("o_orderpriority") == PRIORITIES[0])
+                            & col("o_attrs.o_orderdate").between(SKIP_LO, SKIP_HI))
+        .select("o_orderkey", "o_orderpriority", "o_attrs.o_orderdate",
+                "o_attrs.o_totalprice"),
+        "after_cutoff": df.filter(col("o_attrs.o_orderdate") > CUTOFF)
+        .select("o_orderkey", "o_attrs.o_totalprice"),
+        "by_priority": df.group_by("o_orderpriority").agg(
+            count(None).alias("order_count"), sum_(col("o_attrs.o_totalprice")).alias("revenue")),
+    }
+
+
+def sources_reference(hive_dir: str) -> dict:
+    """The three queries answered by pyarrow alone: a hive-partitioned
+    dataset, the struct leaves projected under their dotted names."""
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+
+    lake = ds.dataset(hive_dir, format="parquet", partitioning="hive")
+    date = pc.field("o_attrs", "o_orderdate")
+    price = pc.field("o_attrs", "o_totalprice")
+    urgent = lake.to_table(
+        filter=(pc.field("o_orderpriority") == PRIORITIES[0]) & (date >= SKIP_LO)
+        & (date <= SKIP_HI),
+        columns={"o_orderkey": pc.field("o_orderkey"),
+                 "o_orderpriority": pc.field("o_orderpriority"),
+                 "o_attrs.o_orderdate": date, "o_attrs.o_totalprice": price})
+    after = lake.to_table(filter=date > CUTOFF,
+                          columns={"o_orderkey": pc.field("o_orderkey"),
+                                   "o_attrs.o_totalprice": price})
+    groups = lake.to_table(columns={"o_orderpriority": pc.field("o_orderpriority"),
+                                    "revenue": price}) \
+        .group_by("o_orderpriority").aggregate([("revenue", "count"), ("revenue", "sum")])
+    by_priority = {p: (n, s) for p, n, s in zip(groups.column("o_orderpriority").to_pylist(),
+                                                groups.column("revenue_count").to_pylist(),
+                                                groups.column("revenue_sum").to_pylist())}
+    return {"urgent": urgent, "after_cutoff": after, "by_priority": by_priority}
+
+
+def check_by_priority(got, ref: dict, what: str) -> None:
+    rows = got.to_pydict()
+    if list(got.column_names) != ["o_orderpriority", "order_count", "revenue"]:
+        raise AssertionError(f"by_priority ({what}): columns {got.column_names}")
+    if sorted(rows["o_orderpriority"]) != sorted(ref):
+        raise AssertionError(f"by_priority ({what}): groups {rows['o_orderpriority']}")
+    for p, n, s in zip(rows["o_orderpriority"], rows["order_count"], rows["revenue"]):
+        if n != ref[p][0] or not close(s, ref[p][1]):
+            raise AssertionError(f"by_priority ({what}): {p}: ({n}, {s}) against pyarrow's "
+                                 f"{ref[p]}")
+
+
+def check_introspection(session, hs, queries: dict, names: list) -> dict:
+    """indexes(), index(), explain() and why_not() on the run's lake: every
+    index listed ACTIVE, li_idx's extended row, Q3's explain naming li_idx
+    and od_idx under "Indexes used", why_not naming od_idx's reason on
+    Q17, and neither of those two moving any usage count."""
+    before = dict(session._index_usage_counts)
+    summary = hs.indexes()
+    listed = dict(zip(summary["name"], summary["state"]))
+    if sorted(listed) != sorted(names) or set(listed.values()) != {"ACTIVE"}:
+        raise AssertionError(f"indexes(): {listed}; the run built {sorted(names)}")
+    usage = {n: int(c) for n, c in zip(summary["name"], summary["usageCount"])}
+    if usage != {n: before.get(n, 0) for n in names} or usage["li_idx"] <= 0:
+        raise AssertionError(f"indexes(): usage counts {usage}, the session's {before}")
+    li = hs.index("li_idx").iloc[0]
+    if (li["numBuckets"], li["indexFileCount"], li["sourceFileCount"]) != (32, 32, 4):
+        raise AssertionError(f"index('li_idx'): {li.to_dict()}")
+    text = hs.explain(queries["q3"])
+    used = text.split("Indexes used:")[-1]
+    if not all(f"{n} (Type: CI" in used for n in ("li_idx", "od_idx")):
+        raise AssertionError(f"explain(q3) does not name li_idx and od_idx as used:\n{text}")
+    why = hs.why_not(queries["q17"], "od_idx")
+    if "[od_idx] COL_SCHEMA_MISMATCH" not in why:
+        raise AssertionError(f"why_not(q17, od_idx): {why}")
+    if dict(session._index_usage_counts) != before:
+        raise AssertionError(f"explain or why_not moved the usage counts: {before} -> "
+                             f"{session._index_usage_counts}")
+    log(f"introspection: {len(listed)} indexes listed; usage {usage}; why_not(q17, od_idx): "
+        f"{why.splitlines()[0]}")
+    return {"indexes": listed, "usage": usage, "li_idx": {k: str(v) for k, v in li.items()},
+            "why_not_q17_od_idx": why, "explain_q3": text}
+
+
+def run_sources_path(root: str, session, hs, od_dir: str, queries: dict, results: dict) -> None:
+    """A hive copy of orders with a struct column: ohp_idx built in memory
+    at the default device budget, the three queries indexed and scanned
+    against pyarrow, then the introspection calls on the run's lake."""
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants, col, sum_
+    from hyperspace_tpu_torch.ops import index_build
+    from hyperspace_tpu_torch.plan.expr import count
+
+    out = {}
+    results["sources"] = out
+    hive_dir = os.path.join(root, "data", "orders_hive")
+    t0 = time.perf_counter()
+    rows = make_orders_hive(od_dir, hive_dir)
+    out.update(rows=rows, datagen_s=time.perf_counter() - t0,
+               files=len(PRIORITIES) * HIVE_FILES_PER_PARTITION)
+    log(f"sources: {rows:,} orders rows in {out['files']} hive files in "
+        f"{out['datagen_s']:.1f} s")
+
+    budget = session.conf.get(IndexConstants.TPU_MAX_CHUNK_ROWS)
+    session.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, IndexConstants.TPU_MAX_CHUNK_ROWS_DEFAULT)
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+    try:
+        hive = session.read.parquet(hive_dir)
+        want = ["o_orderkey", "o_custkey", "o_attrs.o_orderdate", "o_attrs.o_totalprice",
+                "o_orderpriority"]
+        if hive.schema.names != want:
+            raise AssertionError(f"sources: schema {hive.schema.names}, not {want}")
+        chunks = index_build.CHUNK_STATS["chunks"]
+        torch_sync()
+        t0 = time.perf_counter()
+        hs.create_index(hive, IndexConfig(HIVE_INDEX, *HIVE_INDEX_COLUMNS))
+        torch_sync()
+        secs = time.perf_counter() - t0
+        if index_build.CHUNK_STATS["chunks"] != chunks:
+            raise AssertionError(f"sources: {HIVE_INDEX} took the chunked build; partition "
+                                 "columns and struct leaves must take the in-memory one")
+        entry = hs.index_manager.get_index(HIVE_INDEX)
+        if check_bucket_layout(entry, "o_attrs.o_orderdate") != rows:
+            raise AssertionError(f"sources: {HIVE_INDEX} does not hold every row")
+        out["build"] = {"seconds": secs, "rows_per_s": rows / secs,
+                        "files": len(entry.content.files)}
+        log(f"built {HIVE_INDEX}: {secs:.3f} s ({rows / secs:,.0f} rows/s)")
+
+        t0 = time.perf_counter()
+        refs = sources_reference(hive_dir)
+        out["reference_s"] = time.perf_counter() - t0
+        qs = sources_queries(session.read.parquet(hive_dir), col, count, sum_)
+        for name, df in qs.items():
+            session.enable_hyperspace()
+            indexed_plan = df.optimized_plan()
+            session.disable_hyperspace()
+            scanned_plan = df.optimized_plan()
+            names = plan_index_names(indexed_plan)
+            if name != "by_priority" and names != [HIVE_INDEX]:
+                raise AssertionError(f"sources {name}: plan reads {names}, not {HIVE_INDEX}")
+            kept = [len(leaf.relation.all_files()) for leaf in scanned_plan.collect_leaves()]
+            if name == "urgent" and kept != [HIVE_FILES_PER_PARTITION]:
+                raise AssertionError(f"sources urgent: the scan keeps {kept} files, not "
+                                     f"{HIVE_FILES_PER_PARTITION} of {out['files']}")
+            times, peaks, tables = {}, {}, {}
+            for mode in ("indexed", "scanned"):
+                tables[mode], times[mode], peaks[mode] = run_twice(session, df,
+                                                                   mode == "indexed")
+            for mode in ("indexed", "scanned"):
+                for t in tables[mode]:
+                    if name == "by_priority":
+                        check_by_priority(t, refs[name], mode)
+                    elif not same_rows(t, refs[name]):
+                        raise AssertionError(f"sources {name} ({mode}): result differs from "
+                                             f"the pyarrow reference: {t.schema} against "
+                                             f"{refs[name].schema}")
+            if name != "by_priority" and tables["indexed"][0].num_rows == 0:
+                raise AssertionError(f"sources {name}: matched no rows")
+            out.setdefault("queries", {})[name] = {
+                "rows": tables["indexed"][0].num_rows, "columns": tables["indexed"][0].column_names,
+                "indexed_s": times["indexed"], "scanned_s": times["scanned"],
+                "peak_bytes_indexed": peaks["indexed"], "peak_bytes_scanned": peaks["scanned"],
+                "indexes": names, "scanned_files_kept": kept}
+            log(f"sources {name}: {tables['indexed'][0].num_rows} rows; indexed "
+                f"{times['indexed']} s, scanned {times['scanned']} s; peak device bytes "
+                f"{peaks['indexed']} / {peaks['scanned']}; scanned files kept {kept}")
+    finally:
+        session.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, budget)
+    names = [n for n in results["builds"]] + [HIVE_INDEX]
+    out["introspection"] = check_introspection(session, hs, queries, names)
+
+
+def torch_sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
 def card_against_cpu(root: str) -> dict:
     """Q3 and Q17 at PARITY_SCALE on the card and through the port on the
     CPU, indexed and scanned: equal bit for bit, or the largest relative
@@ -1477,37 +1708,53 @@ def time_ms(fn, iters: int = 20, rounds: int = 1):
     return sorted(times)[rounds // 2], max(times) - min(times)
 
 
-def device_profile(fn, iters: int = 20) -> dict:
+def device_profile(fn, iters: int = 20, name=None) -> dict:
     """The card's own time per call (ms) and the device records each call
     puts on the stream: torch.profiler over ``iters`` calls after 3 warm-up
-    calls, device-side records only (kernels, memsets and copies)."""
+    calls, device-side records only (kernels, memsets and copies).
+    ``name``: the kernel whose wrapper ``fn`` calls; its launch count
+    during the session tells a session that dropped a record."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # A profiling session now and then comes back without device records;
-    # it is repeated, up to five times in all, and then the run fails.
+    # A profiling session now and then comes back without device records,
+    # or without one of its kernels' records (fewer kernel records than
+    # the wrapper counted launches); it is repeated, up to five times in
+    # all, and then the run fails. Each discarded session is kept in the
+    # result as (kernel records, launches counted), so a retry shows.
+    discarded = []
     for _ in range(5):
+        launched = ck.LAUNCHES.get(name, 0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        launched = ck.LAUNCHES.get(name, 0) - launched
         records = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
                    if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
                    and e.key != "Activity Buffer Request"]
-        if records:
+        kernels = sum(c for k, c, _ in records if not k.startswith(("Memset", "Memcpy")))
+        if records and kernels >= launched:
             break
+        discarded.append((kernels, launched))
     if not records:
         raise AssertionError("torch.profiler gave no device records in five sessions")
+    if kernels < launched:
+        raise AssertionError(f"torch.profiler recorded {kernels} kernels of {launched} "
+                             f"launches in each of five sessions")
     memsets = sum(c for k, c, _ in records if k.startswith("Memset"))
     copies = sum(c for k, c, _ in records if k.startswith("Memcpy"))
     return {"device_ms": sum(t for _, _, t in records) / 1e3 / iters,
             "kernels_per_call": (sum(c for _, c, _ in records) - memsets - copies) / iters,
             "memsets_per_call": memsets / iters, "copies_per_call": copies / iters,
-            "device_records": [(k[:120], c) for k, c, _ in records]}
+            "device_records": [(k[:120], c) for k, c, _ in records],
+            "profile_sessions": len(discarded) + 1, "discarded_sessions": discarded}
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -1636,7 +1883,7 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
     # in the process runs slower (a plain allocation too), which would
     # inflate the host-paced times above.
     for e, fn in pending:
-        prof = device_profile(fn)
+        prof = device_profile(fn, name=e["name"])
         if e["name"] in ONE_KERNEL_A_CALL and (prof["kernels_per_call"] != 1
                                                or prof["memsets_per_call"]
                                                or prof["copies_per_call"]):
@@ -1644,7 +1891,9 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
                                  f"{prof['device_records']} on the stream, not one kernel")
         e.update(device_ms=prof["device_ms"], kernels_per_call=prof["kernels_per_call"],
                  memsets_per_call=prof["memsets_per_call"],
-                 device_records=prof["device_records"])
+                 device_records=prof["device_records"],
+                 profile_sessions=prof["profile_sessions"],
+                 discarded_sessions=prof["discarded_sessions"])
     return main_path, full, copy, host
 
 
@@ -1734,8 +1983,9 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
               n_od: int) -> dict:
     """Host timers around the layers of rebuilds of li_ship_idx, li_pk_idx,
     pt_idx, od_skip and od_bloom and of the cutoff, range, skipping, bloom,
-    Q3 and Q17
-    queries (each timer synchronizes the device), the peak device memory
+    Q3 and Q17 queries (each timer synchronizes the device; "index log
+    reads" is the session's cached index listing, every call of it), the
+    peak device memory
     of the timed run, then torch.profiler over the same work for the
     device's own time."""
     import torch
@@ -1747,7 +1997,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     from hyperspace_tpu_torch.actions import create, create_skipping
     from hyperspace_tpu_torch.execution import executor
     from hyperspace_tpu_torch.execution.columnar import Table
-    from hyperspace_tpu_torch.index.manager import IndexCollectionManager
+    from hyperspace_tpu_torch.index.manager import CachingIndexCollectionManager
     from hyperspace_tpu_torch.ops import cuda_kernels, index_build, kernels, sketches
     from hyperspace_tpu_torch.rules import data_skipping_rule
 
@@ -1774,7 +2024,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     sketch_spans = [(create_skipping, "read_parquet", "read file -> device"),
                     (sketches, "to_host", "device -> host"),
                     (create_skipping, "write_sketch_table", "write sketch table")]
-    covering_spans = [(create, "read_parquet", "read source -> device"),
+    covering_spans = [(create, "read_relation_files", "read source -> device"),
                       (index_build, "build_sorted_buckets", "hash + sort + histogram (device)"),
                       (Table, "to_host", "device -> host"),
                       (create, "write_bucket_files", "write bucket parquet files")]
@@ -1803,12 +2053,13 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     for name in ("cutoff", "range", "skipping", "bloom", "q3", "q17"):
         for indexed in (True, False):
             spans_of = [(executor, "read_parquet", "parquet read -> device"),
+                        (executor, "read_relation_files", "parquet read -> device"),
                         (executor, "_filter_table", "filter (device)"),
                         (Table, "to_arrow", "result -> host arrow")]
             if name in ("q3", "q17"):
                 spans_of += join_spans
             if indexed:
-                spans_of.append((IndexCollectionManager, "get_indexes",
+                spans_of.append((CachingIndexCollectionManager, "get_indexes",
                                  "index log reads (host)"))
             if indexed and name in ("skipping", "bloom"):
                 spans_of.append((data_skipping_rule, "evaluate_sketch_predicate",
@@ -1924,6 +2175,13 @@ def main(argv=None) -> int:
         ck.reset_launches()
         queries.update(run_joins_path(session, hs, li_dir, od_dir, pt_dir, results))
         launches["joins"] = dict(ck.LAUNCHES)
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        run_sources_path(root, session, hs, od_dir, queries, results)
+        launches["sources"] = dict(ck.LAUNCHES)
+        results["sources"]["seconds"] = time.perf_counter() - t0
+        log(f"sources: launches {launches['sources']}; "
+            f"{results['sources']['seconds']:.1f} s")
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
         missing = [f"{k} ({path})" for path in launches for k in PATH_KERNELS[path]
@@ -1971,7 +2229,8 @@ def main(argv=None) -> int:
     for k in main_path + full:
         log(f"{k['name']}: {k['input']}: {k['ms']:.4f} ms (spread {k['ms_spread']:.4f}; "
             f"device {k['device_ms']}, {k['kernels_per_call']} kernels and "
-            f"{k['memsets_per_call']} memsets a call; plain {k['plain_ms']:.4f}, "
+            f"{k['memsets_per_call']} memsets a call, {k['profile_sessions']} profiling "
+            f"sessions, discarded {k['discarded_sessions']}; plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f}"
             + (f"; public call {k['public_call_ms']:.4f}" if "public_call_ms" in k else "")
             + ")")
@@ -1979,8 +2238,9 @@ def main(argv=None) -> int:
     mutations["queries"] = {k: {f: v[f] for f in ("indexed_s", "scanned_s", "hybrid_merges",
                                                   "fast_joins", "files_kept") if f in v}
                             for k, v in results["mutations"]["queries"].items()}
+    sources = {k: v for k, v in results["sources"].items() if k != "introspection"}
     print(json.dumps({"builds": results["builds"], "queries": results["queries"],
-                      "mutations": mutations,
+                      "sources": sources, "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
     print(json.dumps({"kernels": main_path}))

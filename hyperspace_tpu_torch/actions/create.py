@@ -18,8 +18,7 @@ import pyarrow.parquet as pq
 import torch
 
 from ..exceptions import HyperspaceException
-from ..execution.columnar import (Column, Table, parquet_row_counts, read_parquet,
-                                  write_parquet)
+from ..execution.columnar import Column, Table, parquet_row_counts, write_parquet
 from ..index.constants import IndexConstants, States
 from ..index.data_manager import IndexDataManager
 from ..index.log_entry import (Content, CoveringIndex, Directory, FileIdTracker,
@@ -30,6 +29,7 @@ from ..index.signatures import IndexSignatureProvider
 from ..ops import index_build
 from ..plan.nodes import Scan
 from ..schema import INT64, Field, Schema
+from ..sources.partitions import read_relation_files
 from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
@@ -90,7 +90,7 @@ class CreateActionBase(Action):
         the device, with the lineage column when enabled: each row's
         source-file id, numbered by ``tracker`` in file order."""
         files = list(files) if files is not None else relation.all_files()
-        table = read_parquet(files, indexed + included, self.session.device)
+        table = read_relation_files(relation, files, indexed + included, self.session.device)
         if self._lineage_enabled():
             ids = [tracker.add_file(*file_info_triple(f)) for f in files]
             lineage = np.repeat(np.asarray(ids, np.int64),
@@ -117,7 +117,8 @@ class CreateActionBase(Action):
                        files: Optional[List[str]] = None) -> bool:
         """The chunked build when the source holds more rows than the
         device budget; False (nothing done) when the in-memory build
-        should run instead."""
+        should run instead, as it must for a hive partition column or a
+        struct leaf (no physical column for the streaming reader)."""
         files = list(files) if files is not None else relation.all_files()
         if not files:
             return False

@@ -1,11 +1,11 @@
 """User API facade (counterpart of ``hyperspace_tpu/api.py``: covering and
 data-skipping indexes; create, delete, restore, vacuum, refresh, optimize
-and cancel)."""
+and cancel; the introspection calls indexes, index, explain and why_not)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 from .exceptions import HyperspaceException
 from .index.constants import IndexConstants
@@ -151,3 +151,39 @@ class Hyperspace:
         """Roll an index stuck in a transient state back to its last stable
         entry."""
         self.index_manager.cancel(index_name)
+
+    def indexes(self):
+        """One summary row per index (pandas DataFrame)."""
+        return self.index_manager.indexes()
+
+    def index(self, index_name: str):
+        """The extended statistics row of one index (pandas DataFrame)."""
+        import pandas as pd
+        from .index.statistics import IndexStatistics
+        entry = self.index_manager.get_index(index_name)
+        if entry is None:
+            raise HyperspaceException(f"Index with name {index_name} could not be found.")
+        usage = self.session._index_usage_counts.get(index_name, 0)
+        return pd.DataFrame([IndexStatistics.from_entry(
+            entry, usage_count=usage).to_extended_row()])
+
+    def explain(self, df, verbose: bool = False, redirect_func=None,
+                mode: str = "plaintext") -> str:
+        """The plan with and without indexes, changed subtrees highlighted,
+        rendered per ``mode`` ("plaintext", "console" or "html"); also
+        handed to ``redirect_func`` when given."""
+        from .plananalysis.explain import explain_string
+        text = explain_string(self.session, df.plan, verbose=verbose, mode=mode)
+        if redirect_func is not None:
+            redirect_func(text)
+        return text
+
+    def why_not(self, df, index_name: Optional[str] = None) -> str:
+        """Why each index was, or was not, applied to this query's plan."""
+        from .rules.apply_hyperspace import apply_hyperspace
+        from .rules.column_pruning import prune_columns
+        from .rules.index_filters import ReasonCollector
+        # Silent: a diagnostic pass counts no index usage.
+        ctx = ReasonCollector(enabled=True, silent=True)
+        apply_hyperspace(self.session, prune_columns(df.plan), ctx)
+        return ctx.format(index_name)

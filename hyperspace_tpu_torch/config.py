@@ -77,6 +77,10 @@ class HyperspaceConf:
         return self._get_bool(IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC,
                               IndexConstants.INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT)
 
+    def index_cache_expiry_seconds(self) -> int:
+        return int(self._conf.get(IndexConstants.INDEX_CACHE_EXPIRY_DURATION_SECONDS,
+                                  IndexConstants.INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT))
+
     def case_sensitive(self) -> bool:
         return self._get_bool(IndexConstants.CASE_SENSITIVE,
                               IndexConstants.CASE_SENSITIVE_DEFAULT)

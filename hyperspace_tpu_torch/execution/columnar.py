@@ -301,11 +301,30 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
                  filters=None) -> Table:
     """Read parquet ``files`` onto ``device``. ``filters`` is a pyarrow
     expression: row groups whose statistics exclude it are skipped and the
-    rows read are filtered by it (the device filter still runs after)."""
+    rows read are filtered by it (the device filter still runs after).
+
+    A dotted column that is not a top-level one is a struct leaf: its root
+    struct column is read, flattened until no struct is left, and the
+    exact dotted leaves are selected (pyarrow's ``columns=`` would select
+    a nested leaf but name it by its last part)."""
     if not files:
         raise HyperspaceException("read_parquet: no files")
-    at = pq.read_table(list(files), columns=list(columns) if columns else None,
-                       filters=filters)
+    read_cols = list(columns) if columns else None
+    flatten_select = None
+    if columns:
+        top_level = set(pq.read_schema(files[0]).names)
+        if any(c not in top_level for c in columns):
+            roots: List[str] = []
+            for c in columns:
+                root = c if c in top_level else c.split(".", 1)[0]
+                if root not in roots:
+                    roots.append(root)
+            read_cols, flatten_select = roots, list(columns)
+    at = pq.read_table(list(files), columns=read_cols, filters=filters)
+    if flatten_select is not None:
+        while any(pa.types.is_struct(f.type) for f in at.schema):
+            at = at.flatten()
+        at = at.select(flatten_select)
     return Table.from_arrow(at, device)
 
 

@@ -42,6 +42,7 @@ from ..plan import expr as E
 from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
                           Project, Scan, Sort)
 from ..schema import DATE, FLOAT64, INT32, INT64, STRING
+from ..sources.partitions import read_relation_files
 from .columnar import (Column, Table, dictionaries_equal, empty_table, iter_dataset_chunks,
                        literal_to_device, parquet_row_counts, read_parquet,
                        translate_codes)
@@ -63,8 +64,11 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
             needed | set(plan.condition.references)
         child = plan.child
         if isinstance(child, (Scan, IndexScan)):
-            # Push row-group-prunable conjuncts into the parquet read.
-            pa_filter = pushable_filter(plan.condition, child.schema)
+            # Push row-group-prunable conjuncts into the parquet read. A
+            # source's struct leaves are no physical columns, so dotted
+            # names are pushed only into index files, which store them flat.
+            pa_filter = pushable_filter(plan.condition, child.schema,
+                                        allow_nested=isinstance(child, IndexScan))
             chunk_rows = session.hs_conf.max_chunk_rows()
             if isinstance(child, Scan):
                 chunked = _chunked_filtered_scan(child, child_needed, plan.condition,
@@ -136,7 +140,7 @@ def _execute_scan(plan: Scan, needed: Optional[Set[str]], device,
     files = relation.all_files()
     if not files:
         return empty_table(relation.schema.select(cols), device)
-    return read_parquet(files, cols, device, filters=pa_filter)
+    return read_relation_files(relation, files, cols, device, filters=pa_filter)
 
 
 # The chunked scans' device footprint: tests hold max_device_rows to the
@@ -157,7 +161,9 @@ def _chunked_filtered_scan(plan: Scan, needed: Optional[Set[str]], condition, pa
     stream in chunks (row groups the pushed filter excludes are never
     decoded), each chunk is masked on the device and only its survivors
     are kept. None when the source fits the budget (the in-memory read is
-    cheaper) or a needed column is not a physical one."""
+    cheaper) or a needed column is not a physical one: a hive partition
+    column or a struct leaf, which the in-memory reader attaches or
+    flattens."""
     relation = plan.relation
     files = relation.all_files()
     if not files:
@@ -260,8 +266,7 @@ def _chunked_filtered_index_scan(plan: IndexScan, needed: Optional[Set[str]], co
     app_parts: List[Table] = []
     if plan.appended_files:
         app_cols = [c for c in cols if c != lineage]
-        for chunk in iter_dataset_chunks(list(plan.appended_files), app_cols, chunk_rows,
-                                         device):
+        for chunk in _appended_chunks(plan, app_cols, chunk_rows, device):
             _note_chunk_scan(chunk.num_rows)
             appended = chunk.filter(eval_predicate_mask(chunk, condition))
             if lineage in cols:
@@ -282,6 +287,23 @@ def _chunked_filtered_index_scan(plan: IndexScan, needed: Optional[Set[str]], co
         else:
             table = Table.concat([table, app_table]) if table.num_rows else app_table
     return _drop_unwanted_lineage(plan, table, needed)
+
+
+def _appended_chunks(plan: IndexScan, cols: List[str], chunk_rows: int, device):
+    """The appended source files' ``cols`` in tables of at most
+    ``chunk_rows`` rows on ``device``. Files whose columns are all physical
+    stream row group by row group; otherwise (a partition column or a
+    struct leaf) each file is read on the host through the relation's
+    reader and sliced to the budget before it moves to the device."""
+    files = list(plan.appended_files)
+    if all(set(cols) <= set(pq.read_schema(f).names) for f in files):
+        yield from iter_dataset_chunks(files, cols, chunk_rows, device)
+        return
+    for f in files:
+        table = read_relation_files(plan.source_relation, [f], cols, torch.device("cpu"))
+        for lo in range(0, table.num_rows, chunk_rows):
+            part = table.slice(lo, min(lo + chunk_rows, table.num_rows))
+            yield Table({n: c.to(device) for n, c in part.columns.items()})
 
 
 def _equality_bucket_subset(plan: IndexScan, condition) -> Optional[Set[int]]:
@@ -355,9 +377,9 @@ def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
     if deleted is not None:
         table = table.filter(_not_deleted(table, deleted))
     if plan.appended_files:
-        appended = read_parquet(plan.appended_files,
-                                [c for c in cols if c != IndexConstants.DATA_FILE_NAME_ID],
-                                device)
+        appended = read_relation_files(
+            plan.source_relation, plan.appended_files,
+            [c for c in cols if c != IndexConstants.DATA_FILE_NAME_ID], device)
         if IndexConstants.DATA_FILE_NAME_ID in cols:
             appended = _with_unknown_lineage(appended, device)
         merged = _merge_appended_preserving_order(entry, table, appended)

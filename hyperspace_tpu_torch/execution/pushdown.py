@@ -47,7 +47,15 @@ def _literal(value, column: str, schema: Schema):
     return value
 
 
-def _translate(e: E.Expr, schema: Schema):
+def _translate(e: E.Expr, schema: Schema, allow_nested: bool):
+    def field(column: str):
+        # A dotted name is a flattened struct leaf. In source files the
+        # physical column is the root struct, and pc.field("a.b") raises
+        # against it; index files store the leaves as flat dotted columns.
+        if "." in column and not allow_nested:
+            return None
+        return pc.field(column)
+
     if isinstance(e, _CMP_TYPES):
         op = type(e).__name__
         left, right = e.left, e.right
@@ -55,30 +63,35 @@ def _translate(e: E.Expr, schema: Schema):
             left, right = right, left
             op = _FLIP[op]
         if isinstance(left, E.Col) and isinstance(right, E.Lit):
-            return _OPS[op](pc.field(left.column),
-                            _literal(right.value, left.column, schema))
+            f = field(left.column)
+            if f is None:
+                return None
+            return _OPS[op](f, _literal(right.value, left.column, schema))
         return None
     if isinstance(e, E.In) and isinstance(e.value, E.Col):
         values = [_literal(o.value, e.value.column, schema)
                   for o in e.options if isinstance(o, E.Lit)]
         if len(values) == len(e.options):
-            return pc.field(e.value.column).isin(values)
+            f = field(e.value.column)
+            return None if f is None else f.isin(values)
         return None
     if isinstance(e, E.Or):
-        left = _translate(e.left, schema)
-        right = _translate(e.right, schema)
+        left = _translate(e.left, schema, allow_nested)
+        right = _translate(e.right, schema, allow_nested)
         if left is not None and right is not None:
             return left | right
     return None
 
 
-def pushable_filter(condition: E.Expr, schema: Schema) -> Optional[pc.Expression]:
+def pushable_filter(condition: E.Expr, schema: Schema,
+                    allow_nested: bool = True) -> Optional[pc.Expression]:
     """AND of the translatable conjuncts, or None. Pushing a subset is
     sound: each conjunct is a necessary condition, and the full device
-    filter still runs afterward."""
+    filter still runs afterward. ``allow_nested=False`` leaves out dotted
+    (struct-leaf) columns, as a source scan must."""
     out = None
     for conjunct in E.split_conjunctive_predicates(condition):
-        t = _translate(conjunct, schema)
+        t = _translate(conjunct, schema, allow_nested)
         if t is not None:
             out = t if out is None else (out & t)
     return out

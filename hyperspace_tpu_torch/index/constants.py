@@ -46,6 +46,11 @@ class IndexConstants:
     INDEX_FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
     INDEX_FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = "false"
 
+    # Seconds the session's index list stays cached (index/cache.py); any
+    # index mutation through the session clears it at once.
+    INDEX_CACHE_EXPIRY_DURATION_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
+    INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT = "300"
+
     # Operation log layout.
     HYPERSPACE_LOG = "_hyperspace_log"
     LATEST_STABLE_LOG_NAME = "latestStable"

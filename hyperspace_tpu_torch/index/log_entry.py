@@ -434,6 +434,10 @@ class IndexLogEntry:
         return self.relation.data.content.file_infos
 
     @property
+    def source_files_size_in_bytes(self) -> int:
+        return sum(f.size for f in self.source_file_info_set)
+
+    @property
     def index_files_size_in_bytes(self) -> int:
         return sum(f.size for f in self.content.file_infos)
 

@@ -6,17 +6,111 @@
 
 ``write_log`` refuses to overwrite an existing id (put-if-absent through
 the log store), which is how concurrent actions detect conflicts.
+
+The per-query lookups (the latest id, the latest stable entry) are
+memoized process-wide by ``LogLookupCache``, keyed on the log directory's
+change token.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import List, Optional
 
 from ..util import json_utils
 from .constants import STABLE_STATES, IndexConstants, States
 from .log_entry import IndexLogEntry
 from .log_store import LocalFsLogStore
+
+
+class LogLookupCache:
+    """Process-wide memo of the op-log lookups every query makes, keyed on
+    the log directory's identity token (mtime_ns, ctime_ns).
+
+    Every protocol write creates or deletes a file in the log directory
+    (an entry's put-if-absent, latestStable's temp file + replace), so the
+    directory's mtime is a change token for writers in other processes;
+    writers in this process also invalidate explicitly, against coarse
+    filesystem timestamps. Entries are cached as their JSON text and
+    parsed anew per hit: callers mutate the entries they get."""
+
+    _MAX_DIRS = 256  # one slot per live index log
+    # A directory whose mtime lies within this window of now may still
+    # receive writes with the same stamp on a coarse filesystem, so its
+    # token cannot detect them yet: such a value is served, not stored.
+    _RACY_WINDOW_NS = 2_000_000_000
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._dirs = {}  # log path -> (token, {kind: value})
+        self.hits = 0
+        self.misses = 0
+        self.invalidations = 0
+
+    @staticmethod
+    def _token(log_path: str):
+        try:
+            st = os.stat(log_path)
+        except OSError:
+            return ("missing",)
+        return (st.st_mtime_ns, st.st_ctime_ns)
+
+    @classmethod
+    def _racy(cls, token) -> bool:
+        if token == ("missing",):
+            return False
+        return time.time_ns() - token[0] < cls._RACY_WINDOW_NS
+
+    def get(self, log_path: str, kind: str, compute):
+        """The value of ``kind`` under ``log_path``. On a miss ``compute()``
+        runs, and its value is stored under the token seen before it ran,
+        unless the token moved meanwhile (a racing write never pins a
+        stale value)."""
+        token = self._token(log_path)
+        with self._lock:
+            cached = self._dirs.get(log_path)
+            if cached is not None and cached[0] == token and kind in cached[1]:
+                self.hits += 1
+                return cached[1][kind]
+            self.misses += 1
+        value = compute()
+        if self._racy(token):
+            return value
+        with self._lock:
+            if self._token(log_path) != token:
+                return value
+            cached = self._dirs.get(log_path)
+            if cached is None or cached[0] != token:
+                if len(self._dirs) >= self._MAX_DIRS:
+                    self._dirs.pop(next(iter(self._dirs)))
+                cached = (token, {})
+                self._dirs[log_path] = cached
+            cached[1][kind] = value
+        return value
+
+    def invalidate(self, log_path: str) -> None:
+        with self._lock:
+            if self._dirs.pop(log_path, None) is not None:
+                self.invalidations += 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._dirs.clear()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "invalidations": self.invalidations, "dirs": len(self._dirs)}
+
+
+_LOOKUP_CACHE = LogLookupCache()
+
+
+def get_lookup_cache() -> LogLookupCache:
+    """The process-wide op-log lookup cache."""
+    return _LOOKUP_CACHE
 
 
 class IndexLogManager:
@@ -42,6 +136,9 @@ class IndexLogManager:
         return self._get_log_at(self._path_from_id(log_id))
 
     def get_latest_id(self) -> Optional[int]:
+        return _LOOKUP_CACHE.get(self._log_path, "latest_id", self._compute_latest_id)
+
+    def _compute_latest_id(self) -> Optional[int]:
         ids = self._store.list_numeric_ids(self._log_path)
         return max(ids) if ids else None
 
@@ -55,7 +152,15 @@ class IndexLogManager:
 
     def get_latest_stable_log(self) -> Optional[IndexLogEntry]:
         """Latest entry in a stable state; falls back to a backward scan past
-        a broken tail, including an unparseable (torn) entry."""
+        a broken tail, including an unparseable (torn) entry. Memoized as
+        JSON text per log directory token and parsed per call."""
+        text = _LOOKUP_CACHE.get(
+            self._log_path, "stable_json",
+            lambda: (lambda e: None if e is None else e.to_json())(
+                self._compute_latest_stable_log()))
+        return None if text is None else IndexLogEntry.from_json(text)
+
+    def _compute_latest_stable_log(self) -> Optional[IndexLogEntry]:
         try:
             log = self._get_log_at(self._latest_stable_path)
         except (ValueError, KeyError, TypeError):
@@ -82,13 +187,20 @@ class IndexLogManager:
             return False
         self._store.put_overwrite(self._latest_stable_path,
                                   json_utils.to_json(entry.to_json_dict()))
+        _LOOKUP_CACHE.invalidate(self._log_path)
         return True
 
     def delete_latest_stable_log(self) -> bool:
-        return self._store.delete(self._latest_stable_path)
+        out = self._store.delete(self._latest_stable_path)
+        _LOOKUP_CACHE.invalidate(self._log_path)
+        return out
 
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
-        """Write entry at ``log_id`` iff that id doesn't exist yet."""
+        """Write entry at ``log_id`` iff that id doesn't exist yet. The
+        lookup cache is invalidated even when another writer won: its entry
+        is as new to this process as ours would have been."""
         entry.id = log_id
-        return self._store.put_if_absent(self._path_from_id(log_id),
-                                         json_utils.to_json(entry.to_json_dict()))
+        won = self._store.put_if_absent(self._path_from_id(log_id),
+                                        json_utils.to_json(entry.to_json_dict()))
+        _LOOKUP_CACHE.invalidate(self._log_path)
+        return won

@@ -1,7 +1,8 @@
 """Index manager: dispatch to actions with per-index log/data managers and
 list indexes by scanning the system path (counterpart of
 ``hyperspace_tpu/index/manager.py``: create, delete, restore, vacuum,
-cancel, refresh, optimize and listing).
+cancel, refresh, optimize, listing, the statistics rows and the caching
+manager the session holds).
 """
 
 from __future__ import annotations
@@ -10,7 +11,8 @@ import os
 from typing import List, Optional
 
 from ..exceptions import HyperspaceException
-from .constants import IndexConstants
+from .cache import CreationTimeBasedIndexCache
+from .constants import IndexConstants, States
 from .data_manager import IndexDataManager
 from .log_entry import IndexLogEntry
 from .log_manager import IndexLogManager
@@ -119,3 +121,62 @@ class IndexCollectionManager:
         if index_name not in self._index_names():
             return None
         return self._log_manager(index_name).get_latest_log()
+
+    def indexes(self):
+        """One summary row per index that exists, as a pandas DataFrame."""
+        import pandas as pd
+        from .statistics import IndexStatistics
+        counts = self.session._index_usage_counts
+        rows = [IndexStatistics.from_entry(e, usage_count=counts.get(e.name, 0)).to_row()
+                for e in self.get_indexes() if e.state != States.DOESNOTEXIST]
+        return pd.DataFrame(rows, columns=IndexStatistics.SUMMARY_COLUMNS)
+
+
+class CachingIndexCollectionManager(IndexCollectionManager):
+    """The index list cached for ``hyperspace.index.cache.expiryDurationInSeconds``;
+    every mutation through this manager clears it first."""
+
+    def __init__(self, session):
+        super().__init__(session)
+        self._cache = CreationTimeBasedIndexCache(session.hs_conf.index_cache_expiry_seconds)
+
+    def clear_cache(self) -> None:
+        self._cache.clear()
+
+    def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
+        if states is None:
+            return super().get_indexes(None)
+        entries = self._cache.get()
+        if entries is None:
+            entries = super().get_indexes(None)
+            self._cache.set(entries)
+        return [e for e in entries if e.state in states]
+
+    def create(self, df, index_config) -> None:
+        self.clear_cache()
+        super().create(df, index_config)
+
+    def delete(self, index_name: str) -> None:
+        self.clear_cache()
+        super().delete(index_name)
+
+    def restore(self, index_name: str) -> None:
+        self.clear_cache()
+        super().restore(index_name)
+
+    def vacuum(self, index_name: str) -> None:
+        self.clear_cache()
+        super().vacuum(index_name)
+
+    def refresh(self, index_name: str, mode: str = IndexConstants.REFRESH_MODE_FULL) -> None:
+        self.clear_cache()
+        super().refresh(index_name, mode)
+
+    def optimize(self, index_name: str,
+                 mode: str = IndexConstants.OPTIMIZE_MODE_QUICK) -> None:
+        self.clear_cache()
+        super().optimize(index_name, mode)
+
+    def cancel(self, index_name: str) -> None:
+        self.clear_cache()
+        super().cancel(index_name)

@@ -127,16 +127,20 @@ class IndexScan(LogicalPlan):
     """Leaf: scan the bucketed files of a covering index version, optionally
     exposing the bucket spec so equality filters can prune buckets. Under
     Hybrid Scan it also reads ``appended_files`` (source files the index
-    lacks) and drops the rows whose lineage id is in ``deleted_file_ids``."""
+    lacks) through ``source_relation``, the replaced Scan's relation (so a
+    partitioned source's appended rows get their partition columns), and
+    drops the rows whose lineage id is in ``deleted_file_ids``."""
 
     def __init__(self, index_entry, schema: Schema, use_bucket_spec: bool = False,
                  deleted_file_ids: Optional[Sequence[int]] = None,
-                 appended_files: Optional[Sequence[str]] = None):
+                 appended_files: Optional[Sequence[str]] = None,
+                 source_relation=None):
         self.index_entry = index_entry
         self._schema = schema
         self.use_bucket_spec = use_bucket_spec
         self.deleted_file_ids = list(deleted_file_ids or [])
         self.appended_files = list(appended_files or [])
+        self.source_relation = source_relation
 
     @property
     def schema(self) -> Schema:

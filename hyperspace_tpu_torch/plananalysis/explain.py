@@ -1,0 +1,117 @@
+"""Explain: the plan with and without the hyperspace rewrite, side by side
+(counterpart of ``hyperspace_tpu/plananalysis/explain.py``, its plan-only
+sections: ``explain_string(..., diagnostics=False)``).
+
+Both plans are walked in lockstep and every subtree the rewrite changed
+is highlighted on each side; then the indexes the rewritten plan uses
+and, verbose, the operator counts that changed. The rewrite runs as a
+diagnostic pass: it counts no index usage. The JAX package's runtime
+sections (result cache, compilation, IO, SPMD, serving, robustness, SLO,
+trace, advisor, join order) read tiers this package does not have yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+from ..plan.nodes import IndexScan, LogicalPlan
+from .display import BufferStream, DisplayMode, get_mode
+
+
+def _used_indexes(plan: LogicalPlan) -> List[str]:
+    out = []
+    for leaf in plan.collect_leaves():
+        if isinstance(leaf, IndexScan):
+            e = leaf.index_entry
+            out.append(f"{e.name} (Type: {e.derivedDataset.kind_abbr}, "
+                       f"LogVersion: {e.log_version})")
+    return out
+
+
+def _render(plan: LogicalPlan, depth: int = 0) -> List[Tuple[LogicalPlan, int, str]]:
+    rows = [(plan, depth, "  " * depth + plan.simple_string())]
+    for c in plan.children:
+        rows.extend(_render(c, depth + 1))
+    return rows
+
+
+def _mark_all(node: LogicalPlan, marks: Set[int]) -> None:
+    marks.add(id(node))
+    for c in node.children:
+        _mark_all(c, marks)
+
+
+def _diff_marks(a: LogicalPlan, b: LogicalPlan, marks_a: Set[int], marks_b: Set[int]) -> None:
+    """Walk both trees in lockstep; where they diverge, mark the whole
+    differing subtree on each side."""
+    if a.tree_string() == b.tree_string():
+        return
+    same_head = (type(a) is type(b) and a.simple_string() == b.simple_string()
+                 and len(a.children) == len(b.children))
+    if not same_head:
+        _mark_all(a, marks_a)
+        _mark_all(b, marks_b)
+        return
+    for ca, cb in zip(a.children, b.children):
+        _diff_marks(ca, cb, marks_a, marks_b)
+
+
+def _write_plan(buf: BufferStream, plan: LogicalPlan, marks: Optional[Set[int]]) -> None:
+    for node, _depth, line in _render(plan):
+        buf.write_line(line, highlight=marks is not None and id(node) in marks)
+
+
+def _header(buf: BufferStream, title: str) -> None:
+    buf.write_line("=" * 60)
+    buf.write_line(title)
+    buf.write_line("=" * 60)
+
+
+def _count_nodes(plan: LogicalPlan) -> Dict[str, int]:
+    counts: Dict[str, int] = {}
+
+    def rec(node):
+        counts[node.node_name] = counts.get(node.node_name, 0) + 1
+        for c in node.children:
+            rec(c)
+
+    rec(plan)
+    return counts
+
+
+def explain_string(session, plan: LogicalPlan, verbose: bool = False,
+                   mode="plaintext") -> str:
+    """The rewrite diff of ``plan`` rendered in ``mode`` ("plaintext",
+    "console" or "html"), whether or not hyperspace is enabled."""
+    display: DisplayMode = get_mode(mode)
+    was_enabled = session.is_hyperspace_enabled()
+    try:
+        session.enable_hyperspace()
+        with_index = session.optimize(plan, diagnostic=True)
+    finally:
+        if not was_enabled:
+            session.disable_hyperspace()
+
+    marks_with: Set[int] = set()
+    marks_without: Set[int] = set()
+    _diff_marks(with_index, plan, marks_with, marks_without)
+
+    buf = BufferStream(display)
+    _header(buf, "Plan with indexes:")
+    _write_plan(buf, with_index, marks_with)
+    buf.write_line()
+    _header(buf, "Plan without indexes:")
+    _write_plan(buf, plan, marks_without)
+    buf.write_line()
+    _header(buf, "Indexes used:")
+    for line in _used_indexes(with_index) or ["<none>"]:
+        buf.write_line(line)
+    if verbose:
+        buf.write_line()
+        _header(buf, "Physical operator stats:")
+        before, after = _count_nodes(plan), _count_nodes(with_index)
+        for name in sorted(set(before) | set(after)):
+            b, a = before.get(name, 0), after.get(name, 0)
+            if b != a:
+                buf.write_line(f"{name}: {b} -> {a}")
+    return buf.build()

@@ -1,9 +1,8 @@
 """DataSkippingIndexRule: prune a scan's file list using per-file sketches
-(counterpart of ``hyperspace_tpu/rules/data_skipping_rule.py``, without
-whyNot reason collection). The source relation is kept, but its file
-listing is narrowed to the files whose sketches cannot refute the filter
-predicate. The covering-index rule runs first; this rule only touches the
-Scan leaves it left in place.
+(counterpart of ``hyperspace_tpu/rules/data_skipping_rule.py``). The
+source relation is kept, but its file listing is narrowed to the files
+whose sketches cannot refute the filter predicate. The covering-index
+rule runs first; this rule only touches the Scan leaves it left in place.
 
 Sketch probing is host-side numpy over the (one row per file) sketch table
 (ops/sketch_probe.py); unknown predicate shapes keep all files.
@@ -23,45 +22,62 @@ from ..index.log_entry import IndexLogEntry, Sketch
 from ..ops import sketch_probe
 from ..plan import expr as E
 from ..plan.nodes import Filter, LogicalPlan, Scan
-from .rule_utils import _plan_signature, get_relation
+from .rule_utils import _plan_signature, get_relation, log_index_usage
 
 
 class DataSkippingIndexRule:
-    def apply(self, session, plan: LogicalPlan) -> LogicalPlan:
+    def apply(self, session, plan: LogicalPlan, ctx) -> LogicalPlan:
+        """Narrow every Filter-over-Scan; ``ctx`` (a ReasonCollector)
+        records why an index did not prune and gets the applied names."""
         candidates = [e for e in session.index_collection_manager.get_indexes([States.ACTIVE])
                       if e.derivedDataset.kind == "DataSkippingIndex"]
         if not candidates:
             return plan
+        applied: List[str] = []
 
         def rewrite(node: LogicalPlan) -> LogicalPlan:
             if isinstance(node, Filter) and isinstance(node.child, Scan):
-                pruned = self._try_prune(session, node.child, node.condition, candidates)
+                pruned = self._try_prune(session, node.child, node.condition, candidates,
+                                         applied, ctx)
                 if pruned is not None:
                     return Filter(node.condition, pruned)
             return node
 
-        return plan.transform_up(rewrite)
+        new_plan = plan.transform_up(rewrite)
+        if applied:
+            log_index_usage(session, ctx, sorted(set(applied)))
+            ctx.applied.extend(sorted(set(applied)))
+        return new_plan
 
     def _try_prune(self, session, scan: Scan, condition: E.Expr,
-                   candidates: List[IndexLogEntry]) -> Optional[Scan]:
+                   candidates: List[IndexLogEntry], applied: List[str],
+                   ctx) -> Optional[Scan]:
         relation = get_relation(session, scan)
         if relation is None:
             return None
         all_files = relation.all_files()
         keep = np.ones(len(all_files), dtype=bool)
-        applied = False
+        hit_names: List[str] = []
         for entry in candidates:
             sig = _plan_signature(entry, scan)
             if sig is None or sig != entry.signature.signatures[0].value:
-                continue  # the source changed since the index was built.
+                ctx.add("SOURCE_DATA_CHANGED", entry,
+                        "Source fingerprint mismatch; refresh the data-skipping index.")
+                continue
             verdict = evaluate_sketch_predicate(entry, condition, all_files,
                                                 relation.schema)
             if verdict is None:
-                continue  # no conjunct is refutable by this index's sketches.
+                sketched = sorted({s.column for s in entry.derivedDataset.sketches})
+                ctx.add("NO_APPLICABLE_SKETCH", entry,
+                        f"No filter conjunct is refutable by the index's sketches "
+                        f"(sketched columns: {sketched}); only literal comparisons "
+                        f"and IN lists on a sketched column can prune.")
+                continue
             keep &= verdict
-            applied = True
-        if not applied or keep.all():
-            return None  # nothing pruned: no rewrite.
+            hit_names.append(entry.name)
+        if not hit_names or keep.all():
+            return None  # nothing pruned: no rewrite, no usage.
+        applied.extend(hit_names)
         kept_files = [f for f, k in zip(all_files, keep) if k]
         # The note makes the pruning visible in explain: without it a
         # skipped scan prints identically to the full scan.

@@ -59,5 +59,9 @@ def try_rewrite_filter(session, plan: LogicalPlan, ctx: ReasonCollector,
     best = FilterIndexRanker.rank(session, relation, candidates)
     if best is None:
         return None
+    for e in candidates:
+        if e is not best:
+            ctx.add("ANOTHER_INDEX_APPLIED", e,
+                    f"Another candidate index '{best.name}' was ranked higher.")
     return transform_plan_to_use_index(
         session, best, plan, session.hs_conf.use_bucket_spec_for_filter_rule()), best

@@ -14,7 +14,8 @@ from ..plan import expr as E
 from ..plan.nodes import Aggregate, Filter, LogicalPlan, Project, Scan
 from .index_filters import ReasonCollector
 from .rankers import FilterIndexRanker
-from .rule_utils import get_candidate_indexes, get_relation, transform_plan_to_use_index
+from .rule_utils import (get_candidate_indexes, get_relation, log_index_usage,
+                         transform_plan_to_use_index)
 
 
 def _scan_level_needed(node: LogicalPlan, needed: Set[str]):
@@ -40,6 +41,7 @@ def _scan_level_needed(node: LogicalPlan, needed: Set[str]):
 class GroupByIndexRule:
     def apply(self, session, plan: LogicalPlan, ctx: ReasonCollector) -> LogicalPlan:
         from .apply_hyperspace import active_indexes
+        applied = []
 
         def rewrite(node: LogicalPlan) -> LogicalPlan:
             if not isinstance(node, Aggregate) or not node.group_cols:
@@ -71,7 +73,11 @@ class GroupByIndexRule:
             best = FilterIndexRanker.rank(session, relation, candidates)
             if best is None:
                 return node
+            applied.append(best.name)
             return Aggregate(node.group_cols, node.aggs, transform_plan_to_use_index(
                 session, best, node.child, use_bucket_spec=True))
 
-        return plan.transform_up(rewrite)
+        new_plan = plan.transform_up(rewrite)
+        if applied:
+            log_index_usage(session, ctx, sorted(set(applied)))
+        return new_plan

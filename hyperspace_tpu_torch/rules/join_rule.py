@@ -125,6 +125,11 @@ def try_rewrite_join(session, join: Join, ctx: ReasonCollector,
                     "other side's under the join-column mapping.")
         return None
     l_entry, r_entry = JoinIndexRanker.rank(session, l_rel, r_rel, compatible)
+    for pair in compatible:
+        for e in pair:
+            if e is not l_entry and e is not r_entry:
+                ctx.add("ANOTHER_INDEX_APPLIED", e,
+                        f"Pair ('{l_entry.name}', '{r_entry.name}') was ranked higher.")
     new_left = transform_plan_to_use_index(session, l_entry, join.left, use_bucket_spec=True)
     new_right = transform_plan_to_use_index(session, r_entry, join.right,
                                             use_bucket_spec=True)

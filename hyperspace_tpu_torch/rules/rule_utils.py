@@ -22,6 +22,18 @@ from ..plan.nodes import Filter, IndexScan, LogicalPlan, Project, Scan
 from ..schema import Schema
 
 
+def log_index_usage(session, ctx, index_names: List[str]) -> None:
+    """Add one to the session's usage count of each index, unless ``ctx``
+    is a silent (diagnostic) pass: the one place that keeps explain and
+    why_not from counting."""
+    if ctx.silent:
+        return
+    with session._usage_counts_lock:
+        counts = session._index_usage_counts
+        for name in index_names:
+            counts[name] = counts.get(name, 0) + 1
+
+
 def get_relation(session, plan: LogicalPlan):
     """The single supported file-based relation leaf of a linear plan, or
     None (exactly one relation is required)."""
@@ -136,7 +148,7 @@ def transform_plan_to_use_index(session, entry: IndexLogEntry, plan: LogicalPlan
                     deleted_ids = [by_key[(f.name, f.size, f.modifiedTime)] for f in deleted]
         return IndexScan(entry, index_scan_schema(entry, node.schema),
                          use_bucket_spec=use_bucket_spec, deleted_file_ids=deleted_ids,
-                         appended_files=appended_paths)
+                         appended_files=appended_paths, source_relation=node.relation)
 
     return plan.transform_up(replace)
 

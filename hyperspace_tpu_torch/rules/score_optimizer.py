@@ -43,6 +43,27 @@ def _plan_index_bytes(plan: LogicalPlan) -> int:
                for leaf in plan.collect_leaves() if isinstance(leaf, IndexScan))
 
 
+def _record_outscored(ctx: ReasonCollector, alternatives, best_plan: LogicalPlan,
+                      best_score: float) -> None:
+    """A whyNot reason for each index used only by a losing alternative
+    (else "why was my filter index not used" has no answer when a join
+    rewrite won the subtree)."""
+    from .apply_hyperspace import applied_index_names
+    winners = set(applied_index_names(best_plan))
+    for alt_plan, alt_score in alternatives:
+        if alt_plan is best_plan:
+            continue
+        for name in set(applied_index_names(alt_plan)) - winners:
+            if alt_score == best_score:
+                reason = (f"A rewrite using this index tied the chosen plan's score "
+                          f"({best_score:.0f}) and lost the tie-break (fewer index "
+                          f"bytes read wins; equal plans keep the first found).")
+            else:
+                reason = (f"A rewrite using this index scored {alt_score:.0f}, below "
+                          f"the chosen plan's {best_score:.0f}.")
+            ctx.add_name("OUTSCORED", name, reason)
+
+
 class FilterIndexRuleNG:
     def apply(self, session, plan, candidates_for, ctx, cache
               ) -> Tuple[Optional[LogicalPlan], float]:
@@ -93,12 +114,14 @@ class ScoreBasedIndexPlanOptimizer:
                 best_score = sum(s for _, s in rec_children)
             else:
                 best_plan, best_score = node, 0.0
+            alternatives = [(best_plan, best_score)]
             best_bytes = None
             for rule in self.rules:
                 rewritten, score = rule.apply(session, node, candidates_for, ctx,
                                               file_stats_cache)
                 if rewritten is None:
                     continue
+                alternatives.append((rewritten, score))
                 if score > best_score:
                     best_plan, best_score, best_bytes = rewritten, score, None
                 elif score == best_score:
@@ -107,6 +130,8 @@ class ScoreBasedIndexPlanOptimizer:
                     rw_bytes = _plan_index_bytes(rewritten)
                     if rw_bytes < best_bytes:
                         best_plan, best_bytes = rewritten, rw_bytes
+            if ctx.enabled and len(alternatives) > 1:
+                _record_outscored(ctx, alternatives, best_plan, best_score)
             memo[id(node)] = (best_plan, best_score)
             return best_plan, best_score
 

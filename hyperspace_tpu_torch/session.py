@@ -6,6 +6,10 @@ for every later query. DataFrames are thin wrappers over the logical plan
 IR; ``to_arrow()`` runs normalization (filter pushdown, column pruning) →
 (hyperspace rewrite if enabled) → the executor.
 
+The session holds one caching index manager, which the rules and the
+``Hyperspace`` facade share, and a tally of how often each index was
+applied by a real (not a diagnostic) rewrite pass.
+
 The device defaults to ``"cuda"``. A session asked for CUDA on a machine
 without it raises; it never carries on quietly on the CPU. Pass
 ``device="cpu"`` to run the plain torch versions of the kernels.
@@ -13,6 +17,7 @@ without it raises; it never carries on quietly on the CPU. Pass
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple, Union as TUnion
 
 import torch
@@ -49,8 +54,19 @@ class Session:
         self._hyperspace_enabled = False
         self.source_provider_manager = FileBasedSourceProviderManager(
             [DefaultFileBasedSourceBuilder()])
-        from .index.manager import IndexCollectionManager
-        self.index_collection_manager = IndexCollectionManager(self)
+        self._index_collection_manager = None
+        # index name -> times a real rewrite pass applied it
+        # (rules/rule_utils.log_index_usage increments under the lock).
+        self._index_usage_counts: Dict[str, int] = {}
+        self._usage_counts_lock = threading.Lock()
+
+    @property
+    def index_collection_manager(self):
+        """The session's caching index manager, built on first use."""
+        if self._index_collection_manager is None:
+            from .index.manager import CachingIndexCollectionManager
+            self._index_collection_manager = CachingIndexCollectionManager(self)
+        return self._index_collection_manager
 
     @property
     def read(self) -> "DataFrameReader":
@@ -64,18 +80,30 @@ class Session:
         self._hyperspace_enabled = False
         return self
 
-    def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+    def is_hyperspace_enabled(self) -> bool:
+        return self._hyperspace_enabled
+
+    def optimize(self, plan: LogicalPlan, diagnostic: bool = False) -> LogicalPlan:
         """Filter pushdown below projections and inner joins, column
         pruning (the join rule's coverage check sees each side's true
-        column set only after it), then the hyperspace rewrite batch if
-        enabled."""
+        column set only after it), the hyperspace rewrite batch if
+        enabled, then partition pruning. Partition pruning is always on,
+        and runs after the index rules: it narrows a Scan's files, and the
+        rules fingerprint the relation's full listing.
+
+        ``diagnostic``: a pass whose plan is inspected, not executed
+        (explain); its rewrite runs with a silent reason collector and
+        counts no index usage."""
         from .rules.column_pruning import prune_columns
         from .rules.pushdown import push_filters
+        from .sources.partitions import prune_partitions
         plan = prune_columns(push_filters(plan))
         if self._hyperspace_enabled:
             from .rules.apply_hyperspace import apply_hyperspace
-            plan = apply_hyperspace(self, plan)
-        return plan
+            from .rules.index_filters import ReasonCollector
+            ctx = ReasonCollector(enabled=False, silent=True) if diagnostic else None
+            plan = apply_hyperspace(self, plan, ctx)
+        return prune_partitions(plan)
 
     def execute(self, plan: LogicalPlan):
         from .execution.executor import execute
@@ -155,6 +183,15 @@ class DataFrame:
 
     def optimized_plan(self) -> LogicalPlan:
         return self.session.optimize(self.plan)
+
+    def explain(self) -> str:
+        """The plan's tree and, with hyperspace enabled, the rewritten one
+        (a diagnostic pass: it counts no index usage)."""
+        text = self.plan.tree_string()
+        if self.session.is_hyperspace_enabled():
+            text += "\n\n== Optimized (hyperspace) ==\n" + \
+                self.session.optimize(self.plan, diagnostic=True).tree_string()
+        return text
 
     def to_arrow(self):
         return self.execute().to_arrow()

@@ -1,6 +1,7 @@
 """Default file-based source provider: parquet directories on the local
 filesystem (counterpart of ``hyperspace_tpu/sources/default.py``, parquet
-only and without hive partition inference).
+only). Hive ``key=value`` directories under the first root path become
+partition columns, after the files' own columns (sources/partitions.py).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Dict, List, Optional, Sequence
 import pyarrow.parquet as pq
 
 from ..exceptions import HyperspaceException
-from ..schema import Schema
+from ..schema import Field, Schema
 from ..util import file_utils
 from .interfaces import FileBasedRelation, FileBasedSourceProvider
 
@@ -28,6 +29,10 @@ class DefaultFileBasedRelation(FileBasedRelation):
         self._options = dict(options or {})
         self._schema: Optional[Schema] = None
         self._files: Optional[List[str]] = None
+        # with_files() keeps the original base, so a pruned relation still
+        # sees its partitions.
+        self._partition_base = self._root_paths[0] if self._root_paths else ""
+        self._partition_fields: Optional[List[Field]] = None
 
     @property
     def root_paths(self) -> List[str]:
@@ -47,8 +52,23 @@ class DefaultFileBasedRelation(FileBasedRelation):
             files = self.all_files()
             if not files:
                 raise HyperspaceException(f"No data files under {self._root_paths}")
-            self._schema = Schema.from_arrow(pq.read_schema(files[0]))
+            schema = Schema.from_arrow(pq.read_schema(files[0]))
+            for f in self.partition_fields():
+                if f.name not in schema:
+                    schema = schema.append(f)
+            self._schema = schema
         return self._schema
+
+    @property
+    def partition_base_path(self) -> str:
+        return self._partition_base
+
+    def partition_fields(self) -> List[Field]:
+        if self._partition_fields is None:
+            from .partitions import infer_partition_fields
+            self._partition_fields = infer_partition_fields(
+                self._partition_base, self.all_files())
+        return list(self._partition_fields)
 
     def all_files(self) -> List[str]:
         if self._files is None:
@@ -69,6 +89,8 @@ class DefaultFileBasedRelation(FileBasedRelation):
         pruned = DefaultFileBasedRelation(list(files), self._format, self._options)
         pruned._schema = self.schema
         pruned._files = sorted(os.path.abspath(f) for f in files)
+        pruned._partition_base = self._partition_base
+        pruned._partition_fields = self.partition_fields()
         return pruned
 
 

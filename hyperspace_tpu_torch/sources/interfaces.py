@@ -9,7 +9,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..exceptions import HyperspaceException
-from ..schema import Schema
+from ..schema import Field, Schema
 from ..util import file_utils
 
 
@@ -39,6 +39,16 @@ class FileBasedRelation:
     def all_file_infos(self) -> List[Tuple[str, int, int]]:
         """(path, size, mtime_ms) for each file in all_files()."""
         return [file_utils.file_info_triple(p) for p in self.all_files()]
+
+    @property
+    def partition_base_path(self) -> str:
+        """The directory whose ``key=value`` levels name the partitions."""
+        return self.root_paths[0] if self.root_paths else ""
+
+    def partition_fields(self) -> List[Field]:
+        """The hive partition columns, which the files do not hold; none by
+        default."""
+        return []
 
     def describe(self) -> str:
         return f"{self.file_format} {','.join(self.root_paths)}"

@@ -197,8 +197,11 @@ def test_lineage_column_hidden_from_query(tmp_path):
     jhs = pair.hs("jax")
     jhs.create_index(pair.sessions["jax"].read.parquet(pair.src),
                      hst.IndexConfig("ix", ["k"], ["v", "s", "d"]))
-    port = ht.Session(conf=dict(BASE_CONF), system_path=str(tmp_path / "sys_jax"),
-                      device="cpu")
+    # The port's session caches its index list as the JAX package's does;
+    # expiring it at once lets the port see the JAX session's refreshes.
+    port = ht.Session(conf=dict(BASE_CONF,
+                                **{IndexConstants.INDEX_CACHE_EXPIRY_DURATION_SECONDS: "0"}),
+                      system_path=str(tmp_path / "sys_jax"), device="cpu")
 
     def both():
         out = {}

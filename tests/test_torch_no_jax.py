@@ -1,6 +1,9 @@
 """The port stands alone: with ``jax`` and ``hyperspace_tpu`` made
 unimportable, the slices (covering indexes over lineitem, sketch indexes
-over orders, TPC-H Q3 and Q17 over covering-index joins, and the mutable
+over orders, TPC-H Q3 and Q17 over covering-index joins, the sources
+slice: hive partitions and a struct column in one lake, with the
+partitions, cache, statistics, explain and display modules and the
+introspection calls, and the mutable
 slice: a chunked build with lineage, Hybrid Scan over a deleted and an
 appended file, every refresh mode and optimize) still run end to
 end on the CPU, with the join, group-by, column-pruning and score-based
@@ -84,7 +87,9 @@ SLICE = textwrap.dedent("""
     from hyperspace_tpu_torch.rules import (column_pruning, groupby_rule, index_filters,
                                             join_rule, score_optimizer)
     rows = []
-    for q in (chip_smoke.build_q3(s, li_dir, od_dir), chip_smoke.build_q17(s, li_dir, pt_dir)):
+    joins = dict(q3=chip_smoke.build_q3(s, li_dir, od_dir),
+                 q17=chip_smoke.build_q17(s, li_dir, pt_dir))
+    for q in joins.values():
         s.enable_hyperspace()
         leaves = [leaf.index_entry.name for leaf in q.optimized_plan().collect_leaves()
                   if hasattr(leaf, "index_entry")]
@@ -94,6 +99,30 @@ SLICE = textwrap.dedent("""
         assert len(leaves) >= 2, leaves
         assert a.column_names == b.column_names and a.num_rows == b.num_rows
         rows.append(a.num_rows)
+    # The sources slice: hive partitions and a struct column in one lake,
+    # then indexes(), index(), explain() and why_not() on the whole lake.
+    from hyperspace_tpu_torch.index import cache, statistics
+    from hyperspace_tpu_torch.plan.expr import count, sum_
+    from hyperspace_tpu_torch.plananalysis import display, explain
+    from hyperspace_tpu_torch.sources import partitions
+    hive_dir = os.path.join(root, "orders_hive")
+    assert chip_smoke.make_orders_hive(od_dir, hive_dir) == n_od
+    hive = s.read.parquet(hive_dir)
+    hs.create_index(hive, ht.IndexConfig(chip_smoke.HIVE_INDEX, *chip_smoke.HIVE_INDEX_COLUMNS))
+    refs = chip_smoke.sources_reference(hive_dir)
+    for name, q in chip_smoke.sources_queries(hive, col, count, sum_).items():
+        for indexed in (True, False):
+            (s.enable_hyperspace if indexed else s.disable_hyperspace)()
+            got = q.to_arrow()
+            s.disable_hyperspace()
+            if name == "by_priority":
+                chip_smoke.check_by_priority(got, refs[name], str(indexed))
+            else:
+                assert got.num_rows > 0 and chip_smoke.sorted_table(got).equals(
+                    chip_smoke.sorted_table(refs[name])), name
+    names = ["li_idx", "li_ship_idx", "od_skip", "od_bloom", "od_idx", "pt_idx", "li_pk_idx",
+             chip_smoke.HIVE_INDEX]
+    chip_smoke.check_introspection(s, hs, joins, names)
     # The mutable slice: a chunked build with lineage, a deleted and an
     # appended file under Hybrid Scan, every refresh mode and optimize.
     from hyperspace_tpu_torch.ops import index_build
@@ -138,7 +167,8 @@ SLICE = textwrap.dedent("""
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
-    print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1], "MUTABLE_OK")
+    print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1], "SOURCES_OK",
+          "MUTABLE_OK")
 """)
 
 
@@ -146,7 +176,7 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 MUTABLE_OK" in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
