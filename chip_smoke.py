@@ -63,6 +63,18 @@ Phases, each of which fails the run on any error:
               hive-partitioned pyarrow dataset; then indexes(), index(),
               explain(Q3) and why_not(Q17) on the run's lake, which must
               leave the usage counts as they were;
+   io      -- after the sources path: the range, cutoff, point, skipping,
+              bloom, Q3 and Q17 queries, indexed and scanned, each run
+              cold (buffer pool emptied, reader-pool counters zeroed),
+              warm, and sequential (io.threads=1, buffer pool disabled and
+              emptied): byte-equal results that equal the phases' pyarrow
+              references, a pool hit on every warm run, the "parquet read
+              -> device" span and peak device memory of each run, the
+              pool's residency against its budgets; od_skip and od_bloom
+              built at io.threads 1 and the default into two lakes
+              (byte-equal sketch tables); a small lineitem lake built
+              chunked at both thread counts (byte-equal bucket files) and
+              in memory (equal tables);
 7. breakdown -- host spans, peak device memory and the profiler's
               device time for rebuilds of li_ship_idx, li_pk_idx, pt_idx,
               od_skip and od_bloom and for the four filter queries and Q3
@@ -78,8 +90,8 @@ Phases, each of which fails the run on any error:
               order and its join stays shuffle-free); quick and incremental
               refresh of li_ship_idx; a chunked build of li_chunk_idx over
               all 63M rows (files checked bucket by bucket, device rows
-              within the budget, spans per stage) and a small lake built
-              chunked and in memory to equal files. Orders: od_lin_idx
+              within the budget, spans per stage); the first Hybrid query
+              after the append must miss the buffer pool. Orders: od_lin_idx
               built chunked with lineage, one file deleted and one
               appended, a key query under Hybrid Scan, the od_skip and
               od_bloom refreshes with their queries, then quick,
@@ -91,7 +103,9 @@ Phases, each of which fails the run on any error:
               reported bit for bit.
 
 Launch counters are reset just before each path (lineitem, orders,
-joins and sources of phases 4-5, then mutations) and read just after it.
+joins and sources of phases 4-5, io, then mutations) and read just after
+it. Phase 5 runs each query twice: since the buffer pool is on, the
+second run is warm; phase 7 empties the pool before each query it times.
 The last lines of standard output are the ``kernels`` JSON object, the
 card's name and power limit as nvidia-smi reports them, and the status
 object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -128,9 +142,14 @@ PATH_KERNELS = {
     "orders": ("hash_bucket", "bucket_histogram", "range_mask", "masked_minmax"),
     "joins": ("hash_bucket", "bucket_histogram", "compare_mask"),
     "sources": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
+    "io": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask", "masked_minmax"),
     "mutations": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
                   "masked_minmax"),
 }
+# The io path's queries, and what each path's query phases hold them to:
+# name -> ("rows", pyarrow table) | ("q3", (rows, tied_last)) | ("q17", value).
+IO_QUERIES = ("range", "cutoff", "point", "skipping", "bloom", "q3", "q17")
+REFERENCES: dict = {}
 # Float64 results against the pyarrow reference, and indexed against
 # scanned: the same values summed in another order.
 REL_TOL = 1e-9
@@ -628,6 +647,7 @@ def run_main_path(li_dir: str, n_li: int, system_path: str, results: dict):
             outs, times[mode], _ = run_twice(session, df, mode == "indexed")
             tables[mode] = outs[-1]
         ref = reference(li_dir, pa_cond, columns)
+        REFERENCES[name] = ("rows", ref)
         if not same_rows(tables["indexed"], tables["scanned"]):
             raise AssertionError(f"{name}: indexed result differs from scanned result")
         if not same_rows(tables["scanned"], ref):
@@ -743,6 +763,7 @@ def run_orders_path(session, hs, od_dir: str, n_od: int, results: dict):
             outs, times[mode], _ = run_twice(session, df, mode == "indexed")
             tables[mode] = outs[-1]
         ref = sorted_table(reference(od_dir, pa_cond, columns))
+        REFERENCES[name] = ("rows", ref)
         for mode in ("indexed", "scanned"):
             if not sorted_table(tables[mode]).equals(ref):
                 raise AssertionError(f"{name} ({mode}): result differs from the pyarrow "
@@ -922,6 +943,7 @@ def run_joins_path(session, hs, li_dir: str, od_dir: str, pt_dir: str, results: 
     t0 = time.perf_counter()
     q3_ref, tied_last = q3_reference(li_dir, od_dir)
     refs = {"q3": q3_ref, "q17": q17_reference(li_dir, pt_dir)}
+    REFERENCES.update(q3=("q3", (q3_ref, tied_last)), q17=("q17", refs["q17"]))
     results["join_reference_s"] = time.perf_counter() - t0
     log(f"pyarrow references in {results['join_reference_s']:.1f} s")
 
@@ -1385,8 +1407,11 @@ def leaf_strings(session, df) -> list:
 
 
 def chunked_build_parity(root: str) -> dict:
-    """The chunked and the in-memory build of one lineitem index on the
-    card over a small lake: the bucket files must be equal tables."""
+    """One lineitem index over a small lake, built on the card chunked at
+    the default ``io.threads`` (the spill read-back double-buffered on the
+    reader pool), chunked at ``io.threads=1``, and in memory: the two
+    chunked builds' bucket files must be byte-equal, and equal tables to
+    the in-memory build's."""
     import pyarrow.parquet as pq
 
     import hyperspace_tpu_torch as ht
@@ -1395,19 +1420,23 @@ def chunked_build_parity(root: str) -> dict:
 
     li_dir, _, _, n_li, _ = make_tpch(os.path.join(root, "chunk_parity_data"), PARITY_SCALE)
     dirs = {}
-    for mode, budget in (("chunked", n_li // 7), ("in_memory", n_li)):
+    for mode, budget, threads in (("chunked", n_li // 7, "0"),
+                                  ("chunked_sequential", n_li // 7, "1"),
+                                  ("in_memory", n_li, "0")):
         system_path = os.path.join(root, f"chunk_parity_{mode}")
         s = ht.Session(system_path=system_path, device="cuda")
         s.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
         s.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, budget)
+        s.conf.set(IndexConstants.TPU_IO_THREADS, threads)
         index_build.CHUNK_STATS.update(max_device_rows=0, chunks=0)
         ht.Hyperspace(s).create_index(s.read.parquet(li_dir), IndexConfig(
             "li_idx", ["l_orderkey"], ["l_extendedprice", "l_discount", "l_shipdate"]))
-        if (index_build.CHUNK_STATS["chunks"] > 0) != (mode == "chunked"):
+        if (index_build.CHUNK_STATS["chunks"] > 0) != mode.startswith("chunked"):
             raise AssertionError(f"chunk parity: the {mode} build took the wrong route")
         dirs[mode] = os.path.join(system_path, "li_idx", "v__=0")
     files = sorted(os.listdir(dirs["chunked"]))
-    if files != sorted(os.listdir(dirs["in_memory"])) or len(files) != 32:
+    if files != sorted(os.listdir(dirs["in_memory"])) or len(files) != 32 \
+            or files != sorted(os.listdir(dirs["chunked_sequential"])):
         raise AssertionError(f"chunk parity: bucket files differ: {files}")
     for f in files:
         a = pq.ParquetFile(os.path.join(dirs["chunked"], f)).read()
@@ -1415,7 +1444,250 @@ def chunked_build_parity(root: str) -> dict:
         if not a.equals(b):
             raise AssertionError(f"chunk parity: {f} differs between the chunked and the "
                                  "in-memory build")
+        if file_bytes(os.path.join(dirs["chunked"], f)) != \
+                file_bytes(os.path.join(dirs["chunked_sequential"], f)):
+            raise AssertionError(f"chunk parity: {f} differs between io.threads 1 and the "
+                                 "default")
     return {"rows": n_li, "budget": n_li // 7, "files": len(files)}
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+# ---------------------------------------------------------------------------
+# The io path: the reader pool, prefetch, the buffer pool and the index
+# cache, on the SF10 lake.
+# ---------------------------------------------------------------------------
+
+def check_reference(name: str, got, what: str) -> None:
+    kind, ref = REFERENCES[name]
+    if kind == "q3":
+        check_q3(got, ref[0], ref[1], what)
+    elif kind == "q17":
+        check_q17(got, ref, what)
+    elif not same_rows(got, ref):
+        raise AssertionError(f"{name} ({what}): result differs from the pyarrow reference")
+
+
+def same_bytes(a, b) -> bool:
+    """Equal tables, float64 columns bit for bit."""
+    import numpy as np
+    return a.equals(b) and all(
+        np.array_equal(a.column(n).to_numpy().view(np.int64),
+                       b.column(n).to_numpy().view(np.int64))
+        for n in a.column_names if str(a.column(n).type) == "double")
+
+
+def pool_counts(stats: dict) -> dict:
+    return {k: stats[k] for k in ("hits", "misses", "transfers", "admissions", "demotions",
+                                  "evictions", "promotions")}
+
+
+def read_split(session, files: list, columns: list, repeats: int) -> dict:
+    """One multi-file read to the card at ``io.threads=1``, at the defaults,
+    with ``io.enabled=false`` (pyarrow's own threads) and with an in-flight
+    budget that lets the pool read at its full width, ``repeats`` times
+    each, split into the parquet decode and the encoding and pinned copy
+    that follow it on the calling thread (numpy, under the GIL for
+    strings)."""
+    from hyperspace_tpu_torch import IndexConstants
+    from hyperspace_tpu_torch.execution import columnar
+    from hyperspace_tpu_torch.parallel import io as pio
+
+    out = {"files": len(files), "columns": columns}
+    spans_of = [(columnar, "_read_parquet_pooled", "decode"),
+                (columnar.Table, "from_arrow", "encode + copy (calling thread)")]
+    for label, key, value in (("threads=1", IndexConstants.TPU_IO_THREADS, "1"),
+                              ("default", None, None),
+                              ("io off", IndexConstants.TPU_IO_ENABLED, "false"),
+                              ("pool, 64 GiB in flight", IndexConstants.TPU_IO_MAX_INFLIGHT_BYTES,
+                               str(64 << 30))):
+        if key:
+            session.conf.set(key, value)
+        runs = []
+        try:
+            with pio.use_session(session):
+                for _ in range(repeats):
+                    pooled = pio.pool_stats()["pooled_reads"]
+                    with Spans(spans_of) as timer:
+                        t0 = time.perf_counter()
+                        table = columnar.read_parquet(files, columns, "cuda")
+                        torch_sync()
+                        runs.append({"seconds": time.perf_counter() - t0, **timer.spans,
+                                     "pooled": pio.pool_stats()["pooled_reads"] > pooled})
+        finally:
+            session.conf.set(IndexConstants.TPU_IO_THREADS,
+                             IndexConstants.TPU_IO_THREADS_DEFAULT)
+            session.conf.set(IndexConstants.TPU_IO_ENABLED,
+                             IndexConstants.TPU_IO_ENABLED_DEFAULT)
+            session.conf.set(IndexConstants.TPU_IO_MAX_INFLIGHT_BYTES,
+                             IndexConstants.TPU_IO_MAX_INFLIGHT_BYTES_DEFAULT)
+        out["rows"] = table.num_rows
+        out[label] = runs
+    return out
+
+
+def read_splits(root: str, session, li_dir: str, pt_dir: str) -> dict:
+    """``read_split`` over three reads: part's two string columns copied into
+    16 files (whether the pool overlaps anything on string columns), the
+    cache route's read of li_idx (Q3's four columns of its 32 bucket files)
+    and Q17's read of lineitem's four source files."""
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as ht
+
+    part = pq.read_table([os.path.join(pt_dir, f) for f in sorted(os.listdir(pt_dir))],
+                         columns=["p_brand", "p_container"])
+    out_dir = os.path.join(root, "io_strings")
+    os.makedirs(out_dir)
+    step = -(-part.num_rows // ORDERS_PARTS)
+    strings = []
+    for i in range(ORDERS_PARTS):
+        strings.append(os.path.join(out_dir, f"part{i:02d}.parquet"))
+        pq.write_table(part.slice(i * step, step), strings[-1])
+    li_idx = sorted(ht.Hyperspace(session).index_manager.get_index("li_idx").content.files)
+    lineitem = [os.path.join(li_dir, f) for f in sorted(os.listdir(li_dir))]
+    out = {"strings": read_split(session, strings, ["p_brand", "p_container"], 3),
+           "li_idx": read_split(session, li_idx, ["l_orderkey", "l_extendedprice",
+                                                  "l_discount", "l_shipdate"], 2),
+           "lineitem": read_split(session, lineitem, ["l_partkey", "l_quantity",
+                                                      "l_extendedprice"], 2)}
+    for name, split in out.items():
+        log(f"io: read split {name} ({split['rows']:,} rows, {split['files']} files): " +
+            "; ".join(f"{k}: " + ", ".join(
+                ", ".join(f"{a} {b:.3f}" if isinstance(b, float) else f"{a} {b}"
+                          for a, b in r.items()) for r in runs)
+                for k, runs in split.items() if isinstance(runs, list) and k != "columns"))
+    return out
+
+
+def run_io_path(root: str, session, queries: dict, li_dir: str, od_dir: str, pt_dir: str,
+                n_od: int, results: dict) -> None:
+    """Each query of IO_QUERIES, indexed and scanned, three ways: cold (the
+    buffer pool emptied and the reader pool's counters zeroed first), warm
+    (again), and sequential (``io.threads=1``, the buffer pool disabled and
+    emptied: the JAX package's baseline setting). The three results must be
+    byte-equal and equal the phases' pyarrow references, and every warm run
+    must hit the pool. Then od_skip and od_bloom built at ``io.threads`` 1
+    and the default into two lakes give byte-equal sketch tables, and the
+    small lake's chunked builds give byte-equal bucket files."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import (BloomFilterSketch, DataSkippingIndexConfig,
+                                      IndexConstants, MinMaxSketch)
+    from hyperspace_tpu_torch.execution import buffer_pool, executor
+    from hyperspace_tpu_torch.parallel import io as pio
+
+    out = {"queries": {}}
+    results["io"] = out
+    read_spans = [(executor, "read_parquet", "parquet read -> device"),
+                  (executor, "read_relation_files", "parquet read -> device"),
+                  (executor, "iter_dataset_chunks", "parquet read -> device")]
+
+    def timed(df, indexed: bool):
+        (session.enable_hyperspace if indexed else session.disable_hyperspace)()
+        try:
+            before = buffer_pool.pool_stats()
+            reader_before = pio.pool_stats()
+            with Spans(read_spans) as spans:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                table = df.to_arrow()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            after = buffer_pool.pool_stats()
+            reader = pio.pool_stats()
+            return table, {
+                "seconds": secs, "read_s": spans.spans.get("parquet read -> device", 0.0),
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "peak_abs": torch.cuda.max_memory_allocated(),
+                "pool": {k: v - pool_counts(before)[k] for k, v in pool_counts(after).items()},
+                "reader": {k: reader[k] - reader_before[k]
+                           for k in ("pooled_reads", "read_tasks", "read_seconds",
+                                     "wait_seconds", "prefetch_streams")}}
+        finally:
+            session.disable_hyperspace()
+
+    io_base, io_peak = torch.cuda.memory_allocated(), 0
+    t_queries = time.perf_counter()
+    # The most the pool held after any warm run, against its budgets.
+    stats = buffer_pool.pool_stats()
+    residency = {"device_nbytes": 0, "host_nbytes": 0, "device_entries": 0, "host_entries": 0,
+                 "device_bytes": stats["device_bytes"], "host_bytes": stats["host_bytes"]}
+    for name in IO_QUERIES:
+        for mode in ("indexed", "scanned"):
+            df, indexed = queries[name], mode == "indexed"
+            buffer_pool.get_pool().clear()
+            pio.reset_stats()
+            cold, c = timed(df, indexed)
+            warm, w = timed(df, indexed)
+            stats = buffer_pool.pool_stats()
+            for k in ("device_nbytes", "host_nbytes", "device_entries", "host_entries"):
+                residency[k] = max(residency[k], stats[k])
+            if stats["device_nbytes"] > stats["device_bytes"] \
+                    or stats["host_nbytes"] > stats["host_bytes"]:
+                raise AssertionError(f"io: the buffer pool holds more than its budgets: {stats}")
+            buffer_pool.get_pool().clear()
+            session.conf.set(IndexConstants.TPU_IO_THREADS, 1)
+            session.conf.set(IndexConstants.TPU_BUFFER_POOL_ENABLED, "false")
+            try:
+                seq, q = timed(df, indexed)
+            finally:
+                session.conf.set(IndexConstants.TPU_IO_THREADS,
+                                 IndexConstants.TPU_IO_THREADS_DEFAULT)
+                session.conf.set(IndexConstants.TPU_BUFFER_POOL_ENABLED,
+                                 IndexConstants.TPU_BUFFER_POOL_ENABLED_DEFAULT)
+            io_peak = max(io_peak, c.pop("peak_abs"), w.pop("peak_abs"), q.pop("peak_abs"))
+            for what, t in (("cold", cold), ("warm", warm), ("sequential", seq)):
+                check_reference(name, t, f"{mode}, {what}")
+            if not (same_bytes(cold, warm) and same_bytes(cold, seq)):
+                raise AssertionError(f"io {name} ({mode}): cold, warm and sequential results "
+                                     "differ in their bytes")
+            if w["pool"]["hits"] <= 0:
+                raise AssertionError(f"io {name} ({mode}): the warm run found nothing in the "
+                                     f"buffer pool: {w['pool']}")
+            out["queries"][f"{name} {mode}"] = {"rows": cold.num_rows, "cold": c, "warm": w,
+                                                "sequential": q}
+            log(f"io: {name} {mode}: {cold.num_rows} rows; cold {c['seconds']:.3f} s (read "
+                f"{c['read_s']:.3f}), warm {w['seconds']:.3f} s (read {w['read_s']:.3f}; pool "
+                f"{w['pool']}), sequential {q['seconds']:.3f} s (read {q['read_s']:.3f}); peak "
+                f"{c['peak_bytes']} / {w['peak_bytes']} / {q['peak_bytes']} bytes")
+    out["queries_s"] = time.perf_counter() - t_queries
+    out["residency"] = residency
+    out["reader_pool"] = pio.pool_stats()
+    out["peak_bytes"] = io_peak - io_base
+    log(f"io: queries in {out['queries_s']:.1f} s; pool residency {out['residency']}; "
+        f"peak device bytes above the path's base {out['peak_bytes']}")
+
+    out["read_splits"] = read_splits(root, session, li_dir, pt_dir)
+    # Sketch tables at io.threads 1 and the default.
+    tables = {}
+    t0 = time.perf_counter()
+    for threads in ("1", IndexConstants.TPU_IO_THREADS_DEFAULT):
+        lake = os.path.join(root, f"io_sketches_{threads}")
+        s = ht.Session(system_path=lake, device="cuda")
+        s.conf.set(IndexConstants.TPU_IO_THREADS, threads)
+        h = ht.Hyperspace(s)
+        od = s.read.parquet(od_dir)
+        h.create_index(od, DataSkippingIndexConfig("od_skip", [MinMaxSketch("o_orderdate")]))
+        h.create_index(od, DataSkippingIndexConfig("od_bloom", [BloomFilterSketch(
+            "o_orderkey", expected_items=max(n_od // ORDERS_PARTS, 100_000))]))
+        tables[threads] = {n: file_bytes(os.path.join(lake, n, "v__=0", "sketches.parquet"))
+                           for n in ("od_skip", "od_bloom")}
+    if tables["1"] != tables[IndexConstants.TPU_IO_THREADS_DEFAULT]:
+        raise AssertionError("io: sketch tables differ between io.threads 1 and the default")
+    out["sketch_builds_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["chunked_build_parity"] = chunked_build_parity(root)
+    out["chunked_build_parity"]["seconds"] = time.perf_counter() - t0
+    log(f"io: sketch tables byte-equal at io.threads 1 and the default "
+        f"({out['sketch_builds_s']:.1f} s); chunked builds byte-equal and equal to the "
+        f"in-memory build: {out['chunked_build_parity']}")
 
 
 def run_mutations_path(root: str, system_path: str, li_dir: str, od_dir: str, n_li: int,
@@ -1430,7 +1702,7 @@ def run_mutations_path(root: str, system_path: str, li_dir: str, od_dir: str, n_
 
     import hyperspace_tpu_torch as ht
     from hyperspace_tpu_torch import IndexConfig, IndexConstants, col
-    from hyperspace_tpu_torch.execution import executor
+    from hyperspace_tpu_torch.execution import buffer_pool, executor
     from hyperspace_tpu_torch.index.data_manager import IndexDataManager
     from hyperspace_tpu_torch.ops import index_build
 
@@ -1472,7 +1744,14 @@ def run_mutations_path(root: str, system_path: str, li_dir: str, od_dir: str, n_
         leaves = leaf_strings(session, df)
         if not any("Name: li_ship_idx," in s and suffix in s for s in leaves):
             raise AssertionError(f"hybrid {name}: no Hybrid Scan of li_ship_idx: {leaves}")
+        before = buffer_pool.pool_stats()["misses"]
         indexed, i_secs, i_peak = run_twice(session, df, True)
+        if name == "range":
+            # The appended file's stream was never read: the first Hybrid
+            # query after the append misses the buffer pool there.
+            out["first_hybrid_pool_misses"] = buffer_pool.pool_stats()["misses"] - before
+            if out["first_hybrid_pool_misses"] <= 0:
+                raise AssertionError("hybrid range: no buffer pool miss after the append")
         scanned, s_secs, s_peak = run_twice(session, df, False)
         ref = reference(li_dir, pa_cond, columns)
         for t in indexed + scanned:
@@ -1561,8 +1840,6 @@ def run_mutations_path(root: str, system_path: str, li_dir: str, od_dir: str, n_
         raise AssertionError(f"chunked build: {stats} at a budget of {budget}")
     if check_bucket_layout(entry("li_chunk_idx"), "l_orderkey") != n_li_now:
         raise AssertionError("chunked build: the bucket files do not hold every source row")
-    out["chunked_build_parity"] = chunked_build_parity(root)
-    log(f"mutations: chunked and in-memory builds equal: {out['chunked_build_parity']}")
 
     # Orders, with lineage: one file deleted and one appended.
     session.conf.set(IndexConstants.INDEX_LINEAGE_ENABLED, "true")
@@ -1995,7 +2272,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     from hyperspace_tpu_torch import (BloomFilterSketch, DataSkippingIndexConfig,
                                       IndexConfig, IndexConstants, MinMaxSketch)
     from hyperspace_tpu_torch.actions import create, create_skipping
-    from hyperspace_tpu_torch.execution import executor
+    from hyperspace_tpu_torch.execution import buffer_pool, executor
     from hyperspace_tpu_torch.execution.columnar import Table
     from hyperspace_tpu_torch.index.manager import CachingIndexCollectionManager
     from hyperspace_tpu_torch.ops import cuda_kernels, index_build, kernels, sketches
@@ -2009,6 +2286,11 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     def rebuild(src, name, indexed, included):
         return lambda: hs.create_index(session.read.parquet(src),
                                        IndexConfig(name, indexed, included))
+
+    def cold():
+        # Each query's timed and profiled runs read their files: the buffer
+        # pool is emptied first (the io path times warm runs).
+        buffer_pool.get_pool().clear()
 
     def run(name, indexed):
         (session.enable_hyperspace if indexed else session.disable_hyperspace)()
@@ -2064,7 +2346,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
             if indexed and name in ("skipping", "bloom"):
                 spans_of.append((data_skipping_rule, "evaluate_sketch_predicate",
                                  "sketch probe (host)"))
-            work.append((f"{name} {'indexed' if indexed else 'scanned'}", None,
+            work.append((f"{name} {'indexed' if indexed else 'scanned'}", cold,
                          lambda n=name, i=indexed: run(n, i), spans_of))
     out = {}
     for label, prep, fn, patches in work:
@@ -2182,6 +2464,12 @@ def main(argv=None) -> int:
         results["sources"]["seconds"] = time.perf_counter() - t0
         log(f"sources: launches {launches['sources']}; "
             f"{results['sources']['seconds']:.1f} s")
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        run_io_path(root, session, queries, li_dir, od_dir, pt_dir, n_od, results)
+        launches["io"] = dict(ck.LAUNCHES)
+        results["io"]["seconds"] = time.perf_counter() - t0
+        log(f"io: launches {launches['io']}; {results['io']['seconds']:.1f} s")
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
         missing = [f"{k} ({path})" for path in launches for k in PATH_KERNELS[path]
@@ -2239,8 +2527,11 @@ def main(argv=None) -> int:
                                                   "fast_joins", "files_kept") if f in v}
                             for k, v in results["mutations"]["queries"].items()}
     sources = {k: v for k, v in results["sources"].items() if k != "introspection"}
+    io = {k: v for k, v in results["io"].items() if k != "queries"}
+    io["queries"] = {k: {run: v[run]["seconds"] for run in ("cold", "warm", "sequential")}
+                     for k, v in results["io"]["queries"].items()}
     print(json.dumps({"builds": results["builds"], "queries": results["queries"],
-                      "sources": sources, "mutations": mutations,
+                      "sources": sources, "io": io, "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
     print(json.dumps({"kernels": main_path}))

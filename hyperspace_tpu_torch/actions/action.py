@@ -19,6 +19,7 @@ from typing import Optional
 from ..exceptions import HyperspaceException, NoChangesException
 from ..index.log_entry import IndexLogEntry
 from ..index.log_manager import IndexLogManager
+from ..parallel import io as pio
 
 
 class Action:
@@ -54,11 +55,14 @@ class Action:
         raise NotImplementedError
 
     def run(self) -> None:
+        # Reads under this action (sketch builds, chunk streams, the spill
+        # merge) take the session's io conf.
         try:
-            self.validate()
-            self._begin()
-            self.op()
-            self._end()
+            with pio.use_session(self.session):
+                self.validate()
+                self._begin()
+                self.op()
+                self._end()
         except NoChangesException:
             pass
 

@@ -29,6 +29,7 @@ from ..index.log_entry import (Content, DataSkippingIndex, Directory, FileIdTrac
                                IndexLogEntry, Sketch)
 from ..index.log_manager import IndexLogManager
 from ..ops import sketches as sk
+from ..parallel import io as pio
 from ..plan.nodes import Scan
 from ..schema import INT64, STRING, Field, Schema
 from ..util.file_utils import file_info_triple
@@ -56,9 +57,11 @@ def valuelist_col(column: str) -> str:
 
 def build_sketch_rows(relation, sketch_list: List[Sketch], files: List[str],
                       tracker: FileIdTracker, device) -> Dict[str, list]:
-    """One sketch row per file, files read one by one in order (so the
+    """One sketch row per file; device reductions per (file, sketch). The
+    reads run ahead on the reader pool (file k+1 decodes while file k's
+    reductions run), and the loop takes the files in order, so the
     tracker's ids and the row order, and with them the table's bytes, are
-    the JAX package's); device reductions per (file, sketch)."""
+    the JAX package's at any thread count."""
     needed = sorted({s.column for s in sketch_list})
     rows: Dict[str, list] = {FILE_COL: [], FILE_ID_COL: []}
     for s in sketch_list:
@@ -72,8 +75,8 @@ def build_sketch_rows(relation, sketch_list: List[Sketch], files: List[str],
             rows[valuelist_col(s.column)] = []
         else:
             raise HyperspaceException(f"Unknown sketch kind: {s.kind}")
-    for path in files:
-        table = read_parquet([path], needed, device)
+    for path, table in pio.zip_prefetch(files, lambda f: read_parquet([f], needed, device),
+                                        weight=os.path.getsize):
         rows[FILE_COL].append(path)
         rows[FILE_ID_COL].append(tracker.add_file(*file_info_triple(path)))
         for s in sketch_list:

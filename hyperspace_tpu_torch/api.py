@@ -178,6 +178,22 @@ class Hyperspace:
             redirect_func(text)
         return text
 
+    def io_stats(self) -> dict:
+        """The process-wide reader-pool counters (parallel/io.py): pooled
+        fan-outs, file tasks, byte estimates, in-worker read seconds,
+        consumer wait seconds, prefetch streams and items, pool width."""
+        from .parallel import io as pio
+        return pio.pool_stats()
+
+    def buffer_pool_stats(self) -> dict:
+        """The buffer pool's counters (execution/buffer_pool.py): hits per
+        tier, misses, admissions, host->device ``transfers`` (0 new ones on
+        a fully warm repeat), demotions and evictions,
+        ``decode_bytes_saved``, residency against the budgets, and the
+        probes per namespace."""
+        from .execution import buffer_pool
+        return buffer_pool.pool_stats()
+
     def why_not(self, df, index_name: Optional[str] = None) -> str:
         """Why each index was, or was not, applied to this query's plan."""
         from .rules.apply_hyperspace import apply_hyperspace

@@ -51,6 +51,39 @@ class HyperspaceConf:
         return int(self._conf.get(IndexConstants.TPU_MAX_CHUNK_ROWS,
                                   IndexConstants.TPU_MAX_CHUNK_ROWS_DEFAULT))
 
+    def io_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.TPU_IO_ENABLED,
+                              IndexConstants.TPU_IO_ENABLED_DEFAULT)
+
+    def io_threads(self) -> int:
+        """Reader-pool width; 0 = auto (min(16, cpu count)), 1 = sequential."""
+        return int(self._conf.get(IndexConstants.TPU_IO_THREADS,
+                                  IndexConstants.TPU_IO_THREADS_DEFAULT))
+
+    def io_prefetch_depth(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_IO_PREFETCH_DEPTH,
+                                  IndexConstants.TPU_IO_PREFETCH_DEPTH_DEFAULT))
+
+    def io_max_inflight_bytes(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_IO_MAX_INFLIGHT_BYTES,
+                                  IndexConstants.TPU_IO_MAX_INFLIGHT_BYTES_DEFAULT))
+
+    def buffer_pool_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.TPU_BUFFER_POOL_ENABLED,
+                              IndexConstants.TPU_BUFFER_POOL_ENABLED_DEFAULT)
+
+    def buffer_pool_device_bytes(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_BUFFER_POOL_DEVICE_BYTES,
+                                  IndexConstants.TPU_BUFFER_POOL_DEVICE_BYTES_DEFAULT))
+
+    def buffer_pool_host_bytes(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_BUFFER_POOL_HOST_BYTES,
+                                  IndexConstants.TPU_BUFFER_POOL_HOST_BYTES_DEFAULT))
+
+    def buffer_pool_stream_admit_bytes(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_BUFFER_POOL_STREAM_ADMIT_BYTES,
+                                  IndexConstants.TPU_BUFFER_POOL_STREAM_ADMIT_BYTES_DEFAULT))
+
     def hybrid_scan_enabled(self) -> bool:
         return self._get_bool(IndexConstants.INDEX_HYBRID_SCAN_ENABLED,
                               IndexConstants.INDEX_HYBRID_SCAN_ENABLED_DEFAULT)

@@ -5,12 +5,19 @@ Every column is a fixed-width torch tensor on the table's device.
 Variable-length strings are dictionary-encoded order-preserving at the
 host→device boundary (codes compare like the strings they stand for), dates
 are int32 days and decimals become float64. Host↔device crossings happen
-only at parquet read/write and at ``to_arrow``.
+only at parquet read/write and at ``to_arrow``; a copy to a card goes from
+pinned host memory, queued on the current stream.
+
+Multi-file reads fan out over the reader pool (parallel/io.py), chunk
+streams run a prefetcher ahead of their consumer, and the executor's bulk
+scans and chunked filtered scans go through the buffer pool
+(execution/buffer_pool.py).
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,6 +42,8 @@ DEVICE_DTYPE = {
 
 _NP_DTYPE = {INT32: np.int32, INT64: np.int64, FLOAT32: np.float32,
              FLOAT64: np.float64, BOOL: np.bool_, DATE: np.int32, STRING: np.int32}
+_TORCH_DTYPE = {np.int32: torch.int32, np.int64: torch.int64, np.float32: torch.float32,
+                np.float64: torch.float64, np.bool_: torch.bool}
 
 
 @dataclass
@@ -245,31 +254,74 @@ def _encode_arrow_column(chunked: pa.ChunkedArray, device) -> Column:
         valid_np = ~np.asarray(combined.is_null())
         np_data = np.where(valid_np, np.nan_to_num(np_data, nan=0)
                            if np_data.dtype.kind == "f" else np_data, 0)
-        validity = torch.from_numpy(valid_np.copy()).to(device)
+        validity = _to_device(valid_np, device)
     np_data = np.ascontiguousarray(np_data).astype(_NP_DTYPE[dtype], copy=False)
     return Column(dtype, _to_device(np_data, device), validity)
 
 
+# Pinned staging pieces of a host->card copy. Whole columns staged at once
+# would pin as much host memory as a query reads, and torch's pinned-memory
+# allocator keeps what it pinned; pieces of this size are pinned once and
+# reused.
+_STAGE_BYTES = 64 << 20
+
+
 def _to_device(np_data: np.ndarray, device) -> torch.Tensor:
-    if not np_data.flags.writeable:
-        np_data = np_data.copy()
-    return torch.from_numpy(np_data).to(device)
+    """A 1-D host array on ``device``. To a card it goes piece by piece
+    through pinned staging buffers, each copied without blocking the host on
+    the current stream; torch's pinned-memory allocator hands a buffer out
+    again only once its copy is done."""
+    if torch.device(device).type != "cuda":
+        if not np_data.flags.writeable:
+            np_data = np_data.copy()
+        return torch.from_numpy(np_data).to(device)
+    dtype = _TORCH_DTYPE[np_data.dtype.type]
+    out = torch.empty(np_data.shape, dtype=dtype, device=device)
+    step = max(_STAGE_BYTES // np_data.itemsize, 1)
+    for lo in range(0, np_data.shape[0], step):
+        piece = np_data[lo:lo + step]
+        staged = torch.empty(piece.shape, dtype=dtype, pin_memory=True)
+        np.copyto(staged.numpy(), piece)
+        out[lo:lo + step].copy_(staged, non_blocking=True)
+    return out
 
 
 def _encode_string(chunked: pa.ChunkedArray, device) -> Column:
-    """Order-preserving dictionary encoding: codes sort like the strings."""
+    """Order-preserving dictionary encoding: codes sort like the strings.
+
+    pyarrow finds, sorts and looks up the distinct strings (outside the
+    GIL); only the dictionary becomes a numpy array. UTF-8 byte order is
+    code point order, numpy's order for its strings, so the dictionary and
+    the codes are what a numpy sort and searchsorted give, except where
+    numpy's strings cannot hold a value (a trailing NUL): then numpy
+    encodes, as the JAX package does."""
     combined = chunked.combine_chunks() if chunked.num_chunks != 1 else chunked.chunk(0)
     uniques = pc.unique(combined.drop_null())
-    dictionary = np.sort(np.asarray(uniques).astype(str)) if len(uniques) else \
-        np.array([], dtype=str)
+    uniques = uniques.take(pc.sort_indices(uniques))
+    dictionary = np.asarray(uniques).astype(str) if len(uniques) else np.array([], dtype=str)
+    if len(dictionary) and not (dictionary[1:] > dictionary[:-1]).all():
+        return _encode_string_numpy(combined, dictionary, device)
+    if len(dictionary):
+        codes = pc.index_in(combined, value_set=uniques).fill_null(-1)
+        codes = codes.to_numpy(zero_copy_only=False).astype(np.int32, copy=False)
+    else:
+        codes = np.full(len(combined), -1 if combined.null_count else 0, np.int32)
+    validity = None
+    if combined.null_count:
+        validity = _to_device(~np.asarray(combined.is_null()), device)
+    return Column(STRING, _to_device(codes, device), validity, dictionary)
+
+
+def _encode_string_numpy(combined: pa.Array, dictionary: np.ndarray, device) -> Column:
+    """The numpy encoding (sort and searchsorted over Python strings)."""
+    dictionary = np.sort(dictionary)
     values = np.asarray(combined.fill_null("")).astype(str)
-    codes = np.searchsorted(dictionary, values).astype(np.int32) \
-        if len(dictionary) else np.zeros(len(values), np.int32)
+    codes = np.searchsorted(dictionary, values).astype(np.int32)
     validity = None
     if combined.null_count:
         valid_np = ~np.asarray(combined.is_null())
         codes = np.where(valid_np, codes, -1).astype(np.int32)
-        validity = torch.from_numpy(valid_np.copy()).to(device)
+        validity = _to_device(valid_np, device)
     return Column(STRING, _to_device(codes, device), validity, dictionary)
 
 
@@ -297,8 +349,60 @@ def _concat_string_columns(cols: List[Column]) -> Column:
 # Parquet IO.
 # ---------------------------------------------------------------------------
 
+def _file_size_weight(path: str) -> int:
+    """A file's byte weight for the reader pool's in-flight budget (its
+    decoded size is about its file size; 0 when it cannot be stat'ed)."""
+    try:
+        return int(os.path.getsize(path))
+    except OSError:
+        return 0
+
+
+def _read_parquet_pooled(files: Sequence[str], read_cols, filters) -> pa.Table:
+    """A multi-file read fanned out over the reader pool: one contiguous
+    sublist of files per thread, each read by pyarrow single-threaded (the
+    pool is the parallelism; pyarrow's own pool beneath it would
+    oversubscribe), then concatenated in file order, so the table equals the
+    sequential read's. Sublists rather than one task a file: each task pays
+    the dataset set-up once. A read whose sublists do not all fit the
+    in-flight budget at once goes to pyarrow's own threads instead, as does
+    everything under ``io.enabled=false``; ``io.threads=1`` is the
+    single-threaded sequential read.
+
+    pyarrow infers no partitions from the paths (``partitioning=None``):
+    ``sources/partitions.py`` attaches them, and a sublist holding only a
+    null partition's files would leave pyarrow nothing to infer its type
+    from (the JAX package raises there; ROADMAP queue C 9)."""
+    from ..parallel import io as pio
+    p = pio.active_params()
+    n = p.resolved_threads()
+
+    def read(paths, use_threads: bool) -> pa.Table:
+        return pq.read_table(list(paths), columns=read_cols, filters=filters,
+                             partitioning=None, use_threads=use_threads)
+
+    if not p.enabled:
+        return read(files, True)
+    if len(files) > 1 and n > 1 and not pio.in_worker():
+        step = (len(files) + n - 1) // n
+        groups = [files[i:i + step] for i in range(0, len(files), step)]
+        def weight(group) -> int:
+            return sum(map(_file_size_weight, group))
+
+        # The pool reads at its full width only when the in-flight budget
+        # holds a sublist for every thread; narrower, it decodes on fewer
+        # threads than pyarrow's own read uses (PERF.md, the read splits).
+        if min(n, len(groups)) * max(map(weight, groups)) <= p.max_inflight_bytes:
+            parts = pio.map_ordered(lambda g: read(g, False), groups, weight=weight, params=p)
+            try:
+                return pa.concat_tables(parts)
+            except (pa.ArrowInvalid, pa.ArrowTypeError):
+                pass  # files of differing schemas: the dataset reader unifies them.
+    return read(files, n > 1 and not pio.in_worker())
+
+
 def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
-                 filters=None) -> Table:
+                 filters=None, pool: bool = False) -> Table:
     """Read parquet ``files`` onto ``device``. ``filters`` is a pyarrow
     expression: row groups whose statistics exclude it are skipped and the
     rows read are filtered by it (the device filter still runs after).
@@ -306,9 +410,20 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
     A dotted column that is not a top-level one is a struct leaf: its root
     struct column is read, flattened until no struct is left, and the
     exact dotted leaves are selected (pyarrow's ``columns=`` would select
-    a nested leaf but name it by its last part)."""
+    a nested leaf but name it by its last part).
+
+    ``pool=True`` (the executor's bulk scans) probes the buffer pool first
+    and admits the table read on a miss; builds read around it."""
+    from . import buffer_pool as bp
     if not files:
         raise HyperspaceException("read_parquet: no files")
+    pool_key = None
+    if pool and bp.enabled():
+        pool_key = bp.scan_key(files, columns, filters, device)
+        if pool_key is not None:
+            cached = bp.get_pool().get(pool_key)
+            if cached is not None:
+                return cached
     read_cols = list(columns) if columns else None
     flatten_select = None
     if columns:
@@ -320,17 +435,81 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
                 if root not in roots:
                     roots.append(root)
             read_cols, flatten_select = roots, list(columns)
-    at = pq.read_table(list(files), columns=read_cols, filters=filters)
+    at = _read_parquet_pooled(list(files), read_cols, filters)
     if flatten_select is not None:
         while any(pa.types.is_struct(f.type) for f in at.schema):
             at = at.flatten()
         at = at.select(flatten_select)
-    return Table.from_arrow(at, device)
+    table = Table.from_arrow(at, device)
+    if pool_key is not None:
+        bp.get_pool().put(pool_key, table)
+    return table
 
 
 def parquet_row_counts(files: Sequence[str]) -> List[int]:
     """Row count per file from parquet footers (no data read)."""
     return [pq.ParquetFile(f).metadata.num_rows for f in files]
+
+
+def _table_nbytes_estimate(item) -> int:
+    """In-flight bytes of a chunk (a table, or a (table, provenance) pair)
+    crossing the prefetch queue."""
+    table = item[0] if isinstance(item, tuple) else item
+    total = 0
+    for c in table.columns.values():
+        total += c.data.nbytes
+        if c.validity is not None:
+            total += c.validity.nbytes
+    return total
+
+
+def _prefetched(source, device, label: str):
+    """``source``'s chunks (tables or (table, provenance) pairs on
+    ``device``) through the prefetcher, in order.
+
+    On a card the producer copies on a stream of its own, set for each
+    step of the source on whichever thread runs it; an event recorded after
+    each chunk's copies travels with the chunk. The consumer's stream waits
+    on it, and every tensor is marked as used on the consumer's stream
+    (``record_stream``), so the caching allocator does not hand the memory
+    to the copy stream again while the consumer's kernels may read it."""
+    from ..parallel import io as pio
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield from pio.prefetch_iter(source, nbytes=_table_nbytes_estimate, label=label)
+        return
+    copy_stream = torch.cuda.Stream(device)
+
+    def copied():
+        it = iter(source)
+        try:
+            while True:
+                with torch.cuda.stream(copy_stream):
+                    item = next(it, None)
+                    if item is None:
+                        return
+                    done = torch.cuda.Event()
+                    done.record(copy_stream)
+                yield item, done
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    consumer = torch.cuda.current_stream(device)
+    stream = pio.prefetch_iter(copied(), nbytes=lambda x: _table_nbytes_estimate(x[0]),
+                               label=label)
+    try:
+        for item, done in stream:
+            consumer.wait_event(done)
+            table = item[0] if isinstance(item, tuple) else item
+            for c in table.columns.values():
+                c.data.record_stream(consumer)
+                if c.validity is not None:
+                    c.validity.record_stream(consumer)
+            yield item
+    finally:
+        stream.close()
 
 
 def _rebatch(pieces, chunk_rows: int):
@@ -363,7 +542,15 @@ def iter_parquet_chunks(files: Sequence[str], columns: Optional[Sequence[str]],
     """Stream ``files`` as tables of at most ``chunk_rows`` rows on
     ``device``, row group by row group, each with its provenance: a list
     of (index into ``files``, rows taken from that file), so a caller can
-    give every row its source file's id (lineage)."""
+    give every row its source file's id (lineage). A prefetcher decodes
+    and copies the next chunks while the caller works on this one: at most
+    ``prefetchDepth`` buffered chunks, one in production and one at the
+    caller are alive. Order and provenance are the sequential stream's."""
+    return _prefetched(_iter_parquet_chunks(files, columns, chunk_rows, device), device,
+                       "parquet_chunks")
+
+
+def _iter_parquet_chunks(files, columns, chunk_rows: int, device):
     read_cols = list(columns) if columns else None
     pieces = ((fi, pf.read_row_group(rg, columns=read_cols))
               for fi, pf in enumerate(pq.ParquetFile(f) for f in files)
@@ -377,7 +564,52 @@ def iter_dataset_chunks(files: Sequence[str], columns: Optional[Sequence[str]],
     """Stream ``files`` as tables of at most ``chunk_rows`` rows on
     ``device``, in file order, with the pyarrow expression ``filters``
     pushed into the scan: row groups whose statistics exclude it are never
-    decoded, and the rows read are filtered by it."""
+    decoded, and the rows read are filtered by it. A prefetcher runs ahead
+    of the caller, as in ``iter_parquet_chunks``.
+
+    A stream of at most ``bufferPool.streamAdmitBytes`` goes through the
+    buffer pool: a hit replays the chunk sequence, chunk for chunk, with no
+    file read; a miss streams while collecting the chunks, and admits them
+    only when the caller has taken the whole stream (an abandoned stream
+    never leaves a truncated one behind). These entries are device-only."""
+    from . import buffer_pool as bp
+    pool_key = None
+    if bp.enabled():
+        pool_key = bp.stream_key(files, columns, filters, chunk_rows, device)
+        if pool_key is not None:
+            cached = bp.get_pool().get(pool_key)
+            if cached is not None:
+                return iter(list(cached))
+    stream = _prefetched(_iter_dataset_chunks(files, columns, chunk_rows, device, filters),
+                         device, "dataset_chunks")
+    if pool_key is not None:
+        stream = _collect_stream(pool_key, stream, bp.stream_admit_bytes())
+    return stream
+
+
+def _collect_stream(pool_key, stream, admit_bytes: int):
+    """Pass the chunks through while keeping them for the pool; a stream
+    above ``admit_bytes`` stops collecting, and only one taken to its end
+    is admitted."""
+    from . import buffer_pool as bp
+    chunks: Optional[List[Table]] = []
+    total = 0
+    try:
+        for chunk in stream:
+            if chunks is not None:
+                total += _table_nbytes_estimate(chunk)
+                if total > admit_bytes:
+                    chunks = None
+                else:
+                    chunks.append(chunk)
+            yield chunk
+    finally:
+        stream.close()
+    if chunks is not None:
+        bp.get_pool().put(pool_key, chunks, nbytes=total, device_only=True)
+
+
+def _iter_dataset_chunks(files, columns, chunk_rows: int, device, filters):
     import pyarrow.dataset as pa_ds
 
     scanner = pa_ds.dataset(list(files), format="parquet").scanner(

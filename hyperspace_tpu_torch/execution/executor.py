@@ -38,20 +38,26 @@ from ..exceptions import HyperspaceException
 from ..ops import kernels
 from ..index.constants import IndexConstants
 from ..ops.index_build import bucket_id_from_file, bucket_ids_for
+from ..parallel import io as pio
 from ..plan import expr as E
 from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
                           Project, Scan, Sort)
 from ..schema import DATE, FLOAT64, INT32, INT64, STRING
 from ..sources.partitions import read_relation_files
+from . import index_cache
+from .buffer_pool import file_signature
 from .columnar import (Column, Table, dictionaries_equal, empty_table, iter_dataset_chunks,
                        literal_to_device, parquet_row_counts, read_parquet,
                        translate_codes)
 from .evaluator import eval_expr, eval_predicate_mask
-from .pushdown import pushable_filter
+from .pushdown import pruned_index_read_filter, pushable_filter
 
 
 def execute(plan: LogicalPlan, session) -> Table:
-    return _execute(plan, None, session)
+    # Every read under this execution takes the session's io and buffer
+    # pool conf.
+    with pio.use_session(session):
+        return _execute(plan, None, session)
 
 
 def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
@@ -83,8 +89,11 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
                     session.device)
                 if chunked is not None:
                     return chunked
+                pruned = pa_filter is not None and pruned_index_read_filter(
+                    child.index_entry, plan.condition, child.schema) is not None
                 table = _execute_index_scan(child, child_needed, session.device,
-                                            pa_filter, bucket_subset=buckets)
+                                            pa_filter, bucket_subset=buckets,
+                                            prefer_pruned_read=pruned)
         else:
             table = _execute(child, child_needed, session)
         return _filter_table(table, plan.condition)
@@ -140,7 +149,7 @@ def _execute_scan(plan: Scan, needed: Optional[Set[str]], device,
     files = relation.all_files()
     if not files:
         return empty_table(relation.schema.select(cols), device)
-    return read_relation_files(relation, files, cols, device, filters=pa_filter)
+    return read_relation_files(relation, files, cols, device, filters=pa_filter, pool=True)
 
 
 # The chunked scans' device footprint: tests hold max_device_rows to the
@@ -361,8 +370,14 @@ def _equality_values(conjunct, column: str):
 
 
 def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
-                        pa_filter=None,
-                        bucket_subset: Optional[Set[int]] = None) -> Table:
+                        pa_filter=None, bucket_subset: Optional[Set[int]] = None,
+                        prefer_pruned_read: bool = False) -> Table:
+    """The index files' rows in bucket order, the deleted files' rows
+    dropped and the appended files' rows merged in. The index files come
+    from the device-resident index-table cache, read whole (the Filter
+    above masks them on the device), unless the filter constrains the
+    leading indexed column (``prefer_pruned_read``): then a read pruned by
+    the row-group statistics of the sorted column costs less."""
     entry = plan.index_entry
     index_files, cols, single_file_buckets = _index_scan_layout(plan, needed, bucket_subset)
     if not index_files and bucket_subset is not None and not plan.appended_files:
@@ -370,8 +385,15 @@ def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
             [c for c in cols if c != IndexConstants.DATA_FILE_NAME_ID]), device)
     if not index_files:
         table = empty_table(entry.schema.select(cols), device)
+    elif index_cache.enabled() and not (prefer_pruned_read and pa_filter is not None):
+        cache = index_cache.get_cache()
+        key = (entry.id, entry.name, file_signature(index_files), tuple(cols), str(device))
+        table = cache.get(key)
+        if table is None:
+            table = read_parquet(index_files, cols, device)
+            cache.put(key, table)
     else:
-        table = read_parquet(index_files, cols, device, filters=pa_filter)
+        table = read_parquet(index_files, cols, device, filters=pa_filter, pool=True)
     table = _with_bucket_order(entry, table, single_file_buckets)
     deleted = _deleted_ids(plan, device)
     if deleted is not None:

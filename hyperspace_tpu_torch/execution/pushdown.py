@@ -14,10 +14,12 @@ from __future__ import annotations
 import datetime
 from typing import Optional
 
+import numpy as np
+import pyarrow as pa
 import pyarrow.compute as pc
 
 from ..plan import expr as E
-from ..schema import DATE, Schema
+from ..schema import DATE, FLOAT32, Schema
 
 _OPS = {
     "EqualTo": lambda f, v: f == v,
@@ -39,12 +41,31 @@ _CMP_TYPES = tuple(getattr(E, n) for n in _OPS)
 
 
 def _literal(value, column: str, schema: Schema):
+    dtype = schema.field(column).dtype if column in schema else None
     # Date columns accept ISO strings in the expression language; parquet
     # statistics need a real date value.
-    if column in schema and schema.field(column).dtype == DATE \
-            and isinstance(value, str):
+    if dtype == DATE and isinstance(value, str):
         return datetime.date.fromisoformat(value)
+    if dtype == FLOAT32 and isinstance(value, (int, float)):
+        # The device mask compares a float32 column with the literal
+        # rounded to float32 (the JAX package's weak-scalar rule; +-inf past
+        # its range, NaN kept). pyarrow would compare a Python float in
+        # float64, where 1.1f != 1.1, and drop rows the mask keeps.
+        with np.errstate(over="ignore"):
+            return pa.scalar(np.float32(float(value)), pa.float32())
     return value
+
+
+def _zero_twins(values) -> list:
+    """pyarrow's is_in hashes its value set, so -0.0 and 0.0 do not match
+    each other there, while every comparison (the device mask's too) holds
+    them equal: a float zero brings its twin into the set."""
+    out = []
+    for v in values:
+        py = v.as_py() if isinstance(v, pa.Scalar) else v
+        if isinstance(py, float) and py == 0.0:
+            out.append(pa.scalar(-py, v.type) if isinstance(v, pa.Scalar) else -py)
+    return out
 
 
 def _translate(e: E.Expr, schema: Schema, allow_nested: bool):
@@ -73,7 +94,7 @@ def _translate(e: E.Expr, schema: Schema, allow_nested: bool):
                   for o in e.options if isinstance(o, E.Lit)]
         if len(values) == len(e.options):
             f = field(e.value.column)
-            return None if f is None else f.isin(values)
+            return None if f is None else f.isin(values + _zero_twins(values))
         return None
     if isinstance(e, E.Or):
         left = _translate(e.left, schema, allow_nested)
@@ -81,6 +102,34 @@ def _translate(e: E.Expr, schema: Schema, allow_nested: bool):
         if left is not None and right is not None:
             return left | right
     return None
+
+
+def filter_constrains(condition: E.Expr, schema: Schema, column: str) -> bool:
+    """True when a pushable conjunct references ``column`` alone."""
+    for conjunct in E.split_conjunctive_predicates(condition):
+        if conjunct.references == [column] \
+                and _translate(conjunct, schema, True) is not None:
+            return True
+    return False
+
+
+def prefers_pruned_read(entry, condition: E.Expr, schema: Schema) -> bool:
+    """A pushable conjunct on the leading indexed column makes row-group
+    statistics tight (the index sorts on it within each bucket): a pruned
+    parquet read costs about the selectivity of the file, far less than
+    masking the whole cached table. The other filters read the cache."""
+    return (entry.derivedDataset.kind == "CoveringIndex"
+            and bool(entry.indexed_columns)
+            and filter_constrains(condition, schema, entry.indexed_columns[0]))
+
+
+def pruned_index_read_filter(entry, condition: E.Expr,
+                             schema: Schema) -> Optional[pc.Expression]:
+    """The pyarrow filter to read a covering index with instead of the
+    cache, or None to read the cache."""
+    if not prefers_pruned_read(entry, condition, schema):
+        return None
+    return pushable_filter(condition, schema)
 
 
 def pushable_filter(condition: E.Expr, schema: Schema,

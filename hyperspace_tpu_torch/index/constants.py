@@ -94,3 +94,30 @@ class IndexConstants:
     # most this many (ops/index_build.py, execution/executor.py).
     TPU_MAX_CHUNK_ROWS = "hyperspace.tpu.maxChunkRows"
     TPU_MAX_CHUNK_ROWS_DEFAULT = str(8 * 1024 * 1024)
+
+    # Parallel I/O (parallel/io.py): the process-wide bounded reader pool
+    # and the producer/consumer prefetch pipelines behind multi-file reads,
+    # chunk streams, sketch builds and the spill merge. Results keep the
+    # sequential order at any thread count. threads=0 means auto
+    # (min(16, cpu count)); threads=1 reads sequentially.
+    TPU_IO_ENABLED = "hyperspace.tpu.io.enabled"
+    TPU_IO_ENABLED_DEFAULT = "true"
+    TPU_IO_THREADS = "hyperspace.tpu.io.threads"
+    TPU_IO_THREADS_DEFAULT = "0"
+    TPU_IO_PREFETCH_DEPTH = "hyperspace.tpu.io.prefetchDepth"
+    TPU_IO_PREFETCH_DEPTH_DEFAULT = "2"
+    TPU_IO_MAX_INFLIGHT_BYTES = "hyperspace.tpu.io.maxInflightBytes"
+    TPU_IO_MAX_INFLIGHT_BYTES_DEFAULT = str(256 * 1024 * 1024)
+
+    # Tiered buffer pool (execution/buffer_pool.py): the process-wide
+    # device -> host cache of decoded scans and index tables, shared across
+    # queries and sessions. streamAdmitBytes caps the chunk streams the
+    # pool keeps for replay.
+    TPU_BUFFER_POOL_ENABLED = "hyperspace.tpu.execution.bufferPool.enabled"
+    TPU_BUFFER_POOL_ENABLED_DEFAULT = "true"
+    TPU_BUFFER_POOL_DEVICE_BYTES = "hyperspace.tpu.execution.bufferPool.deviceBytes"
+    TPU_BUFFER_POOL_DEVICE_BYTES_DEFAULT = str(4 * 1024 * 1024 * 1024)
+    TPU_BUFFER_POOL_HOST_BYTES = "hyperspace.tpu.execution.bufferPool.hostBytes"
+    TPU_BUFFER_POOL_HOST_BYTES_DEFAULT = str(4 * 1024 * 1024 * 1024)
+    TPU_BUFFER_POOL_STREAM_ADMIT_BYTES = "hyperspace.tpu.execution.bufferPool.streamAdmitBytes"
+    TPU_BUFFER_POOL_STREAM_ADMIT_BYTES_DEFAULT = str(256 * 1024 * 1024)

@@ -38,4 +38,10 @@ class IndexDataManager:
         return os.path.join(self._index_path, f"{self._prefix}{version}")
 
     def delete(self, version: int) -> None:
+        """Remove a version's files. A recreated index may write the same
+        paths again, possibly within one mtime tick and at the same sizes,
+        which a file signature cannot tell apart: the buffer pool forgets
+        every read it holds."""
+        from ..execution.buffer_pool import get_pool
         file_utils.delete_recursively(self.get_path(version))
+        get_pool().clear()

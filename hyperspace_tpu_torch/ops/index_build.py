@@ -27,6 +27,7 @@ import torch
 
 from ..execution.columnar import (Column, Table, iter_parquet_chunks, parquet_row_counts,
                                   read_parquet)
+from ..parallel import io as pio
 from ..schema import INT64
 from . import cuda_kernels, kernels
 
@@ -96,8 +97,20 @@ def build_sorted_buckets_chunked(
     try:
         rows_of = _spill_chunks(files, columns, indexed_cols, num_buckets, chunk_rows,
                                 device, lineage_ids, lineage_col, spill_dir)
-        for batch in _bucket_batches(rows_of, chunk_rows):
-            merged = read_parquet([_spill_path(spill_dir, b) for b in batch], None, device)
+        # Double-buffered merge: batch i+1 reads back while batch i sorts
+        # and writes. Two batches alive at most (threads=2, depth 0: one
+        # read in flight and the one being merged), each about chunk_rows
+        # device rows, the footprint this build exists to bound.
+        p = pio.active_params()
+        merge_params = pio.IoParams(enabled=p.enabled, threads=min(2, p.resolved_threads()),
+                                    prefetch_depth=0, max_inflight_bytes=p.max_inflight_bytes)
+        for batch, merged in pio.zip_prefetch(
+                _bucket_batches(rows_of, chunk_rows),
+                lambda batch: read_parquet([_spill_path(spill_dir, b) for b in batch], None,
+                                           device),
+                weight=lambda batch: sum(os.path.getsize(_spill_path(spill_dir, b))
+                                         for b in batch),
+                params=merge_params):
             _note_device_rows(merged.num_rows)
             merged = _sort_batch(merged, [rows_of[b] for b in batch], indexed_cols)
             _write_batch(merged, batch, [rows_of[b] for b in batch], out_dir, row_group_size)

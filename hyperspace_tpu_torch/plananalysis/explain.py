@@ -5,9 +5,11 @@ sections: ``explain_string(..., diagnostics=False)``).
 Both plans are walked in lockstep and every subtree the rewrite changed
 is highlighted on each side; then the indexes the rewritten plan uses
 and, verbose, the operator counts that changed. The rewrite runs as a
-diagnostic pass: it counts no index usage. The JAX package's runtime
-sections (result cache, compilation, IO, SPMD, serving, robustness, SLO,
-trace, advisor, join order) read tiers this package does not have yet.
+diagnostic pass: it counts no index usage. With ``diagnostics`` the I/O
+section follows once the reader pool or a prefetch stream has done work.
+The JAX package's other runtime sections (result cache, compilation,
+SPMD, serving, robustness, SLO, trace, advisor, join order) read tiers
+this package does not have yet.
 """
 
 from __future__ import annotations
@@ -80,9 +82,11 @@ def _count_nodes(plan: LogicalPlan) -> Dict[str, int]:
 
 
 def explain_string(session, plan: LogicalPlan, verbose: bool = False,
-                   mode="plaintext") -> str:
+                   mode="plaintext", diagnostics: bool = True) -> str:
     """The rewrite diff of ``plan`` rendered in ``mode`` ("plaintext",
-    "console" or "html"), whether or not hyperspace is enabled."""
+    "console" or "html"), whether or not hyperspace is enabled.
+    ``diagnostics=False`` leaves out the runtime sections, which read
+    process-wide counters."""
     display: DisplayMode = get_mode(mode)
     was_enabled = session.is_hyperspace_enabled()
     try:
@@ -106,6 +110,8 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
     _header(buf, "Indexes used:")
     for line in _used_indexes(with_index) or ["<none>"]:
         buf.write_line(line)
+    if diagnostics:
+        _write_io_section(buf, session)
     if verbose:
         buf.write_line()
         _header(buf, "Physical operator stats:")
@@ -115,3 +121,37 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
             if b != a:
                 buf.write_line(f"{name}: {b} -> {a}")
     return buf.build()
+
+
+def _write_io_section(buf: BufferStream, session) -> None:
+    """The reader pool's process-wide counters, the read/decode against
+    consumer-wait split, and the buffer pool's; rendered only once the pool
+    or a prefetch stream has done work."""
+    from ..execution import buffer_pool
+    from ..parallel import io as pio
+    s = pio.pool_stats()
+    if s["pooled_reads"] == 0 and s["prefetch_streams"] == 0:
+        return
+    p = pio.params_from_conf(session.hs_conf)
+    buf.write_line()
+    _header(buf, "I/O:")
+    if p.enabled and p.resolved_threads() > 1:
+        buf.write_line(f"reader pool: on (threads={p.resolved_threads()} "
+                       f"prefetchDepth={p.prefetch_depth} "
+                       f"maxInflightBytes={p.max_inflight_bytes})")
+    else:
+        buf.write_line("reader pool: off (reads run sequentially on the calling thread)")
+    buf.write_line(f"pooled reads: {s['pooled_reads']} fan-out(s), "
+                   f"{s['read_tasks']} file task(s), {s['read_bytes']} bytes; "
+                   f"prefetch: {s['prefetch_streams']} stream(s), "
+                   f"{s['prefetch_items']} item(s)")
+    overlap = max(s["read_seconds"] - s["wait_seconds"], 0.0)
+    buf.write_line(f"time split: read+decode={s['read_seconds']:.2f}s "
+                   f"consumer wait={s['wait_seconds']:.2f}s "
+                   f"(~{overlap:.2f}s of read hidden behind compute)")
+    bp = buffer_pool.pool_stats()
+    if bp["hits"] + bp["misses"] > 0:
+        buf.write_line(f"buffer pool: hits={bp['hits']} misses={bp['misses']} "
+                       f"transfers={bp['transfers']} "
+                       f"decode_bytes_saved={bp['decode_bytes_saved']} "
+                       f"resident={bp['device_nbytes']}+{bp['host_nbytes']}")

@@ -137,11 +137,12 @@ def _table_device(table):
 
 
 def read_relation_files(relation, files: Sequence[str], cols: Optional[Sequence[str]],
-                        device, filters=None):
+                        device, filters=None, pool: bool = False):
     """Read ``files`` of ``relation`` onto ``device`` with its partition
     columns attached: the one reader the scans and the builds share. A
     relation without partitions, or a read of none of its partition
-    columns, goes straight to the parquet reader (with ``filters``);
+    columns, goes straight to the parquet reader (with ``filters``, and
+    through the buffer pool when ``pool``, as the executor's scans ask);
     otherwise the files are read in one pass without the row-level
     filter (it would skew the per-file row counts; partition pruning has
     already narrowed the files), and the rows keep the files' order."""
@@ -150,7 +151,7 @@ def read_relation_files(relation, files: Sequence[str], cols: Optional[Sequence[
     fields = relation.partition_fields()
     part_names = {f.name for f in fields}
     if not fields or (cols is not None and not any(c in part_names for c in cols)):
-        return read_parquet(files, cols, device, filters=filters)
+        return read_parquet(files, cols, device, filters=filters, pool=pool)
     wanted = fields if cols is None else [f for f in fields if f.name in cols]
     phys_cols = None if cols is None else [c for c in cols if c not in part_names]
     if phys_cols is not None and not phys_cols:

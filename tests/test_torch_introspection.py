@@ -25,14 +25,18 @@ import hyperspace_tpu_torch as ht
 from hyperspace_tpu.api import (BloomFilterSketch as JBloom,
                                 DataSkippingIndexConfig as JSkipping,
                                 MinMaxSketch as JMinMax)
+from hyperspace_tpu.execution import buffer_pool as jbuffer_pool
+from hyperspace_tpu.parallel import io as jio
 from hyperspace_tpu.plan.expr import col as jcol, sum_ as jsum
 from hyperspace_tpu.plananalysis.explain import explain_string as jax_explain_string
 from hyperspace_tpu.rules import data_skipping_rule as jax_skipping_rule
+from hyperspace_tpu_torch.execution import buffer_pool as tbuffer_pool
 from hyperspace_tpu_torch.index import cache as tcache
 from hyperspace_tpu_torch.index.constants import IndexConstants, States
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager, get_lookup_cache
 from hyperspace_tpu_torch.index.manager import IndexCollectionManager
 from hyperspace_tpu_torch.index.statistics import IndexStatistics
+from hyperspace_tpu_torch.parallel import io as tio
 from hyperspace_tpu_torch.plan.expr import sum_ as tsum
 from test_torch_mutability import _begin_refresh
 
@@ -384,6 +388,15 @@ def _queries():
 QUERIES = _queries()
 
 
+def fresh_io_counters() -> None:
+    """Zero both packages' process-wide reader-pool counters and empty their
+    buffer pools: explain's I/O section renders from them once any read
+    has been pooled in the process."""
+    for io_mod, bp in ((jio, jbuffer_pool), (tio, tbuffer_pool)):
+        io_mod.reset_stats()
+        bp.get_pool().clear()
+
+
 @pytest.fixture()
 def explained(tmp_path):
     pair = Pair(tmp_path)
@@ -401,6 +414,7 @@ def test_explain_equals_the_jax_package(explained, tmp_path, query, mode, verbos
     texts = {}
     for n, s in pair.sessions.items():
         df = QUERIES[query](pair, n, col_of(n), jsum if n == "jax" else tsum)
+        fresh_io_counters()
         if n == "jax":
             texts[n] = jax_explain_string(s, df.plan, verbose=verbose, mode=mode,
                                           diagnostics=False)
@@ -616,6 +630,7 @@ def test_explain_of_a_hybrid_scan_equals_the_jax_package(tmp_path):
     texts = {}
     for n, s in pair.sessions.items():
         df = QUERIES["filter"](pair, n, col_of(n), None)
+        fresh_io_counters()
         texts[n] = jax_explain_string(s, df.plan, verbose=True, diagnostics=False) \
             if n == "jax" else pair.hs(n).explain(df, verbose=True)
     assert "hybrid(+1 appended, -0 deleted files)" in texts["torch"]

@@ -3,7 +3,8 @@ unimportable, the slices (covering indexes over lineitem, sketch indexes
 over orders, TPC-H Q3 and Q17 over covering-index joins, the sources
 slice: hive partitions and a struct column in one lake, with the
 partitions, cache, statistics, explain and display modules and the
-introspection calls, and the mutable
+introspection calls, the host read tier (the reader pool, the buffer pool
+and the index-table cache, a warm repeat of Q3 and Q17), and the mutable
 slice: a chunked build with lineage, Hybrid Scan over a deleted and an
 appended file, every refresh mode and optimize) still run end to
 end on the CPU, with the join, group-by, column-pruning and score-based
@@ -99,6 +100,17 @@ SLICE = textwrap.dedent("""
         assert len(leaves) >= 2, leaves
         assert a.column_names == b.column_names and a.num_rows == b.num_rows
         rows.append(a.num_rows)
+    # The host read tier: the reader pool, the buffer pool and the index
+    # cache; a warm repeat equals the cold run.
+    from hyperspace_tpu_torch.execution import buffer_pool, index_cache
+    from hyperspace_tpu_torch.parallel import io as pio
+    s.enable_hyperspace()
+    hits = buffer_pool.pool_stats()["hits"]
+    for q in joins.values():
+        assert q.to_arrow().equals(q.to_arrow())
+    s.disable_hyperspace()
+    assert buffer_pool.pool_stats()["hits"] > hits and index_cache.get_cache().hits > 0
+    assert pio.pool_stats()["pooled_reads"] > 0
     # The sources slice: hive partitions and a struct column in one lake,
     # then indexes(), index(), explain() and why_not() on the whole lake.
     from hyperspace_tpu_torch.index import cache, statistics
