@@ -98,13 +98,26 @@ Phases, each of which fails the run on any error:
               incremental (masked rebuild, then append-only), optimize and
               full refresh of od_lin_idx, each checked against the files
               and a reference;
+   sql     -- after the io path: a TPC-H lake with the columns the nine
+              texts of tests/test_tpch_sql.py read, at SF10 row counts
+              (lineitem 60M rows in 4 files, orders 15M in 16, customer
+              1.5M, part 2M, partsupp 8M, supplier 100k), TPC-H's value
+              domains, seeded; covering indexes sql_li_ship (l_shipdate),
+              sql_li_pk (l_partkey) and sql_pt_pk (p_partkey); the nine
+              texts, Q13's outer join and a rank and running sum over each
+              customer's orders through session.sql, twice indexed and
+              twice scanned (the buffer pool emptied before each first
+              run): every result equals a numpy reference (keys, counts,
+              dates and strings exact, float64 within 1e-9 relative),
+              indexed equals scanned, Q6, Q14 and Q17 plan an IndexScan;
 8. parity  -- Q3 and Q17 on a small lake on the card and through the
               port on the CPU (which the tests hold to the JAX package),
-              reported bit for bit.
+              reported bit for bit; the sql path's queries on a lake at
+              scale 0.01, which must be equal bit for bit.
 
 Launch counters are reset just before each path (lineitem, orders,
-joins and sources of phases 4-5, io, then mutations) and read just after
-it. Phase 5 runs each query twice: since the buffer pool is on, the
+joins and sources of phases 4-5, io, sql, then mutations) and read just
+after it. Phase 5 runs each query twice: since the buffer pool is on, the
 second run is warm; phase 7 empties the pool before each query it times.
 The last lines of standard output are the ``kernels`` JSON object, the
 card's name and power limit as nvidia-smi reports them, and the status
@@ -145,6 +158,9 @@ PATH_KERNELS = {
     "io": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask", "masked_minmax"),
     "mutations": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
                   "masked_minmax"),
+    # The covering builds on the TPC-H lake, the date filters, and Q19's
+    # p_size (int32) BETWEEN.
+    "sql": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
 }
 # The io path's queries, and what each path's query phases hold them to:
 # name -> ("rows", pyarrow table) | ("q3", (rows, tied_last)) | ("q17", value).
@@ -1241,6 +1257,769 @@ def card_against_cpu(root: str) -> dict:
                                   if str(cpu.column(c).type) != "double"),
                 "max_rel_diff": rel}
     log(f"card against the CPU at scale {PARITY_SCALE} ({n_li} lineitem rows): {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sql path: TPC-H texts through session.sql on a lake with the TPC-H
+# schema's columns at SF10 row counts.
+# ---------------------------------------------------------------------------
+
+# Rows per scale factor and files per table (TPC-H v3.0.1 4.2.5).
+TPCH_SQL_ROWS = {"lineitem": 6_000_000, "orders": 1_500_000, "customer": 150_000,
+                 "part": 200_000, "partsupp": 800_000, "supplier": 10_000}
+TPCH_SQL_FILES = {"lineitem": 4, "orders": 16, "customer": 1, "part": 1, "partsupp": 1,
+                  "supplier": 1}
+# The value domains of TPC-H v3.0.1 4.2.2.13 and 4.2.3.
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+# (Q19 asks for 'AIR REG', which the domain lacks, as in TPC-H itself.)
+SHIP_MODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
+SHIP_INSTRUCTS = ("COLLECT COD", "DELIVER IN PERSON", "NONE", "TAKE BACK RETURN")
+TYPE_SYLLABLES = (("ECONOMY", "LARGE", "MEDIUM", "PROMO", "SMALL", "STANDARD"),
+                  ("ANODIZED", "BRUSHED", "BURNISHED", "PLATED", "POLISHED"),
+                  ("BRASS", "COPPER", "NICKEL", "STEEL", "TIN"))
+CONTAINER_SYLLABLES = (("JUMBO", "LG", "MED", "SM", "WRAP"),
+                       ("BAG", "BOX", "CAN", "CASE", "DRUM", "JAR", "PACK", "PKG"))
+SUPPLIER_COMMENTS = ("blithely regular deposits sleep carefully",
+                     "carefully final packages haggle quietly",
+                     "even instructions wake furiously among the ideas",
+                     "quickly bold requests nag slyly",
+                     "slyly express accounts cajole fluffily")
+COMPLAINT = "furiously Customer unusual Complaints among the packages"
+RECOMMEND = "quietly Customer bold Recommends against the deposits"
+CURRENT_DATE = datetime.date(1995, 6, 17)
+TPCH_SQL_INDEXES = [
+    # Q6's and Q1's columns beside l_shipdate.
+    ("lineitem", "sql_li_ship", ["l_shipdate"],
+     ["l_extendedprice", "l_discount", "l_quantity", "l_returnflag", "l_linestatus", "l_tax"]),
+    # The columns Q14, Q17 and Q19 read of lineitem, and of part.
+    ("lineitem", "sql_li_pk", ["l_partkey"],
+     ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate", "l_shipmode",
+      "l_shipinstruct"]),
+    ("part", "sql_pt_pk", ["p_partkey"], ["p_brand", "p_container", "p_type", "p_size"]),
+]
+
+# The nine texts of tests/test_tpch_sql.py (scale-1 parameters), verbatim.
+TPCH_TEXTS = {
+    "q1": """
+select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+ sum(l_extendedprice) as sum_base_price,
+ sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+ sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+ avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+ avg(l_discount) as avg_disc, count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+""",
+    "q3": """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+ o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+ and l_orderkey = o_orderkey
+ and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+""",
+    "q4": """
+select o_orderpriority, count(*) as order_count
+from orders
+where o_orderdate >= date '1993-07-01'
+ and o_orderdate < date '1993-07-01' + interval '3' month
+ and exists ( select * from lineitem
+   where l_orderkey = o_orderkey and l_commitdate < l_receiptdate )
+group by o_orderpriority
+order by o_orderpriority
+""",
+    "q6": """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+ and l_shipdate < date '1994-01-01' + interval '1' year
+ and l_discount between .06 - 0.01 and .06 + 0.01
+ and l_quantity < 24
+""",
+    "q12": """
+select l_shipmode,
+ sum(case when o_orderpriority = '1-URGENT' or o_orderpriority = '2-HIGH'
+     then 1 else 0 end) as high_line_count,
+ sum(case when o_orderpriority <> '1-URGENT'
+     and o_orderpriority <> '2-HIGH' then 1 else 0 end) as low_line_count
+from orders, lineitem
+where o_orderkey = l_orderkey and l_shipmode in ('MAIL', 'SHIP')
+ and l_commitdate < l_receiptdate and l_shipdate < l_commitdate
+ and l_receiptdate >= date '1994-01-01'
+ and l_receiptdate < date '1994-01-01' + interval '1' year
+group by l_shipmode
+order by l_shipmode
+""",
+    "q14": """
+select 100.00 * sum(case when p_type like 'PROMO%'
+  then l_extendedprice * (1 - l_discount) else 0 end)
+ / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+from lineitem, part
+where l_partkey = p_partkey and l_shipdate >= date '1995-09-01'
+ and l_shipdate < date '1995-09-01' + interval '1' month
+""",
+    "q16": """
+select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt
+from partsupp, part
+where p_partkey = ps_partkey and p_brand <> 'Brand#45'
+ and p_type not like 'MEDIUM POLISHED%'
+ and p_size in (1, 3, 5, 7, 9, 11, 14, 19)
+ and ps_suppkey not in ( select s_suppkey from supplier
+   where s_comment like '%Customer%Complaints%' )
+group by p_brand, p_type, p_size
+order by supplier_cnt desc, p_brand, p_type, p_size
+""",
+    "q17": """
+select sum(l_extendedprice) / 7.0 as avg_yearly
+from lineitem, part
+where p_partkey = l_partkey and p_brand = 'Brand#23'
+ and p_container = 'MED BOX'
+ and l_quantity < ( select 0.2 * avg(l_quantity) from lineitem
+   where l_partkey = p_partkey )
+""",
+    "q19": """
+select sum(l_extendedprice* (1 - l_discount)) as revenue
+from lineitem, part
+where ( p_partkey = l_partkey and p_brand = 'Brand#12'
+  and p_container in ( 'SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+  and l_quantity >= 1 and l_quantity <= 1 + 10
+  and p_size between 1 and 5
+  and l_shipmode in ('AIR', 'AIR REG')
+  and l_shipinstruct = 'DELIVER IN PERSON' )
+ or ( p_partkey = l_partkey and p_brand = 'Brand#23'
+  and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+  and l_quantity >= 10 and l_quantity <= 10 + 10
+  and p_size between 1 and 10
+  and l_shipmode in ('AIR', 'AIR REG')
+  and l_shipinstruct = 'DELIVER IN PERSON' )
+ or ( p_partkey = l_partkey and p_brand = 'Brand#45'
+  and p_container in ( 'LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+  and l_quantity >= 20 and l_quantity <= 20 + 10
+  and p_size between 1 and 15
+  and l_shipmode in ('AIR', 'AIR REG')
+  and l_shipinstruct = 'DELIVER IN PERSON' )
+""",
+}
+# Beside the nine: the outer join of TPC-H Q13 (orders per customer, then
+# customers per order count; without Q13's o_comment condition, which the
+# grammar's ON clause does not take), and a rank and a running sum over
+# each customer's orders, the two best-priced orders of each kept.
+SQL_PATH_QUERIES = dict(TPCH_TEXTS, **{
+    "q13_outer": """
+select c_count, count(*) as custdist
+from (select c_custkey, count(o_orderkey) as c_count
+      from customer left outer join orders on c_custkey = o_custkey
+      group by c_custkey) as c_orders
+group by c_count
+order by custdist desc, c_count desc
+""",
+    "window": """
+with w as (select o_custkey, o_orderkey, o_totalprice,
+             rank() over (partition by o_custkey order by o_totalprice desc) as price_rank,
+             sum(o_totalprice) over (partition by o_custkey order by o_orderdate, o_orderkey
+                                     rows between unbounded preceding and current row)
+               as running
+           from orders)
+select o_custkey, o_orderkey, o_totalprice, price_rank, running from w where price_rank <= 2
+""",
+})
+# Plans that must read an index (tests/test_tpch_sql.py asserts the same).
+SQL_INDEXED_PLANS = ("q6", "q14", "q17")
+
+
+def _dict_column(rng, n: int, values, dtype="int8", probs=None):
+    """A dictionary-encoded string column drawn from ``values`` (sorted):
+    indices and dictionary, never a Python string per row. The first
+    len(values) rows take every value once, so a small lake holds each."""
+    import numpy as np
+    import pyarrow as pa
+
+    values = sorted(values)
+    idx = rng.choice(len(values), n, p=probs).astype(dtype) if probs is not None \
+        else rng.integers(0, len(values), n).astype(dtype)
+    k = min(n, len(values))
+    idx[:k] = np.arange(k, dtype=dtype)
+    return pa.DictionaryArray.from_arrays(pa.array(idx), pa.array(values))
+
+
+def make_tpch_sql(root: str, scale: float, seed: int = 0):
+    """The TPC-H tables and columns the nine texts read, at ``scale``
+    times the SF1 row counts, with TPC-H v3.0.1's value domains: keys from
+    1; brands Brand#MN, the 150 p_type syllable triples, the 40
+    containers, p_size 1-50 (int32); o_custkey never a multiple of 3 (a
+    third of the customers have no orders); 1-7 lines an order, lineitem
+    in l_orderkey order; ship 1-121 days after the order, commit 30-90,
+    receipt 1-30 after the ship date; return flag and line status from the
+    dates; l_extendedprice = quantity * the part's retail price; about
+    5 in 10,000 supplier comments hold "Customer ... Complaints" (at least
+    one). Strings are written from dictionary indices. Returns ({table:
+    dir}, {table: rows})."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    rows = {t: max(int(round(n * scale)), 1) for t, n in TPCH_SQL_ROWS.items()}
+    dirs = {}
+
+    def write(name, table):
+        from concurrent.futures import ThreadPoolExecutor
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        n, parts = table.num_rows, TPCH_SQL_FILES[name]
+        step = n // parts
+
+        def part(i):
+            lo, hi = i * step, (i + 1) * step if i < parts - 1 else n
+            # No Arrow schema in the files: strings read back as strings,
+            # as from any parquet writer.
+            pq.write_table(table.slice(lo, hi - lo), os.path.join(d, f"part{i:02d}.parquet"),
+                           store_schema=False)
+
+        with ThreadPoolExecutor(min(parts, 8)) as pool:
+            list(pool.map(part, range(parts)))
+        dirs[name] = d
+
+    def dates(days):
+        return pa.array(days.astype(np.int32), type=pa.int32()).cast(pa.date32())
+
+    n_su, n_pt, n_cu = rows["supplier"], rows["part"], rows["customer"]
+    n_od, n_li = rows["orders"], rows["lineitem"]
+    comments = rng.integers(0, len(SUPPLIER_COMMENTS), n_su).astype(np.int8)
+    special = rng.permutation(n_su)
+    n_complaints = max(int(round(n_su * 5 / 10_000)), 1)
+    comments[special[:n_complaints]] = len(SUPPLIER_COMMENTS)
+    comments[special[n_complaints:2 * n_complaints]] = len(SUPPLIER_COMMENTS) + 1
+    write("supplier", pa.table({
+        "s_suppkey": pa.array(np.arange(1, n_su + 1, dtype=np.int64)),
+        "s_comment": pa.DictionaryArray.from_arrays(
+            pa.array(comments), pa.array(list(SUPPLIER_COMMENTS) + [COMPLAINT, RECOMMEND]))}))
+
+    p_partkey = np.arange(1, n_pt + 1, dtype=np.int64)
+    brands = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
+    types = [f"{a} {b} {c}" for a in TYPE_SYLLABLES[0] for b in TYPE_SYLLABLES[1]
+             for c in TYPE_SYLLABLES[2]]
+    containers = [f"{a} {b}" for a in CONTAINER_SYLLABLES[0] for b in CONTAINER_SYLLABLES[1]]
+    p_size = rng.integers(1, 51, n_pt).astype(np.int32)
+    p_size[:min(n_pt, 50)] = np.arange(1, min(n_pt, 50) + 1, dtype=np.int32)
+    write("part", pa.table({
+        "p_partkey": pa.array(p_partkey),
+        "p_brand": _dict_column(rng, n_pt, brands),
+        "p_type": _dict_column(rng, n_pt, types, "int16"),
+        "p_size": pa.array(p_size),
+        "p_container": _dict_column(rng, n_pt, containers)}))
+    retail = (90_000 + (p_partkey // 10) % 20_001 + 100 * (p_partkey % 1000)) / 100.0
+
+    ps_partkey = np.repeat(p_partkey, 4)
+    i = np.tile(np.arange(4, dtype=np.int64), n_pt)
+    ps_suppkey = (ps_partkey + i * (n_su // 4 + (ps_partkey - 1) // n_su)) % n_su + 1
+    write("partsupp", pa.table({"ps_partkey": pa.array(ps_partkey),
+                                "ps_suppkey": pa.array(ps_suppkey)}))
+    del ps_partkey, ps_suppkey, i
+
+    write("customer", pa.table({
+        "c_custkey": pa.array(np.arange(1, n_cu + 1, dtype=np.int64)),
+        "c_mktsegment": _dict_column(rng, n_cu, SEGMENTS)}))
+
+    start = (datetime.date(1992, 1, 1) - EPOCH).days
+    end = (datetime.date(1998, 12, 31) - EPOCH).days
+    o_orderdate = rng.integers(start, end - 151 + 1, n_od).astype(np.int32)
+    o_custkey = rng.integers(1, n_cu + 1, n_od).astype(np.int64)
+    o_custkey = np.where(o_custkey % 3 == 0, np.where(o_custkey < n_cu, o_custkey + 1,
+                                                      o_custkey - 1), o_custkey)
+    o_custkey = np.maximum(o_custkey, 1)
+    write("orders", pa.table({
+        "o_orderkey": pa.array(np.arange(1, n_od + 1, dtype=np.int64)),
+        "o_custkey": pa.array(o_custkey),
+        "o_orderdate": dates(o_orderdate),
+        "o_orderpriority": _dict_column(rng, n_od, PRIORITIES),
+        "o_shippriority": pa.array(np.zeros(n_od, dtype=np.int32)),
+        "o_totalprice": pa.array(np.round(rng.uniform(850, 560_000, n_od), 2))}))
+    del o_custkey
+
+    # 1-7 lines an order, cut or padded to exactly n_li rows.
+    lines = rng.integers(1, 8, n_od)
+    l_orderkey = np.repeat(np.arange(1, n_od + 1, dtype=np.int64), lines)
+    if l_orderkey.shape[0] >= n_li:
+        l_orderkey = l_orderkey[:n_li]
+    else:
+        extra = np.sort(rng.integers(1, n_od + 1, n_li - l_orderkey.shape[0]))
+        l_orderkey = np.sort(np.concatenate([l_orderkey, extra]))
+    del lines
+    odate = o_orderdate[l_orderkey - 1]
+    del o_orderdate
+    l_shipdate = odate + rng.integers(1, 122, n_li).astype(np.int32)
+    l_commitdate = odate + rng.integers(30, 91, n_li).astype(np.int32)
+    del odate
+    l_receiptdate = l_shipdate + rng.integers(1, 31, n_li).astype(np.int32)
+    current = (CURRENT_DATE - EPOCH).days
+    # R or A once received by the current date, else N; O once shipped after it.
+    flag = np.where(l_receiptdate <= current, rng.integers(0, 2, n_li) * 2, 1).astype(np.int8)
+    l_partkey = rng.integers(1, n_pt + 1, n_li).astype(np.int64)
+    l_quantity = rng.integers(1, 51, n_li).astype(np.int64)
+    price = np.round(l_quantity * retail[l_partkey - 1], 2)
+    write("lineitem", pa.table({
+        "l_orderkey": pa.array(l_orderkey),
+        "l_partkey": pa.array(l_partkey),
+        "l_suppkey": pa.array(rng.integers(1, n_su + 1, n_li).astype(np.int64)),
+        "l_quantity": pa.array(l_quantity),
+        "l_extendedprice": pa.array(price),
+        "l_discount": pa.array(rng.integers(0, 11, n_li) / 100.0),
+        "l_tax": pa.array(rng.integers(0, 9, n_li) / 100.0),
+        "l_returnflag": pa.DictionaryArray.from_arrays(pa.array(flag),
+                                                       pa.array(["A", "N", "R"])),
+        "l_linestatus": pa.DictionaryArray.from_arrays(
+            pa.array((l_shipdate > current).astype(np.int8)), pa.array(["F", "O"])),
+        "l_shipdate": dates(l_shipdate),
+        "l_commitdate": dates(l_commitdate),
+        "l_receiptdate": dates(l_receiptdate),
+        "l_shipinstruct": _dict_column(rng, n_li, SHIP_INSTRUCTS),
+        "l_shipmode": _dict_column(rng, n_li, SHIP_MODES)}))
+    return dirs, rows
+
+
+def _read(d: str, columns):
+    import pyarrow.parquet as pq
+    return pq.read_table(d, columns=list(columns))
+
+
+def _num(table, name):
+    import pyarrow as pa
+    arr = table.column(name).combine_chunks()
+    if pa.types.is_date32(arr.type):
+        arr = arr.cast(pa.int32())
+    return arr.to_numpy()
+
+
+def _codes(table, name):
+    """A string column as (int codes, numpy object dictionary)."""
+    import numpy as np
+    import pyarrow.compute as pc
+    enc = pc.dictionary_encode(table.column(name).combine_chunks())
+    return enc.indices.to_numpy(), np.asarray(enc.dictionary.to_pylist(), dtype=object)
+
+
+def _is(codes_dict, pred):
+    """Row mask of a string column where ``pred(value)`` holds, evaluated
+    once per dictionary entry."""
+    import numpy as np
+    codes, dictionary = codes_dict
+    return np.fromiter((bool(pred(v)) for v in dictionary), bool, len(dictionary))[codes]
+
+
+def _day(d: datetime.date) -> int:
+    return (d - EPOCH).days
+
+
+def tpch_sql_references(dirs: dict) -> dict:
+    """Every sql-path query answered by numpy and pyarrow from the files:
+    {name: {column: numpy array}}, rows in the query's order (the window
+    query's by (o_custkey, o_orderkey)). Float sums add in another order
+    than the port's."""
+    import numpy as np
+
+    li = _read(dirs["lineitem"], [
+        "l_orderkey", "l_partkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+        "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate", "l_receiptdate",
+        "l_shipinstruct", "l_shipmode"])
+    od = _read(dirs["orders"], ["o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+                                "o_shippriority", "o_totalprice"])
+    cu = _read(dirs["customer"], ["c_custkey", "c_mktsegment"])
+    pt = _read(dirs["part"], ["p_partkey", "p_brand", "p_type", "p_size", "p_container"])
+    ps = _read(dirs["partsupp"], ["ps_partkey", "ps_suppkey"])
+    su = _read(dirs["supplier"], ["s_suppkey", "s_comment"])
+    L = {c: _num(li, c) for c in ("l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+                                  "l_discount", "l_tax", "l_shipdate", "l_commitdate",
+                                  "l_receiptdate")}
+    for c in ("l_returnflag", "l_linestatus", "l_shipinstruct", "l_shipmode"):
+        L[c] = _codes(li, c)
+    del li
+    O = {c: _num(od, c) for c in ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+                                  "o_totalprice")}
+    O["o_orderpriority"] = _codes(od, "o_orderpriority")
+    P = {c: _num(pt, c) for c in ("p_partkey", "p_size")}
+    for c in ("p_brand", "p_type", "p_container"):
+        P[c] = _codes(pt, c)
+    # Keys are dense from 1: a key's row is key - 1.
+    for name, keys in (("orders", O["o_orderkey"]), ("part", P["p_partkey"]),
+                       ("customer", _num(cu, "c_custkey"))):
+        if not np.array_equal(keys, np.arange(1, keys.shape[0] + 1)):
+            raise AssertionError(f"{name} keys are not 1..n in file order")
+    n_od, n_pt = O["o_orderkey"].shape[0], P["p_partkey"].shape[0]
+    price, disc, qty = L["l_extendedprice"], L["l_discount"], L["l_quantity"]
+    ship = L["l_shipdate"]
+    out = {}
+
+    def strings(codes_dict, rows):
+        codes, dictionary = codes_dict
+        return dictionary[codes[rows]]
+
+    # Q1.
+    m = ship <= _day(datetime.date(1998, 9, 2))
+    rf, ls = L["l_returnflag"], L["l_linestatus"]
+    key = np.array([f"{a}|{b}" for a in rf[1] for b in ls[1]], dtype=object)
+    gid = rf[0][m].astype(np.int64) * len(ls[1]) + ls[0][m]
+    order = sorted((k, i) for i, k in enumerate(key))
+    d_price = price[m] * (1 - disc[m])
+    charge = d_price * (1 + L["l_tax"][m])
+    counts = np.bincount(gid, minlength=len(key))
+
+    def per(v):
+        return np.bincount(gid, weights=v, minlength=len(key))
+
+    sums = {"sum_qty": per(qty[m]), "sum_base_price": per(price[m]),
+            "sum_disc_price": per(d_price), "sum_charge": per(charge)}
+    keep = [i for _, i in order if counts[i] > 0]
+    out["q1"] = {
+        "l_returnflag": np.array([key[i].split("|")[0] for i in keep], dtype=object),
+        "l_linestatus": np.array([key[i].split("|")[1] for i in keep], dtype=object),
+        "sum_qty": sums["sum_qty"][keep].astype(np.int64),
+        "sum_base_price": sums["sum_base_price"][keep],
+        "sum_disc_price": sums["sum_disc_price"][keep],
+        "sum_charge": sums["sum_charge"][keep],
+        "avg_qty": sums["sum_qty"][keep] / counts[keep],
+        "avg_price": sums["sum_base_price"][keep] / counts[keep],
+        "avg_disc": per(disc[m])[keep] / counts[keep],
+        "count_order": counts[keep].astype(np.int64)}
+    del d_price, charge, gid, m
+
+    # Q3.
+    building = _is(_codes(cu, "c_mktsegment"), lambda v: v == "BUILDING")
+    cutoff = _day(datetime.date(1995, 3, 15))
+    order_ok = (O["o_orderdate"] < cutoff) & building[O["o_custkey"] - 1]
+    m = (ship > cutoff) & order_ok[L["l_orderkey"] - 1]
+    rev = np.bincount(L["l_orderkey"][m] - 1, weights=price[m] * (1 - disc[m]),
+                      minlength=n_od)
+    hit = np.bincount(L["l_orderkey"][m] - 1, minlength=n_od) > 0
+    cand = np.flatnonzero(hit)
+    top = cand[np.lexsort((O["o_orderdate"][cand], -rev[cand]))][:10]
+    out["q3"] = {"l_orderkey": top + 1, "revenue": rev[top],
+                 "o_orderdate": O["o_orderdate"][top],
+                 "o_shippriority": O["o_shippriority"][top]}
+
+    # Q4.
+    late = np.zeros(n_od, bool)
+    late[L["l_orderkey"][L["l_commitdate"] < L["l_receiptdate"]] - 1] = True
+    m = (O["o_orderdate"] >= _day(datetime.date(1993, 7, 1))) \
+        & (O["o_orderdate"] < _day(datetime.date(1993, 10, 1))) & late
+    prio = strings(O["o_orderpriority"], np.flatnonzero(m))
+    names, cnt = np.unique(prio.astype(str), return_counts=True)
+    out["q4"] = {"o_orderpriority": names.astype(object), "order_count": cnt.astype(np.int64)}
+
+    # Q6 (the BETWEEN bounds fold as decimals, as in SQL: 0.05 and 0.07).
+    m = (ship >= _day(datetime.date(1994, 1, 1))) & (ship < _day(datetime.date(1995, 1, 1))) \
+        & (disc >= 0.05) & (disc <= 0.07) & (qty < 24)
+    out["q6"] = {"revenue": np.array([np.sum(price[m] * disc[m])])}
+
+    # Q12.
+    mode = L["l_shipmode"]
+    rec = L["l_receiptdate"]
+    m = _is(mode, lambda v: v in ("MAIL", "SHIP")) & (L["l_commitdate"] < rec) \
+        & (ship < L["l_commitdate"]) & (rec >= _day(datetime.date(1994, 1, 1))) \
+        & (rec < _day(datetime.date(1995, 1, 1)))
+    rows = np.flatnonzero(m)
+    high = _is(O["o_orderpriority"], lambda v: v in ("1-URGENT", "2-HIGH"))[
+        L["l_orderkey"][rows] - 1]
+    modes = strings(mode, rows).astype(str)
+    names = np.unique(modes)
+    out["q12"] = {"l_shipmode": names.astype(object),
+                  "high_line_count": np.array([int(np.sum(high[modes == n])) for n in names]),
+                  "low_line_count": np.array([int(np.sum(~high[modes == n])) for n in names])}
+
+    # Q14.
+    m = (ship >= _day(datetime.date(1995, 9, 1))) & (ship < _day(datetime.date(1995, 10, 1)))
+    promo = _is(P["p_type"], lambda v: v.startswith("PROMO"))[L["l_partkey"][m] - 1]
+    r = price[m] * (1 - disc[m])
+    out["q14"] = {"promo_revenue": np.array([100.0 * np.sum(r[promo]) / np.sum(r)])}
+
+    # Q16.
+    sizes = np.zeros(51, bool)
+    sizes[[1, 3, 5, 7, 9, 11, 14, 19]] = True
+    part_ok = _is(P["p_brand"], lambda v: v != "Brand#45") \
+        & _is(P["p_type"], lambda v: not v.startswith("MEDIUM POLISHED")) & sizes[P["p_size"]]
+    bad = _num(su, "s_suppkey")[_is(_codes(su, "s_comment"),
+                                     lambda v: "Customer" in v
+                                     and "Complaints" in v.split("Customer", 1)[1])]
+    pk, sk = _num(ps, "ps_partkey"), _num(ps, "ps_suppkey")
+    m = part_ok[pk - 1] & ~np.isin(sk, bad)
+    pairs = np.unique(np.stack([pk[m] - 1, sk[m]]), axis=1)
+    brand, ptype = P["p_brand"], P["p_type"]
+    seen: dict = {}
+    for b_, t_, s_, supp in zip(brand[1][brand[0][pairs[0]]], ptype[1][ptype[0][pairs[0]]],
+                                P["p_size"][pairs[0]].tolist(), pairs[1].tolist()):
+        seen.setdefault((b_, t_, s_), set()).add(supp)
+    ranked = sorted((-len(v), k) for k, v in seen.items())
+    out["q16"] = {"p_brand": np.array([k[0] for _, k in ranked], dtype=object),
+                  "p_type": np.array([k[1] for _, k in ranked], dtype=object),
+                  "p_size": np.array([k[2] for _, k in ranked], dtype=np.int32),
+                  "supplier_cnt": np.array([-c for c, _ in ranked], dtype=np.int64)}
+
+    # Q17.
+    tot = np.bincount(L["l_partkey"] - 1, weights=qty, minlength=n_pt)
+    cnt = np.bincount(L["l_partkey"] - 1, minlength=n_pt)
+    thr = 0.2 * (tot / np.maximum(cnt, 1))
+    chosen = _is(P["p_brand"], lambda v: v == "Brand#23") \
+        & _is(P["p_container"], lambda v: v == "MED BOX")
+    m = chosen[L["l_partkey"] - 1] & (qty < thr[L["l_partkey"] - 1])
+    out["q17"] = {"avg_yearly": np.array([np.sum(price[m]) / 7.0])}
+
+    # Q19.
+    rows = np.flatnonzero(_is(mode, lambda v: v in ("AIR", "AIR REG"))
+                          & _is(L["l_shipinstruct"], lambda v: v == "DELIVER IN PERSON"))
+    prow = L["l_partkey"][rows] - 1
+    q = qty[rows]
+    keep = np.zeros(rows.shape[0], bool)
+    for b_, conts, qlo, smax in (("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+                                 ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"),
+                                  10, 10),
+                                 ("Brand#45", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"),
+                                  20, 15)):
+        pmask = _is(P["p_brand"], lambda v: v == b_) \
+            & _is(P["p_container"], lambda v: v in conts) \
+            & (P["p_size"] >= 1) & (P["p_size"] <= smax)
+        keep |= pmask[prow] & (q >= qlo) & (q <= qlo + 10)
+    r = rows[keep]
+    out["q19"] = {"revenue": np.array([np.sum(price[r] * (1 - disc[r]))])}
+
+    # Q13's outer join: customers without orders count 0.
+    n_cu = cu.num_rows
+    per_cust = np.bincount(O["o_custkey"] - 1, minlength=n_cu)
+    dist = np.bincount(per_cust)
+    c_count = np.flatnonzero(dist)
+    order = np.lexsort((-c_count, -dist[c_count]))
+    out["q13_outer"] = {"c_count": c_count[order].astype(np.int64),
+                        "custdist": dist[c_count][order].astype(np.int64)}
+
+    # The window: rank by price (descending) and the running sum by
+    # (date, key), left to right, within each customer.
+    ck, ok, tp, odate = O["o_custkey"], O["o_orderkey"], O["o_totalprice"], O["o_orderdate"]
+    by_price = np.lexsort((-tp, ck))
+    sc, sp = ck[by_price], tp[by_price]
+    new_part = np.r_[True, sc[1:] != sc[:-1]]
+    new_peer = new_part | np.r_[True, sp[1:] != sp[:-1]]
+    idx = np.arange(sc.shape[0])
+    part_start = np.maximum.accumulate(np.where(new_part, idx, 0))
+    peer_start = np.maximum.accumulate(np.where(new_peer, idx, 0))
+    rank = np.empty_like(idx)
+    rank[by_price] = peer_start - part_start + 1
+    by_date = np.lexsort((ok, odate, ck))
+    sc = ck[by_date]
+    new_part = np.r_[True, sc[1:] != sc[:-1]]
+    pos = idx - np.maximum.accumulate(np.where(new_part, idx, 0))
+    run = tp[by_date].copy()
+    for j in range(1, int(pos.max()) + 1 if pos.size else 0):
+        at = np.flatnonzero(pos == j)
+        run[at] = run[at - 1] + run[at]
+    running = np.empty_like(run)
+    running[by_date] = run
+    keep = np.flatnonzero(rank <= 2)
+    keep = keep[np.lexsort((ok[keep], ck[keep]))]
+    out["window"] = {"o_custkey": ck[keep], "o_orderkey": ok[keep], "o_totalprice": tp[keep],
+                     "price_rank": rank[keep].astype(np.int64), "running": running[keep]}
+    return out
+
+
+def check_sql_answer(name: str, got, ref: dict, what: str) -> None:
+    """``got`` (a pyarrow table) against a reference of tpch_sql_references:
+    the columns and row count equal, keys, counts, dates and strings
+    exact, float64 within REL_TOL relative (the window query's rows taken
+    in (o_custkey, o_orderkey) order)."""
+    import numpy as np
+    import pyarrow as pa
+
+    if got.column_names != list(ref):
+        raise AssertionError(f"{name} ({what}): columns {got.column_names} != {list(ref)}")
+    n = len(next(iter(ref.values())))
+    if got.num_rows != n:
+        raise AssertionError(f"{name} ({what}): {got.num_rows} rows, the reference {n}")
+    got = in_reference_order(name, got)
+    for c, want in ref.items():
+        col = got.column(c).combine_chunks() if got.num_rows else got.column(c)
+        if col.null_count:
+            raise AssertionError(f"{name} ({what}): {c} holds {col.null_count} nulls")
+        if pa.types.is_date32(col.type):
+            col = col.cast(pa.int32())
+        have = col.to_numpy(zero_copy_only=False)
+        if pa.types.is_floating(col.type):
+            want = np.asarray(want, dtype=np.float64)
+            bad = np.abs(have - want) > REL_TOL * np.maximum(np.abs(have), np.abs(want))
+        else:
+            bad = np.asarray(have != np.asarray(want, dtype=have.dtype)) \
+                if have.dtype != object else \
+                np.array([a != b for a, b in zip(have, want)], dtype=bool)
+        if np.any(bad):
+            i = int(np.flatnonzero(bad)[0])
+            raise AssertionError(f"{name} ({what}): row {i} {c} {have[i]!r} != {want[i]!r}")
+
+
+def in_reference_order(name: str, table):
+    """The window query's rows, unordered in SQL, by (o_custkey,
+    o_orderkey) as in its reference; any other result as it is."""
+    if name != "window":
+        return table
+    return table.sort_by([("o_custkey", "ascending"), ("o_orderkey", "ascending")])
+
+
+def as_reference(name: str, table) -> dict:
+    """A result table as a reference of check_sql_answer (dates as days)."""
+    import pyarrow as pa
+    table = in_reference_order(name, table)
+    out = {}
+    for c in table.column_names:
+        col = table.column(c)
+        if pa.types.is_date32(col.type):
+            col = col.cast(pa.int32())
+        out[c] = col.to_numpy()
+    return out
+
+
+def sql_session(dirs: dict, system_path: str, device: str, n_li: int):
+    """A session over the sql lake's temp views, with its covering indexes
+    built (32 buckets, in memory). Returns (session, {index: build
+    seconds})."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants
+
+    session = ht.Session(system_path=system_path, device=device)
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+    session.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, n_li + 1)
+    for name, d in dirs.items():
+        session.create_temp_view(name, session.read.parquet(d))
+    hs = ht.Hyperspace(session)
+    builds = {}
+    for table, name, indexed, included in TPCH_SQL_INDEXES:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs.create_index(session.table(table), IndexConfig(name, indexed, included))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t0
+    return session, builds
+
+
+def run_sql_path(root: str, scale: float, results: dict) -> None:
+    """The TPC-H lake at ``scale``, its covering indexes, then every query
+    of SQL_PATH_QUERIES through session.sql, twice indexed and twice
+    scanned (the buffer pool emptied before each first run): each result
+    equals the numpy reference, indexed equals scanned, Q6, Q14 and Q17
+    plan an IndexScan. Host spans of each first run: lowering the text,
+    optimizing, parquet reads, the rest of execution."""
+    import torch
+
+    from hyperspace_tpu_torch.execution import buffer_pool, executor
+    from hyperspace_tpu_torch.plan.nodes import IndexScan
+
+    out = results["sql"] = {"queries": {}}
+    t0 = time.perf_counter()
+    dirs, rows = make_tpch_sql(os.path.join(root, "sql_data"), scale)
+    out["datagen_s"] = time.perf_counter() - t0
+    out["rows"] = rows
+    log(f"sql: TPC-H lake {rows} in {out['datagen_s']:.1f} s")
+    session, out["builds"] = sql_session(dirs, os.path.join(root, "sql_indexes"), "cuda",
+                                         rows["lineitem"])
+    log(f"sql: built {out['builds']}")
+    t0 = time.perf_counter()
+    refs = tpch_sql_references(dirs)
+    out["reference_s"] = time.perf_counter() - t0
+    log(f"sql: numpy references in {out['reference_s']:.1f} s")
+    reads = "parquet read -> device"
+    for name, text in SQL_PATH_QUERIES.items():
+        t0 = time.perf_counter()
+        df = session.sql(text)
+        lower_s = time.perf_counter() - t0
+        session.enable_hyperspace()
+        plan = df.optimized_plan()
+        session.disable_hyperspace()
+        if name in SQL_INDEXED_PLANS and not any(isinstance(leaf, IndexScan)
+                                                 for leaf in plan.collect_leaves()):
+            raise AssertionError(f"sql {name}: no IndexScan in\n{plan.tree_string()}")
+        entry = {"lower_s": lower_s, "indexes": [n for n in plan_index_names(plan) if n]}
+        firsts = {}
+        for mode in ("indexed", "scanned"):
+            (session.enable_hyperspace if mode == "indexed" else session.disable_hyperspace)()
+            try:
+                secs, tables = [], []
+                for run in range(2):
+                    if run == 0:
+                        buffer_pool.get_pool().clear()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    spans = Spans([(session, "optimize", "optimize (host)"),
+                                   (executor, "read_relation_files", reads),
+                                   (executor, "read_parquet", reads)])
+                    t0 = time.perf_counter()
+                    with spans:
+                        tables.append(df.to_arrow())
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    if run == 0:
+                        entry[f"{mode}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+                        entry[f"{mode}_cold_spans"] = dict(
+                            spans.spans, **{"rest of execution": secs[0] - sum(
+                                spans.spans.values())})
+            finally:
+                session.disable_hyperspace()
+            for i, table in enumerate(tables):
+                check_sql_answer(name, table, refs[name], f"{mode} run {i + 1}")
+            entry[f"{mode}_s"] = secs
+            firsts[mode] = tables[0]
+        check_sql_answer(name, firsts["scanned"], as_reference(name, firsts["indexed"]),
+                         "scanned against indexed")
+        entry["rows"] = firsts["indexed"].num_rows
+        if firsts["indexed"].num_rows <= 10:
+            entry["result"] = firsts["indexed"].to_pydict()
+        out["queries"][name] = entry
+        log(f"sql {name}: {entry['rows']} rows; indexed {entry['indexed_s']} s, scanned "
+            f"{entry['scanned_s']} s; indexes {entry['indexes']}; lowered in {lower_s:.4f} s")
+    # From SF1 up the lake selects rows for every text (Q19's three
+    # branches meet about one lineitem row in 40,000).
+    for name in ("q6", "q14", "q17", "q19") if scale >= 1 else ():
+        value = out["queries"][name]["result"]
+        if not next(iter(value.values()))[0]:
+            raise AssertionError(f"sql {name}: the answer is {value}, the lake selects nothing")
+    shutil.rmtree(os.path.join(root, "sql_data"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "sql_indexes"), ignore_errors=True)
+
+
+def sql_card_against_cpu(root: str) -> dict:
+    """The sql path's queries on a lake at PARITY_SCALE, on the card and
+    through the port on the CPU, indexed and scanned: every result must be
+    equal bit for bit (the CPU tests hold the CPU path to the JAX
+    package's staged path)."""
+    dirs, rows = make_tpch_sql(os.path.join(root, "sql_parity_data"), PARITY_SCALE)
+    tables = {}
+    for i, device in enumerate(("cuda", "cpu")):
+        session, _ = sql_session(dirs, os.path.join(root, f"sql_parity_indexes{i}"), device,
+                                 rows["lineitem"])
+        for name, text in SQL_PATH_QUERIES.items():
+            df = session.sql(text)
+            for indexed in (True, False):
+                (session.enable_hyperspace if indexed else session.disable_hyperspace)()
+                tables[(device, name, indexed)] = df.to_arrow()
+                session.disable_hyperspace()
+    out, unequal = {}, []
+    for name in SQL_PATH_QUERIES:
+        for indexed in (True, False):
+            card = tables[("cuda", name, indexed)]
+            cpu = tables[("cpu", name, indexed)]
+            same = card.equals(cpu) and float_bits(card) == float_bits(cpu)
+            out[f"{name} {'indexed' if indexed else 'scanned'}"] = same
+            if not same:
+                unequal.append(f"{name} {'indexed' if indexed else 'scanned'}")
+    log(f"sql: card against the CPU at scale {PARITY_SCALE} ({rows['lineitem']} lineitem "
+        f"rows): {'all equal bit for bit' if not unequal else unequal}")
+    if unequal:
+        raise AssertionError(f"sql: the card and the CPU differ on {unequal}")
     return out
 
 
@@ -2470,6 +3249,16 @@ def main(argv=None) -> int:
         launches["io"] = dict(ck.LAUNCHES)
         results["io"]["seconds"] = time.perf_counter() - t0
         log(f"io: launches {launches['io']}; {results['io']['seconds']:.1f} s")
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        run_sql_path(root, args.scale, results)
+        launches["sql"] = dict(ck.LAUNCHES)
+        results["sql"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        results["sql"]["peak_bytes"] = max(
+            max(q["indexed_peak_bytes"], q["scanned_peak_bytes"])
+            for q in results["sql"]["queries"].values())
+        log(f"sql: launches {launches['sql']}; {results['sql']['seconds']:.1f} s")
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
         missing = [f"{k} ({path})" for path in launches for k in PATH_KERNELS[path]
@@ -2505,6 +3294,7 @@ def main(argv=None) -> int:
             e["launches_by_path"]["mutations"] = launches["mutations"][e["name"]]
             e["launches"] = sum(e["launches_by_path"].values())
         results["card_against_cpu"] = card_against_cpu(root)
+        results["sql_card_against_cpu"] = sql_card_against_cpu(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2530,8 +3320,14 @@ def main(argv=None) -> int:
     io = {k: v for k, v in results["io"].items() if k != "queries"}
     io["queries"] = {k: {run: v[run]["seconds"] for run in ("cold", "warm", "sequential")}
                      for k, v in results["io"]["queries"].items()}
+    sql = {k: results["sql"][k] for k in ("rows", "datagen_s", "builds", "reference_s",
+                                          "seconds", "peak_bytes")}
+    sql["launches"] = launches["sql"]
+    sql["queries"] = {k: {f: v[f] for f in ("indexed_s", "scanned_s", "indexes", "rows")}
+                      for k, v in results["sql"]["queries"].items()}
+    sql["card_against_cpu"] = results["sql_card_against_cpu"]
     print(json.dumps({"builds": results["builds"], "queries": results["queries"],
-                      "sources": sources, "io": io, "mutations": mutations,
+                      "sources": sources, "io": io, "sql": sql, "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
     print(json.dumps({"kernels": main_path}))

@@ -110,6 +110,12 @@ class Table:
     def names(self) -> List[str]:
         return list(self.columns.keys())
 
+    @property
+    def device(self) -> torch.device:
+        if not self.columns:
+            raise HyperspaceException("A table with no columns has no device")
+        return next(iter(self.columns.values())).data.device
+
     def column(self, name: str) -> Column:
         if name not in self.columns:
             raise HyperspaceException(

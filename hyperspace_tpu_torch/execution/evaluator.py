@@ -1,6 +1,11 @@
 """Vectorized expression evaluation over device tables (counterpart of
-``hyperspace_tpu/execution/evaluator.py``, trimmed to comparisons, BETWEEN,
-IN lists, Kleene boolean algebra, arithmetic and aliases).
+``hyperspace_tpu/execution/evaluator.py``: literals as constant columns,
+comparisons, BETWEEN, IN lists, Kleene boolean algebra, arithmetic,
+aliases, LIKE, IS NULL, CASE, EXTRACT, SUBSTRING, UPPER/LOWER/TRIM,
+concat, the typed NULL and sqrt).
+
+String functions work on the dictionary: each distinct string is matched
+or transformed once on the host, and one device gather maps the codes.
 
 Null semantics follow SQL for filters: a comparison touching a null is
 null, and Filter keeps only rows whose predicate is true-and-valid.
@@ -13,15 +18,19 @@ equalities. Every other shape is plain torch.
 
 from __future__ import annotations
 
-from typing import Optional
+import datetime
+import re
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..exceptions import HyperspaceException
 from ..ops import cuda_kernels, kernels
 from ..plan import expr as E
-from ..schema import BOOL, FLOAT64, INT64, STRING
-from .columnar import Column, Table, dictionaries_equal, literal_to_device, translate_codes
+from ..schema import BOOL, DATE, FLOAT64, INT64, STRING
+from .columnar import (DEVICE_DTYPE, Column, Table, dictionaries_equal, literal_to_device,
+                       translate_codes)
 
 _COMPARISONS = (E.EqualTo, E.LessThan, E.LessThanOrEqual, E.GreaterThan,
                 E.GreaterThanOrEqual)
@@ -72,7 +81,280 @@ def eval_expr(table: Table, e: E.Expr) -> Column:
         return Column(BOOL, ~c.data, c.validity)
     if isinstance(e, E.In):
         return _eval_in(table, e)
+    if isinstance(e, E.Lit):
+        # A constant projection (SELECT 's' AS kind ...); a bare NULL has
+        # no type and is refused.
+        return _literal_column(e.value, table.num_rows, table.device, "project")
+    if isinstance(e, E.Concat):
+        return _eval_concat(table, e)
+    if isinstance(e, E.NullLit):
+        n = table.num_rows
+        dev = table.device
+        return Column(e.dtype, torch.zeros(n, dtype=DEVICE_DTYPE[e.dtype], device=dev),
+                      torch.zeros(n, dtype=torch.bool, device=dev),
+                      np.array([""], dtype=object) if e.dtype == STRING else None)
+    if isinstance(e, E.Sqrt):
+        c = eval_expr(table, e.child)
+        x = c.data.to(torch.float64)
+        # The root of a negative is NULL in SQL, not NaN.
+        nonneg = x >= 0
+        return Column(FLOAT64, _sqrt64(torch.maximum(x, torch.zeros((), dtype=x.dtype,
+                                                                    device=x.device))),
+                      nonneg if c.validity is None else c.validity & nonneg)
+    if isinstance(e, E.Like):
+        return _eval_like(table, e)
+    if isinstance(e, E.IsNull):
+        return _eval_is_null(table, e)
+    if isinstance(e, E.CaseWhen):
+        return _eval_case_when(table, e)
+    if isinstance(e, E.DatePart):
+        return _eval_date_part(table, e)
+    if isinstance(e, (E.Substring, E.StringTransform)):
+        return _eval_string_transform(table, e)
     raise HyperspaceException(f"Cannot evaluate expression: {e!r}")
+
+
+def _sqrt64(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float64 square root. CUDA's is; torch's CPU
+    kernel is not on every build (it gives sqrt(2.0) one ulp low), so a CPU
+    tensor takes numpy's, which is."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def _literal_column(v, n: int, device, what: str) -> Column:
+    """``v`` repeated ``n`` times, as a column of its logical type; a
+    string gets a one-entry dictionary."""
+    if isinstance(v, bool):
+        return Column(BOOL, torch.full((n,), v, dtype=torch.bool, device=device))
+    if isinstance(v, int):
+        return Column(INT64, torch.full((n,), v, dtype=torch.int64, device=device))
+    if isinstance(v, float):
+        return Column(FLOAT64, torch.full((n,), v, dtype=torch.float64, device=device))
+    if isinstance(v, str):
+        return Column(STRING, torch.zeros(n, dtype=torch.int32, device=device), None,
+                      np.array([v], dtype=object))
+    if isinstance(v, datetime.date):
+        days = (v - datetime.date(1970, 1, 1)).days
+        return Column(DATE, torch.full((n,), days, dtype=torch.int32, device=device))
+    raise HyperspaceException(f"Cannot {what} literal {v!r} as a column")
+
+
+def _gather_host(values: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """``values[code]`` for every dictionary code, on the codes' device
+    (a null's code, -1, reads entry 0; its validity hides it)."""
+    table = torch.from_numpy(np.ascontiguousarray(values)).to(codes.device)
+    return table[codes.clamp(min=0).to(torch.int64)]
+
+
+def _eval_concat(table: Table, e: "E.Concat") -> Column:
+    """At most one column operand: the literal affixes rewrite the
+    dictionary, and the codes change only where a suffix reorders it."""
+    lits = [p.value for p in e.parts if isinstance(p, E.Lit)]
+    cols = [p for p in e.parts if not isinstance(p, E.Lit)]
+    if not cols:
+        return Column(STRING, torch.zeros(table.num_rows, dtype=torch.int32,
+                                          device=table.device),
+                      None, np.array(["".join(map(str, lits))], dtype=object))
+    c = eval_expr(table, cols[0])
+    if c.dtype != STRING:
+        raise HyperspaceException("concat() over non-string column")
+    pre: List[str] = []
+    post: List[str] = []
+    seen = False
+    for p in e.parts:
+        if isinstance(p, E.Lit):
+            (post if seen else pre).append(str(p.value))
+        else:
+            seen = True
+    prefix, suffix = "".join(pre), "".join(post)
+    dic = np.array([f"{prefix}{s}{suffix}" for s in c.dictionary], dtype=object)
+    # A dictionary stays sorted (codes compare like the strings). A prefix
+    # keeps the order; a suffix can break it (['a', 'ab'] + 'z').
+    if dic.size > 1 and any(dic[i] > dic[i + 1] for i in range(dic.size - 1)):
+        order = np.argsort(dic)
+        remap = np.empty(dic.size, np.int32)
+        remap[order] = np.arange(dic.size, dtype=np.int32)
+        data = torch.where(c.data >= 0, _gather_host(remap, c.data), c.data)
+        return Column(STRING, data, c.validity, dic[order])
+    return Column(STRING, c.data, c.validity, dic)
+
+
+def like_pattern_to_regex(pattern: str) -> str:
+    """SQL LIKE as an anchored regex: % is any run, _ any one character,
+    the rest literal."""
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "".join(out)
+
+
+def _eval_like(table: Table, e: "E.Like") -> Column:
+    """One host regex match per dictionary entry, then one device gather
+    of codes to bool."""
+    col = eval_expr(table, e.child)
+    if col.dtype != STRING:
+        raise HyperspaceException(f"LIKE requires a string operand: {e!r}")
+    # DOTALL: SQL's % and _ match newlines too.
+    rx = re.compile(like_pattern_to_regex(e.pattern), re.DOTALL)
+    dict_mask = np.fromiter((rx.fullmatch(s) is not None for s in col.dictionary),
+                            dtype=np.bool_, count=len(col.dictionary))
+    if e.negated:
+        dict_mask = ~dict_mask
+    if dict_mask.all() or not dict_mask.any():
+        # Constant over the dictionary: no gather.
+        value = bool(dict_mask.all()) if len(dict_mask) else e.negated
+        return Column(BOOL, torch.full((len(col),), value, dtype=torch.bool,
+                                       device=col.data.device), col.validity)
+    return Column(BOOL, _gather_host(dict_mask, col.data), col.validity)
+
+
+def _eval_is_null(table: Table, e: "E.IsNull") -> Column:
+    col = eval_expr(table, e.child)
+    if col.validity is None:
+        data = torch.full((len(col),), e.negated, dtype=torch.bool, device=col.data.device)
+    else:
+        data = col.validity if e.negated else ~col.validity
+    return Column(BOOL, data, None)  # IS NULL itself is never null.
+
+
+def _eval_case_when(table: Table, e: "E.CaseWhen") -> Column:
+    """The first true condition wins; a null condition falls through; the
+    chosen branch's validity carries; no match and no ELSE is null."""
+    n = table.num_rows
+    dev = table.device
+    conds = []
+    for c, _ in e.branches:
+        cc = eval_expr(table, c)
+        if cc.dtype != BOOL:
+            raise HyperspaceException(f"CASE condition is not boolean: {c!r}")
+        conds.append(cc.data if cc.validity is None else cc.data & cc.validity)
+
+    def value_col(v) -> Optional[Column]:
+        if isinstance(v, E.Lit):
+            if v.value is None:
+                return None  # typed after unification (an all-null column)
+            return _literal_column(v.value, n, dev, "use")
+        return eval_expr(table, v)
+
+    vals = [value_col(v) for _, v in e.branches]
+    if e.else_value is not None:
+        vals.append(value_col(e.else_value))
+    vals = _unify_branch_columns(vals, n, dev)
+    if e.else_value is not None:
+        acc, branch_vals = vals[-1], vals[:-1]
+    else:
+        proto = vals[0]
+        acc = Column(proto.dtype, torch.zeros(n, dtype=proto.data.dtype, device=dev),
+                     torch.zeros(n, dtype=torch.bool, device=dev), proto.dictionary)
+        branch_vals = vals
+    data, validity = acc.data, acc.validity
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    # Right to left, so the first true condition wins.
+    for cond, v in zip(reversed(conds), reversed(branch_vals)):
+        data = torch.where(cond, v.data, data)
+        new_valid = torch.where(cond, v.validity if v.validity is not None else ones,
+                                validity if validity is not None else ones)
+        validity = None if (v.validity is None and validity is None) else new_valid
+    return Column(vals[0].dtype, data, validity, vals[0].dictionary)
+
+
+def _unify_branch_columns(vals, n: int, dev):
+    """CASE branch values in one dtype (strings over one dictionary, ints
+    widened to float64 beside a float); a None entry (an explicit NULL
+    branch) becomes an all-null column of that type."""
+    typed = [v for v in vals if v is not None]
+    if not typed:
+        raise HyperspaceException("CASE with only NULL branches has no type")
+    if len(typed) < len(vals):
+        typed = _unify_branch_columns(typed, n, dev)
+        proto = typed[0]
+        null_col = Column(proto.dtype, torch.zeros(n, dtype=proto.data.dtype, device=dev),
+                          torch.zeros(n, dtype=torch.bool, device=dev), proto.dictionary)
+        it = iter(typed)
+        return [null_col if v is None else next(it) for v in vals]
+    kinds = {v.dtype for v in vals}
+    if kinds == {STRING}:
+        dicts = [v.dictionary for v in vals]
+        if all(dictionaries_equal(dicts[0], d) for d in dicts[1:]):
+            return vals
+        union = np.unique(np.concatenate(dicts))
+        return [Column(STRING, translate_codes(union, v), v.validity, union) for v in vals]
+    if len(kinds) == 1:
+        return vals
+    if STRING in kinds:
+        raise HyperspaceException(
+            f"CASE branches mix string and non-string types: {sorted(kinds)}")
+    if any(v.data.is_floating_point() for v in vals):
+        return [Column(FLOAT64, v.data.to(torch.float64), v.validity) for v in vals]
+    return [Column(INT64, v.data.to(torch.int64), v.validity) for v in vals]
+
+
+def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _eval_date_part(table: Table, e: "E.DatePart") -> Column:
+    """EXTRACT over int32 days since 1970: the integer civil-from-days
+    algorithm, with floor division (days before 1970 are negative)."""
+    col = eval_expr(table, e.child)
+    if col.dtype != DATE:
+        raise HyperspaceException(f"EXTRACT requires a date operand: {e!r}")
+    z = col.data.to(torch.int64) + 719468
+    era = _floor_div(z, 146097)
+    doe = z - era * 146097
+    yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
+                     - _floor_div(doe, 146096), 365)
+    doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
+    mp = _floor_div(5 * doy + 2, 153)
+    if e.part == "day":
+        out = doy - _floor_div(153 * mp + 2, 5) + 1
+    else:
+        m = mp + torch.where(mp < 10, 3, -9)
+        if e.part == "year":
+            out = yoe + era * 400 + (m <= 2).to(torch.int64)
+        elif e.part == "month":
+            out = m
+        else:
+            out = _floor_div(m - 1, 3) + 1
+    return Column(INT64, out.to(torch.int64), col.validity)
+
+
+def _substring_fn(start: int, length: Optional[int]):
+    """Spark's SUBSTRING: 1-based start, a negative start counts from the
+    end, 0 acts as 1; a start before the beginning still uses up length."""
+    def fn(s: str) -> str:
+        n = len(s)
+        first = start - 1 if start > 0 else (n + start if start < 0 else 0)
+        end = n if length is None else first + max(length, 0)
+        lo = min(max(first, 0), n)
+        return s[lo:max(end, lo)]
+    return fn
+
+
+def _eval_string_transform(table: Table, e) -> Column:
+    """SUBSTRING, UPPER, LOWER and TRIM: each dictionary entry transformed
+    once on the host and re-encoded (a transform can merge or reorder
+    entries), then one gather maps the codes."""
+    col = eval_expr(table, e.child)
+    if col.dtype != STRING:
+        raise HyperspaceException(f"{e.op_name} requires a string operand")
+    if isinstance(e, E.Substring):
+        fn = _substring_fn(e.start, e.length)
+    else:
+        fn = {"upper": str.upper, "lower": str.lower, "trim": str.strip}[e.fn]
+    transformed = np.asarray([fn(s) for s in col.dictionary])
+    if len(transformed) == 0:
+        return Column(STRING, col.data, col.validity, transformed)
+    union, inverse = np.unique(transformed, return_inverse=True)
+    return Column(STRING, _gather_host(inverse.astype(np.int32), col.data), col.validity,
+                  union)
 
 
 _RANGE_LO = (E.GreaterThan, E.GreaterThanOrEqual)

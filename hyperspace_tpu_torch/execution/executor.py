@@ -1,6 +1,7 @@
 """Eager columnar plan executor (counterpart of
 ``hyperspace_tpu/execution/executor.py``: Scan, IndexScan, Filter,
-Project, inner equi-Join, Aggregate, Sort and Limit).
+Project, Join (inner, left, right, full, semi, anti and cross),
+Aggregate (COUNT DISTINCT included), Window, Sort, Limit and Union).
 
 Executes a logical plan bottom-up over device-resident tables. A Filter
 directly over a scan pushes its prunable conjuncts into the parquet read;
@@ -41,14 +42,14 @@ from ..ops.index_build import bucket_id_from_file, bucket_ids_for
 from ..parallel import io as pio
 from ..plan import expr as E
 from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
-                          Project, Scan, Sort)
-from ..schema import DATE, FLOAT64, INT32, INT64, STRING
+                          Project, Scan, Sort, Union, Window)
+from ..schema import BOOL, DATE, FLOAT64, INT32, INT64, STRING
 from ..sources.partitions import read_relation_files
 from . import index_cache
 from .buffer_pool import file_signature
-from .columnar import (Column, Table, dictionaries_equal, empty_table, iter_dataset_chunks,
-                       literal_to_device, parquet_row_counts, read_parquet,
-                       translate_codes)
+from .columnar import (DEVICE_DTYPE, Column, Table, dictionaries_equal, empty_table,
+                       iter_dataset_chunks, literal_to_device, parquet_row_counts,
+                       read_parquet, translate_codes)
 from .evaluator import eval_expr, eval_predicate_mask
 from .pushdown import pruned_index_read_filter, pushable_filter
 
@@ -124,8 +125,24 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
     if isinstance(plan, Sort):
         child_needed = None if needed is None else needed | {c for c, _ in plan.orders}
         return _execute_sort(plan, _execute(plan.child, child_needed, session))
+    if isinstance(plan, Window):
+        out_names = {name for name, _ in plan.wexprs}
+        child_needed = None if needed is None else \
+            (needed - out_names) | {r for _, w in plan.wexprs for r in w.references}
+        return _execute_window(plan, _execute(plan.child, child_needed, session))
     if isinstance(plan, Limit):
         return _execute_limit(plan, _execute(plan.child, needed, session))
+    if isinstance(plan, Union):
+        # Align on the union's pruned output: a child whose own filter
+        # read extra columns holds more than the others.
+        out_names = [n for n in plan.schema.names if needed is None or n in needed]
+        child_needed = needed
+        if not out_names:
+            # count(*): no column is referenced; every child keeps one.
+            out_names = plan.schema.names[:1]
+            child_needed = None if needed is None else needed | set(out_names)
+        return Table.concat([_execute(c, child_needed, session).select(out_names)
+                             for c in plan.children])
     raise HyperspaceException(f"Cannot execute plan node {plan.node_name}")
 
 
@@ -554,6 +571,8 @@ def _bucketed_merge_keys(left: Table, right: Table, pairs, lkeys, rkeys):
 
 
 def _execute_join(plan: Join, needed: Optional[Set[str]], session) -> Table:
+    if plan.join_type == "cross":
+        return _execute_cross_join(plan, needed, session)
     pairs = E.extract_equi_join_keys(plan.condition)
     if pairs is None:
         raise HyperspaceException(
@@ -575,10 +594,121 @@ def _execute_join(plan: Join, needed: Optional[Set[str]], session) -> Table:
         {n for n in needed if n in right_names} | {p[1] for p in norm}
     left = _execute(plan.left, lneed, session)
     right = _execute(plan.right, rneed, session)
+    how = plan.join_type
+    if how in ("semi", "anti"):
+        return _execute_semi_anti_join(left, right, norm, how)
+    if how == "right":
+        # A right join is a left join with the sides swapped: the output
+        # is assembled by name against the plan's schema.
+        left, right = right, left
+        norm = [(r, l) for l, r in norm]
+        how = "left"
+    if how in ("left", "full"):
+        return _execute_outer_join(plan, left, right, norm, how)
     left, right, lkeys, rkeys = _probe_keys(left, right, norm)
     li, ri = kernels.merge_join_indices(lkeys, rkeys)
     del lkeys, rkeys
     return _gather_join_output(plan, left, right, li, ri)
+
+
+def _execute_cross_join(plan: Join, needed: Optional[Set[str]], session) -> Table:
+    """Every left row with every right row, left-major. The SQL front end
+    emits it for single-row sides (comma-joined global aggregates); a guard
+    bounds the general case."""
+    left_names = set(plan.left.schema.names)
+    lneed = None if needed is None else {n for n in needed if n in left_names}
+    rneed = None if needed is None else {n for n in needed if n not in left_names}
+    left = _execute(plan.left, lneed, session)
+    right = _execute(plan.right, rneed, session)
+    n, m = left.num_rows, right.num_rows
+    if n * m > 50_000_000:
+        raise HyperspaceException(f"Cross join too large: {n} x {m} rows")
+    dev = left.device
+    li = torch.repeat_interleave(torch.arange(n, device=dev), m)
+    ri = torch.arange(m, device=dev).repeat(n)
+    out = {}
+    for name in plan.schema.names:
+        if needed is not None and name not in needed:
+            continue
+        if name in left.columns:
+            out[name] = left.column(name).take(li)
+        elif name in right.columns:
+            out[name] = right.column(name).take(ri)
+    if not out:
+        # count(*) over a cross join: one column carries the row count.
+        if left.columns:
+            k = next(iter(left.columns))
+            out[k] = left.columns[k].take(li)
+        else:
+            k = next(iter(right.columns))
+            out[k] = right.columns[k].take(ri)
+    return Table(out)
+
+
+def _execute_semi_anti_join(left: Table, right: Table, norm, how: str) -> Table:
+    """The left rows with (semi) or without (anti) a key match on the
+    right, in their order (a bucket order survives): membership by one
+    sort and a searchsorted. A null left key matches nothing (anti keeps
+    the row); null right keys are dropped first."""
+    lkeys, rkeys = _join_key_arrays(left, right, norm)
+    lvalid = _keys_validity(left, [p[0] for p in norm])
+    rvalid = _keys_validity(right, [p[1] for p in norm])
+    if rvalid is not None:
+        rkeys = rkeys[rvalid]
+    lkeys, rkeys = kernels.same_dtype(lkeys, rkeys)
+    found = kernels.isin_sorted(lkeys, torch.sort(rkeys).values)
+    if lvalid is not None:
+        found = found & lvalid
+    return left.filter(found if how == "semi" else ~found)
+
+
+def _null_filled_like(table: Table, n: int) -> Dict[str, Column]:
+    """``n`` rows of every column of ``table``, all null (outer-join padding)."""
+    out = {}
+    for name, c in table.columns.items():
+        dev = c.data.device
+        out[name] = Column(c.dtype, torch.zeros((n,) + tuple(c.data.shape[1:]),
+                                                dtype=c.data.dtype, device=dev),
+                           torch.zeros(n, dtype=torch.bool, device=dev), c.dictionary)
+    return out
+
+
+def _execute_outer_join(plan: Join, left: Table, right: Table, norm, how: str) -> Table:
+    """LEFT (or FULL) outer equi-join: the inner matches, then the left
+    rows with none, the right side null-filled, then (full) the right rows
+    no left row matched, the left side null-filled. A null key matches
+    nothing. The bucket order does not survive."""
+    lkeys_all, rkeys_all = _join_key_arrays(left, right, norm)
+    lvalid = _keys_validity(left, [p[0] for p in norm])
+    rvalid = _keys_validity(right, [p[1] for p in norm])
+    l_idx = kernels.filter_indices(lvalid) if lvalid is not None else None
+    r_idx = kernels.filter_indices(rvalid) if rvalid is not None else None
+    lkeys = lkeys_all[l_idx] if l_idx is not None else lkeys_all
+    rkeys = rkeys_all[r_idx] if r_idx is not None else rkeys_all
+    order = kernels.lex_sort_indices([rkeys])
+    li, ri, counts = kernels.merge_join_indices(lkeys, rkeys[order], return_counts=True)
+    # Back from the valid subsets to row positions.
+    li_orig = l_idx[li] if l_idx is not None else li
+    r_pos = r_idx[order] if r_idx is not None else order
+    ri_orig = r_pos[ri]
+    unmatched_l = kernels.filter_indices(counts == 0)
+    if l_idx is not None:
+        unmatched_l = torch.cat([l_idx[unmatched_l], kernels.filter_indices(~lvalid)])
+    blocks = [{**left.take(li_orig).columns, **right.take(ri_orig).columns}]
+    n_um_l = int(unmatched_l.shape[0])
+    if n_um_l:
+        blocks.append({**left.take(unmatched_l).columns, **_null_filled_like(right, n_um_l)})
+    if how == "full":
+        # Right rows no left row matched (null-key rows among them).
+        hit = torch.zeros(right.num_rows, dtype=torch.bool, device=ri_orig.device)
+        hit[ri_orig] = True
+        unmatched_r = kernels.filter_indices(~hit)
+        n_um_r = int(unmatched_r.shape[0])
+        if n_um_r:
+            blocks.append({**_null_filled_like(left, n_um_r),
+                           **right.take(unmatched_r).columns})
+    names = [n for n in plan.schema.names if n in blocks[0]]
+    return Table.concat([Table({n: b[n] for n in names}) for b in blocks])
 
 
 def _probe_keys(left: Table, right: Table, norm: List[Tuple[str, str]]):
@@ -662,8 +792,35 @@ def _sum_dtype(values: torch.Tensor) -> str:
     return FLOAT64 if values.is_floating_point() else INT64
 
 
+def _count_distinct(child: Column, gids: torch.Tensor, num_groups: int) -> Column:
+    """COUNT(DISTINCT value) per group: rows sorted by (group, value), the
+    first row of each pair flagged, the flags summed per group. Null values
+    are parked in a segment past the real groups; NaN counts as one value."""
+    n = child.data.shape[0]
+    dev = child.data.device
+    if n == 0:
+        return Column(INT64, torch.zeros(num_groups, dtype=torch.int64, device=dev))
+    data = child.data.to(torch.int32) if child.dtype == BOOL else child.data
+    gid_key = gids if child.validity is None else \
+        torch.where(child.validity, gids, torch.full_like(gids, num_groups))
+    perm = kernels.lex_sort_indices([gid_key, data])
+    sg, sv = gid_key[perm], data[perm]
+    first = kernels.change_mask([sg, sv])
+    first[0] = True
+    if sv.is_floating_point():
+        # NaN != NaN would count each NaN; the sort puts a group's NaNs
+        # side by side, so a NaN after a NaN is no new value.
+        nan_pair = torch.zeros(n, dtype=torch.bool, device=dev)
+        nan_pair[1:] = torch.isnan(sv[1:]) & torch.isnan(sv[:-1]) & (sg[1:] == sg[:-1])
+        first = first & ~nan_pair
+    counts = kernels.segment_sum(first.to(torch.int64), sg, num_groups + 1)[:num_groups]
+    return Column(INT64, counts)
+
+
 def _eval_agg(agg_expr: E.Expr, table: Table, gids: torch.Tensor, num_groups: int) -> Column:
     agg = _unwrap_agg(agg_expr)
+    if isinstance(agg, E.CountDistinct):
+        return _count_distinct(eval_expr(table, agg.child), gids, num_groups)
     if isinstance(agg, E.Count):
         validity = None if agg.child is None else eval_expr(table, agg.child).validity
         return Column(INT64, kernels.segment_count(gids, num_groups, validity))
@@ -686,9 +843,7 @@ def _eval_agg(agg_expr: E.Expr, table: Table, gids: torch.Tensor, num_groups: in
 
 def _execute_aggregate(plan: Aggregate, table: Table) -> Table:
     if not plan.group_cols:
-        gids = torch.zeros(table.num_rows, dtype=torch.int64,
-                           device=_table_device(table))
-        return Table({a.name: _eval_agg(a, table, gids, 1) for a in plan.aggs})
+        return _execute_global_aggregate(plan, table)
     key_cols = [table.column(g) for g in plan.group_cols]
     order = table.bucket_order
     keys_non_null = all(c.validity is None for c in key_cols)
@@ -697,7 +852,9 @@ def _execute_aggregate(plan: Aggregate, table: Table) -> Table:
         # (a tuple lives in one bucket), so no sort is needed. Nullable
         # keys fall through: their fill values would meet real zeros.
         sorted_table, sorted_keys = table, [c.data for c in key_cols]
-    elif order is not None and set(order[1]) < set(plan.group_cols) and keys_non_null:
+    elif order is not None and set(order[1]) < set(plan.group_cols) and keys_non_null \
+            and not any(isinstance(_unwrap_agg(a), E.CountDistinct) for a in plan.aggs):
+        # (Distinct counts of runs do not combine: the full sort handles them.)
         # The bucket keys are a strict subset of the group keys (Q3: the
         # join output in l_orderkey order, grouped by three keys): equal
         # tuples come in runs, so only the runs are sorted.
@@ -708,7 +865,7 @@ def _execute_aggregate(plan: Aggregate, table: Table) -> Table:
         sorted_keys = _group_sort_keys([sorted_table.column(g) for g in plan.group_cols])
     gids, num_groups = kernels.group_ids_from_sorted(sorted_keys)
     if num_groups == 0:
-        return empty_table(plan.schema, _table_device(table))
+        return empty_table(plan.schema, table.device)
     arrays, spec = [], []
     for g in plan.group_cols:
         c = sorted_table.column(g)
@@ -727,6 +884,12 @@ def _execute_aggregate(plan: Aggregate, table: Table) -> Table:
     return Table(out)
 
 
+def _execute_global_aggregate(plan: Aggregate, table: Table) -> Table:
+    """One output row: every input row in group 0."""
+    gids = torch.zeros(table.num_rows, dtype=torch.int64, device=table.device)
+    return Table({a.name: _eval_agg(a, table, gids, 1) for a in plan.aggs})
+
+
 def _execute_aggregate_two_phase(plan: Aggregate, table: Table,
                                  key_cols: List[Column]) -> Table:
     """Phase 1 reduces each run of consecutive equal key tuples to
@@ -736,7 +899,7 @@ def _execute_aggregate_two_phase(plan: Aggregate, table: Table,
     run_keys = [c.data for c in key_cols]
     rids, num_runs = kernels.group_ids_from_sorted(run_keys)
     if num_runs == 0:
-        return empty_table(plan.schema, _table_device(table))
+        return empty_table(plan.schema, table.device)
     run_vals = kernels.segment_heads(rids, run_keys, num_runs)
     order2 = kernels.lex_sort_indices(run_vals)
     sorted_vals = [v[order2] for v in run_vals]
@@ -788,10 +951,6 @@ def _execute_aggregate_two_phase(plan: Aggregate, table: Table,
     return Table(out)
 
 
-def _table_device(table: Table):
-    return next(iter(table.columns.values())).data.device
-
-
 def _execute_sort(plan: Sort, table: Table) -> Table:
     """Stable; nulls first ascending and last descending (Spark's
     default), by sorting the null-aware keys in the requested direction."""
@@ -805,3 +964,145 @@ def _execute_sort(plan: Sort, table: Table) -> Table:
 
 def _execute_limit(plan: Limit, table: Table) -> Table:
     return table.slice(0, min(plan.n, table.num_rows))
+
+
+# ---------------------------------------------------------------------------
+# Window.
+# ---------------------------------------------------------------------------
+
+def _dict_for(table: Table, name: str):
+    c = table.columns.get(name)
+    return c.dictionary if c is not None and c.dtype == STRING else None
+
+
+def _execute_window(plan: Window, table: Table) -> Table:
+    """Analytic functions as a sort and segmented scans, in the child's
+    row order: values are computed in partition-sorted order and scattered
+    back through the sort permutation. Window expressions with one
+    (partition, order) spec share one sort."""
+    n = table.num_rows
+    out = dict(table.columns)
+    dev = table.device
+    if n == 0:
+        for name, w in plan.wexprs:
+            f = plan.schema.field(name)
+            dic = _dict_for(table, w.arg.column) if (
+                w.arg is not None and f.dtype == STRING) else None
+            out[name] = Column(f.dtype, torch.zeros(0, dtype=DEVICE_DTYPE[f.dtype], device=dev),
+                               None, dic)
+        return Table(out, table.bucket_order)
+    iota = torch.arange(n, device=dev)
+    specs: Dict[Tuple, List] = {}
+    for name, w in plan.wexprs:
+        key = (tuple(p.column for p in w.partition),
+               tuple((o.column, asc) for o, asc in w.orders))
+        specs.setdefault(key, []).append((name, w))
+    for (pcols, oitems), group in specs.items():
+        keys, asc_flags = [], []
+        for p in pcols:
+            for k in _null_aware_keys(table.column(p)):
+                keys.append(k)
+                asc_flags.append(True)
+        for oc, a in oitems:
+            for k in _null_aware_keys(table.column(oc)):
+                keys.append(k)
+                asc_flags.append(a)
+        order = kernels.lex_sort_indices(keys, asc_flags) if keys else iota
+        if pcols:
+            pkeys_sorted = _group_sort_keys([table.column(p).take(order) for p in pcols])
+            pids, n_part = kernels.group_ids_from_sorted(pkeys_sorted)
+        else:
+            pkeys_sorted = []
+            pids, n_part = torch.zeros(n, dtype=torch.int64, device=dev), 1
+        part_start = torch.ones(n, dtype=torch.bool, device=dev)
+        part_start[1:] = pids[1:] != pids[:-1]
+        part_first = kernels.segment_first_index(pids, n_part)
+        pos = iota - part_first[pids]
+        peer_gid = peer_first = peer_last = None
+        if oitems:
+            okeys_sorted = _group_sort_keys([table.column(oc).take(order) for oc, _ in oitems])
+            peer_gid, n_peer = kernels.group_ids_from_sorted(pkeys_sorted + okeys_sorted)
+            peer_first = kernels.segment_first_index(peer_gid, n_peer)
+            peer_last = kernels.segment_last_index(peer_gid, n_peer)
+        for name, w in group:
+            dtype = plan.schema.field(name).dtype
+            validity_s = None
+            dic = None
+            if w.fn == "row_number":
+                vals = (pos + 1).to(torch.int64)
+            elif w.fn == "rank":
+                vals = (peer_first[peer_gid] - part_first[pids] + 1).to(torch.int64)
+            elif w.fn == "dense_rank":
+                vals = (peer_gid - peer_gid[part_first[pids]] + 1).to(torch.int64)
+            else:
+                arg = None if w.arg is None else table.column(w.arg.column).take(order)
+                vals, validity_s = _window_agg(w, arg, pids, n_part, part_start, peer_gid,
+                                               peer_last)
+                if dtype == STRING:
+                    dic = arg.dictionary
+            data = torch.empty(n, dtype=vals.dtype, device=dev)
+            data[order] = vals
+            validity = None
+            if validity_s is not None:
+                validity = torch.empty(n, dtype=torch.bool, device=dev)
+                validity[order] = validity_s
+            out[name] = Column(dtype, data, validity, dic)
+    return Table(out, table.bucket_order)
+
+
+def _window_agg(w: E.WindowExpr, arg: Optional[Column], pids: torch.Tensor, n_part: int,
+                part_start: torch.Tensor, peer_gid, peer_last):
+    """One windowed aggregate in partition-sorted order: (values, validity
+    or None). Frames: 'partition', the whole partition; 'rows', running;
+    'range', running with order-key peers sharing their last row's value
+    (SQL's default with ORDER BY). Running sums add in the JAX package's
+    associative-scan order (kernels.segmented_scan)."""
+    fn, frame = w.fn, w.frame
+    n = pids.shape[0]
+    dev = pids.device
+    if frame == "range" and peer_gid is None:
+        frame = "partition"  # no ORDER BY: every row is a peer
+    if fn == "count":
+        data = torch.ones(n, dtype=torch.int64, device=dev) \
+            if arg is None or arg.validity is None else arg.validity.to(torch.int64)
+    elif fn in ("sum", "avg"):
+        if arg.dtype == STRING:
+            raise HyperspaceException(f"{fn} over string column")
+        data = arg.data.to(torch.float64 if arg.data.is_floating_point() else torch.int64)
+        if arg.validity is not None:
+            data = torch.where(arg.validity, data, torch.zeros((), dtype=data.dtype, device=dev))
+        if fn == "avg":
+            data = data.to(torch.float64)
+    else:  # min / max: invalid rows past every real value
+        data = arg.data
+        if arg.validity is not None:
+            data = torch.where(arg.validity, data, torch.full(
+                (), kernels._sentinel(data.dtype, fn == "min"), dtype=data.dtype, device=dev))
+    valid = None if arg is None or arg.validity is None else arg.validity.to(torch.int64)
+
+    def framed(values: torch.Tensor, op, seg_op: str) -> torch.Tensor:
+        if frame == "partition":
+            seg = {"sum": kernels.segment_sum, "min": kernels.segment_min,
+                   "max": kernels.segment_max}[seg_op](values, pids, n_part)
+            return seg[pids]
+        running = kernels.segmented_scan(values, part_start, op)
+        if frame == "range":
+            running = running[peer_last[peer_gid]]
+        return running
+
+    if fn == "count":
+        return framed(data, torch.add, "sum"), None
+    if fn in ("min", "max"):
+        vals = framed(data, torch.minimum if fn == "min" else torch.maximum, fn)
+        if valid is None:
+            return vals, None
+        return vals, framed(valid, torch.add, "sum") > 0
+    total = framed(data, torch.add, "sum")
+    if fn == "avg":
+        cnt = framed(valid if valid is not None else torch.ones(n, dtype=torch.int64,
+                                                                 device=dev),
+                     torch.add, "sum")
+        return total / cnt.clamp(min=1), (cnt > 0) if valid is not None else None
+    if valid is None:
+        return total, None
+    return total, framed(valid, torch.add, "sum") > 0

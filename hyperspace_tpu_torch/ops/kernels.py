@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -166,18 +166,27 @@ def lex_sort_indices(keys: Sequence[torch.Tensor],
 # Merge join over sorted keys.
 # ---------------------------------------------------------------------------
 
-def merge_join_indices(left_keys: torch.Tensor, right_keys_sorted: torch.Tensor):
+def same_dtype(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in their promoted dtype (searchsorted takes one)."""
+    if a.dtype == b.dtype:
+        return a, b
+    wide = torch.promote_types(a.dtype, b.dtype)
+    return a.to(wide), b.to(wide)
+
+
+def merge_join_indices(left_keys: torch.Tensor, right_keys_sorted: torch.Tensor,
+                       return_counts: bool = False):
     """Inner equi-join: (left_idx, right_idx) gather indices of every
     (left row, matching right row) pair, ascending by left row and, within
-    one, by right row. ``right_keys_sorted`` must be ascending. One host
-    sync, for the output length."""
-    if left_keys.dtype != right_keys_sorted.dtype:
-        wide = torch.promote_types(left_keys.dtype, right_keys_sorted.dtype)
-        left_keys, right_keys_sorted = left_keys.to(wide), right_keys_sorted.to(wide)
+    one, by right row, and with ``return_counts`` each left row's match
+    count (an outer join pads the rows with none). ``right_keys_sorted``
+    must be ascending. One host sync, for the output length."""
+    left_keys, right_keys_sorted = same_dtype(left_keys, right_keys_sorted)
     lo = torch.searchsorted(right_keys_sorted, left_keys, side="left")
     counts = torch.searchsorted(right_keys_sorted, left_keys, side="right") - lo
     total = int(counts.sum())  # HOST SYNC (single scalar).
-    return _expand_matches(counts, lo, total)
+    li, ri = _expand_matches(counts, lo, total)
+    return (li, ri, counts) if return_counts else (li, ri)
 
 
 def _expand_matches(counts: torch.Tensor, lo: torch.Tensor, total: int):
@@ -289,6 +298,24 @@ def _segment_minmax(data: torch.Tensor, gids: torch.Tensor, num_groups: int,
         0, gids, data, "amin" if op == "min" else "amax", include_self=False)
 
 
+def segment_min(data: torch.Tensor, gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    return _segment_minmax(data, gids, num_groups, "min")
+
+
+def segment_max(data: torch.Tensor, gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    return _segment_minmax(data, gids, num_groups, "max")
+
+
+def segment_first_index(gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Index of each segment's first row."""
+    return segment_offsets(gids, num_groups)[:-1]
+
+
+def segment_last_index(gids: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Index of each segment's last row."""
+    return segment_offsets(gids, num_groups)[1:] - 1
+
+
 def segment_count(gids: torch.Tensor, num_groups: int,
                   validity: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int64 rows (or valid rows) per segment."""
@@ -346,7 +373,7 @@ def gather_segment(partial: torch.Tensor, order: torch.Tensor, gids: torch.Tenso
 
 def isin_sorted(data: torch.Tensor, sorted_values: torch.Tensor) -> torch.Tensor:
     """Membership of each ``data`` value in the ascending ``sorted_values``
-    (the lineage anti-filter of deleted source files)."""
+    (the lineage anti-filter of deleted source files, semi and anti joins)."""
     if sorted_values.shape[0] == 0:
         return torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
     pos = torch.searchsorted(sorted_values, data).clamp(0, sorted_values.shape[0] - 1)
@@ -373,3 +400,46 @@ def kleene_and_or(ld, lv, rd, rv, is_and: bool):
     else:
         true, false = lt | rt, lf & rf
     return true, true | false
+
+
+# ---------------------------------------------------------------------------
+# Segmented running aggregates.
+# ---------------------------------------------------------------------------
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(even.shape[0] + odd.shape[0], dtype=even.dtype, device=even.device)
+    out[0::2] = even
+    out[1::2] = odd
+    return out
+
+
+def associative_scan(combine, elems: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Inclusive scan of ``combine`` over the rows of ``elems``, combined
+    in the tree order of ``jax.lax.associative_scan``: adjacent pairs are
+    combined, the halved sequence is scanned recursively, and the even
+    rows are combined from it. A running float sum therefore rounds as the
+    JAX package's does, where ``torch.cumsum`` (left to right) would not."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = combine([e[0:n - 1:2] for e in elems], [e[1::2] for e in elems])
+    odd = associative_scan(combine, reduced)
+    tails = [e[2::2] for e in elems]
+    if n % 2 == 0:
+        even = combine([e[:-1] for e in odd], tails)
+    else:
+        even = combine(odd, tails)
+    even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
+    return [_interleave(a, b) for a, b in zip(even, odd)]
+
+
+def segmented_scan(data: torch.Tensor, seg_start: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive running ``op`` within segments of rows sorted by segment:
+    ``seg_start`` marks each segment's first row, where the accumulator
+    restarts."""
+    def combine(a, b):
+        af, av = a
+        bf, bv = b
+        return [af | bf, torch.where(bf, bv, op(av, bv))]
+
+    return associative_scan(combine, [seg_start, data])[1]

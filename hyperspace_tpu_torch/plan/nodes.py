@@ -1,6 +1,6 @@
-"""Logical plan IR (counterpart of ``hyperspace_tpu/plan/nodes.py``,
-trimmed to Scan, IndexScan, Filter, Project, inner Join, Aggregate, Sort
-and Limit).
+"""Logical plan IR (counterpart of ``hyperspace_tpu/plan/nodes.py``:
+Scan, IndexScan, Filter, Project, Join of every type, Aggregate, Window,
+Sort, Limit and Union; the writer's BucketUnion is not ported).
 
 Nodes carry resolved schemas (analysis happens at construction). The
 rewrite rules (rules/) pattern-match these nodes the way the reference
@@ -13,7 +13,7 @@ import datetime
 from typing import List, Optional, Sequence, Tuple
 
 from ..exceptions import HyperspaceException
-from ..schema import BOOL, DATE, FLOAT32, FLOAT64, INT64, STRING, Field, Schema
+from ..schema import BOOL, DATE, FLOAT32, FLOAT64, INT32, INT64, STRING, Field, Schema
 from . import expr as E
 
 
@@ -37,19 +37,59 @@ def infer_dtype(e: E.Expr, schema: Schema) -> str:
             return STRING
         raise HyperspaceException(f"Cannot infer type of literal {v!r}")
     if isinstance(e, (E.EqualTo, E.LessThan, E.LessThanOrEqual, E.GreaterThan,
-                      E.GreaterThanOrEqual, E.And, E.Or, E.Not, E.In)):
+                      E.GreaterThanOrEqual, E.And, E.Or, E.Not, E.In,
+                      E.Like, E.IsNull)):
         return BOOL
+    if isinstance(e, E.DatePart):
+        return INT64
+    if isinstance(e, (E.Substring, E.StringTransform)):
+        if infer_dtype(e.child, schema) != STRING:
+            raise HyperspaceException(f"{e.op_name} requires a string operand: {e!r}")
+        return STRING
+    if isinstance(e, E.CaseWhen):
+        values = [v for _, v in e.branches]
+        if e.else_value is not None:
+            values.append(e.else_value)
+        # Explicit NULL branches give nullability, not a type.
+        kinds = [infer_dtype(v, schema) for v in values
+                 if not (isinstance(v, E.Lit) and v.value is None)]
+        if not kinds:
+            raise HyperspaceException(f"CASE with only NULL branches has no type: {e!r}")
+        uniq = set(kinds)
+        if len(uniq) == 1:
+            return kinds[0]
+        if uniq <= {INT64, INT32, FLOAT64, FLOAT32}:
+            return FLOAT64 if uniq & {FLOAT64, FLOAT32} else INT64
+        raise HyperspaceException(
+            f"CASE branches have incompatible types {sorted(uniq)}: {e!r}")
     if isinstance(e, (E.Add, E.Subtract, E.Multiply)):
         kinds = {infer_dtype(c, schema) for c in e.children}
         return FLOAT64 if kinds & {FLOAT64, FLOAT32} else INT64
-    if isinstance(e, (E.Divide, E.Avg)):
+    if isinstance(e, (E.Divide, E.Sqrt, E.Avg)):
         return FLOAT64
-    if isinstance(e, E.Count):
+    if isinstance(e, E.NullLit):
+        return e.dtype
+    if isinstance(e, E.Concat):
+        for p in e.parts:
+            pt = infer_dtype(p, schema)
+            if pt != STRING:
+                raise HyperspaceException(f"concat() operands must be strings; got {pt}")
+        return STRING
+    if isinstance(e, (E.Count, E.CountDistinct)):
         return INT64
     if isinstance(e, E.Sum):
         return FLOAT64 if infer_dtype(e.child, schema) in (FLOAT64, FLOAT32) else INT64
     if isinstance(e, (E.Min, E.Max)):
         return infer_dtype(e.child, schema)
+    if isinstance(e, E.WindowExpr):
+        if e.fn in E.WindowExpr.RANK_FNS or e.fn == "count":
+            return INT64
+        if e.fn == "avg":
+            return FLOAT64
+        child = infer_dtype(e.arg, schema)
+        if e.fn == "sum":
+            return FLOAT64 if child in (FLOAT64, FLOAT32) else INT64
+        return child  # min / max
     raise HyperspaceException(f"Cannot infer type of {e!r}")
 
 
@@ -213,30 +253,44 @@ class Project(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Inner equi-join. The JAX package's outer, semi, anti and cross joins
-    are not ported yet and are refused here, where a plan first names them."""
+    """An equi-join of type inner, left, right, full, semi or anti, or a
+    cross join (no condition). Semi and anti joins emit the left side's
+    rows only; the outer types make the null-producing side nullable."""
 
-    def __init__(self, left: LogicalPlan, right: LogicalPlan, condition: E.Expr,
+    TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, condition: Optional[E.Expr],
                  join_type: str = "inner"):
-        if join_type != "inner":
-            raise HyperspaceException(
-                f"The {join_type} join is not supported by hyperspace_tpu_torch yet; "
-                "only the inner join is")
-        if condition is None:
-            raise HyperspaceException("inner join requires a condition")
+        if join_type not in self.TYPES:
+            raise HyperspaceException(f"Unsupported join type: {join_type}")
+        if join_type == "cross":
+            if condition is not None:
+                raise HyperspaceException("Cross join takes no condition")
+        elif condition is None:
+            raise HyperspaceException(f"{join_type} join requires a condition")
         overlap = set(left.schema.names) & set(right.schema.names)
         if overlap:
             raise HyperspaceException(
                 f"Ambiguous join output columns {sorted(overlap)}; rename before joining")
         combined = list(left.schema.fields) + list(right.schema.fields)
         names = {f.name for f in combined}
-        for ref in condition.references:
+        for ref in (condition.references if condition is not None else ()):
             if ref not in names:
                 raise HyperspaceException(f"Join condition references unknown '{ref}'")
         self.left = left
         self.right = right
         self.condition = condition
         self.join_type = join_type
+        if join_type in ("semi", "anti"):
+            self._schema = left.schema
+            return
+        if join_type in ("left", "right", "full"):
+            left_nullable = join_type in ("right", "full")
+            right_nullable = join_type in ("left", "full")
+            combined = [Field(f.name, f.dtype,
+                              f.nullable or (left_nullable if f.name in left.schema
+                                             else right_nullable))
+                        for f in combined]
         self._schema = Schema(combined)
 
     @property
@@ -251,6 +305,8 @@ class Join(LogicalPlan):
         return self._schema
 
     def simple_string(self) -> str:
+        if self.join_type == "cross":
+            return "Join cross"
         return f"Join {self.join_type} ({self.condition!r})"
 
 
@@ -282,6 +338,58 @@ class Aggregate(LogicalPlan):
     def simple_string(self) -> str:
         return (f"Aggregate [{', '.join(self.group_cols)}] "
                 f"[{', '.join(a.name for a in self.aggs)}]")
+
+
+class Window(LogicalPlan):
+    """Analytic functions over partitions: one output column per
+    WindowExpr appended to the child's schema, in the child's row order
+    (computed in partition-sorted order and scattered back). Arguments,
+    partition and order keys are plain columns; the SQL front end
+    materializes anything else first."""
+
+    def __init__(self, wexprs: Sequence[Tuple[str, E.WindowExpr]], child: LogicalPlan):
+        if not wexprs:
+            raise HyperspaceException("Window requires at least one expr")
+        self.wexprs = [(name, w) for name, w in wexprs]
+        for name, w in self.wexprs:
+            for ref in w.references:
+                if ref not in child.schema:
+                    raise HyperspaceException(
+                        f"Window expr references unknown column '{ref}'; "
+                        f"available: {child.schema.names}")
+            for p in w.partition:
+                if not isinstance(p, E.Col):
+                    raise HyperspaceException(
+                        f"Window PARTITION BY must be plain columns; got {p!r}")
+            for o, _ in w.orders:
+                if not isinstance(o, E.Col):
+                    raise HyperspaceException(
+                        f"Window ORDER BY must be plain columns; got {o!r}")
+            if w.arg is not None and not isinstance(w.arg, E.Col):
+                raise HyperspaceException(
+                    f"Window argument must be a plain column; got {w.arg!r}")
+            if name in child.schema:
+                raise HyperspaceException(
+                    f"Window output '{name}' collides with input column")
+        self.child = child
+        fields = list(child.schema.fields)
+        for name, w in self.wexprs:
+            fields.append(Field(name, infer_dtype(w, child.schema)))
+        self._schema = Schema(fields)
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return [self.child]
+
+    def with_children(self, children):
+        return Window(self.wexprs, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def simple_string(self) -> str:
+        return "Window [" + ", ".join(f"{name}={w!r}" for name, w in self.wexprs) + "]"
 
 
 class Sort(LogicalPlan):
@@ -327,3 +435,27 @@ class Limit(LogicalPlan):
 
     def simple_string(self) -> str:
         return f"Limit {self.n}"
+
+
+class Union(LogicalPlan):
+    """UNION ALL of children with the same column names, in order."""
+
+    def __init__(self, children: List[LogicalPlan]):
+        if not children:
+            raise HyperspaceException("Union requires children")
+        first = children[0].schema.names
+        for c in children[1:]:
+            if c.schema.names != first:
+                raise HyperspaceException("Union children must share schema")
+        self._children = list(children)
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return list(self._children)
+
+    def with_children(self, children):
+        return Union(children)
+
+    @property
+    def schema(self) -> Schema:
+        return self._children[0].schema

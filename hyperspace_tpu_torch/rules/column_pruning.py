@@ -4,7 +4,10 @@
 The join rule's coverage check reads the columns a join side references.
 Without this pass a side is a bare Scan exposing every source column, and
 no covering index covers it. Projects are inserted at the top of join
-inputs and below aggregates, so the rules see the true column sets.
+inputs and below aggregates, so the rules see the true column sets. A
+Union passes the columns required of it to every child; a Window's
+subtree is left as it is, as in the JAX package (the executor still reads
+only the columns the window and its ancestors use).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 from typing import Optional, Set
 
 from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
-                          Project, Scan, Sort)
+                          Project, Scan, Sort, Union)
 
 
 def prune_columns(plan: LogicalPlan, required: Optional[Set[str]] = None) -> LogicalPlan:
@@ -39,8 +42,11 @@ def prune_columns(plan: LogicalPlan, required: Optional[Set[str]] = None) -> Log
         return Sort(plan.orders, prune_columns(plan.child, child_req))
     if isinstance(plan, Limit):
         return Limit(plan.n, prune_columns(plan.child, required))
+    if isinstance(plan, Union):
+        return Union([prune_columns(c, set(required)) for c in plan.children])
     if isinstance(plan, Join):
-        wanted = required | set(plan.condition.references)
+        wanted = required | (set(plan.condition.references)
+                             if plan.condition is not None else set())
         lreq = wanted & set(plan.left.schema.names)
         rreq = wanted & set(plan.right.schema.names)
         left = _narrow(prune_columns(plan.left, lreq), lreq)

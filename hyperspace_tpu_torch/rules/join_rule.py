@@ -88,7 +88,10 @@ def try_rewrite_join(session, join: Join, ctx: ReasonCollector,
                      candidates_for: Candidates
                      ) -> Optional[Tuple[LogicalPlan, Tuple[IndexLogEntry, IndexLogEntry]]]:
     """The shuffle-free join rewrite of this Join node: (new plan, (left
-    index, right index)) or None."""
+    index, right index)) or None. Only an inner join is rewritten, with no
+    whyNot reason for the other types, as in the JAX package."""
+    if join.join_type != "inner":
+        return None
     pairs = E.extract_equi_join_keys(join.condition)
     if not pairs or not (is_plan_linear(join.left) and is_plan_linear(join.right)):
         return None

@@ -1,5 +1,6 @@
 """Filter pushdown through Project and inner Join (counterpart of
-``hyperspace_tpu/rules/pushdown.py``).
+``hyperspace_tpu/rules/pushdown.py``; no filter moves below another join
+type, as in the JAX package).
 
 The index rules match ``Scan → Filter (→ Project)`` shapes, so a query
 written ``select(...).filter(...)`` -- a Filter above a Project -- is
@@ -12,8 +13,11 @@ predicate and the filter re-parented below the projection,
 recursively, so a filter sinks through any number of projections. The
 conjuncts of a filter above an inner join move to the side whose columns
 they reference, so a WHERE written above a join prunes each input before
-it and the per-side index rules see it. Adjacent filters merge into one
-node.
+it and the per-side index rules see it. Only inner joins: below an outer
+join a conjunct on the null-producing side would drop the rows the join
+pads instead of the padded rows, and the JAX package pushes nothing below
+semi, anti, outer or cross joins either (plan trees stay equal). Adjacent
+filters merge into one node.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ def push_filters(plan: LogicalPlan) -> LogicalPlan:
             else _substitute(plan.condition, mapping)
         if cond is not None:
             return Project(proj.exprs, push_filters(Filter(cond, proj.child)))
-    if isinstance(plan, Filter) and isinstance(plan.child, Join):
+    if isinstance(plan, Filter) and isinstance(plan.child, Join) \
+            and plan.child.join_type == "inner":
         join = plan.child
         l_names = set(join.left.schema.names)
         r_names = set(join.right.schema.names)

@@ -1,10 +1,12 @@
 """Session + DataFrame API (counterpart of ``hyperspace_tpu/session.py``).
 
-The session holds the conf, the device, the source-provider manager and
-the hyperspace switch; ``enable_hyperspace()`` turns the index rewrite on
-for every later query. DataFrames are thin wrappers over the logical plan
-IR; ``to_arrow()`` runs normalization (filter pushdown, column pruning) →
-(hyperspace rewrite if enabled) → the executor.
+The session holds the conf, the device, the source-provider manager, the
+temp views and the hyperspace switch; ``enable_hyperspace()`` turns the
+index rewrite on for every later query. ``sql(text)`` lowers a SELECT over
+the temp views onto the same DataFrame API (``sql.py``). DataFrames are
+thin wrappers over the logical plan IR; ``to_arrow()`` runs normalization
+(filter pushdown, column pruning) → (hyperspace rewrite if enabled) → the
+executor.
 
 The session holds one caching index manager, which the rules and the
 ``Hyperspace`` facade share, and a tally of how often each index was
@@ -26,7 +28,8 @@ from .config import Conf, HyperspaceConf
 from .exceptions import HyperspaceException
 from .index.constants import IndexConstants
 from .plan import expr as E
-from .plan.nodes import Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort
+from .plan.nodes import (Aggregate, Filter, Join, Limit, LogicalPlan, Project, Scan, Sort,
+                         Union, Window)
 from .schema import Schema
 from .sources.default import DefaultFileBasedSourceBuilder
 from .sources.interfaces import FileBasedSourceProviderManager
@@ -59,6 +62,9 @@ class Session:
         # (rules/rule_utils.log_index_usage increments under the lock).
         self._index_usage_counts: Dict[str, int] = {}
         self._usage_counts_lock = threading.Lock()
+        # Temp views by lower-cased name (view names are case-insensitive).
+        self._temp_views: Dict[str, LogicalPlan] = {}
+        self._views_lock = threading.Lock()
 
     @property
     def index_collection_manager(self):
@@ -71,6 +77,35 @@ class Session:
     @property
     def read(self) -> "DataFrameReader":
         return DataFrameReader(self)
+
+    def create_temp_view(self, name: str, df: "DataFrame", replace: bool = False) -> None:
+        key = name.lower()
+        with self._views_lock:
+            if key in self._temp_views and not replace:
+                raise HyperspaceException(f"Temp view already exists: {name}")
+            self._temp_views[key] = df.plan
+
+    def table(self, name: str) -> "DataFrame":
+        """A DataFrame over a temp view. It shares the view's plan, so the
+        index rewrites apply as on the DataFrame the view was made from."""
+        with self._views_lock:
+            plan = self._temp_views.get(name.lower())
+        if plan is None:
+            raise HyperspaceException(f"No such temp view: {name}")
+        return DataFrame(self, plan)
+
+    def drop_temp_view(self, name: str) -> bool:
+        with self._views_lock:
+            return self._temp_views.pop(name.lower(), None) is not None
+
+    def create_dataframe(self, plan: LogicalPlan) -> "DataFrame":
+        return DataFrame(self, plan)
+
+    def sql(self, text: str) -> "DataFrame":
+        """One SQL SELECT over the temp views, lowered onto the DataFrame
+        API (the grammar of ``sql.py``, the JAX package's)."""
+        from .sql import sql as _sql
+        return _sql(self, text)
 
     def enable_hyperspace(self) -> "Session":
         self._hyperspace_enabled = True
@@ -129,6 +164,10 @@ class DataFrame:
     def schema(self) -> Schema:
         return self.plan.schema
 
+    @property
+    def columns(self) -> List[str]:
+        return self.plan.schema.names
+
     # Column names resolve case-insensitively against the schema
     # (`hyperspace.caseSensitive=true` restores exact matching).
     # Unresolvable names pass through unchanged so the plan constructors
@@ -157,6 +196,11 @@ class DataFrame:
         both = list(self.plan.schema.names) + list(other.plan.schema.names)
         return DataFrame(self.session,
                          Join(self.plan, other.plan, self._resolve_expr(on, both), how))
+
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        """The Cartesian product (the SQL front end emits it for single-row
+        sides)."""
+        return DataFrame(self.session, Join(self.plan, other.plan, None, "cross"))
 
     def group_by(self, *cols: str) -> "GroupedData":
         return GroupedData(self, [self._spelling(c) for c in cols])
@@ -196,6 +240,63 @@ class DataFrame:
     def to_arrow(self):
         return self.execute().to_arrow()
 
+    def to_pandas(self):
+        return self.to_arrow().to_pandas()
+
+    def collect(self) -> List[tuple]:
+        return [tuple(d.values()) for d in self.to_arrow().to_pylist()]
+
+    def count(self) -> int:
+        return self.execute().num_rows
+
+    def with_column(self, name: str, expr: E.Expr) -> "DataFrame":
+        """Add or replace a column. The column to replace matches
+        case-insensitively; the output keeps the caller's spelling."""
+        resolved = self._spelling(name)
+        expr = self._resolve_expr(expr)
+        exprs = [E.Col(n) if n != resolved else expr.alias(name)
+                 for n in self.plan.schema.names]
+        if resolved not in self.plan.schema.names:
+            exprs.append(expr.alias(name))
+        return DataFrame(self.session, Project(exprs, self.plan))
+
+    def with_window(self, name: str, wexpr: E.Expr) -> "DataFrame":
+        """Append an analytic column built with ``plan.expr.window(...)``."""
+        if not isinstance(wexpr, E.WindowExpr):
+            raise HyperspaceException(f"with_window expects a WindowExpr; got {wexpr!r}")
+        return DataFrame(self.session, Window([(name, self._resolve_expr(wexpr))], self.plan))
+
+    def drop(self, *names: str) -> "DataFrame":
+        dropped = {self._spelling(n) for n in names}
+        keep = [n for n in self.plan.schema.names if n not in dropped]
+        if not keep:
+            raise HyperspaceException("drop() would remove every column")
+        return DataFrame(self.session, Project(keep, self.plan))
+
+    def distinct(self) -> "DataFrame":
+        """Distinct rows: a group-by on every column, so the index rewrites
+        apply to it."""
+        cols = list(self.plan.schema.names)
+        # A count alias that no group column shares.
+        cnt = "__distinct_cnt"
+        while cnt in cols:
+            cnt += "_"
+        agg = Aggregate(cols, [E.Count(None).alias(cnt)], self.plan)
+        return DataFrame(self.session, Project(cols, agg))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL: the same column names and types, in order."""
+        if self.plan.schema.names != other.plan.schema.names:
+            raise HyperspaceException(
+                f"union() column mismatch: {self.plan.schema.names} vs "
+                f"{other.plan.schema.names}")
+        mismatched = [(f.name, f.dtype, other.plan.schema.field(f.name).dtype)
+                      for f in self.plan.schema.fields
+                      if f.dtype != other.plan.schema.field(f.name).dtype]
+        if mismatched:
+            raise HyperspaceException(f"union() dtype mismatch: {mismatched}")
+        return DataFrame(self.session, Union([self.plan, other.plan]))
+
 
 class GroupedData:
     def __init__(self, df: DataFrame, group_cols: List[str]):
@@ -207,3 +308,6 @@ class GroupedData:
                          Aggregate(self._group_cols,
                                    [self._df._resolve_expr(a) for a in aggs],
                                    self._df.plan))
+
+    def count(self) -> DataFrame:
+        return self.agg(E.Count(None))

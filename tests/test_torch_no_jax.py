@@ -6,8 +6,9 @@ partitions, cache, statistics, explain and display modules and the
 introspection calls, the host read tier (the reader pool, the buffer pool
 and the index-table cache, a warm repeat of Q3 and Q17), and the mutable
 slice: a chunked build with lineage, Hybrid Scan over a deleted and an
-appended file, every refresh mode and optimize) still run end to
-end on the CPU, with the join, group-by, column-pruning and score-based
+appended file, every refresh mode and optimize, and the SQL front end:
+TPC-H Q4, Q16 and Q17 through ``session.sql``) still run end to end on
+the CPU, with the join, group-by, column-pruning and score-based
 rule modules imported (in a subprocess,
 because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -175,12 +176,27 @@ SLICE = textwrap.dedent("""
     hs2.refresh_index("od_lin_idx", "full")
     assert "IndexScan" in orders_point("false")
     assert len(hs2.index_manager.get_index("od_lin_idx").content.files) == 8
+    # The SQL front end: Q4 (EXISTS: a semi join), Q16 (NOT IN: an anti
+    # join, COUNT DISTINCT, LIKE) and Q17 (a decorrelated scalar subquery)
+    # through session.sql over temp views, against chip_smoke's reference.
+    from hyperspace_tpu_torch import sql
+    sql_dirs, _ = chip_smoke.make_tpch_sql(os.path.join(root, "tpch_sql"), 0.002)
+    s3 = ht.Session(system_path=os.path.join(root, "ix3"), device="cpu")
+    for name, d in sql_dirs.items():
+        s3.create_temp_view(name, s3.read.parquet(d))
+    sql_refs = chip_smoke.tpch_sql_references(sql_dirs)
+    sql_rows = []
+    for name in ("q4", "q16", "q17"):
+        got = s3.sql(chip_smoke.TPCH_TEXTS[name]).to_arrow()
+        chip_smoke.check_sql_answer(name, got, sql_refs[name], "no jax")
+        sql_rows.append(got.num_rows)
+    assert sql_rows[0] == 5 and sql_rows[1] > 0 and sql_rows[2] == 1, sql_rows
     bad = [m for m, v in sys.modules.items() if v is not None and (
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
     print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1], "SOURCES_OK",
-          "MUTABLE_OK")
+          "MUTABLE_OK", "SQL_OK")
 """)
 
 
@@ -188,7 +204,7 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK" in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK SQL_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -204,10 +204,29 @@ def test_kernels_take_the_cpu_path(lake):
 
 @pytest.mark.parametrize("how", ["left", "right", "full", "semi", "anti", "cross"])
 def test_other_join_types_are_refused_by_name(lake, how):
-    li = lake["torch"].read.parquet(lake["dirs"]["lineitem"])
-    od = lake["torch"].read.parquet(lake["dirs"]["orders"])
-    with pytest.raises(ht.HyperspaceException, match=f"The {how} join is not supported"):
-        li.join(od, on=ht.col("l_orderkey") == ht.col("o_orderkey"), how=how)
+    """Every join type of the JAX package builds a plan now; a type it
+    lacks is refused by name, as there, and so are a cross join given a
+    condition and another type given none."""
+    errors = {}
+    for pkg, E, N in (("torch", TE, TN), ("jax", JE, JN)):
+        li = lake[pkg].read.parquet(lake["dirs"]["lineitem"])
+        od = lake[pkg].read.parquet(lake["dirs"]["orders"])
+        cond = E.col("l_orderkey") == E.col("o_orderkey")
+        if how == "cross":
+            assert li.cross_join(od).plan.simple_string() == "Join cross"
+            bad = lambda: li.join(od, on=cond, how="cross")  # noqa: E731
+        else:
+            assert li.join(od, on=cond, how=how).plan.simple_string() == \
+                f"Join {how} ({cond!r})"
+            bad = lambda: N.Join(li.plan, od.plan, None, how)  # noqa: E731
+        got = []
+        for call in (bad, lambda: li.join(od, on=cond, how=how + "_outer")):
+            with pytest.raises(Exception) as err:
+                call()
+            got.append(str(err.value))
+        errors[pkg] = got
+    assert errors["torch"] == errors["jax"]
+    assert errors["torch"][1] == f"Unsupported join type: {how}_outer"
 
 
 def test_uncovered_join_side_is_not_rewritten(lake):
