@@ -110,18 +110,28 @@ Phases, each of which fails the run on any error:
               run): every result equals a numpy reference (keys, counts,
               dates and strings exact, float64 within 1e-9 relative),
               indexed equals scanned, Q6, Q14 and Q17 plan an IndexScan;
+   serving -- after the sql path, on its lake: 16 TPC-H Q6 texts under
+              distinct substitution parameters (Q6_PARAMS) through the
+              serving frontend (run_serving_path): a scanned wave (one
+              batch over one shared scan, each member's own mask through
+              the range kernel, each member bit for bit its run alone and
+              within 1e-9 of a numpy reference), an indexed wave
+              (sql_li_ship; each member alone with the range kernel), the
+              result cache (16 device-tier hits on a repeat, misses after
+              delete_index and restore_index, host-tier hits after
+              demotion); prints the ``serving`` line;
 8. parity  -- Q3 and Q17 on a small lake on the card and through the
               port on the CPU (which the tests hold to the JAX package),
               reported bit for bit; the sql path's queries on a lake at
               scale 0.01, which must be equal bit for bit.
 
 Launch counters are reset just before each path (lineitem, orders,
-joins and sources of phases 4-5, io, sql, then mutations) and read just
-after it. Phase 5 runs each query twice: since the buffer pool is on, the
+joins and sources of phases 4-5, io, sql, serving, then mutations) and
+read just after it. Phase 5 runs each query twice: since the buffer pool is on, the
 second run is warm; phase 7 empties the pool before each query it times.
-The last lines of standard output are the ``kernels`` JSON object, the
-card's name and power limit as nvidia-smi reports them, and the status
-object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+The last lines of standard output are the ``serving`` and ``kernels`` JSON
+objects, the card's name and power limit as nvidia-smi reports them, and
+the status object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
@@ -161,6 +171,10 @@ PATH_KERNELS = {
     # The covering builds on the TPC-H lake, the date filters, and Q19's
     # p_size (int32) BETWEEN.
     "sql": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask"),
+    # Q6's l_shipdate pair, one range-kernel pass for every member of the
+    # scanned and the indexed wave (at least 16 in each: the serving path
+    # checks the counts).
+    "serving": ("range_mask",),
 }
 # The io path's queries, and what each path's query phases hold them to:
 # name -> ("rows", pyarrow table) | ("q3", (rows, tied_last)) | ("q17", value).
@@ -1617,6 +1631,20 @@ def _day(d: datetime.date) -> int:
     return (d - EPOCH).days
 
 
+def q6_reference(ship, disc, qty, price, year: int = 1994, discount: str = "0.06",
+                 quantity: int = 24) -> dict:
+    """TPC-H Q6 by numpy for one parameter set (q6_text's). The BETWEEN
+    bounds fold as decimals, as in SQL: 0.06 - 0.01 is 0.05."""
+    from decimal import Decimal
+
+    import numpy as np
+    lo = float(Decimal(discount) - Decimal("0.01"))
+    hi = float(Decimal(discount) + Decimal("0.01"))
+    m = (ship >= _day(datetime.date(year, 1, 1))) & (ship < _day(datetime.date(year + 1, 1, 1))) \
+        & (disc >= lo) & (disc <= hi) & (qty < quantity)
+    return {"revenue": np.array([np.sum(price[m] * disc[m])])}
+
+
 def tpch_sql_references(dirs: dict) -> dict:
     """Every sql-path query answered by numpy and pyarrow from the files:
     {name: {column: numpy array}}, rows in the query's order (the window
@@ -1712,10 +1740,7 @@ def tpch_sql_references(dirs: dict) -> dict:
     names, cnt = np.unique(prio.astype(str), return_counts=True)
     out["q4"] = {"o_orderpriority": names.astype(object), "order_count": cnt.astype(np.int64)}
 
-    # Q6 (the BETWEEN bounds fold as decimals, as in SQL: 0.05 and 0.07).
-    m = (ship >= _day(datetime.date(1994, 1, 1))) & (ship < _day(datetime.date(1995, 1, 1))) \
-        & (disc >= 0.05) & (disc <= 0.07) & (qty < 24)
-    out["q6"] = {"revenue": np.array([np.sum(price[m] * disc[m])])}
+    out["q6"] = q6_reference(ship, disc, qty, price)
 
     # Q12.
     mode = L["l_shipmode"]
@@ -1906,13 +1931,14 @@ def sql_session(dirs: dict, system_path: str, device: str, n_li: int):
     return session, builds
 
 
-def run_sql_path(root: str, scale: float, results: dict) -> None:
+def run_sql_path(root: str, scale: float, results: dict):
     """The TPC-H lake at ``scale``, its covering indexes, then every query
     of SQL_PATH_QUERIES through session.sql, twice indexed and twice
     scanned (the buffer pool emptied before each first run): each result
     equals the numpy reference, indexed equals scanned, Q6, Q14 and Q17
     plan an IndexScan. Host spans of each first run: lowering the text,
-    optimizing, parquet reads, the rest of execution."""
+    optimizing, parquet reads, the rest of execution. Returns (session,
+    {table: dir}): the serving path reuses the lake and its indexes."""
     import torch
 
     from hyperspace_tpu_torch.execution import buffer_pool, executor
@@ -1987,8 +2013,7 @@ def run_sql_path(root: str, scale: float, results: dict) -> None:
         value = out["queries"][name]["result"]
         if not next(iter(value.values()))[0]:
             raise AssertionError(f"sql {name}: the answer is {value}, the lake selects nothing")
-    shutil.rmtree(os.path.join(root, "sql_data"), ignore_errors=True)
-    shutil.rmtree(os.path.join(root, "sql_indexes"), ignore_errors=True)
+    return session, dirs
 
 
 def sql_card_against_cpu(root: str) -> dict:
@@ -2021,6 +2046,210 @@ def sql_card_against_cpu(root: str) -> dict:
     if unequal:
         raise AssertionError(f"sql: the card and the CPU differ on {unequal}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The serving path: TPC-H Q6 under its substitution parameters.
+# ---------------------------------------------------------------------------
+
+def _q6_params(count: int = 16, seed: int = 6) -> list:
+    """``count`` distinct TPC-H Q6 parameter sets (TPC-H specification
+    2.4.6.3: DATE the first of January of a year in 1993-1997, DISCOUNT in
+    0.02-0.09, QUANTITY 24 or 25), drawn once from ``seed``."""
+    import random
+    every = [(y, f"0.0{d}", q) for y in range(1993, 1998) for d in range(2, 10)
+             for q in (24, 25)]
+    return sorted(random.Random(seed).sample(every, count))
+
+
+Q6_PARAMS = _q6_params()
+# The serving path's frontend conf. Each member's input estimate is the
+# whole lineitem at SF10 (2.8 GB of files): the admission budget must hold
+# the 16 of a wave, as a deployment serving such sweeps would set it.
+SERVING_CONF = {"hyperspace.tpu.serving.maxConcurrency": "1",
+                "hyperspace.tpu.serving.batching.window": "0.3",
+                "hyperspace.tpu.serving.batching.maxBatch": "16",
+                "hyperspace.tpu.serving.admission.maxBytes": str(64 * 2 ** 30)}
+
+
+def q6_text(year: int, discount: str, quantity: int) -> str:
+    """TPC-H Q6 (tests/test_tpch_sql.py's text) with its parameters."""
+    return f"""
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '{year}-01-01'
+ and l_shipdate < date '{year}-01-01' + interval '1' year
+ and l_discount between {discount} - 0.01 and {discount} + 0.01
+ and l_quantity < {quantity}
+"""
+
+
+def _percentile(values, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def _wave(session, texts, fe=None):
+    """One submit_wave of the texts through ``fe`` (else a fresh frontend):
+    (arrow tables, wall seconds, member latencies, the frontend's stats with
+    the wave's mask-kernel launches as ``mask_launches``)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+    from hyperspace_tpu_torch.serving.frontend import ServingFrontend
+    fe = fe or ServingFrontend(session)
+    masks0 = ck.LAUNCHES["compare_mask"] + ck.LAUNCHES["range_mask"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = fe.submit_wave([(session.sql(t).plan, session, f"user{i}", None)
+                              for i, t in enumerate(texts)])
+    for p in pending:
+        if isinstance(p, Exception):
+            raise p
+    tables = [p.result(timeout=600).to_arrow() for p in pending]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fe.drain()
+    st = fe.stats()
+    st["mask_launches"] = ck.LAUNCHES["compare_mask"] + ck.LAUNCHES["range_mask"] - masks0
+    return tables, wall, [p.latency_s for p in pending], st
+
+
+def _serial(session, texts):
+    """Each text alone through to_arrow(): (tables, summed seconds)."""
+    import torch
+    tables, total = [], 0.0
+    for t in texts:
+        df = session.sql(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables.append(df.to_arrow())
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return tables, total
+
+
+def _same_bits(a, b) -> bool:
+    return a.equals(b) and float_bits(a) == float_bits(b)
+
+
+def run_serving_path(session, dirs: dict, results: dict) -> None:
+    """The serving tier on the sql path's lake (lineitem and sql_li_ship):
+    16 TPC-H Q6 texts under distinct parameter sets (Q6_PARAMS).
+
+    1. Scanned wave: with hyperspace disabled, one submit_wave on a
+       frontend at maxConcurrency=1, batching.window=0.3, maxBatch=16: one
+       batch of 16 members over one shared scan (15 hits), each member's
+       own mask through the mask kernels (at least 16 launches in the
+       wave), no member rerun alone; each member's revenue equals the same
+       text run alone on the card bit for bit, and the numpy reference
+       within REL_TOL.
+    2. Indexed wave: with hyperspace enabled every member plans an
+       IndexScan on sql_li_ship and runs alone inside the batch (the mask
+       kernels on l_shipdate); each equals its own run alone bit for bit
+       and the scanned wave within REL_TOL.
+    3. Result cache: the indexed texts twice (16 device-tier hits on the
+       second pass, equal bytes), then delete_index and restore_index of
+       sql_li_ship (the next pass misses every member, equal answers), then
+       deviceBytes at one result's size (a pass demotes 15 results to the
+       host tier, the next hits them there).
+    """
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.plan.nodes import IndexScan
+    from hyperspace_tpu_torch.serving.constants import ServingConstants as SC
+    from hyperspace_tpu_torch.serving.frontend import ServingFrontend
+
+    t_path = time.perf_counter()
+    out = results["serving"] = {"params": Q6_PARAMS}
+    texts = [q6_text(*p) for p in Q6_PARAMS]
+    li = _read(dirs["lineitem"], ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"])
+    cols = [_num(li, c) for c in ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")]
+    del li
+    refs = [q6_reference(*cols, *p) for p in Q6_PARAMS]
+    del cols
+    for k, v in SERVING_CONF.items():
+        session.conf.set(k, v)
+    n = len(texts)
+
+    # 1. The scanned wave.
+    session.disable_hyperspace()
+    serial, serial_s = _serial(session, texts)
+    tables, wall, lat, st = _wave(session, texts)
+    if (st["batches"], st["batched_queries"], st["shared_scans"], st["shared_scan_hits"],
+            st["member_fallbacks"], st["completed"]) != (1, n, 1, n - 1, 0, n) \
+            or st["mask_launches"] < n:
+        raise AssertionError(f"serving: the scanned wave did not run as one {n}-member sweep "
+                             f"over one shared scan with a mask kernel per member: {st}")
+    for i, (got, alone) in enumerate(zip(tables, serial)):
+        if not _same_bits(got, alone):
+            raise AssertionError(f"serving: member {i} {Q6_PARAMS[i]} {got.to_pydict()} != "
+                                 f"its run alone {alone.to_pydict()}")
+        check_sql_answer("q6", got, refs[i], f"serving scanned member {i}")
+    out["scanned"] = {"wave_s": wall, "serial_s": serial_s, "p50_s": _percentile(lat, 50),
+                      "p99_s": _percentile(lat, 99), "stats": st,
+                      "revenue": [t.column(0)[0].as_py() for t in tables]}
+    scanned = tables
+    log(f"serving: scanned wave of {n} in {wall:.3f} s against {serial_s:.3f} s serial; {st}")
+
+    # 2. The indexed wave.
+    session.enable_hyperspace()
+    try:
+        plan = session.sql(texts[0]).optimized_plan()
+        if not any(isinstance(leaf, IndexScan) and leaf.index_entry.name == "sql_li_ship"
+                   for leaf in plan.collect_leaves()):
+            raise AssertionError(f"serving: Q6 plans no sql_li_ship scan:\n{plan.tree_string()}")
+        serial, serial_s = _serial(session, texts)
+        tables, wall, lat, st = _wave(session, texts)
+        if (st["batches"], st["completed"], st["shared_scans"], st["member_fallbacks"]) \
+                != (1, n, 0, 0) or st["mask_launches"] < n:
+            raise AssertionError(f"serving: the indexed wave's members did not run alone: {st}")
+        for i, (got, alone) in enumerate(zip(tables, serial)):
+            if not _same_bits(got, alone):
+                raise AssertionError(f"serving: indexed member {i} differs from its run alone")
+            check_sql_answer("q6", got, as_reference("q6", scanned[i]),
+                             f"serving indexed member {i} against scanned")
+        out["indexed"] = {"wave_s": wall, "serial_s": serial_s, "p50_s": _percentile(lat, 50),
+                          "p99_s": _percentile(lat, 99), "stats": st}
+        indexed = tables
+        log(f"serving: indexed wave of {n} in {wall:.3f} s against {serial_s:.3f} s serial; {st}")
+
+        # 3. The result cache.
+        # The frontend's cross-session cache follows the governing conf.
+        session.conf.set(SC.RESULT_CACHE_ENABLED, "true")
+        session.conf.set(SC.RESULT_CACHE_MIN_COMPUTE_SECONDS, "0")
+        fe = ServingFrontend(session)
+        passes = {}
+
+        def cache_pass(name, want):
+            tables, wall, lat, st = _wave(session, texts, fe)
+            rc = st["shared_result_cache"]
+            for i, got in enumerate(tables):
+                if not _same_bits(got, indexed[i]):
+                    raise AssertionError(f"serving: cache pass {name}, member {i} differs")
+            got = {k: rc[k] for k in want}
+            if got != want:
+                raise AssertionError(f"serving: cache pass {name}: {got} != {want}; {rc}")
+            passes[name] = {"wave_s": wall, "p50_s": _percentile(lat, 50),
+                            "p99_s": _percentile(lat, 99), "result_cache": rc}
+            log(f"serving: cache pass {name} in {wall:.3f} s; {rc}")
+            return rc
+
+        cache_pass("cold", {"misses": n, "admissions": n, "hits": 0})
+        rc = cache_pass("warm", {"misses": n, "device_hits": n, "host_hits": 0})
+        hs = ht.Hyperspace(session)
+        hs.delete_index("sql_li_ship")
+        hs.restore_index("sql_li_ship")
+        cache_pass("after delete and restore", {"misses": 2 * n, "device_hits": n})
+        one = rc["device_nbytes"] // rc["device_entries"]
+        session.conf.set(SC.RESULT_CACHE_DEVICE_BYTES, str(one))  # a new, empty cache
+        cache_pass("demoting", {"misses": n, "demotions": n - 1, "device_entries": 1,
+                                "host_entries": n - 1})
+        cache_pass("host hits", {"misses": n, "host_hits": n - 1, "device_hits": 1})
+        out["cache"] = passes
+    finally:
+        session.disable_hyperspace()
+        session.conf.set(SC.RESULT_CACHE_ENABLED, "false")
+    out["seconds"] = time.perf_counter() - t_path
 
 
 # ---------------------------------------------------------------------------
@@ -3173,6 +3402,28 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     return out
 
 
+def serving_summary(sv: dict, launches: dict, card: str) -> dict:
+    """The serving line: members, batches, shared scans and their hits,
+    member reruns and mask-kernel launches of each wave; the result cache's hits and misses by tier and its device bytes;
+    each wave's wall time against its 16 serial runs; member latency p50
+    and p99; the path's seconds; the card."""
+    waves = {}
+    for name in ("scanned", "indexed"):
+        w = sv[name]
+        waves[name] = {"members": w["stats"]["batched_queries"], "batches": w["stats"]["batches"],
+                       "shared_scans": w["stats"]["shared_scans"],
+                       "shared_scan_hits": w["stats"]["shared_scan_hits"],
+                       "member_fallbacks": w["stats"]["member_fallbacks"],
+                       "mask_launches": w["stats"]["mask_launches"], "wave_s": w["wave_s"],
+                       "serial_s": w["serial_s"], "p50_s": w["p50_s"], "p99_s": w["p99_s"]}
+    cache = {name: {"wave_s": p["wave_s"], "p50_s": p["p50_s"], "p99_s": p["p99_s"],
+                    **{k: p["result_cache"][k] for k in (
+                        "device_hits", "host_hits", "spill_hits", "misses", "demotions",
+                        "device_nbytes", "host_nbytes")}}
+             for name, p in sv["cache"].items()}
+    return {"waves": waves, "result_cache": cache, "launches": launches, "seconds": sv["seconds"], "card": card}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3251,7 +3502,7 @@ def main(argv=None) -> int:
         log(f"io: launches {launches['io']}; {results['io']['seconds']:.1f} s")
         ck.reset_launches()
         t0 = time.perf_counter()
-        run_sql_path(root, args.scale, results)
+        sql_session_, sql_dirs = run_sql_path(root, args.scale, results)
         launches["sql"] = dict(ck.LAUNCHES)
         results["sql"]["seconds"] = time.perf_counter() - t0
         torch.cuda.synchronize()
@@ -3259,6 +3510,18 @@ def main(argv=None) -> int:
             max(q["indexed_peak_bytes"], q["scanned_peak_bytes"])
             for q in results["sql"]["queries"].values())
         log(f"sql: launches {launches['sql']}; {results['sql']['seconds']:.1f} s")
+        ck.reset_launches()
+        run_serving_path(sql_session_, sql_dirs, results)
+        launches["serving"] = dict(ck.LAUNCHES)
+        masks = launches["serving"]["compare_mask"] + launches["serving"]["range_mask"]
+        if masks < len(Q6_PARAMS):
+            raise AssertionError(f"serving: {masks} mask-kernel launches, fewer than one per "
+                                 f"indexed member")
+        log(f"serving: launches {launches['serving']}; "
+            f"{results['serving']['seconds']:.1f} s")
+        del sql_session_
+        shutil.rmtree(os.path.join(root, "sql_data"), ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "sql_indexes"), ignore_errors=True)
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
         missing = [f"{k} ({path})" for path in launches for k in PATH_KERNELS[path]
@@ -3330,6 +3593,8 @@ def main(argv=None) -> int:
                       "sources": sources, "io": io, "sql": sql, "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
+    print(json.dumps({"serving": serving_summary(results["serving"], launches["serving"],
+                                                 card)}, default=str))
     print(json.dumps({"kernels": main_path}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -194,6 +194,50 @@ class Hyperspace:
         from .execution import buffer_pool
         return buffer_pool.pool_stats()
 
+    def result_cache_stats(self) -> dict:
+        """The result cache's counters per tier (None while it is off), the
+        SQL plan memo's, and the device index-table cache's."""
+        from .execution import index_cache
+        cache = self.session.result_cache
+        out = {"result_cache": cache.stats() if cache is not None else None,
+               "sql_plan_cache": dict(self.session._sql_plan_stats)}
+        if index_cache.enabled():
+            ic = index_cache.get_cache()
+            out["index_table_cache"] = {"hits": ic.hits, "misses": ic.misses,
+                                        "resident_bytes": ic.nbytes}
+        else:
+            out["index_table_cache"] = None
+        return out
+
+    def clear_result_cache(self) -> None:
+        """Drop every cached result and the SQL plan memo. Never needed for
+        right answers (stale keys are never reached), but frees the memory
+        at once."""
+        cache = self.session.result_cache
+        if cache is not None:
+            cache.clear()
+        with self.session._sql_plan_lock:
+            self.session._sql_plan_cache.clear()
+
+    def serving_frontend(self):
+        """The process-default serving frontend (serving/frontend.py),
+        built on first use with this session governing it. Requires
+        ``hyperspace.tpu.serving.enabled=true``."""
+        from .serving.frontend import get_frontend
+        return get_frontend(self.session)
+
+    def serving_stats(self) -> dict:
+        """The process-default frontend's admission and batching counters
+        and its cross-session result cache (``{"frontend": None}`` before
+        any frontend exists)."""
+        from .serving import frontend as fe
+        front = fe._DEFAULT
+        if front is None:
+            return {"frontend": None}
+        out = front.stats()
+        out["frontend"] = True
+        return out
+
     def why_not(self, df, index_name: Optional[str] = None) -> str:
         """Why each index was, or was not, applied to this query's plan."""
         from .rules.apply_hyperspace import apply_hyperspace

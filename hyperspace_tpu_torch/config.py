@@ -6,9 +6,13 @@ time. Only the accessors this package reads are here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
 from .index.constants import IndexConstants
+from .serving.constants import ServingConstants
+
+T = TypeVar("T")
 
 
 class Conf:
@@ -23,6 +27,30 @@ class Conf:
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         return self._conf.get(key, default)
+
+    def as_dict(self) -> Dict[str, str]:
+        return dict(self._conf)
+
+
+class CacheWithTransform(Generic[T]):
+    """Caches ``transform(raw)`` and derives it anew whenever the raw conf
+    string ``load_func()`` changes. Locked: the serving frontend's workers
+    probe holders concurrently."""
+
+    def __init__(self, load_func: Callable[[], str], transform: Callable[[str], T]):
+        self._load_func = load_func
+        self._transform = transform
+        self._cached_raw: Optional[str] = None
+        self._cached_value: Optional[T] = None
+        self._lock = threading.Lock()
+
+    def load(self) -> T:
+        raw = self._load_func()
+        with self._lock:
+            if self._cached_raw is None or raw != self._cached_raw:
+                self._cached_value = self._transform(raw)
+                self._cached_raw = raw
+            return self._cached_value  # type: ignore[return-value]
 
 
 class HyperspaceConf:
@@ -117,6 +145,81 @@ class HyperspaceConf:
     def case_sensitive(self) -> bool:
         return self._get_bool(IndexConstants.CASE_SENSITIVE,
                               IndexConstants.CASE_SENSITIVE_DEFAULT)
+
+    # The result cache and the SQL plan memo (serving/result_cache.py).
+
+    def result_cache_enabled(self) -> bool:
+        return self._get_bool(ServingConstants.RESULT_CACHE_ENABLED,
+                              ServingConstants.RESULT_CACHE_ENABLED_DEFAULT)
+
+    def result_cache_device_bytes(self) -> int:
+        return int(self._conf.get(ServingConstants.RESULT_CACHE_DEVICE_BYTES,
+                                  ServingConstants.RESULT_CACHE_DEVICE_BYTES_DEFAULT))
+
+    def result_cache_host_bytes(self) -> int:
+        return int(self._conf.get(ServingConstants.RESULT_CACHE_HOST_BYTES,
+                                  ServingConstants.RESULT_CACHE_HOST_BYTES_DEFAULT))
+
+    def result_cache_min_compute_seconds(self) -> float:
+        return float(self._conf.get(ServingConstants.RESULT_CACHE_MIN_COMPUTE_SECONDS,
+                                    ServingConstants.RESULT_CACHE_MIN_COMPUTE_SECONDS_DEFAULT))
+
+    def result_cache_min_input_bytes(self) -> int:
+        return int(self._conf.get(ServingConstants.RESULT_CACHE_MIN_INPUT_BYTES,
+                                  ServingConstants.RESULT_CACHE_MIN_INPUT_BYTES_DEFAULT))
+
+    def result_cache_plan_cache_size(self) -> int:
+        return int(self._conf.get(ServingConstants.RESULT_CACHE_PLAN_CACHE_SIZE,
+                                  ServingConstants.RESULT_CACHE_PLAN_CACHE_SIZE_DEFAULT))
+
+    def result_cache_spill_dir(self) -> str:
+        """Directory of the spill tier; empty = no spill tier."""
+        return (self._conf.get(ServingConstants.RESULT_CACHE_SPILL_DIR,
+                               ServingConstants.RESULT_CACHE_SPILL_DIR_DEFAULT) or "").strip()
+
+    def result_cache_spill_bytes(self) -> int:
+        return int(self._conf.get(ServingConstants.RESULT_CACHE_SPILL_BYTES,
+                                  ServingConstants.RESULT_CACHE_SPILL_BYTES_DEFAULT))
+
+    def result_cache_conf_string(self) -> str:
+        """The identity of the cache instance: the switch and the tier
+        budgets. The admission floors are read per query, so tuning them
+        keeps a warm cache."""
+        return "|".join([str(self.result_cache_enabled()),
+                         str(self.result_cache_device_bytes()),
+                         str(self.result_cache_host_bytes()),
+                         self.result_cache_spill_dir(),
+                         str(self.result_cache_spill_bytes())])
+
+    # The concurrent frontend (serving/frontend.py).
+
+    def serving_enabled(self) -> bool:
+        return self._get_bool(ServingConstants.SERVING_ENABLED,
+                              ServingConstants.SERVING_ENABLED_DEFAULT)
+
+    def serving_max_concurrency(self) -> int:
+        return max(int(self._conf.get(ServingConstants.SERVING_MAX_CONCURRENCY,
+                                      ServingConstants.SERVING_MAX_CONCURRENCY_DEFAULT)), 1)
+
+    def serving_queue_depth(self) -> int:
+        return max(int(self._conf.get(ServingConstants.SERVING_QUEUE_DEPTH,
+                                      ServingConstants.SERVING_QUEUE_DEPTH_DEFAULT)), 1)
+
+    def serving_admission_max_bytes(self) -> int:
+        return max(int(self._conf.get(ServingConstants.SERVING_ADMISSION_MAX_BYTES,
+                                      ServingConstants.SERVING_ADMISSION_MAX_BYTES_DEFAULT)), 1)
+
+    def serving_batching_enabled(self) -> bool:
+        return self._get_bool(ServingConstants.SERVING_BATCHING_ENABLED,
+                              ServingConstants.SERVING_BATCHING_ENABLED_DEFAULT)
+
+    def serving_batching_window(self) -> float:
+        return max(float(self._conf.get(ServingConstants.SERVING_BATCHING_WINDOW,
+                                        ServingConstants.SERVING_BATCHING_WINDOW_DEFAULT)), 0.0)
+
+    def serving_batching_max_batch(self) -> int:
+        return max(int(self._conf.get(ServingConstants.SERVING_BATCHING_MAX_BATCH,
+                                      ServingConstants.SERVING_BATCHING_MAX_BATCH_DEFAULT)), 1)
 
     def _get_bool(self, key: str, default: str) -> bool:
         return (self._conf.get(key, default) or "").strip().lower() == "true"

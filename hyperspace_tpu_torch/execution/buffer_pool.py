@@ -54,6 +54,16 @@ class _Entry:
         self.device = device
 
 
+def _note_query(**deltas) -> None:
+    """Credit the active query context (serving/context.py) with a probe's
+    outcome, so pool hits and misses count against the query that made
+    them."""
+    from ..serving.context import active_context
+    ctx = active_context()
+    if ctx is not None:
+        ctx.note_io(**deltas)
+
+
 def _tensors(table):
     for c in table.columns.values():
         yield c.data
@@ -181,6 +191,7 @@ class BufferPool:
                 if e is None:
                     self.misses += 1
                     self._bump_ns(pk.ns, "misses")
+                    _note_query(pool_misses=1)
                     return None
                 self._host.move_to_end(full)
                 self.host_hits += 1
@@ -190,6 +201,7 @@ class BufferPool:
             payload = e.payload
         if promote is not None:
             payload = self._promote(full, promote)
+        _note_query(pool_hits=1, pool_bytes_saved=e.source_bytes)
         return payload
 
     def _promote(self, full: tuple, e: _Entry):

@@ -365,7 +365,7 @@ def _kernel_takes(data: torch.Tensor, *lits) -> bool:
     """A mask kernel handles this column and these literals: a non-empty
     32-bit column, and literals that convert to its dtype exactly (a
     fractional or out-of-range literal against an int column takes the
-    promoting plain path instead, as in the JAX package)."""
+    promoting plain path instead)."""
     return (data.shape[0] > 0 and data.dtype in _KERNEL_DTYPES
             and all(cuda_kernels.literal_fits(v, data.dtype) for v in lits))
 
@@ -467,6 +467,12 @@ def compare_literal(col: Column, op: str, value) -> torch.Tensor:
         # as the JAX package's x64 promotion does (torch alone would pick
         # float32 and lose integer precision).
         data = data.to(torch.float64)
+    elif isinstance(lit, int) and data.dtype in (torch.int32, torch.uint32) \
+            and not cuda_kernels.literal_fits(lit, data.dtype):
+        # An int literal past a 32-bit column's range compares in int64:
+        # torch would wrap it to the column's width (2**40 to 0), and the
+        # answer would then depend on whether a pushed read pruned first.
+        data = data.to(torch.int64)
     return _TORCH_OP[op](data, lit)
 
 

@@ -44,6 +44,9 @@ from ..plan import expr as E
 from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
                           Project, Scan, Sort, Union, Window)
 from ..schema import BOOL, DATE, FLOAT64, INT32, INT64, STRING
+from ..serving import batcher
+from ..serving import context as qctx
+from ..serving.fingerprint import _node_detail
 from ..sources.partitions import read_relation_files
 from . import index_cache
 from .buffer_pool import file_signature
@@ -62,7 +65,29 @@ def execute(plan: LogicalPlan, session) -> Table:
 
 
 def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
+    """One plan node. Every stage boundary, on entry and on exit, is a
+    cancellation point for the query's deadline (serving/context.py)."""
+    qctx.check_deadline("exec.stage")
+    table = _execute_node(plan, needed, session)
+    qctx.check_deadline("exec.stage")
+    return table
+
+
+def _shared_scan_key(plan: Scan, needed: Optional[Set[str]], device):
+    """A literal sweep's scan-sharing key: the relation in full (format,
+    paths, options), the columns read and the device."""
+    return (_node_detail(plan), tuple(sorted(needed)) if needed is not None else None,
+            str(device))
+
+
+def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
     if isinstance(plan, Scan):
+        sweep = batcher.active_sweep()
+        if sweep is not None:
+            # A literal sweep's members read the same sources: the first
+            # member's table serves the rest.
+            return sweep.shared_scan(_shared_scan_key(plan, needed, session.device),
+                                     lambda: _execute_scan(plan, needed, session.device))
         return _execute_scan(plan, needed, session.device)
     if isinstance(plan, IndexScan):
         return _execute_index_scan(plan, needed, session.device)
@@ -70,7 +95,21 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
         child_needed = None if needed is None else \
             needed | set(plan.condition.references)
         child = plan.child
-        if isinstance(child, (Scan, IndexScan)):
+        sweep = batcher.active_sweep()
+        if sweep is not None and isinstance(child, Scan):
+            # Under a sweep, row-group pushdown would prune different row
+            # groups for each member's literals; the unpruned read, shared
+            # by the batch, gives the same answer (each member's own mask,
+            # the kernels' on a card, is applied below). A source past the
+            # chunk budget keeps the per-member streamed path.
+            chunked = _chunked_filtered_scan(child, child_needed, plan.condition, None,
+                                             session.hs_conf.max_chunk_rows(), session.device)
+            if chunked is not None:
+                return chunked
+            table = sweep.shared_scan(
+                _shared_scan_key(child, child_needed, session.device),
+                lambda: _execute_scan(child, child_needed, session.device))
+        elif isinstance(child, (Scan, IndexScan)):
             # Push row-group-prunable conjuncts into the parquet read. A
             # source's struct leaves are no physical columns, so dotted
             # names are pushed only into index files, which store them flat.

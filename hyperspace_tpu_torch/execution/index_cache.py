@@ -67,3 +67,9 @@ def get_cache() -> IndexTableCache:
     if _cache is None:
         _cache = IndexTableCache(pool)
     return _cache
+
+
+def table_nbytes(table) -> int:
+    """Bytes a table keeps alive, as every residency cache counts them (the
+    buffer pool's measure)."""
+    return buffer_pool.table_nbytes(table)

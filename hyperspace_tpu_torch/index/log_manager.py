@@ -19,7 +19,7 @@ import threading
 import time
 from typing import List, Optional
 
-from ..util import json_utils
+from ..util import hashing, json_utils
 from .constants import STABLE_STATES, IndexConstants, States
 from .log_entry import IndexLogEntry
 from .log_store import LocalFsLogStore
@@ -141,6 +141,20 @@ class IndexLogManager:
     def _compute_latest_id(self) -> Optional[int]:
         ids = self._store.list_numeric_ids(self._log_path)
         return max(ids) if ids else None
+
+    def latest_entry_fingerprint(self) -> Optional[tuple]:
+        """(latest id, md5 of that entry's bytes), or None for an empty log:
+        the result cache's change detector (a full refresh restarts the
+        log at the same ids, so the id alone cannot pin the state).
+        Memoized per log directory token, like the other lookups."""
+        return _LOOKUP_CACHE.get(self._log_path, "fingerprint", self._compute_fingerprint)
+
+    def _compute_fingerprint(self) -> Optional[tuple]:
+        latest = self._compute_latest_id()
+        if latest is None:
+            return None
+        data = self._store.read(self._path_from_id(latest))
+        return (latest, hashing.md5_hex(data) if data is not None else "")
 
     def get_all_ids(self) -> List[int]:
         """Every existing entry id, newest first."""

@@ -109,6 +109,18 @@ class IndexCollectionManager:
             n for n in os.listdir(system_path)
             if os.path.isdir(os.path.join(system_path, n, IndexConstants.HYPERSPACE_LOG)))
 
+    def latest_log_ids(self) -> tuple:
+        """(index name, latest op-log id, entry-bytes md5) per index under
+        the system path, by name: the result cache's index component
+        (serving/fingerprint.py). It bypasses the TTL index cache, so
+        another process's refresh changes cache keys at once."""
+        out = []
+        for name in self._index_names():
+            fp = IndexLogManager(self._index_path(name)).latest_entry_fingerprint()
+            if fp is not None:
+                out.append((name, fp[0], fp[1]))
+        return tuple(out)
+
     def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
         out = []
         for name in self._index_names():

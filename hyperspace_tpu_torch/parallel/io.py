@@ -33,6 +33,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Iterable, Iterator, Optional
 
+from ..serving.context import active_context
+
 
 @dataclass(frozen=True)
 class IoParams:
@@ -112,6 +114,38 @@ def _executor(n: int) -> ThreadPoolExecutor:
         return _pool
 
 
+# The serving frontend's workers run on a pool of their own, not the reader
+# pool, so a query can still fan its reads out underneath.
+_serving_lock = threading.Lock()
+_serving_pool: Optional[ThreadPoolExecutor] = None
+_serving_pool_size = 0
+
+
+def submit_serving(fn: Callable, threads: int = 4):
+    """Run ``fn()`` on the serving pool (grown, never shrunk, to
+    ``threads``); returns the Future."""
+    global _serving_pool, _serving_pool_size
+    n = max(int(threads), 1)
+    with _serving_lock:
+        if _serving_pool is None or _serving_pool_size < n:
+            old = _serving_pool
+            _serving_pool = ThreadPoolExecutor(max_workers=n, thread_name_prefix="hst-torch-serve")
+            _serving_pool_size = n
+            if old is not None:
+                old.shutdown(wait=False)
+        pool = _serving_pool
+    while True:
+        try:
+            return pool.submit(fn)
+        except RuntimeError:
+            # A concurrent grow replaced the pool: submit to the new one. The
+            # same pool refusing was shut down for good (interpreter exit).
+            with _serving_lock:
+                if _serving_pool is pool:
+                    raise
+                pool = _serving_pool
+
+
 # ---------------------------------------------------------------------------
 # Process-wide counters (explain's "I/O:" section, Hyperspace.io_stats).
 # ---------------------------------------------------------------------------
@@ -132,6 +166,11 @@ def _note(**deltas) -> None:
     with _stats_lock:
         for k, v in deltas.items():
             _STATS[k] += v
+    # The active query context (serving/context.py) is credited too, so the
+    # reads are charged to the query that caused them.
+    ctx = active_context()
+    if ctx is not None:
+        ctx.note_io(**deltas)
 
 
 def pool_stats() -> dict:
@@ -169,6 +208,13 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
     p = params if params is not None else active_params()
     n = p.resolved_threads()
     if not p.enabled or n <= 1 or len(items) <= 1 or in_worker():
+        # The process-wide counters count pooled work only; the active
+        # query context is charged for these reads all the same.
+        ctx = active_context()
+        if ctx is not None and items:
+            ctx.note_io(read_tasks=len(items),
+                        read_bytes=sum(int(weight(it)) for it in items)
+                        if weight is not None else 0)
         for it in items:
             yield fn(it)
         return

@@ -5,11 +5,14 @@ sections: ``explain_string(..., diagnostics=False)``).
 Both plans are walked in lockstep and every subtree the rewrite changed
 is highlighted on each side; then the indexes the rewritten plan uses
 and, verbose, the operator counts that changed. The rewrite runs as a
-diagnostic pass: it counts no index usage. With ``diagnostics`` the I/O
-section follows once the reader pool or a prefetch stream has done work.
-The JAX package's other runtime sections (result cache, compilation,
-SPMD, serving, robustness, SLO, trace, advisor, join order) read tiers
-this package does not have yet.
+diagnostic pass: it counts no index usage. With ``diagnostics`` follow the
+"Result cache:" section while the result cache is enabled, the I/O section
+once the reader pool or a prefetch stream has done work, and the
+"Serving:" section while the serving tier is enabled or a frontend has
+taken queries. The JAX package's other runtime sections (compilation,
+SPMD, robustness, SLO, trace, advisor, join order) read tiers this package
+does not have yet; its "Serving:" section's program-bank line has no
+counterpart (eager torch compiles no programs).
 """
 
 from __future__ import annotations
@@ -111,7 +114,9 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
     for line in _used_indexes(with_index) or ["<none>"]:
         buf.write_line(line)
     if diagnostics:
+        _write_cache_section(buf, session, plan)
         _write_io_section(buf, session)
+        _write_serving_section(buf, session)
     if verbose:
         buf.write_line()
         _header(buf, "Physical operator stats:")
@@ -155,3 +160,64 @@ def _write_io_section(buf: BufferStream, session) -> None:
                        f"transfers={bp['transfers']} "
                        f"decode_bytes_saved={bp['decode_bytes_saved']} "
                        f"resident={bp['device_nbytes']}+{bp['host_nbytes']}")
+
+
+def _write_cache_section(buf: BufferStream, session, plan: LogicalPlan) -> None:
+    """Whether this query would be served from the result cache, with the
+    cache's counters and the device index-table cache's; rendered only
+    while the result cache is enabled."""
+    cache = session.result_cache
+    if cache is None:
+        return
+    from ..execution import index_cache
+    from ..serving.fingerprint import compute_key
+    buf.write_line()
+    _header(buf, "Result cache:")
+    key = compute_key(session, plan)
+    if key is None:
+        buf.write_line("plan shape not cacheable")
+    else:
+        tier = cache.peek(key)
+        if tier is not None:
+            buf.write_line(f"result served from cache ({tier} tier, key {key.digest()})")
+        else:
+            buf.write_line(f"miss - result will be computed and considered for "
+                           f"admission (key {key.digest()})")
+    s = cache.stats()
+    buf.write_line(f"result cache: hits={s['hits']} misses={s['misses']} "
+                   f"admissions={s['admissions']} evictions={s['evictions']} "
+                   f"entries={s['device_entries']}+{s['host_entries']} "
+                   f"bytes={s['device_nbytes']}+{s['host_nbytes']}")
+    if index_cache.enabled():
+        ic = index_cache.get_cache()
+        buf.write_line(f"index table cache: hits={ic.hits} misses={ic.misses} "
+                       f"resident_bytes={ic.nbytes}")
+
+
+def _write_serving_section(buf: BufferStream, session) -> None:
+    """The frontend's admission and batching counters; rendered only while
+    the serving tier is enabled on this session or a frontend has taken
+    queries."""
+    from ..serving import frontend as fe
+    front = fe._DEFAULT
+    enabled = session.hs_conf.serving_enabled()
+    fstats = front.stats() if front is not None else None
+    if not enabled and (fstats is None or fstats["submitted"] == 0):
+        return
+    conf = session.hs_conf
+    buf.write_line()
+    _header(buf, "Serving:")
+    buf.write_line(f"frontend: {'on' if enabled else 'off'} "
+                   f"(maxConcurrency={conf.serving_max_concurrency()} "
+                   f"queueDepth={conf.serving_queue_depth()} "
+                   f"admission.maxBytes={conf.serving_admission_max_bytes()} "
+                   f"batching={'on' if conf.serving_batching_enabled() else 'off'})")
+    if fstats is not None:
+        s = fstats
+        buf.write_line(f"queries: submitted={s['submitted']} admitted={s['admitted']} "
+                       f"rejected={s['rejected']} completed={s['completed']} "
+                       f"failed={s['failed']}")
+        buf.write_line(f"batching: batches={s['batches']} "
+                       f"batched_queries={s['batched_queries']} "
+                       f"shared_scans={s['shared_scans']} "
+                       f"member_fallbacks={s['member_fallbacks']}")

@@ -1,0 +1,120 @@
+"""The explicit per-query execution context (counterpart of
+``hyperspace_tpu/serving/context.py``).
+
+``Session.execute`` builds one :class:`QueryContext` per call, or takes the
+one the serving frontend hands it, and activates it on a contextvar for
+the execution. The layers below read the active context instead of
+session attributes:
+
+- ``result_cache``: resolved once when the context is made (the frontend's
+  cross-session cache for a query that came through it, else the
+  session's own), so a conf change mid-query cannot swap it;
+- ``io``: the query's read counters. ``parallel/io.py`` and the buffer pool
+  credit the active context beside their process-wide counters;
+- ``deadline_s``: a cooperative deadline, checked at the executor's stage
+  boundaries by :func:`check_deadline`.
+
+A contextvar, not a thread-local: the prefetch producers and the frontend's
+workers run in copied contexts, so attribution follows the query across
+threads.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import itertools
+import threading
+import time
+from typing import Optional
+
+_QUERY_IDS = itertools.count(1)
+
+_CONTEXT: contextvars.ContextVar = contextvars.ContextVar("hst_torch_query_context",
+                                                          default=None)
+
+_IO_COUNTER_KEYS = ("read_tasks", "read_bytes", "read_seconds", "wait_seconds",
+                    "prefetch_items", "pool_hits", "pool_misses", "pool_bytes_saved")
+
+
+class QueryContext:
+    """Everything one query execution needs, made explicit."""
+
+    def __init__(self, session, result_cache=None, client: str = "",
+                 query_id: Optional[int] = None, deadline_s: Optional[float] = None):
+        self.session = session
+        self.query_id = query_id if query_id is not None else next(_QUERY_IDS)
+        self.client = client
+        self.created_s = time.perf_counter()
+        self.result_cache = result_cache
+        # An absolute perf_counter stamp, or None.
+        self.deadline_s = deadline_s
+        self._io_lock = threading.Lock()
+        self._io = {k: 0.0 if k.endswith("seconds") else 0 for k in _IO_COUNTER_KEYS}
+
+    @classmethod
+    def for_session(cls, session, shared_cache=None, client: str = "",
+                    deadline_s: Optional[float] = None,
+                    query_id: Optional[int] = None) -> "QueryContext":
+        """The context ``Session.execute`` builds when none is handed in.
+        ``shared_cache`` (the frontend's cross-session cache) takes
+        precedence over the session's own; ``query_id`` is the frontend's,
+        allocated at submit time."""
+        cache = shared_cache if shared_cache is not None else session.result_cache
+        return cls(session, result_cache=cache, client=client, deadline_s=deadline_s,
+                   query_id=query_id)
+
+    @contextlib.contextmanager
+    def activate(self):
+        token = _CONTEXT.set(self)
+        try:
+            yield self
+        finally:
+            _CONTEXT.reset(token)
+
+    def note_io(self, **deltas) -> None:
+        with self._io_lock:
+            for k, v in deltas.items():
+                if k in self._io:
+                    self._io[k] += v
+
+    def io_stats(self) -> dict:
+        with self._io_lock:
+            return dict(self._io)
+
+
+def next_query_id() -> int:
+    """One process-wide query id (the frontend takes it at submit time)."""
+    return next(_QUERY_IDS)
+
+
+def active_context() -> Optional[QueryContext]:
+    """The context of the execution in flight, if any."""
+    return _CONTEXT.get()
+
+
+def deadline_remaining_s() -> Optional[float]:
+    """Seconds to the active query's deadline (negative once past), or None
+    without a context or a deadline."""
+    ctx = _CONTEXT.get()
+    if ctx is None or ctx.deadline_s is None:
+        return None
+    return ctx.deadline_s - time.perf_counter()
+
+
+def check_deadline(where: str = "") -> None:
+    """A cancellation point: raises QueryDeadlineError once the active
+    query's deadline has passed, else does nothing."""
+    ctx = _CONTEXT.get()
+    if ctx is None or ctx.deadline_s is None or time.perf_counter() < ctx.deadline_s:
+        return
+    deadline_cancel(ctx.query_id, where, (time.perf_counter() - ctx.created_s) * 1000.0)
+
+
+def deadline_cancel(query_id: int, where: str, elapsed_ms: float) -> None:
+    """Raise the typed deadline error (shared by the mid-query check and
+    the frontend's check before a queued query starts)."""
+    from ..exceptions import QueryDeadlineError
+    raise QueryDeadlineError(
+        f"query {query_id} exceeded its deadline ({elapsed_ms:.1f} ms elapsed; "
+        f"cancelled at {where or 'stage boundary'})")

@@ -12,6 +12,12 @@ The session holds one caching index manager, which the rules and the
 ``Hyperspace`` facade share, and a tally of how often each index was
 applied by a real (not a diagnostic) rewrite pass.
 
+``execute(plan, context=None)`` runs under a per-query context
+(serving/context.py). With ``serving.result_cache.enabled`` it consults the
+result cache first (``Session.result_cache``, rebuilt whenever its budgets
+change), and ``sql`` memoizes lowered plans by (text, temp-view version,
+case mode).
+
 The device defaults to ``"cuda"``. A session asked for CUDA on a machine
 without it raises; it never carries on quietly on the CPU. Pass
 ``device="cpu"`` to run the plain torch versions of the kernels.
@@ -20,11 +26,12 @@ without it raises; it never carries on quietly on the CPU. Pass
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple, Union as TUnion
 
 import torch
 
-from .config import Conf, HyperspaceConf
+from .config import CacheWithTransform, Conf, HyperspaceConf
 from .exceptions import HyperspaceException
 from .index.constants import IndexConstants
 from .plan import expr as E
@@ -62,9 +69,18 @@ class Session:
         # (rules/rule_utils.log_index_usage increments under the lock).
         self._index_usage_counts: Dict[str, int] = {}
         self._usage_counts_lock = threading.Lock()
-        # Temp views by lower-cased name (view names are case-insensitive).
+        # Temp views by lower-cased name (view names are case-insensitive);
+        # every registration bumps the version the SQL plan memo keys on.
         self._temp_views: Dict[str, LogicalPlan] = {}
         self._views_lock = threading.Lock()
+        self._temp_views_version = 0
+        # The result cache follows its conf string (switch and budgets):
+        # rebuilt, and so emptied, when that changes.
+        self._result_cache_holder = CacheWithTransform(
+            self.hs_conf.result_cache_conf_string, self._build_result_cache)
+        self._sql_plan_cache: "OrderedDict[Tuple, LogicalPlan]" = OrderedDict()
+        self._sql_plan_stats = {"hits": 0, "misses": 0}
+        self._sql_plan_lock = threading.Lock()
 
     @property
     def index_collection_manager(self):
@@ -73,6 +89,16 @@ class Session:
             from .index.manager import CachingIndexCollectionManager
             self._index_collection_manager = CachingIndexCollectionManager(self)
         return self._index_collection_manager
+
+    def _build_result_cache(self, raw: str):
+        from .serving.result_cache import build_result_cache
+        return build_result_cache(self)
+
+    @property
+    def result_cache(self):
+        """The result cache (serving/result_cache.py), or None while
+        ``serving.result_cache.enabled`` is false."""
+        return self._result_cache_holder.load()
 
     @property
     def read(self) -> "DataFrameReader":
@@ -84,6 +110,7 @@ class Session:
             if key in self._temp_views and not replace:
                 raise HyperspaceException(f"Temp view already exists: {name}")
             self._temp_views[key] = df.plan
+            self._temp_views_version += 1
 
     def table(self, name: str) -> "DataFrame":
         """A DataFrame over a temp view. It shares the view's plan, so the
@@ -96,16 +123,40 @@ class Session:
 
     def drop_temp_view(self, name: str) -> bool:
         with self._views_lock:
-            return self._temp_views.pop(name.lower(), None) is not None
+            dropped = self._temp_views.pop(name.lower(), None) is not None
+            if dropped:
+                self._temp_views_version += 1
+            return dropped
 
     def create_dataframe(self, plan: LogicalPlan) -> "DataFrame":
         return DataFrame(self, plan)
 
     def sql(self, text: str) -> "DataFrame":
         """One SQL SELECT over the temp views, lowered onto the DataFrame
-        API (the grammar of ``sql.py``, the JAX package's)."""
+        API (the grammar of ``sql.py``, the JAX package's).
+
+        While the result cache is enabled, the lowered plan is memoized by
+        (text, temp-view version, case mode), up to ``planCacheSize``
+        texts: lowering is pure given those."""
         from .sql import sql as _sql
-        return _sql(self, text)
+        size = self.hs_conf.result_cache_plan_cache_size() \
+            if self.result_cache is not None else 0
+        if size <= 0:
+            return _sql(self, text)
+        key = (text, self._temp_views_version, self.hs_conf.case_sensitive())
+        with self._sql_plan_lock:
+            plan = self._sql_plan_cache.get(key)
+            if plan is not None:
+                self._sql_plan_cache.move_to_end(key)
+                self._sql_plan_stats["hits"] += 1
+                return DataFrame(self, plan)
+            self._sql_plan_stats["misses"] += 1
+        df = _sql(self, text)
+        with self._sql_plan_lock:
+            self._sql_plan_cache[key] = df.plan
+            while len(self._sql_plan_cache) > size:
+                self._sql_plan_cache.popitem(last=False)
+        return df
 
     def enable_hyperspace(self) -> "Session":
         self._hyperspace_enabled = True
@@ -118,7 +169,8 @@ class Session:
     def is_hyperspace_enabled(self) -> bool:
         return self._hyperspace_enabled
 
-    def optimize(self, plan: LogicalPlan, diagnostic: bool = False) -> LogicalPlan:
+    def optimize(self, plan: LogicalPlan, diagnostic: bool = False,
+                 _pre_normalized: bool = False) -> LogicalPlan:
         """Filter pushdown below projections and inner joins, column
         pruning (the join rule's coverage check sees each side's true
         column set only after it), the hyperspace rewrite batch if
@@ -128,11 +180,13 @@ class Session:
 
         ``diagnostic``: a pass whose plan is inspected, not executed
         (explain); its rewrite runs with a silent reason collector and
-        counts no index usage."""
+        counts no index usage. ``_pre_normalized``: the caller already ran
+        the pushdown and pruning (serving.fingerprint.normalize)."""
         from .rules.column_pruning import prune_columns
         from .rules.pushdown import push_filters
         from .sources.partitions import prune_partitions
-        plan = prune_columns(push_filters(plan))
+        if not _pre_normalized:
+            plan = prune_columns(push_filters(plan))
         if self._hyperspace_enabled:
             from .rules.apply_hyperspace import apply_hyperspace
             from .rules.index_filters import ReasonCollector
@@ -140,9 +194,27 @@ class Session:
             plan = apply_hyperspace(self, plan, ctx)
         return prune_partitions(plan)
 
-    def execute(self, plan: LogicalPlan):
+    def execute(self, plan: LogicalPlan, context=None):
+        """Execute a plan under a :class:`~.serving.context.QueryContext`:
+        the one given (the serving frontend's), else one made for this
+        call. The context pins the result cache, carries the query's io
+        counters and its deadline."""
+        from .serving.context import QueryContext
+        ctx = context if context is not None else QueryContext.for_session(self)
+        with ctx.activate():
+            cache = ctx.result_cache
+            if cache is not None:
+                # A hit skips the rewrite and the execution; a miss executes
+                # and applies the admission floors. The frontend's context
+                # may carry its cross-session cache: the keys pin the plan,
+                # the sources, the index versions and this session's conf.
+                from .serving.result_cache import execute_with_cache
+                return execute_with_cache(self, cache, plan)
+            return self._run_optimized(self.optimize(plan))
+
+    def _run_optimized(self, optimized: LogicalPlan):
         from .execution.executor import execute
-        return execute(self.optimize(plan), self)
+        return execute(optimized, self)
 
 
 class DataFrameReader:

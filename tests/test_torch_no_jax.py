@@ -6,11 +6,12 @@ partitions, cache, statistics, explain and display modules and the
 introspection calls, the host read tier (the reader pool, the buffer pool
 and the index-table cache, a warm repeat of Q3 and Q17), and the mutable
 slice: a chunked build with lineage, Hybrid Scan over a deleted and an
-appended file, every refresh mode and optimize, and the SQL front end:
-TPC-H Q4, Q16 and Q17 through ``session.sql``) still run end to end on
-the CPU, with the join, group-by, column-pruning and score-based
-rule modules imported (in a subprocess,
-because conftest imports jax in this one); the default device refuses to
+appended file, every refresh mode and optimize, the SQL front end:
+TPC-H Q4, Q16 and Q17 through ``session.sql``, and the serving tier: a
+frontend wave of four Q6 literal variants as one sweep over one shared
+scan, and a result-cache hit) still run end to end on the CPU, with the
+join, group-by, column-pruning and score-based rule modules imported (in
+a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
 without the repository beside it.
 """
@@ -191,12 +192,27 @@ SLICE = textwrap.dedent("""
         chip_smoke.check_sql_answer(name, got, sql_refs[name], "no jax")
         sql_rows.append(got.num_rows)
     assert sql_rows[0] == 5 and sql_rows[1] > 0 and sql_rows[2] == 1, sql_rows
+    # The serving tier: four Q6 literal variants as one wave over one shared
+    # scan, each equal to its run alone; then a result-cache hit.
+    from hyperspace_tpu_torch import serving
+    from hyperspace_tpu_torch.serving.frontend import ServingFrontend
+    texts = [chip_smoke.q6_text(*p) for p in chip_smoke.Q6_PARAMS[:4]]
+    alone = [s3.sql(t).to_arrow() for t in texts]
+    fe = ServingFrontend(s3)
+    wave = fe.submit_wave([(s3.sql(t).plan, s3, "", None) for t in texts])
+    assert all(p.result(timeout=120).to_arrow().equals(a) for p, a in zip(wave, alone))
+    st = fe.stats()
+    assert (st["batches"], st["shared_scans"], st["shared_scan_hits"]) == (1, 1, 3), st
+    s3.conf.set(serving.ServingConstants.RESULT_CACHE_ENABLED, "true")
+    s3.conf.set(serving.ServingConstants.RESULT_CACHE_MIN_COMPUTE_SECONDS, "0")
+    q6 = s3.sql(texts[0])
+    assert q6.to_arrow().equals(q6.to_arrow()) and s3.result_cache.stats()["device_hits"] == 1
     bad = [m for m, v in sys.modules.items() if v is not None and (
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
     print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1], "SOURCES_OK",
-          "MUTABLE_OK", "SQL_OK")
+          "MUTABLE_OK", "SQL_OK", "SERVING_OK")
 """)
 
 
@@ -204,7 +220,8 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK SQL_OK" in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK SQL_OK SERVING_OK" \
+        in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
