@@ -20,6 +20,8 @@ from ..exceptions import HyperspaceException, NoChangesException
 from ..index.log_entry import IndexLogEntry
 from ..index.log_manager import IndexLogManager
 from ..parallel import io as pio
+from ..robustness import fault_names as _fn
+from ..robustness import faults as _faults
 
 
 class Action:
@@ -56,11 +58,13 @@ class Action:
 
     def run(self) -> None:
         # Reads under this action (sketch builds, chunk streams, the spill
-        # merge) take the session's io conf.
+        # merge) take the session's io conf; the fault scope arms the
+        # session's robustness.faults.* conf for exactly this run.
         try:
-            with pio.use_session(self.session):
+            with pio.use_session(self.session), _faults.scope_for(self.session.hs_conf):
                 self.validate()
                 self._begin()
+                _faults.fault_point(_fn.ACTION_OP)
                 self.op()
                 self._end()
         except NoChangesException:

@@ -36,15 +36,16 @@ from .action import Action
 
 
 def write_bucket_files(table: Table, bounds, num_buckets: int, out_dir: str,
-                       row_group_size: int) -> None:
+                       row_group_size: int, file_name=None) -> None:
     """One parquet file per non-empty bucket from bucket-contiguous rows;
-    ``bounds[b]``..``bounds[b+1]`` delimit bucket b."""
+    ``bounds[b]``..``bounds[b+1]`` delimit bucket b. ``file_name(b)``
+    names bucket b's file (default ``index_build.bucket_file_name``)."""
+    name_for = file_name or index_build.bucket_file_name
     for b in range(num_buckets):
         lo, hi = int(bounds[b]), int(bounds[b + 1])
         if hi <= lo:
             continue  # empty buckets produce no file.
-        write_parquet(table.slice(lo, hi),
-                      os.path.join(out_dir, index_build.bucket_file_name(b)),
+        write_parquet(table.slice(lo, hi), os.path.join(out_dir, name_for(b)),
                       row_group_size=row_group_size)
 
 

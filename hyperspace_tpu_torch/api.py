@@ -1,6 +1,8 @@
 """User API facade (counterpart of ``hyperspace_tpu/api.py``: covering and
 data-skipping indexes; create, delete, restore, vacuum, refresh, optimize
-and cancel; the introspection calls indexes, index, explain and why_not)."""
+and cancel; the introspection calls indexes, index, explain and why_not;
+the streaming tier's append, commit, compact, recover and continuous
+sources)."""
 
 from __future__ import annotations
 
@@ -151,6 +153,71 @@ class Hyperspace:
         """Roll an index stuck in a transient state back to its last stable
         entry."""
         self.index_manager.cancel(index_name)
+
+    def recover(self, index_names=None) -> dict:
+        """Crash recovery sweep (robustness/recovery.py): roll every index
+        whose latest op-log entry is transient back to its last stable
+        state, vacuum data versions no committed entry references, and undo
+        or redo the streaming tier's torn commits. A healthy lake is a
+        no-op. Operator action: run it only while no other process mutates
+        the lake. Returns {scanned, cancelled, vacuumed, errors, streaming,
+        artifacts}; ``artifacts`` is ``{"enabled": False}`` (the artifact
+        store is not ported)."""
+        from .robustness.recovery import recover_indexes
+        summary = recover_indexes(self.session, names=index_names)
+        self.index_manager.clear_cache()
+        summary["artifacts"] = {"enabled": False}
+        return summary
+
+    # The streaming tier (streaming/).
+
+    def append(self, table_path: str, batch, block: bool = False) -> dict:
+        """Stage one record batch (pyarrow Table or RecordBatch, pandas
+        DataFrame, or dict of columns) for the parquet table directory
+        ``table_path``, out of every scan's sight, and prebuild each ACTIVE
+        index's delta on the device. ``block=True`` waits on a full staging
+        budget (up to ``backpressure.timeoutMs``) instead of raising.
+        Returns a summary dict."""
+        from .streaming.ingest import append as _append
+        return _append(self.session, table_path, batch, block=block)
+
+    def commit(self, table_path: str) -> dict:
+        """Publish every staged batch for ``table_path`` atomically through
+        the op-log protocol, landing the prebuilt index deltas in the same
+        commit; standing queries over the table fire. Returns a summary
+        dict."""
+        from .streaming.ingest import commit as _commit
+        return _commit(self.session, table_path)
+
+    def compact(self, names=None) -> dict:
+        """Fold each op log's superseded entries into one checkpoint entry
+        and vacuum unreferenced index data versions
+        (streaming/compaction.py). Operator action, as ``recover``: run it
+        in a quiet window. Returns a summary dict; ``artifacts`` is
+        ``{"enabled": False}``."""
+        from .streaming.compaction import compact as _compact
+        summary = _compact(self.session, names)
+        summary["artifacts"] = {"enabled": False}
+        return summary
+
+    def tail_directory(self, watch_dir: str, table_path: str, name=None):
+        """Start a continuous source tailing ``watch_dir`` for new
+        ``*.parquet`` drops into ``table_path``. Returns the running source;
+        ``.stop()`` drains and halts it."""
+        from .streaming.sources import tail_directory as _tail
+        return _tail(self.session, watch_dir, table_path, name=name)
+
+    def tail_log(self, log_path: str, table_path: str, name=None):
+        """Start a continuous source tailing the JSONL log at ``log_path``
+        into ``table_path``. Returns the running source."""
+        from .streaming.sources import tail_log as _tail
+        return _tail(self.session, log_path, table_path, name=name)
+
+    def streaming_stats(self) -> dict:
+        """The commit queue's counters, the group-commit ledger's and the
+        op-log lookup cache's."""
+        from .streaming.ingest import get_queue
+        return get_queue().stats()
 
     def indexes(self):
         """One summary row per index (pandas DataFrame)."""

@@ -10,7 +10,9 @@ import threading
 from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
 from .index.constants import IndexConstants
+from .robustness.constants import RobustnessConstants
 from .serving.constants import ServingConstants
+from .streaming.constants import StreamingConstants
 
 T = TypeVar("T")
 
@@ -27,6 +29,10 @@ class Conf:
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         return self._conf.get(key, default)
+
+    def unset(self, key: str) -> "Conf":
+        self._conf.pop(key, None)
+        return self
 
     def as_dict(self) -> Dict[str, str]:
         return dict(self._conf)
@@ -220,6 +226,65 @@ class HyperspaceConf:
     def serving_batching_max_batch(self) -> int:
         return max(int(self._conf.get(ServingConstants.SERVING_BATCHING_MAX_BATCH,
                                       ServingConstants.SERVING_BATCHING_MAX_BATCH_DEFAULT)), 1)
+
+    # The streaming tier (streaming/constants.py).
+
+    def streaming_enabled(self) -> bool:
+        return self._get_bool(StreamingConstants.ENABLED, StreamingConstants.ENABLED_DEFAULT)
+
+    def streaming_max_staged_batches(self) -> int:
+        return max(int(self._conf.get(StreamingConstants.MAX_STAGED_BATCHES,
+                                      StreamingConstants.MAX_STAGED_BATCHES_DEFAULT)), 1)
+
+    def streaming_load_time_indexing(self) -> bool:
+        return self._get_bool(StreamingConstants.LOAD_TIME_INDEXING,
+                              StreamingConstants.LOAD_TIME_INDEXING_DEFAULT)
+
+    def streaming_compaction_min_entries(self) -> int:
+        return max(int(self._conf.get(StreamingConstants.COMPACTION_MIN_ENTRIES,
+                                      StreamingConstants.COMPACTION_MIN_ENTRIES_DEFAULT)), 1)
+
+    def streaming_group_commit_enabled(self) -> bool:
+        return self._get_bool(StreamingConstants.GROUP_COMMIT_ENABLED,
+                              StreamingConstants.GROUP_COMMIT_ENABLED_DEFAULT)
+
+    def streaming_group_commit_window_ms(self) -> float:
+        return max(float(self._conf.get(StreamingConstants.GROUP_COMMIT_WINDOW_MS,
+                                        StreamingConstants.GROUP_COMMIT_WINDOW_MS_DEFAULT)), 0.0)
+
+    def streaming_group_commit_max_wave(self) -> int:
+        return max(int(self._conf.get(StreamingConstants.GROUP_COMMIT_MAX_WAVE,
+                                      StreamingConstants.GROUP_COMMIT_MAX_WAVE_DEFAULT)), 1)
+
+    def streaming_source_poll_ms(self) -> float:
+        return max(float(self._conf.get(StreamingConstants.SOURCE_POLL_MS,
+                                        StreamingConstants.SOURCE_POLL_MS_DEFAULT)), 1.0)
+
+    def streaming_source_commit_batches(self) -> int:
+        return max(int(self._conf.get(StreamingConstants.SOURCE_COMMIT_BATCHES,
+                                      StreamingConstants.SOURCE_COMMIT_BATCHES_DEFAULT)), 1)
+
+    def streaming_backpressure_timeout_ms(self) -> float:
+        return max(float(self._conf.get(StreamingConstants.BACKPRESSURE_TIMEOUT_MS,
+                                        StreamingConstants.BACKPRESSURE_TIMEOUT_MS_DEFAULT)), 0.0)
+
+    def streaming_subscriptions_max(self) -> int:
+        return max(int(self._conf.get(StreamingConstants.SUBSCRIPTIONS_MAX,
+                                      StreamingConstants.SUBSCRIPTIONS_MAX_DEFAULT)), 1)
+
+    def streaming_subscription_history(self) -> int:
+        return max(int(self._conf.get(StreamingConstants.SUBSCRIPTION_HISTORY,
+                                      StreamingConstants.SUBSCRIPTION_HISTORY_DEFAULT)), 1)
+
+    # Fault injection (robustness/constants.py).
+
+    def robustness_fault_specs(self) -> Dict[str, str]:
+        """``{point name: spec string}`` from every
+        ``hyperspace.tpu.robustness.faults.<point>`` key; empty means
+        disarmed."""
+        prefix = RobustnessConstants.FAULTS_PREFIX + "."
+        return {k[len(prefix):]: v for k, v in self._conf.as_dict().items()
+                if k.startswith(prefix)}
 
     def _get_bool(self, key: str, default: str) -> bool:
         return (self._conf.get(key, default) or "").strip().lower() == "true"

@@ -1,6 +1,6 @@
 """Index metadata model: the versioned, JSON-serialized operation-log entry
 (counterpart of ``hyperspace_tpu/index/log_entry.py``: covering and
-data-skipping indexes).
+data-skipping indexes, and the streaming tier's table entries).
 
 The JSON layout is the JAX package's, field for field, so either package
 reads an index the other wrote.
@@ -272,12 +272,48 @@ class DataSkippingIndex:
             dict(p.get("properties", {})))
 
 
-def derived_dataset_from_json(d: Dict) -> Union[CoveringIndex, DataSkippingIndex]:
+@dataclass
+class IngestedTable:
+    """The derived dataset of a streaming table's op-log entry
+    (streaming/ingest.py). It has no derived data: the table's own files
+    are the payload, and the entry's content records which ingested batch
+    files each commit published, so recovery tells a committed batch from a
+    torn one."""
+
+    schema: Schema
+    properties: Dict[str, str] = dc_field(default_factory=dict)
+
+    kind = "IngestedTable"
+    kind_abbr = "IT"
+
+    # What the lifecycle actions read of any derived dataset.
+    num_buckets = 1
+    indexed_columns: List[str] = dc_field(default_factory=list)
+    included_columns: List[str] = dc_field(default_factory=list)
+
+    def to_json_dict(self) -> Dict:
+        return {
+            "kind": self.kind,
+            "properties": {
+                "schema": self.schema.to_json_dict(),
+                "properties": dict(self.properties),
+            },
+        }
+
+    @staticmethod
+    def from_json_dict(d: Dict) -> "IngestedTable":
+        p = d["properties"]
+        return IngestedTable(Schema.from_json_dict(p["schema"]), dict(p.get("properties", {})))
+
+
+def derived_dataset_from_json(d: Dict) -> Union[CoveringIndex, DataSkippingIndex, IngestedTable]:
     kind = d.get("kind")
     if kind == CoveringIndex.kind:
         return CoveringIndex.from_json_dict(d)
     if kind == DataSkippingIndex.kind:
         return DataSkippingIndex.from_json_dict(d)
+    if kind == IngestedTable.kind:
+        return IngestedTable.from_json_dict(d)
     raise HyperspaceException(f"Unknown derived dataset kind: {kind}")
 
 

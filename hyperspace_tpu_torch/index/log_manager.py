@@ -19,6 +19,9 @@ import threading
 import time
 from typing import List, Optional
 
+from ..robustness import fault_names as _fn
+from ..robustness import faults as _faults
+from ..robustness import retry as _retry
 from ..util import hashing, json_utils
 from .constants import STABLE_STATES, IndexConstants, States
 from .log_entry import IndexLogEntry
@@ -164,6 +167,15 @@ class IndexLogManager:
         latest = self.get_latest_id()
         return self.get_log(latest) if latest is not None else None
 
+    def _get_log_lenient(self, log_id: int) -> Optional[IndexLogEntry]:
+        """``get_log`` that takes an unparseable (torn) entry for absent:
+        for the recovery and compaction scans only; normal reads surface
+        corruption."""
+        try:
+            return self.get_log(log_id)
+        except (ValueError, KeyError, TypeError):
+            return None
+
     def get_latest_stable_log(self) -> Optional[IndexLogEntry]:
         """Latest entry in a stable state; falls back to a backward scan past
         a broken tail, including an unparseable (torn) entry. Memoized as
@@ -199,8 +211,15 @@ class IndexLogManager:
         entry = self.get_log(log_id)
         if entry is None or entry.state not in STABLE_STATES:
             return False
-        self._store.put_overwrite(self._latest_stable_path,
-                                  json_utils.to_json(entry.to_json_dict()))
+        data = json_utils.to_json(entry.to_json_dict())
+
+        def _put() -> None:
+            # A kill here leaves the final entry committed and latestStable
+            # stale: get_latest_stable_log's backward scan covers it.
+            _faults.fault_point(_fn.LOG_STABLE)
+            self._store.put_overwrite(self._latest_stable_path, data)
+
+        _retry.call(_put)
         _LOOKUP_CACHE.invalidate(self._log_path)
         return True
 
@@ -210,11 +229,35 @@ class IndexLogManager:
         return out
 
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
-        """Write entry at ``log_id`` iff that id doesn't exist yet. The
-        lookup cache is invalidated even when another writer won: its entry
-        is as new to this process as ours would have been."""
+        """Write entry at ``log_id`` iff that id doesn't exist yet.
+        Transient store errors retry (robustness/retry.py); an attempt that
+        committed before erroring is found by its bytes, so a later "loss"
+        to our own entry is a win. The lookup cache is invalidated even when
+        another writer won: its entry is as new to this process as ours
+        would have been."""
         entry.id = log_id
-        won = self._store.put_if_absent(self._path_from_id(log_id),
-                                        json_utils.to_json(entry.to_json_dict()))
+        path = self._path_from_id(log_id)
+        data = json_utils.to_json(entry.to_json_dict())
+        state = {"transient": False}
+
+        def _put() -> bool:
+            _faults.fault_point(_fn.LOG_WRITE)
+            try:
+                return self._store.put_if_absent(path, data)
+            except _retry.TRANSIENT_TYPES:
+                state["transient"] = True
+                raise
+
+        won = _retry.call(_put)
+        if not won and state["transient"]:
+            won = self._store.read(path) == data
         _LOOKUP_CACHE.invalidate(self._log_path)
         return won
+
+    def delete_log(self, log_id: int) -> bool:
+        """Remove one entry file: only compaction does this, after the
+        checkpoint superseding it is committed, and recovery, for a torn
+        tip."""
+        out = self._store.delete(self._path_from_id(log_id))
+        _LOOKUP_CACHE.invalidate(self._log_path)
+        return out

@@ -146,6 +146,16 @@ def submit_serving(fn: Callable, threads: int = 4):
                 pool = _serving_pool
 
 
+def spawn_daemon(name: str, fn: Callable) -> threading.Thread:
+    """Start ``fn()`` on a named daemon thread and return it: the
+    long-lived service threads (the streaming tier's continuous sources)
+    must hold no reader or serving slot. Nothing of the caller's context
+    follows ``fn``."""
+    t = threading.Thread(target=fn, name=name, daemon=True)
+    t.start()
+    return t
+
+
 # ---------------------------------------------------------------------------
 # Process-wide counters (explain's "I/O:" section, Hyperspace.io_stats).
 # ---------------------------------------------------------------------------

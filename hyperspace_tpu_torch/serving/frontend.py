@@ -24,11 +24,14 @@ pool, so a query still fans its reads out. Each submission takes a
 io session scope and the query context follow the query onto the worker.
 Each worker executes on the device of the member's session.
 
+Standing queries (``subscribe``, ``unsubscribe``, ``notify_commit``;
+streaming/subscriptions.py) fire through the same workers on every
+streaming commit to a table they read.
+
 The conf is ``hyperspace.tpu.serving.*``, read from the frontend's
-governing session at each decision. Not ported here: standing queries
-(``subscribe``, ``unsubscribe``, ``notify_commit``; with streaming), and
-the SLO admission, trace spans, events and fault points (with the
-telemetry and robustness tiers); none of them changes an answer.
+governing session at each decision. Not ported here: the SLO admission,
+trace spans, events and fault points (with the telemetry and robustness
+tiers); none of them changes an answer.
 """
 
 from __future__ import annotations
@@ -63,9 +66,24 @@ class PendingQuery:
         self._event = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
+        self._done_cb = None
+        self._cb_lock = threading.Lock()
 
     def done(self) -> bool:
         return self._event.is_set()
+
+    def on_done(self, cb) -> None:
+        """Call ``cb(self)`` once when the query completes: on the worker
+        that finishes it, or now if it already did (the standing-query
+        delivery hook). ``cb`` must be quick; what it raises is dropped."""
+        with self._cb_lock:
+            if not self._event.is_set():
+                self._done_cb = cb
+                return
+        try:
+            cb(self)
+        except Exception:
+            pass
 
     def result(self, timeout: Optional[float] = None):
         """The executed Table, once done. Raises the query's own error if it
@@ -86,7 +104,15 @@ class PendingQuery:
         self.completed_s = time.perf_counter()
         self._result = result
         self._error = error
-        self._event.set()
+        with self._cb_lock:
+            self._event.set()
+            cb = self._done_cb
+            self._done_cb = None
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:
+                pass  # a delivery hook never fails the query
 
 
 class _Entry:
@@ -126,6 +152,8 @@ class ServingFrontend:
             "batches": 0, "batched_queries": 0, "shared_scans": 0, "shared_scan_hits": 0,
             "member_fallbacks": 0,
         }
+        from ..streaming.subscriptions import SubscriptionRegistry
+        self._subscriptions = SubscriptionRegistry()
         # Building one is the opt-in: the first live frontend becomes the
         # process default, which serving_stats() and explain read.
         global _DEFAULT
@@ -203,6 +231,11 @@ class ServingFrontend:
         self._stats["admitted"] += 1
         self._inflight_bytes += est
 
+    def batching_enabled(self) -> bool:
+        """Whether the governing conf batches literal variants (the
+        standing-query fire asks before grouping)."""
+        return self._hs_conf.serving_batching_enabled()
+
     def submit_wave(self, requests: List[tuple]) -> List:
         """Admit a group formed by the caller as one literal-sweep batch,
         past the queue's window and ``maxBatch``. Each request is ``(plan,
@@ -261,6 +294,30 @@ class ServingFrontend:
         finally:
             with self._lock:
                 self._active_workers -= 1
+
+    # Standing queries (the streaming tier).
+
+    def subscribe(self, query, session=None, client: str = "",
+                  deadline_ms: Optional[float] = None):
+        """Register a standing query: the plan fires again through this
+        frontend's workers on every streaming commit to a table it reads.
+        Returns a :class:`~..streaming.subscriptions.Subscription`;
+        ``deadline_ms`` bounds each fire as a submit() deadline does."""
+        session = session if session is not None else getattr(query, "session", None)
+        if session is None:
+            raise HyperspaceException("subscribe() needs a DataFrame or an explicit session=")
+        return self._subscriptions.subscribe(
+            self, query, session, client, deadline_ms,
+            self._hs_conf.streaming_subscriptions_max(),
+            self._hs_conf.streaming_subscription_history())
+
+    def unsubscribe(self, subscription) -> bool:
+        return self._subscriptions.unsubscribe(subscription)
+
+    def notify_commit(self, session, table: str = "") -> int:
+        """Fire every live standing query over ``table`` (the streaming tier
+        calls this after a commit publishes). Returns the fires admitted."""
+        return self._subscriptions.fire(self, session, table)
 
     # The worker loop.
 
@@ -419,6 +476,7 @@ class ServingFrontend:
             out["inflight_bytes"] = self._inflight_bytes
         cache = self.result_cache()
         out["shared_result_cache"] = cache.stats() if cache is not None else None
+        out["subscriptions"] = self._subscriptions.stats()
         return out
 
     def drain(self, timeout: float = 60.0) -> None:

@@ -82,6 +82,18 @@ class DefaultFileBasedRelation(FileBasedRelation):
             self._files = sorted(out)
         return list(self._files)
 
+    @classmethod
+    def pinned(cls, root_paths, fmt: str, options, files,
+               schema: Schema) -> "DefaultFileBasedRelation":
+        """A relation pinned to a given listing and schema: it touches the
+        filesystem for neither a footer nor partition inference (the
+        streaming commit builds one per index per commit and knows both)."""
+        rel = cls(list(root_paths), fmt, dict(options or {}))
+        rel._schema = schema
+        rel._files = sorted(os.path.abspath(f) for f in files)
+        rel._partition_fields = []
+        return rel
+
     def refresh(self) -> "DefaultFileBasedRelation":
         return DefaultFileBasedRelation(self._root_paths, self._format, self._options)
 

@@ -7,9 +7,11 @@ introspection calls, the host read tier (the reader pool, the buffer pool
 and the index-table cache, a warm repeat of Q3 and Q17), and the mutable
 slice: a chunked build with lineage, Hybrid Scan over a deleted and an
 appended file, every refresh mode and optimize, the SQL front end:
-TPC-H Q4, Q16 and Q17 through ``session.sql``, and the serving tier: a
+TPC-H Q4, Q16 and Q17 through ``session.sql``, the serving tier: a
 frontend wave of four Q6 literal variants as one sweep over one shared
-scan, and a result-cache hit) still run end to end on the CPU, with the
+scan, and a result-cache hit, and the streaming tier: an append and a
+commit landing a covering and a sketch delta, a standing query's
+delivery, ``compact()`` and ``recover()``) still run end to end on the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -207,12 +209,38 @@ SLICE = textwrap.dedent("""
     s3.conf.set(serving.ServingConstants.RESULT_CACHE_MIN_COMPUTE_SECONDS, "0")
     q6 = s3.sql(texts[0])
     assert q6.to_arrow().equals(q6.to_arrow()) and s3.result_cache.stats()["device_hits"] == 1
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    sd = os.path.join(root, "stream_tbl")
+    os.makedirs(sd)
+    pq.write_table(pa.table({{"k": np.arange(100, dtype=np.int64),
+                             "v": np.arange(100, dtype=np.int64) % 7}}),
+                   os.path.join(sd, "p0.parquet"))
+    s4 = ht.Session(system_path=os.path.join(root, "ix4"), device="cpu",
+                    conf={{"hyperspace.index.numBuckets": "4"}})
+    hs4 = ht.Hyperspace(s4)
+    hs4.create_index(s4.read.parquet(sd), ht.IndexConfig("sk", ["k"], ["v"]))
+    hs4.create_index(s4.read.parquet(sd), ht.DataSkippingIndexConfig(
+        "ss", [ht.MinMaxSketch("k")]))
+    s4.enable_hyperspace()
+    fe4 = ServingFrontend(s4)
+    sub = fe4.subscribe(s4.read.parquet(sd).filter(col("k") >= 95).select("k"))
+    hs4.append(sd, pa.table({{"k": np.arange(100, 110, dtype=np.int64),
+                             "v": np.zeros(10, dtype=np.int64)}}))
+    out4 = hs4.commit(sd)
+    assert sorted(out4["indexes_updated"]) == ["sk", "ss"] and out4["subscriptions_fired"] == 1
+    assert sub.wait_for(1, timeout=120)[0].result.to_arrow().num_rows == 15
+    assert "sk" in hs4.compact()["compacted"]
+    rec = hs4.recover()
+    assert not rec["errors"] and rec["artifacts"] == {{"enabled": False}}, rec
+    assert s4.read.parquet(sd).filter(col("k") >= 95).select("k").to_arrow().num_rows == 15
     bad = [m for m, v in sys.modules.items() if v is not None and (
         m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
         or m.startswith("hyperspace_tpu.") or m == "bench")]
     assert not bad, bad
     print("SLICE_OK", n_li, n_od, *kept, "Q3", rows[0], "Q17", rows[1], "SOURCES_OK",
-          "MUTABLE_OK", "SQL_OK", "SERVING_OK")
+          "MUTABLE_OK", "SQL_OK", "SERVING_OK", "STREAMING_OK")
 """)
 
 
@@ -220,8 +248,8 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK SQL_OK SERVING_OK" \
-        in proc.stdout
+    assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK SQL_OK SERVING_OK " \
+        "STREAMING_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
