@@ -75,6 +75,30 @@ Phases, each of which fails the run on any error:
               (byte-equal sketch tables); a small lineitem lake built
               chunked at both thread counts (byte-equal bucket files) and
               in memory (equal tables);
+   formats -- after the io path, in a session of its own: all lineitem
+              rows (5 columns) written with bucket_by(32, "l_orderkey")
+              (every file holds only its bucket's keys, sorted; the rows
+              and column sums add up; _bucket_spec.json; an append of the
+              same spec adds one file a bucket, another spec is refused),
+              with its seconds, rows/s and peak device memory; orders (with
+              a seeded o_orderpriority) written with
+              partition_by("o_orderpriority") and queried (one priority and
+              an o_orderdate window: 1 of 5 files kept); orders as 16 csv
+              appends, one orc file (pyarrow's writer), and one orders
+              file as json and avro, each read back through session.read
+              and equal to the source under pyarrow's type inference; over
+              the csv copy csv_od_idx (o_orderkey, in memory) and
+              csv_od_skip (MinMax on o_orderdate), a point query
+              (IndexScan), a date window (2-3 of 16 files kept) and the
+              orders after it, indexed and scanned, equal to pyarrow's
+              answer; prints the ``formats`` line;
+   reorder -- after the sql path, on its lake: each of the nine texts
+              optimized with optimizer.joinReorder.enabled off and on; a
+              text whose tree changes runs twice each way (warm seconds),
+              the answers equal after sorting rows and the numpy reference,
+              each step's estimated rows against the actual ones
+              (q-error), explain's "Join order:" section; at least one
+              text must reorder; prints the ``reorder`` line;
 7. breakdown -- host spans, peak device memory and the profiler's
               device time for rebuilds of li_ship_idx, li_pk_idx, pt_idx,
               od_skip and od_bloom and for the four filter queries and Q3
@@ -136,14 +160,15 @@ Phases, each of which fails the run on any error:
               scale 0.01, which must be equal bit for bit.
 
 Launch counters are reset just before each path (lineitem, orders,
-joins and sources of phases 4-5, io, sql, serving, streaming, then
-mutations) and read just after it. Phase 5 runs each query twice: since the buffer pool is on, the
-second run is warm; phase 7 empties the pool before each query it times.
-The last lines of standard output are the ``serving``, ``streaming`` and
-``kernels`` JSON objects, the card's name and power limit as nvidia-smi reports them, and
-the status object ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
-the rest of the repository beside it, the script exits non-zero and prints
-no result.
+joins and sources of phases 4-5, io, formats, sql, reorder, serving,
+streaming, then mutations) and read just after it. Phase 5 runs each
+query twice: since the buffer pool is on, the second run is warm; phase 7
+empties the pool before each query it times. The last lines of standard
+output are the summary, ``formats``, ``reorder``, ``serving``,
+``streaming`` and ``kernels`` JSON objects, the card's name and power
+limit as nvidia-smi reports them, and the status object ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -159,6 +184,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit
 # non-tensor-core rate, used for the 32-bit integer lanes of these kernels.
@@ -189,6 +215,14 @@ PATH_KERNELS = {
     # Each append's covering deltas (sql_li_ship, sql_li_pk) and MinMax
     # sketch row (st_od_skip); Q6's l_shipdate pair in every standing fire.
     "streaming": ("hash_bucket", "bucket_histogram", "masked_minmax", "range_mask"),
+    # bucket_by's hash and histogram over 60M rows and csv_od_idx's build;
+    # the csv copy's o_orderdate window (BETWEEN) and the orders after it
+    # (>); csv_od_skip's build.
+    "formats": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
+                "masked_minmax"),
+    # The reordered text (Q17) filters strings and compares floats: no
+    # kernel of the repo.
+    "reorder": (),
 }
 # The io path's queries, and what each path's query phases hold them to:
 # name -> ("rows", pyarrow table) | ("q3", (rows, tied_last)) | ("q17", value).
@@ -1242,6 +1276,397 @@ def run_sources_path(root: str, session, hs, od_dir: str, queries: dict, results
     out["introspection"] = check_introspection(session, hs, queries, names)
 
 
+# ---------------------------------------------------------------------------
+# The formats path: the writer (bucket_by, partition_by; csv, json, avro),
+# the csv, json, orc and avro readers, and indexes over a csv source.
+# ---------------------------------------------------------------------------
+
+FORMATS_BUCKETS = 32
+FORMATS_WRITE_COLUMNS = ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+                         "l_shipdate"]
+# The point key and the o_orderdate window (days after the orders' first
+# date) of the queries over the csv copy: the window crosses the boundary
+# of the 6th and 7th of the 16 time-ordered files.
+FORMATS_DATE_WINDOW = (840, 930)
+
+
+def make_orders_priority(od_dir: str, out_dir: str, seed: int = 0) -> int:
+    """A copy of the orders files, file for file, with o_orderpriority
+    drawn uniformly from the five priorities (from ``seed``). Returns the
+    rows."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir)
+    rows = 0
+    for f in sorted(os.listdir(od_dir)):
+        t = pq.read_table(os.path.join(od_dir, f))
+        prio = np.asarray(PRIORITIES)[rng.integers(0, len(PRIORITIES), t.num_rows)]
+        pq.write_table(t.append_column("o_orderpriority", pa.array(prio)),
+                       os.path.join(out_dir, f))
+        rows += t.num_rows
+    return rows
+
+
+def same_under_mapping(got, source, what: str) -> None:
+    """``got`` (read back from another format) equals ``source`` rows for
+    row, each source column cast to the type the reader gave it (the JAX
+    package's pyarrow inference: int32 as int64 from csv and json; from
+    json, a date as the string pandas' ISO format wrote,
+    "1992-01-01T00:00:00.000"); keys, counts, dates, strings and floats
+    exact."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if got.column_names != source.column_names or got.num_rows != source.num_rows:
+        raise AssertionError(f"{what}: {got.column_names} x {got.num_rows} rows, the source "
+                             f"{source.column_names} x {source.num_rows}")
+    for name in source.column_names:
+        want = source.column(name)
+        have = got.column(name)
+        if pa.types.is_date32(want.type) and pa.types.is_string(have.type):
+            want = pc.binary_join_element_wise(want.cast(pa.string()), "T00:00:00.000", "")
+        elif have.type != want.type:
+            want = want.cast(have.type)
+        if not have.equals(want):
+            raise AssertionError(f"{what}: column {name} differs from the source")
+
+
+def by_key(table, key: str):
+    return table.sort_by([(key, "ascending")])
+
+
+def bucket_dir_rows(out_dir: str, files=None) -> int:
+    """check_bucket_layout over a bucket_by output directory."""
+    import types
+    files = files if files is not None else sorted(
+        os.path.join(out_dir, f) for f in os.listdir(out_dir) if f.endswith(".parquet"))
+    return check_bucket_layout(types.SimpleNamespace(
+        name=os.path.basename(out_dir), num_buckets=FORMATS_BUCKETS), "l_orderkey", files)
+
+
+def column_sums(table_or_dir) -> dict:
+    """Integer sums (dates as days) and float64 sums of a table or a
+    parquet directory: the checksum of a rewrite that reorders rows (the
+    integers exact, the floats within REL_TOL relative)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(table_or_dir) if isinstance(table_or_dir, str) else table_or_dir
+    out = {}
+    for name in t.column_names:
+        c = t.column(name)
+        if pa.types.is_date32(c.type):
+            c = c.cast(pa.int32())
+        if pa.types.is_integer(c.type):
+            c = c.cast(pa.int64())
+        out[name] = pc.sum(c).as_py()
+    return out
+
+
+def run_formats_path(root: str, li_dir: str, od_dir: str, n_li: int, n_od: int,
+                     results: dict) -> None:
+    """The writer and the other readers on phase 3's lake, in a session of
+    their own (see the module docstring)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.orc as pa_orc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import (DataSkippingIndexConfig, HyperspaceException,
+                                      IndexConfig, IndexConstants, MinMaxSketch, col)
+    from hyperspace_tpu_torch.ops import index_build
+    from hyperspace_tpu_torch.plan.nodes import IndexScan, Scan
+
+    out = results["formats"] = {}
+    base = os.path.join(root, "formats")
+    session = ht.Session(system_path=os.path.join(base, "indexes"), device="cuda")
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, FORMATS_BUCKETS)
+    hs = ht.Hyperspace(session)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - mem0
+
+    # 1. bucket_by(32, l_orderkey) over all lineitem rows, then appends.
+    bucketed = os.path.join(base, "lineitem_bucketed")
+    df = session.read.parquet(li_dir).select(*FORMATS_WRITE_COLUMNS)
+    _, secs, peak = timed(lambda: df.write.bucket_by(FORMATS_BUCKETS, "l_orderkey")
+                          .parquet(bucketed))
+    first = sorted(f for f in os.listdir(bucketed) if f.endswith(".parquet"))
+    if len(first) != FORMATS_BUCKETS:
+        raise AssertionError(f"formats: bucket_by wrote {len(first)} files, not "
+                             f"{FORMATS_BUCKETS}")
+    if bucket_dir_rows(bucketed) != n_li:
+        raise AssertionError("formats: the bucketed files do not hold every lineitem row")
+    with open(os.path.join(bucketed, "_bucket_spec.json")) as f:
+        spec = json.load(f)
+    if spec != {"numBuckets": FORMATS_BUCKETS, "columns": ["l_orderkey"]}:
+        raise AssertionError(f"formats: bucket spec {spec}")
+    source = pq.read_table(li_dir, columns=FORMATS_WRITE_COLUMNS)
+    have, want = column_sums(bucketed), column_sums(source)
+    if any(not close(have[c], want[c]) if isinstance(want[c], float) else have[c] != want[c]
+           for c in want):
+        raise AssertionError(f"formats: the bucketed files' column sums {have} differ from "
+                             f"lineitem's {want}")
+    out["bucketed_write"] = {"rows": n_li, "seconds": secs, "rows_per_s": n_li / secs,
+                             "peak_device_bytes": peak, "files": len(first)}
+    log(f"formats: bucket_by({FORMATS_BUCKETS}, l_orderkey) of {n_li:,} rows in {secs:.2f} s "
+        f"({n_li / secs:,.0f} rows/s), peak device {peak / 2**30:.3f} GiB")
+    small = df.filter(col("l_orderkey") < n_li // 400)
+    _, secs, _ = timed(lambda: small.write.mode("append").bucket_by(
+        FORMATS_BUCKETS, "l_orderkey").parquet(bucketed))
+    added = sorted(set(f for f in os.listdir(bucketed) if f.endswith(".parquet")) - set(first))
+    added_rows = bucket_dir_rows(bucketed, [os.path.join(bucketed, f) for f in added])
+    want_rows = pc.sum(pc.less(source.column("l_orderkey"), n_li // 400)).as_py()
+    added_buckets = {index_build.bucket_id_from_file(f) for f in added}
+    # From SF1 up the appended rows (about 600k at SF10) meet every bucket.
+    every = want_rows >= 100 * FORMATS_BUCKETS
+    if len(added_buckets) != len(added) or added_rows != want_rows or (
+            every and len(added) != FORMATS_BUCKETS):
+        raise AssertionError(f"formats: the append added {len(added)} files of {added_rows} "
+                             f"rows, not one per bucket of {want_rows}")
+    try:
+        small.write.mode("append").bucket_by(FORMATS_BUCKETS // 2, "l_orderkey").parquet(
+            bucketed)
+    except HyperspaceException as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("formats: an append with another bucket spec was accepted")
+    if "does not match the existing layout" not in refusal:
+        raise AssertionError(f"formats: the other spec was refused as {refusal!r}")
+    out["bucketed_append"] = {"rows": added_rows, "files": len(added), "seconds": secs}
+    del source
+    shutil.rmtree(bucketed)
+
+    # The orders source of steps 2-4: phase 3's orders with a priority.
+    t0 = time.perf_counter()
+    op_dir = os.path.join(base, "orders_p")
+    make_orders_priority(od_dir, op_dir)
+    orders = pq.read_table(op_dir)
+    out["datagen_s"] = time.perf_counter() - t0
+    o_files = sorted(os.path.join(op_dir, f) for f in os.listdir(op_dir))
+    d0 = pc.min(orders.column("o_orderdate")).as_py()
+    lo = d0 + datetime.timedelta(days=FORMATS_DATE_WINDOW[0])
+    hi = d0 + datetime.timedelta(days=FORMATS_DATE_WINDOW[1])
+
+    # 2. partition_by(o_orderpriority), read back and queried.
+    parted = os.path.join(base, "orders_parted")
+    _, secs, peak = timed(lambda: session.read.parquet(op_dir).write.partition_by(
+        "o_orderpriority").parquet(parted))
+    # pyarrow escapes the directory names ("4-NOT%20SPECIFIED"); neither
+    # package's partition discovery unescapes them (ROADMAP queue C 16).
+    dirs = sorted(os.listdir(parted))
+    if dirs != [f"o_orderpriority={urllib.parse.quote(p)}" for p in PRIORITIES]:
+        raise AssertionError(f"formats: partition directories {dirs}")
+    back = session.read.parquet(parted)
+    q = back.filter((col("o_orderpriority") == PRIORITIES[0])
+                    & col("o_orderdate").between(lo, hi)).select(
+        "o_orderkey", "o_orderdate", "o_totalprice", "o_orderpriority")
+    kept = [len(leaf.relation.all_files()) for leaf in q.optimized_plan().collect_leaves()]
+    all_files = len(back.plan.relation.all_files())
+    got, q_secs, _ = timed(q.to_arrow)
+    mask = pc.and_(pc.equal(orders.column("o_orderpriority"), PRIORITIES[0]),
+                   pc.and_(pc.greater_equal(orders.column("o_orderdate"), lo),
+                           pc.less_equal(orders.column("o_orderdate"), hi)))
+    want = orders.filter(mask).select(["o_orderkey", "o_orderdate", "o_totalprice",
+                                       "o_orderpriority"])
+    if kept != [1] or all_files != len(PRIORITIES):
+        raise AssertionError(f"formats: the partition filter kept {kept} of {all_files} files")
+    if got.num_rows == 0 or not by_key(got, "o_orderkey").equals(by_key(want, "o_orderkey")):
+        raise AssertionError("formats: the partitioned query differs from pyarrow's")
+    if back.count() != n_od:
+        raise AssertionError("formats: the partitioned copy does not hold every order")
+    out["partitioned"] = {"rows": n_od, "write_s": secs, "rows_per_s": n_od / secs,
+                          "peak_device_bytes": peak, "query_s": q_secs,
+                          "query_rows": got.num_rows, "files_kept": kept[0],
+                          "files": all_files}
+    log(f"formats: partition_by(o_orderpriority) in {secs:.2f} s; the query keeps "
+        f"{kept[0]}/{all_files} files, {got.num_rows} rows in {q_secs:.3f} s")
+    shutil.rmtree(parted)
+
+    # 3. csv (one append per orders file), orc at full size, json and avro
+    #    of one orders file; each read back through session.read.
+    csv_dir = os.path.join(base, "orders_csv")
+
+    def write_csv():
+        for f in o_files:
+            session.read.parquet(f).write.mode("append").csv(csv_dir)
+
+    _, csv_write_s, _ = timed(write_csv)
+    got, csv_read_s, _ = timed(lambda: session.read.csv(csv_dir).to_arrow())
+    same_under_mapping(by_key(got, "o_orderkey"), orders, "formats csv")
+    orc_dir = os.path.join(base, "orders_orc")
+    os.makedirs(orc_dir)
+    _, orc_write_s, _ = timed(lambda: pa_orc.write_table(orders, os.path.join(orc_dir,
+                                                                                "part0.orc")))
+    got, orc_read_s, _ = timed(lambda: session.read.orc(orc_dir).to_arrow())
+    same_under_mapping(got, orders, "formats orc")
+    one = pq.read_table(o_files[0])
+    fmt_times = {"csv": {"rows": n_od, "files": len(o_files), "write_s": csv_write_s,
+                         "read_s": csv_read_s},
+                 "orc": {"rows": n_od, "files": 1, "write_s": orc_write_s,
+                         "read_s": orc_read_s}}
+    for fmt in ("json", "avro"):
+        d = os.path.join(base, f"orders_{fmt}")
+        _, w_secs, _ = timed(lambda: getattr(session.read.parquet(o_files[0]).write, fmt)(d))
+        got, r_secs, _ = timed(lambda: getattr(session.read, fmt)(d).to_arrow())
+        same_under_mapping(got, one, f"formats {fmt}")
+        fmt_times[fmt] = {"rows": one.num_rows, "files": 1, "write_s": w_secs,
+                          "read_s": r_secs}
+    out["formats"] = fmt_times
+    log(f"formats: write and read back {fmt_times}")
+
+    # 4. A covering index and a MinMax sketch over the csv copy.
+    csv_df = session.read.csv(csv_dir)
+    _, secs, peak = timed(lambda: hs.create_index(csv_df, IndexConfig(
+        "csv_od_idx", ["o_orderkey"], ["o_orderdate", "o_totalprice"])))
+    entry = hs.index_manager.get_index("csv_od_idx")
+    if check_bucket_layout(entry, "o_orderkey") != n_od:
+        raise AssertionError("formats: csv_od_idx does not hold every order")
+    _, sk_secs, _ = timed(lambda: hs.create_index(csv_df, DataSkippingIndexConfig(
+        "csv_od_skip", [MinMaxSketch("o_orderdate")])))
+    out["csv_builds"] = {"csv_od_idx": {"seconds": secs, "rows_per_s": n_od / secs,
+                                        "peak_device_bytes": peak},
+                         "csv_od_skip": {"seconds": sk_secs}}
+    key = n_od // 2 + 7
+    point = csv_df.filter(col("o_orderkey") == key).select("o_orderkey", "o_orderdate",
+                                                            "o_totalprice")
+    window = csv_df.filter(col("o_orderdate").between(lo, hi)).select(
+        "o_orderkey", "o_orderdate", "o_totalprice")
+    after = csv_df.filter(col("o_orderdate") > hi).select("o_orderkey", "o_orderdate",
+                                                           "o_totalprice")
+    meets = 0
+    for f in o_files:
+        dates = pq.read_table(f, columns=["o_orderdate"]).column(0)
+        meets += pc.min(dates).as_py() <= hi and pc.max(dates).as_py() >= lo
+    refs = {"point": orders.filter(pc.equal(orders.column("o_orderkey"), key)),
+            "window": orders.filter(pc.and_(pc.greater_equal(orders.column("o_orderdate"), lo),
+                                            pc.less_equal(orders.column("o_orderdate"), hi))),
+            "after": orders.filter(pc.greater(orders.column("o_orderdate"), hi))}
+    out["csv_queries"] = {}
+    for name, qdf in (("point", point), ("window", window), ("after", after)):
+        session.enable_hyperspace()
+        plan = qdf.optimized_plan()
+        session.disable_hyperspace()
+        leaves = plan.collect_leaves()
+        if name == "point" and not any(isinstance(leaf, IndexScan) for leaf in leaves):
+            raise AssertionError(f"formats point: no IndexScan in\n{plan.tree_string()}")
+        kept = [len(leaf.relation.all_files()) for leaf in leaves if isinstance(leaf, Scan)]
+        if name == "window" and (kept != [meets] or not 2 <= meets <= 3):
+            raise AssertionError(f"formats window: the scan keeps {kept} of 16 files, the "
+                                 f"window meets {meets}")
+        tables, times, peaks = {}, {}, {}
+        for mode in ("indexed", "scanned"):
+            tables[mode], times[mode], peaks[mode] = run_twice(session, qdf,
+                                                               mode == "indexed")
+        want = refs[name].select(["o_orderkey", "o_orderdate", "o_totalprice"])
+        for mode, ts in tables.items():
+            for t in ts:
+                same_under_mapping(by_key(t, "o_orderkey"), want, f"formats {name} ({mode})")
+        if want.num_rows == 0:
+            raise AssertionError(f"formats {name}: the reference holds no row")
+        out["csv_queries"][name] = {"rows": want.num_rows, "indexed_s": times["indexed"],
+                                    "scanned_s": times["scanned"], "files_kept": kept,
+                                    "peak_bytes_indexed": peaks["indexed"],
+                                    "peak_bytes_scanned": peaks["scanned"]}
+        log(f"formats csv {name}: {want.num_rows} rows; indexed {times['indexed']} s, "
+            f"scanned {times['scanned']} s; files kept {kept}")
+    del session, hs
+    shutil.rmtree(base, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The reorder path: cost-based join reordering over the sql path's lake.
+# ---------------------------------------------------------------------------
+
+def sorted_answer(table):
+    """Rows sorted by their non-float columns (all columns if none)."""
+    import pyarrow as pa
+    keys = [c for c in table.column_names if not pa.types.is_floating(table.column(c).type)]
+    return table.sort_by([(c, "ascending") for c in (keys or table.column_names)])
+
+
+def run_reorder_path(session, results: dict) -> None:
+    """Each TPC-H text optimized with optimizer.joinReorder.enabled off and
+    on (hyperspace disabled); every text whose tree changes runs twice
+    each way: the warm runs' seconds, the answers equal after sorting
+    rows (keys exact, float64 within REL_TOL relative) and equal to the
+    numpy reference, each step's estimate against the rows
+    ``_join_actuals`` recorded (q-error) and explain's "Join order:"
+    section. At least one text must reorder."""
+    import torch
+
+    from hyperspace_tpu_torch.optimizer.constants import OptimizerConstants
+    from hyperspace_tpu_torch.plananalysis.explain import explain_string
+
+    flag = OptimizerConstants.JOIN_REORDER_ENABLED
+    out = results["reorder"] = {"texts": {}, "unchanged": []}
+    t_path = time.perf_counter()
+    session.disable_hyperspace()
+    try:
+        for name, text in TPCH_TEXTS.items():
+            df = session.sql(text)
+            session.conf.set(flag, "false")
+            off_plan = session.optimize(df.plan, diagnostic=True).tree_string()
+            session.conf.set(flag, "true")
+            on_plan = session.optimize(df.plan, diagnostic=True).tree_string()
+            if on_plan == off_plan:
+                out["unchanged"].append(name)
+                continue
+            entry = {}
+            answers = {}
+            for mode in ("off", "on"):
+                session.conf.set(flag, "true" if mode == "on" else "false")
+                secs = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    answers[mode] = df.to_arrow()
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                entry[f"{mode}_s"] = secs
+            records = session._last_join_order
+            check_sql_answer(name, answers["off"], REFERENCES["sql"][name], "reorder off")
+            check_sql_answer(name, sorted_answer(answers["on"]),
+                             as_reference(name, sorted_answer(answers["off"])),
+                             "reordered against off")
+            steps = []
+            for r in records:
+                for step in r["steps"]:
+                    actual = session._join_actuals.get(step["key"])
+                    if actual is None:
+                        raise AssertionError(f"reorder {name}: no actual rows for "
+                                             f"{step['key']}")
+                    est, act = max(step["est_rows"], 1.0), max(actual, 1)
+                    steps.append({"right": step["right"], "est_rows": step["est_rows"],
+                                  "actual_rows": actual, "q_error": max(est / act, act / est)})
+            entry.update(
+                order=[(r["labels"], r["order"]) for r in records if r["reordered"]],
+                steps=steps, rows=answers["on"].num_rows,
+                join_order=explain_string(session, df.plan, diagnostics=False).split(
+                    "Join order:", 1)[1].strip())
+            out["texts"][name] = entry
+            log(f"reorder {name}: off {entry['off_s']} s, on {entry['on_s']} s; "
+                f"{entry['order']}; steps {steps}")
+    finally:
+        session.conf.set(flag, "false")
+    if not out["texts"]:
+        raise AssertionError("reorder: no TPC-H text was reordered")
+    out["seconds"] = time.perf_counter() - t_path
+
+
 def torch_sync() -> None:
     import torch
     torch.cuda.synchronize()
@@ -1972,7 +2397,7 @@ def run_sql_path(root: str, scale: float, results: dict):
                                          rows["lineitem"])
     log(f"sql: built {out['builds']}")
     t0 = time.perf_counter()
-    refs = tpch_sql_references(dirs)
+    refs = REFERENCES["sql"] = tpch_sql_references(dirs)
     out["reference_s"] = time.perf_counter() - t0
     log(f"sql: numpy references in {out['reference_s']:.1f} s")
     reads = "parquet read -> device"
@@ -4046,6 +4471,13 @@ def main(argv=None) -> int:
         log(f"io: launches {launches['io']}; {results['io']['seconds']:.1f} s")
         ck.reset_launches()
         t0 = time.perf_counter()
+        run_formats_path(root, li_dir, od_dir, n_li, n_od, results)
+        launches["formats"] = dict(ck.LAUNCHES)
+        results["formats"]["seconds"] = time.perf_counter() - t0
+        log(f"formats: launches {launches['formats']}; "
+            f"{results['formats']['seconds']:.1f} s")
+        ck.reset_launches()
+        t0 = time.perf_counter()
         sql_session_, sql_dirs = run_sql_path(root, args.scale, results)
         launches["sql"] = dict(ck.LAUNCHES)
         results["sql"]["seconds"] = time.perf_counter() - t0
@@ -4054,6 +4486,11 @@ def main(argv=None) -> int:
             max(q["indexed_peak_bytes"], q["scanned_peak_bytes"])
             for q in results["sql"]["queries"].values())
         log(f"sql: launches {launches['sql']}; {results['sql']['seconds']:.1f} s")
+        ck.reset_launches()
+        run_reorder_path(sql_session_, results)
+        launches["reorder"] = dict(ck.LAUNCHES)
+        log(f"reorder: launches {launches['reorder']}; "
+            f"{results['reorder']['seconds']:.1f} s")
         ck.reset_launches()
         q6_refs = run_serving_path(sql_session_, sql_dirs, results)
         launches["serving"] = dict(ck.LAUNCHES)
@@ -4143,6 +4580,10 @@ def main(argv=None) -> int:
                       "sources": sources, "io": io, "sql": sql, "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
+    print(json.dumps({"formats": dict(results["formats"], launches=launches["formats"],
+                                      card=card)}, default=str))
+    print(json.dumps({"reorder": dict(results["reorder"], launches=launches["reorder"],
+                                      card=card)}, default=str))
     print(json.dumps({"serving": serving_summary(results["serving"], launches["serving"],
                                                  card)}, default=str))
     print(json.dumps({"streaming": streaming_summary(results["streaming"],

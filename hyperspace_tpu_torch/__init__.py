@@ -1,6 +1,7 @@
 """hyperspace_tpu_torch -- the PyTorch/CUDA port of hyperspace_tpu.
 
-Covering and data-skipping indexes over parquet data lakes, built and
+Covering and data-skipping indexes over data lakes (parquet, csv, json,
+orc, text and avro files), built and
 probed on an NVIDIA GPU: the covering build hash-partitions and sorts
 within buckets on the device, the sketch build reduces each source file's
 column there (MinMax, Bloom, value list), and queries evaluate their
@@ -10,8 +11,10 @@ device; an equi-join over two covering indexes on its keys merges their
 buckets without sorting either side. Indexes are refreshed (full,
 incremental, quick) and optimized as their sources change, and Hybrid
 Scan reads an index whose source gained or (with lineage) lost files;
-inputs above the device budget stream in chunks. Sketch probes at plan
-time are host numpy. The
+inputs above the device budget stream in chunks. ``df.write`` writes
+results, bucketed by the same hash and histogram kernels or
+hive-partitioned, and the planner can reorder inner-join chains by
+estimated rows. Sketch probes at plan time are host numpy. The
 on-disk layout and the operation log are the JAX package's, so either
 package reads the other's indexes.
 

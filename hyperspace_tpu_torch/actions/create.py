@@ -93,6 +93,8 @@ class CreateActionBase(Action):
         files = list(files) if files is not None else relation.all_files()
         table = read_relation_files(relation, files, indexed + included, self.session.device)
         if self._lineage_enabled():
+            if relation.file_format != "parquet":
+                raise HyperspaceException("Lineage requires parquet sources in this version")
             ids = [tracker.add_file(*file_info_triple(f)) for f in files]
             lineage = np.repeat(np.asarray(ids, np.int64),
                                 np.asarray(parquet_row_counts(files), np.int64))
@@ -118,10 +120,11 @@ class CreateActionBase(Action):
                        files: Optional[List[str]] = None) -> bool:
         """The chunked build when the source holds more rows than the
         device budget; False (nothing done) when the in-memory build
-        should run instead, as it must for a hive partition column or a
-        struct leaf (no physical column for the streaming reader)."""
+        should run instead, as it must for a source that is not parquet, a
+        hive partition column or a struct leaf (no row groups or no
+        physical column for the streaming reader)."""
         files = list(files) if files is not None else relation.all_files()
-        if not files:
+        if not files or relation.file_format != "parquet":
             return False
         physical = set(pq.read_schema(files[0]).names)
         if any(c not in physical for c in indexed + included):

@@ -75,8 +75,9 @@ def build_sketch_rows(relation, sketch_list: List[Sketch], files: List[str],
             rows[valuelist_col(s.column)] = []
         else:
             raise HyperspaceException(f"Unknown sketch kind: {s.kind}")
-    for path, table in pio.zip_prefetch(files, lambda f: read_parquet([f], needed, device),
-                                        weight=os.path.getsize):
+    fmt = relation.file_format
+    for path, table in pio.zip_prefetch(
+            files, lambda f: read_parquet([f], needed, device, fmt=fmt), weight=os.path.getsize):
         rows[FILE_COL].append(path)
         rows[FILE_ID_COL].append(tracker.add_file(*file_info_triple(path)))
         for s in sketch_list:

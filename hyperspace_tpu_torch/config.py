@@ -10,6 +10,7 @@ import threading
 from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
 from .index.constants import IndexConstants
+from .optimizer.constants import OptimizerConstants
 from .robustness.constants import RobustnessConstants
 from .serving.constants import ServingConstants
 from .streaming.constants import StreamingConstants
@@ -285,6 +286,12 @@ class HyperspaceConf:
         prefix = RobustnessConstants.FAULTS_PREFIX + "."
         return {k[len(prefix):]: v for k, v in self._conf.as_dict().items()
                 if k.startswith(prefix)}
+
+    # Cost-based optimizer (optimizer/constants.py).
+
+    def join_reorder_enabled(self) -> bool:
+        return self._get_bool(OptimizerConstants.JOIN_REORDER_ENABLED,
+                              OptimizerConstants.JOIN_REORDER_ENABLED_DEFAULT)
 
     def _get_bool(self, key: str, default: str) -> bool:
         return (self._conf.get(key, default) or "").strip().lower() == "true"

@@ -17,7 +17,9 @@ scans and chunked filtered scans go through the buffer pool
 from __future__ import annotations
 
 import datetime
+import functools
 import os
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -408,10 +410,12 @@ def _read_parquet_pooled(files: Sequence[str], read_cols, filters) -> pa.Table:
 
 
 def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
-                 filters=None, pool: bool = False) -> Table:
-    """Read parquet ``files`` onto ``device``. ``filters`` is a pyarrow
-    expression: row groups whose statistics exclude it are skipped and the
-    rows read are filtered by it (the device filter still runs after).
+                 filters=None, pool: bool = False, fmt: str = "parquet") -> Table:
+    """Read ``files`` of format ``fmt`` onto ``device``. ``filters`` is a
+    pyarrow expression: row groups whose statistics exclude it are skipped
+    and the rows read are filtered by it (the device filter still runs
+    after). It and ``pool`` apply to parquet only; the other formats
+    (``read_format``) are read whole.
 
     A dotted column that is not a top-level one is a struct leaf: its root
     struct column is read, flattened until no struct is left, and the
@@ -423,6 +427,8 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
     from . import buffer_pool as bp
     if not files:
         raise HyperspaceException("read_parquet: no files")
+    if fmt != "parquet":
+        return Table.from_arrow(read_format(files, columns, fmt), device)
     pool_key = None
     if pool and bp.enabled():
         pool_key = bp.scan_key(files, columns, filters, device)
@@ -452,9 +458,69 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
     return table
 
 
+def read_format(files: Sequence[str], columns: Optional[Sequence[str]],
+                fmt: str) -> pa.Table:
+    """The host table of csv, json (newline-delimited), orc, text or avro
+    ``files``, in file order: each file is read alone on the reader pool,
+    single-threaded inside a worker (the pool is the parallelism)."""
+    from ..parallel import io as pio
+
+    if fmt == "csv":
+        import pyarrow.csv as pa_csv
+
+        def read_one(f):
+            if pio.in_worker():
+                return pa_csv.read_csv(f, read_options=pa_csv.ReadOptions(use_threads=False))
+            return pa_csv.read_csv(f)
+    elif fmt == "json":
+        import pyarrow.json as pa_json
+
+        def read_one(f):
+            if pio.in_worker():
+                return pa_json.read_json(f, read_options=pa_json.ReadOptions(use_threads=False))
+            return pa_json.read_json(f)
+    elif fmt == "orc":
+        import pyarrow.orc as pa_orc
+
+        def read_one(f):
+            return pa_orc.ORCFile(f).read(columns=list(columns) if columns else None)
+    elif fmt == "avro":
+        from ..util.avro import read_avro
+
+        def read_one(f):
+            return read_avro(f, list(columns) if columns else None)
+    elif fmt == "text":
+        # One string column "value" per line. Lines end at \n, \r or \r\n,
+        # as Hadoop's LineReader splits them (str.splitlines would also
+        # split at \x0b, \x0c and others).
+        def read_one(f):
+            with open(f, encoding="utf-8", newline="") as fh:
+                lines = re.split("\r\n|\r|\n", fh.read())
+            if lines and lines[-1] == "":
+                lines.pop()  # a trailing terminator, not an empty last line
+            return pa.table({"value": pa.array(lines, type=pa.string())})
+    else:
+        raise HyperspaceException(f"Unsupported format: {fmt}")
+    at = pa.concat_tables(pio.map_ordered(read_one, list(files), weight=_file_size_weight))
+    if columns and fmt in ("csv", "json", "text"):
+        at = at.select(list(columns))
+    return at
+
+
+@functools.lru_cache(maxsize=65536)
+def _file_row_count(path: str, size: int, mtime_ns: int) -> int:
+    return pq.ParquetFile(path).metadata.num_rows
+
+
 def parquet_row_counts(files: Sequence[str]) -> List[int]:
-    """Row count per file from parquet footers (no data read)."""
-    return [pq.ParquetFile(f).metadata.num_rows for f in files]
+    """Row count per file from parquet footers (no data read), memoized
+    per (path, size, mtime_ns): every filtered scan checks its budget, and
+    a file rewritten in place has a new size or mtime."""
+    out = []
+    for f in files:
+        st = os.stat(f)
+        out.append(_file_row_count(f, st.st_size, st.st_mtime_ns))
+    return out
 
 
 def _table_nbytes_estimate(item) -> int:

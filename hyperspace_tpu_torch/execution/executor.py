@@ -1,7 +1,8 @@
 """Eager columnar plan executor (counterpart of
 ``hyperspace_tpu/execution/executor.py``: Scan, IndexScan, Filter,
 Project, Join (inner, left, right, full, semi, anti and cross),
-Aggregate (COUNT DISTINCT included), Window, Sort, Limit and Union).
+Aggregate (COUNT DISTINCT included), Window, Sort, Limit, Union and
+BucketUnion).
 
 Executes a logical plan bottom-up over device-resident tables. A Filter
 directly over a scan pushes its prunable conjuncts into the parquet read;
@@ -41,8 +42,8 @@ from ..index.constants import IndexConstants
 from ..ops.index_build import bucket_id_from_file, bucket_ids_for
 from ..parallel import io as pio
 from ..plan import expr as E
-from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
-                          Project, Scan, Sort, Union, Window)
+from ..plan.nodes import (Aggregate, BucketUnion, Filter, IndexScan, Join, Limit,
+                          LogicalPlan, Project, Scan, Sort, Union, Window)
 from ..schema import BOOL, DATE, FLOAT64, INT32, INT64, STRING
 from ..serving import batcher
 from ..serving import context as qctx
@@ -155,7 +156,9 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
                 out = Table(out.columns, (order[0], tuple(renamed[k] for k in order[1])))
         return out
     if isinstance(plan, Join):
-        return _execute_join(plan, needed, session)
+        table = _execute_join(plan, needed, session)
+        _record_join_actual(plan, table, session)
+        return table
     if isinstance(plan, Aggregate):
         child_needed = set(plan.group_cols)
         for a in plan.aggs:
@@ -171,7 +174,7 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
         return _execute_window(plan, _execute(plan.child, child_needed, session))
     if isinstance(plan, Limit):
         return _execute_limit(plan, _execute(plan.child, needed, session))
-    if isinstance(plan, Union):
+    if isinstance(plan, (Union, BucketUnion)):
         # Align on the union's pruned output: a child whose own filter
         # read extra columns holds more than the others.
         out_names = [n for n in plan.schema.names if needed is None or n in needed]
@@ -183,6 +186,18 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
         return Table.concat([_execute(c, child_needed, session).select(out_names)
                              for c in plan.children])
     raise HyperspaceException(f"Cannot execute plan node {plan.node_name}")
+
+
+def _record_join_actual(plan: Join, table: Table, session) -> None:
+    """An inner join's output rows, kept on the session by
+    ``join_actual_key`` for explain's "Join order:" section (estimate
+    beside actual), its only reader, which shows only with join
+    reordering on."""
+    if plan.join_type != "inner" or plan.condition is None \
+            or not session.hs_conf.join_reorder_enabled():
+        return
+    qctx.record_join_actual(session, qctx.join_actual_key(plan.condition, plan.left, plan.right),
+                            table.num_rows)
 
 
 def _filter_table(table: Table, condition) -> Table:
@@ -226,12 +241,13 @@ def _chunked_filtered_scan(plan: Scan, needed: Optional[Set[str]], condition, pa
     stream in chunks (row groups the pushed filter excludes are never
     decoded), each chunk is masked on the device and only its survivors
     are kept. None when the source fits the budget (the in-memory read is
-    cheaper) or a needed column is not a physical one: a hive partition
-    column or a struct leaf, which the in-memory reader attaches or
-    flattens."""
+    cheaper), the source is not parquet (the other formats have no row
+    groups to stream; they are read whole, however many rows they hold),
+    or a needed column is not a physical one: a hive partition column or
+    a struct leaf, which the in-memory reader attaches or flattens."""
     relation = plan.relation
     files = relation.all_files()
-    if not files:
+    if not files or relation.file_format != "parquet":
         return None
     cols = _read_columns(relation.schema.names, needed)
     if any(c not in set(pq.read_schema(files[0]).names) for c in cols):
@@ -317,6 +333,8 @@ def _chunked_filtered_index_scan(plan: IndexScan, needed: Optional[Set[str]], co
     index_files, cols, single_file_buckets = _index_scan_layout(plan, needed, bucket_subset)
     if not index_files:
         return None
+    if plan.appended_files and plan.source_relation.file_format != "parquet":
+        return None  # appended files without footers: the in-memory path
     if sum(parquet_row_counts(index_files + list(plan.appended_files))) <= chunk_rows:
         return None
     lineage = IndexConstants.DATA_FILE_NAME_ID

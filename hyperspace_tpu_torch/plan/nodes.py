@@ -1,6 +1,6 @@
 """Logical plan IR (counterpart of ``hyperspace_tpu/plan/nodes.py``:
 Scan, IndexScan, Filter, Project, Join of every type, Aggregate, Window,
-Sort, Limit and Union; the writer's BucketUnion is not ported).
+Sort, Limit, Union and BucketUnion).
 
 Nodes carry resolved schemas (analysis happens at construction). The
 rewrite rules (rules/) pattern-match these nodes the way the reference
@@ -10,6 +10,7 @@ matches Scan→Filter(→Project) subtrees.
 from __future__ import annotations
 
 import datetime
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 from ..exceptions import HyperspaceException
@@ -260,7 +261,7 @@ class Join(LogicalPlan):
     TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan, condition: Optional[E.Expr],
-                 join_type: str = "inner"):
+                 join_type: str = "inner", reorder_note: Optional[str] = None):
         if join_type not in self.TYPES:
             raise HyperspaceException(f"Unsupported join type: {join_type}")
         if join_type == "cross":
@@ -281,6 +282,9 @@ class Join(LogicalPlan):
         self.right = right
         self.condition = condition
         self.join_type = join_type
+        # Set by the join reorderer (optimizer/join_order.py) on the joins
+        # it re-linearized; the tree string shows it.
+        self.reorder_note = reorder_note
         if join_type in ("semi", "anti"):
             self._schema = left.schema
             return
@@ -298,16 +302,18 @@ class Join(LogicalPlan):
         return [self.left, self.right]
 
     def with_children(self, children):
-        return Join(children[0], children[1], self.condition, self.join_type)
+        return Join(children[0], children[1], self.condition, self.join_type,
+                    self.reorder_note)
 
     @property
     def schema(self) -> Schema:
         return self._schema
 
     def simple_string(self) -> str:
+        note = f" [{self.reorder_note}]" if self.reorder_note else ""
         if self.join_type == "cross":
-            return "Join cross"
-        return f"Join {self.join_type} ({self.condition!r})"
+            return "Join cross" + note
+        return f"Join {self.join_type} ({self.condition!r})" + note
 
 
 class Aggregate(LogicalPlan):
@@ -459,3 +465,39 @@ class Union(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self._children[0].schema
+
+
+class BucketUnion(LogicalPlan):
+    """A union of bucketed outputs that share one bucket layout: the
+    children's rows concatenated, in order."""
+
+    def __init__(self, children: List[LogicalPlan], bucket_spec: "BucketSpec"):
+        if not children:
+            raise HyperspaceException("BucketUnion requires children")
+        first = children[0].schema.names
+        for c in children[1:]:
+            if c.schema.names != first:
+                raise HyperspaceException("BucketUnion children must share schema")
+        self._children = list(children)
+        self.bucket_spec = bucket_spec
+
+    @property
+    def children(self) -> List[LogicalPlan]:
+        return list(self._children)
+
+    def with_children(self, children):
+        return BucketUnion(children, self.bucket_spec)
+
+    @property
+    def schema(self) -> Schema:
+        return self._children[0].schema
+
+
+@dataclass(frozen=True)
+class BucketSpec:
+    """A bucket layout: the bucket count, the bucketing columns and the
+    columns rows are sorted by within a bucket."""
+
+    num_buckets: int
+    bucket_column_names: Tuple[str, ...]
+    sort_column_names: Tuple[str, ...]

@@ -9,9 +9,11 @@ diagnostic pass: it counts no index usage. With ``diagnostics`` follow the
 "Result cache:" section while the result cache is enabled, the I/O section
 once the reader pool or a prefetch stream has done work, and the
 "Serving:" section while the serving tier is enabled or a frontend has
-taken queries. The JAX package's other runtime sections (compilation,
-SPMD, robustness, SLO, trace, advisor, join order) read tiers this package
-does not have yet; its "Serving:" section's program-bank line has no
+taken queries. While ``optimizer.joinReorder.enabled`` is set, the "Join
+order:" section shows each join chain's order and its estimates beside
+the actual rows of its last run. The JAX package's other runtime sections
+(compilation, SPMD, robustness, SLO, trace, advisor) read tiers this
+package does not have yet; its "Serving:" section's program-bank line has no
 counterpart (eager torch compiles no programs).
 """
 
@@ -117,6 +119,7 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
         _write_cache_section(buf, session, plan)
         _write_io_section(buf, session)
         _write_serving_section(buf, session)
+    _write_join_order_section(buf, session)
     if verbose:
         buf.write_line()
         _header(buf, "Physical operator stats:")
@@ -221,3 +224,30 @@ def _write_serving_section(buf: BufferStream, session) -> None:
                        f"batched_queries={s['batched_queries']} "
                        f"shared_scans={s['shared_scans']} "
                        f"member_fallbacks={s['member_fallbacks']}")
+
+
+def _write_join_order_section(buf: BufferStream, session) -> None:
+    """The join reorderer's chain records from the pass that just ran: the
+    order chosen, and each step's estimated rows beside the actual rows
+    the executor last recorded under the step's key ("n/a" before a
+    run)."""
+    if not session.hs_conf.join_reorder_enabled():
+        return
+    records = session._last_join_order
+    if not records:
+        return
+    actuals = session._join_actuals
+    buf.write_line()
+    _header(buf, "Join order:")
+    for r in records:
+        if r["reordered"]:
+            buf.write_line(f"chain [{', '.join(r['labels'])}] reordered -> "
+                           f"[{', '.join(r['order'])}]")
+        else:
+            buf.write_line(f"chain [{', '.join(r['labels'])}] kept ({r.get('note', 'kept')})")
+        for b in r["base"]:
+            buf.write_line(f"  {b['label']}: est {b['est_rows']:.0f} rows")
+        for step in r["steps"]:
+            actual = actuals.get(step["key"])
+            buf.write_line(f"  join +{step['right']}: est {step['est_rows']:.0f} rows, "
+                           f"actual {actual if actual is not None else 'n/a'}")

@@ -5,7 +5,7 @@ The join rule's coverage check reads the columns a join side references.
 Without this pass a side is a bare Scan exposing every source column, and
 no covering index covers it. Projects are inserted at the top of join
 inputs and below aggregates, so the rules see the true column sets. A
-Union passes the columns required of it to every child; a Window's
+Union or BucketUnion passes the columns required of it to every child; a Window's
 subtree is left as it is, as in the JAX package (the executor still reads
 only the columns the window and its ancestors use).
 """
@@ -14,8 +14,8 @@ from __future__ import annotations
 
 from typing import Optional, Set
 
-from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan,
-                          Project, Scan, Sort, Union)
+from ..plan.nodes import (Aggregate, BucketUnion, Filter, IndexScan, Join, Limit,
+                          LogicalPlan, Project, Scan, Sort, Union)
 
 
 def prune_columns(plan: LogicalPlan, required: Optional[Set[str]] = None) -> LogicalPlan:
@@ -42,8 +42,8 @@ def prune_columns(plan: LogicalPlan, required: Optional[Set[str]] = None) -> Log
         return Sort(plan.orders, prune_columns(plan.child, child_req))
     if isinstance(plan, Limit):
         return Limit(plan.n, prune_columns(plan.child, required))
-    if isinstance(plan, Union):
-        return Union([prune_columns(c, set(required)) for c in plan.children])
+    if isinstance(plan, (Union, BucketUnion)):
+        return plan.with_children([prune_columns(c, set(required)) for c in plan.children])
     if isinstance(plan, Join):
         wanted = required | (set(plan.condition.references)
                              if plan.condition is not None else set())

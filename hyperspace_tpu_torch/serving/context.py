@@ -14,6 +14,10 @@ session attributes:
 - ``deadline_s``: a cooperative deadline, checked at the executor's stage
   boundaries by :func:`check_deadline`.
 
+:func:`record_join_actual` keeps an executed inner join's output rows on
+its session, keyed by :func:`join_actual_key`, which explain pairs with the
+join reorderer's estimates.
+
 A contextvar, not a thread-local: the prefetch producers and the frontend's
 workers run in copied contexts, so attribution follows the query across
 threads.
@@ -81,6 +85,53 @@ class QueryContext:
     def io_stats(self) -> dict:
         with self._io_lock:
             return dict(self._io)
+
+
+_JOIN_ACTUALS_MAX = 256
+
+
+def _leaf_identity(leaf) -> str:
+    """A leaf's identity that the optimizer's rewrites keep: the reorderer
+    keys its estimates before index substitution and partition pruning,
+    the executor its actuals after. A Scan's partition base survives
+    ``with_files``; an IndexScan's entry records its source Scan's root
+    paths. Both reduce to the source directory of the original Scan."""
+    rel = getattr(leaf, "relation", None)
+    if rel is not None:  # Scan
+        base = getattr(rel, "partition_base_path", None)
+        if base:
+            return str(base)
+        paths = getattr(rel, "root_paths", None) or []
+        return str(paths[0]) if paths else leaf.node_name
+    entry = getattr(leaf, "index_entry", None)
+    if entry is not None:  # IndexScan
+        paths = entry.relation.rootPaths
+        return str(paths[0]) if paths else f"index:{entry.name}"
+    return leaf.node_name
+
+
+def join_side_signature(plan) -> str:
+    """One join input's signature: its leaves' identities, sorted."""
+    return "+".join(sorted(_leaf_identity(leaf) for leaf in plan.collect_leaves()))
+
+
+def join_actual_key(condition, left, right) -> str:
+    """The key that pairs an inner join's estimate with its actual rows:
+    the condition's repr and both sides' signatures, so two table pairs
+    that share a condition's text never collide."""
+    return (f"{condition!r} @ {join_side_signature(left)} >< "
+            f"{join_side_signature(right)}")
+
+
+def record_join_actual(session, key: str, rows: int) -> None:
+    """An executed inner join's output rows onto the session's bounded,
+    locked LRU store."""
+    with session._join_actuals_lock:
+        actuals = session._join_actuals
+        actuals[key] = int(rows)
+        actuals.move_to_end(key)
+        while len(actuals) > _JOIN_ACTUALS_MAX:
+            actuals.popitem(last=False)
 
 
 def next_query_id() -> int:

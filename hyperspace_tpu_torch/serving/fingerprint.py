@@ -22,8 +22,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
-from ..plan.nodes import (Aggregate, Filter, IndexScan, Join, Limit, LogicalPlan, Project,
-                          Scan, Sort, Union, Window)
+from ..plan.nodes import (Aggregate, BucketUnion, Filter, IndexScan, Join, Limit, LogicalPlan,
+                          Project, Scan, Sort, Union, Window)
 from ..util import hashing
 
 
@@ -66,7 +66,7 @@ def _node_detail(plan: LogicalPlan) -> Optional[str]:
         return f"Sort[{plan.orders}]"
     if isinstance(plan, Limit):
         return f"Limit[{plan.n}]"
-    if isinstance(plan, Union):
+    if isinstance(plan, (Union, BucketUnion)):
         return plan.node_name
     return None
 

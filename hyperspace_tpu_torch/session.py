@@ -25,7 +25,11 @@ without it raises; it never carries on quietly on the CPU. Pass
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 import threading
+import uuid
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple, Union as TUnion
 
@@ -81,6 +85,15 @@ class Session:
         self._sql_plan_cache: "OrderedDict[Tuple, LogicalPlan]" = OrderedDict()
         self._sql_plan_stats = {"hits": 0, "misses": 0}
         self._sql_plan_lock = threading.Lock()
+        # The cost-based optimizer's state: the statistics provider
+        # (optimizer/stats.provider_for attaches it on first use), the
+        # chain records of the last join-reorder pass, and the output rows
+        # of recent inner joins by join_actual_key (bounded LRU, written
+        # by the executor under the lock); explain reads the last two.
+        self._stats_provider = None
+        self._last_join_order: Optional[list] = None
+        self._join_actuals: "OrderedDict[str, int]" = OrderedDict()
+        self._join_actuals_lock = threading.Lock()
 
     @property
     def index_collection_manager(self):
@@ -173,7 +186,8 @@ class Session:
                  _pre_normalized: bool = False) -> LogicalPlan:
         """Filter pushdown below projections and inner joins, column
         pruning (the join rule's coverage check sees each side's true
-        column set only after it), the hyperspace rewrite batch if
+        column set only after it), join reordering if
+        ``optimizer.joinReorder.enabled``, the hyperspace rewrite batch if
         enabled, then partition pruning. Partition pruning is always on,
         and runs after the index rules: it narrows a Scan's files, and the
         rules fingerprint the relation's full listing.
@@ -187,6 +201,12 @@ class Session:
         from .sources.partitions import prune_partitions
         if not _pre_normalized:
             plan = prune_columns(push_filters(plan))
+        # Join reordering wants the pushed filters (selectivity) and runs
+        # before the index rules, which then match the reordered tree. The
+        # result cache's key pins the flag through the conf hash.
+        if self.hs_conf.join_reorder_enabled():
+            from .optimizer.join_order import reorder_joins
+            plan = reorder_joins(self, plan)
         if self._hyperspace_enabled:
             from .rules.apply_hyperspace import apply_hyperspace
             from .rules.index_filters import ReasonCollector
@@ -218,12 +238,49 @@ class Session:
 
 
 class DataFrameReader:
+    """``session.read``: parquet, csv, json (newline-delimited), orc, text
+    (one string column "value" per line) and avro files, or
+    ``format(fmt).load(...)``. ``option`` values travel with the relation."""
+
     def __init__(self, session: Session):
         self._session = session
+        self._options: Dict[str, str] = {}
+
+    def option(self, key: str, value) -> "DataFrameReader":
+        self._options[key] = str(value)
+        return self
 
     def parquet(self, *paths: str) -> "DataFrame":
+        return self.format("parquet").load(*paths)
+
+    def csv(self, *paths: str) -> "DataFrame":
+        return self.format("csv").load(*paths)
+
+    def json(self, *paths: str) -> "DataFrame":
+        return self.format("json").load(*paths)
+
+    def orc(self, *paths: str) -> "DataFrame":
+        return self.format("orc").load(*paths)
+
+    def text(self, *paths: str) -> "DataFrame":
+        return self.format("text").load(*paths)
+
+    def avro(self, *paths: str) -> "DataFrame":
+        return self.format("avro").load(*paths)
+
+    def format(self, fmt: str) -> "_FormattedReader":
+        return _FormattedReader(self._session, fmt, dict(self._options))
+
+
+class _FormattedReader:
+    def __init__(self, session: Session, fmt: str, options: Dict[str, str]):
+        self._session = session
+        self._fmt = fmt
+        self._options = options
+
+    def load(self, *paths: str) -> "DataFrame":
         relation = self._session.source_provider_manager.build_relation(
-            list(paths), "parquet", {})
+            list(paths), self._fmt, self._options)
         return DataFrame(self._session, Scan(relation))
 
 
@@ -368,6 +425,217 @@ class DataFrame:
         if mismatched:
             raise HyperspaceException(f"union() dtype mismatch: {mismatched}")
         return DataFrame(self.session, Union([self.plan, other.plan]))
+
+
+    where = filter
+
+    @property
+    def write(self) -> "DataFrameWriter":
+        """Write the query's result to files."""
+        return DataFrameWriter(self)
+
+
+class DataFrameWriter:
+    """The query's result to parquet, csv, json or avro files. ``mode``:
+    "error" (the default: refuse a non-empty directory), "overwrite" or
+    "append" (one more part file).
+
+    ``bucket_by(n, cols...)`` (parquet only) writes one file per bucket,
+    rows sorted by the bucketing columns within each, through the index
+    build's hash, histogram and sort on the device; the bucket id stays in
+    the file name, and ``_bucket_spec.json`` records the layout, which an
+    append must match. ``partition_by(cols...)`` (parquet only) writes
+    hive ``col=value/`` directories.
+
+    Every format writes in this order: ``_check`` refuses a bad destination
+    before the query runs, the result is materialized, and only then is
+    the directory emptied (overwrite) and created, so a query may be
+    written back over its own source."""
+
+    BUCKET_SPEC_FILE = "_bucket_spec.json"  # readers list format suffixes only
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._mode = "error"
+        self._bucket: Optional[Tuple[int, List[str]]] = None
+        self._partition: Optional[List[str]] = None
+
+    def mode(self, mode: str) -> "DataFrameWriter":
+        if mode not in ("error", "overwrite", "append"):
+            raise HyperspaceException(f"Unknown write mode: {mode}")
+        self._mode = mode
+        return self
+
+    def bucket_by(self, num_buckets: int, *cols: str) -> "DataFrameWriter":
+        if num_buckets <= 0:
+            raise HyperspaceException(
+                f"bucket_by needs a positive bucket count, got {num_buckets}")
+        if not cols:
+            raise HyperspaceException("bucket_by needs at least one bucketing column")
+        cols = tuple(self._df._spelling(c) for c in cols)
+        missing = [c for c in cols if c not in self._df.plan.schema]
+        if missing:
+            raise HyperspaceException(
+                f"bucket_by columns not in the result: {missing}; "
+                f"available: {self._df.plan.schema.names}")
+        if self._partition is not None:
+            raise HyperspaceException("bucket_by and partition_by cannot be combined")
+        self._bucket = (num_buckets, list(cols))
+        return self
+
+    bucketBy = bucket_by
+
+    def partition_by(self, *cols: str) -> "DataFrameWriter":
+        if not cols:
+            raise HyperspaceException("partition_by needs at least one partition column")
+        names = self._df.plan.schema.names
+        cols = tuple(self._df._spelling(c) for c in cols)
+        missing = [c for c in cols if c not in names]
+        if missing:
+            raise HyperspaceException(
+                f"partition_by columns not in the result: {missing}; available: {names}")
+        if len(set(cols)) != len(cols):
+            raise HyperspaceException(f"partition_by columns repeat: {list(cols)}")
+        if len(set(cols)) == len(names):
+            raise HyperspaceException("partition_by cannot consume every output column")
+        if self._bucket is not None:
+            raise HyperspaceException("bucket_by and partition_by cannot be combined")
+        self._partition = list(cols)
+        return self
+
+    partitionBy = partition_by
+
+    def _check(self, path: str) -> None:
+        if os.path.isfile(path):
+            raise HyperspaceException(f"Path is a file, not a dir: {path}")
+        if self._mode == "error" and os.path.isdir(path) and os.listdir(path):
+            raise HyperspaceException(
+                f"Path not empty: {path} (use mode('overwrite') or mode('append'))")
+
+    def _prepare_dir(self, path: str) -> str:
+        if self._mode == "overwrite" and os.path.isdir(path):
+            shutil.rmtree(path)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def _finalize(self, path: str) -> str:
+        self._prepare_dir(path)
+        return os.path.join(path, f"part-{uuid.uuid4().hex[:12]}")
+
+    def _reject_layout(self, fmt: str) -> None:
+        if self._bucket is not None:
+            raise HyperspaceException(
+                f"bucket_by is only supported for parquet output, not {fmt}")
+        if self._partition is not None:
+            raise HyperspaceException(
+                f"partition_by is only supported for parquet output, not {fmt}")
+
+    def _guard_bucketed_dir(self, path: str) -> None:
+        """A write without the bucket spec must not append to a bucketed
+        dataset."""
+        if self._mode == "append" and \
+                os.path.isfile(os.path.join(path, self.BUCKET_SPEC_FILE)):
+            raise HyperspaceException(
+                f"{path} holds a bucketed dataset; appending non-bucketed rows "
+                "would break its layout. Use bucket_by(<same spec>) or "
+                "mode('overwrite').")
+
+    def parquet(self, path: str) -> None:
+        from .execution.columnar import write_parquet
+        self._check(path)
+        if self._bucket is not None:
+            self._bucketed_parquet(path)
+            return
+        self._guard_bucketed_dir(path)
+        if self._partition is not None:
+            self._partitioned_parquet(path)
+            return
+        table = self._df.execute().to_host()
+        write_parquet(table, self._finalize(path) + ".parquet")
+
+    def _partitioned_parquet(self, path: str) -> None:
+        import pyarrow as pa
+        import pyarrow.dataset as pa_ds
+        import pyarrow.parquet as pq
+
+        at = self._df.to_arrow()
+        self._prepare_dir(path)
+        if at.num_rows == 0:
+            # write_dataset writes nothing for no rows; one 0-row file
+            # keeps the directory readable.
+            if not any(f.endswith(".parquet") for f in os.listdir(path)):
+                pq.write_table(at, os.path.join(path, f"part-{uuid.uuid4().hex[:12]}.parquet"))
+            return
+        part_schema = pa.schema([at.schema.field(c) for c in self._partition])
+        pa_ds.write_dataset(
+            at, path, format="parquet",
+            partitioning=pa_ds.partitioning(part_schema, flavor="hive"),
+            basename_template=f"part-{uuid.uuid4().hex[:12]}-{{i}}.parquet",
+            existing_data_behavior="overwrite_or_ignore")
+
+    def _bucketed_parquet(self, path: str) -> None:
+        from .actions.create import write_bucket_files
+        from .execution.columnar import write_parquet
+        from .ops import index_build
+
+        num_buckets, cols = self._bucket
+        spec = {"numBuckets": num_buckets, "columns": cols}
+        spec_path = os.path.join(path, self.BUCKET_SPEC_FILE)
+        if self._mode == "append" and os.path.isdir(path) and os.listdir(path):
+            # Rows must land in files whose names promise their bucket.
+            try:
+                with open(spec_path) as f:
+                    existing = json.load(f)
+            except OSError:
+                raise HyperspaceException(
+                    f"Cannot bucket-append to {path}: it was not written "
+                    "with bucket_by (no bucket spec found).") from None
+            if existing != spec:
+                raise HyperspaceException(
+                    f"bucket_by({num_buckets}, {cols}) does not match the "
+                    f"existing layout of {path}: "
+                    f"bucket_by({existing['numBuckets']}, {existing['columns']}).")
+        table = self._df.execute()
+        sorted_table, bounds = index_build.build_sorted_buckets(table, cols, num_buckets)
+        host = sorted_table.to_host()
+        self._prepare_dir(path)
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        # A per-write suffix keeps appended files apart; the bucket id stays
+        # the name's part-<id> prefix.
+        suffix = uuid.uuid4().hex[:8]
+
+        def name_for(bucket: int) -> str:
+            return index_build.bucket_file_name(bucket).replace(".parquet",
+                                                                f"-{suffix}.parquet")
+
+        if host.num_rows == 0 and not any(f.endswith(".parquet") for f in os.listdir(path)):
+            write_parquet(host, os.path.join(path, name_for(0)))  # keeps the schema
+            return
+        write_bucket_files(host, bounds, num_buckets, path, None, file_name=name_for)
+
+    def csv(self, path: str) -> None:
+        import pyarrow.csv as pa_csv
+        self._check(path)
+        self._reject_layout("csv")
+        at = self._df.to_arrow()
+        pa_csv.write_csv(at, self._finalize(path) + ".csv")
+
+    def json(self, path: str) -> None:
+        """Newline-delimited records, dates in ISO form (pandas'
+        ``to_json``)."""
+        self._check(path)
+        self._reject_layout("json")
+        df = self._df.to_pandas()
+        df.to_json(self._finalize(path) + ".json", orient="records", lines=True,
+                   date_format="iso")
+
+    def avro(self, path: str) -> None:
+        from .util.avro import write_avro
+        self._check(path)
+        self._reject_layout("avro")
+        at = self._df.to_arrow()
+        write_avro(at, self._finalize(path) + ".avro")
 
 
 class GroupedData:

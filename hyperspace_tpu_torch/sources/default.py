@@ -1,7 +1,9 @@
-"""Default file-based source provider: parquet directories on the local
-filesystem (counterpart of ``hyperspace_tpu/sources/default.py``, parquet
-only). Hive ``key=value`` directories under the first root path become
-partition columns, after the files' own columns (sources/partitions.py).
+"""Default file-based source provider: parquet, csv, json, orc, text and
+avro directories on the local filesystem (counterpart of
+``hyperspace_tpu/sources/default.py``). A relation lists the files whose
+suffix names its format. Hive ``key=value`` directories under the first
+root path become partition columns, after the files' own columns
+(sources/partitions.py).
 """
 
 from __future__ import annotations
@@ -9,14 +11,19 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Sequence
 
+import pyarrow.dataset as pa_ds
 import pyarrow.parquet as pq
 
 from ..exceptions import HyperspaceException
-from ..schema import Field, Schema
+from ..schema import STRING, Field, Schema
 from ..util import file_utils
 from .interfaces import FileBasedRelation, FileBasedSourceProvider
 
-SUPPORTED_FORMATS = ("parquet",)
+SUPPORTED_FORMATS = ("parquet", "csv", "json", "orc", "text", "avro")
+
+# File suffixes per format ("text" also matches ".txt").
+_FORMAT_SUFFIXES = {fmt: ("." + fmt,) for fmt in SUPPORTED_FORMATS}
+_FORMAT_SUFFIXES["text"] = (".text", ".txt")
 
 
 class DefaultFileBasedRelation(FileBasedRelation):
@@ -49,15 +56,28 @@ class DefaultFileBasedRelation(FileBasedRelation):
     @property
     def schema(self) -> Schema:
         if self._schema is None:
-            files = self.all_files()
-            if not files:
-                raise HyperspaceException(f"No data files under {self._root_paths}")
-            schema = Schema.from_arrow(pq.read_schema(files[0]))
+            schema = self._physical_schema()
             for f in self.partition_fields():
                 if f.name not in schema:
                     schema = schema.append(f)
             self._schema = schema
         return self._schema
+
+    def _physical_schema(self) -> Schema:
+        """The first file's schema: its footer (parquet), its header
+        (avro), pyarrow's inference (csv, json, orc), or one non-null
+        string column "value" (text)."""
+        files = self.all_files()
+        if not files:
+            raise HyperspaceException(f"No data files under {self._root_paths}")
+        if self._format == "parquet":
+            return Schema.from_arrow(pq.read_schema(files[0]))
+        if self._format == "text":
+            return Schema([Field("value", STRING, False)])
+        if self._format == "avro":
+            from ..util.avro import read_avro_schema
+            return Schema.from_arrow(read_avro_schema(files[0]))
+        return Schema.from_arrow(pa_ds.dataset(files[0], format=self._format).schema)
 
     @property
     def partition_base_path(self) -> str:
@@ -73,12 +93,13 @@ class DefaultFileBasedRelation(FileBasedRelation):
     def all_files(self) -> List[str]:
         if self._files is None:
             out: List[str] = []
+            suffixes = _FORMAT_SUFFIXES[self._format]
             for root in self._root_paths:
                 if os.path.isfile(root):
                     out.append(os.path.abspath(root))
                     continue
                 out.extend(f for f in file_utils.list_leaf_files(root)
-                           if f.endswith(".parquet"))
+                           if f.endswith(suffixes))
             self._files = sorted(out)
         return list(self._files)
 

@@ -1,5 +1,5 @@
 """Hive-style partitioned directories, ``root/key=value/.../file``
-(counterpart of ``hyperspace_tpu/sources/partitions.py``, parquet only).
+(counterpart of ``hyperspace_tpu/sources/partitions.py``).
 
 Three host-side concerns:
 
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import datetime
 import os
+from itertools import groupby
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -141,17 +142,23 @@ def read_relation_files(relation, files: Sequence[str], cols: Optional[Sequence[
     """Read ``files`` of ``relation`` onto ``device`` with its partition
     columns attached: the one reader the scans and the builds share. A
     relation without partitions, or a read of none of its partition
-    columns, goes straight to the parquet reader (with ``filters``, and
-    through the buffer pool when ``pool``, as the executor's scans ask);
-    otherwise the files are read in one pass without the row-level
-    filter (it would skew the per-file row counts; partition pruning has
-    already narrowed the files), and the rows keep the files' order."""
-    from ..execution.columnar import parquet_row_counts, read_parquet
+    columns, goes straight to the columnar reader (with ``filters``, and
+    through the buffer pool when ``pool``, as the executor's parquet scans
+    ask); otherwise the files are read without the row-level filter (it
+    would skew the per-file row counts; partition pruning has already
+    narrowed the files), and the rows keep the files' order.
 
+    Parquet files are read in one pass and counted by their footers. The
+    other formats have no footers: each run of consecutive files that
+    share partition values is read as one and takes its values (a listing
+    walks directory by directory, so runs are partitions)."""
+    from ..execution.columnar import Table, parquet_row_counts, read_parquet
+
+    fmt = relation.file_format
     fields = relation.partition_fields()
     part_names = {f.name for f in fields}
     if not fields or (cols is not None and not any(c in part_names for c in cols)):
-        return read_parquet(files, cols, device, filters=filters, pool=pool)
+        return read_parquet(files, cols, device, filters=filters, pool=pool, fmt=fmt)
     wanted = fields if cols is None else [f for f in fields if f.name in cols]
     phys_cols = None if cols is None else [c for c in cols if c not in part_names]
     if phys_cols is not None and not phys_cols:
@@ -159,9 +166,19 @@ def read_relation_files(relation, files: Sequence[str], cols: Optional[Sequence[
         # the row counts and drop it below.
         phys = [n for n in relation.schema.names if n not in part_names]
         phys_cols = [phys[0]] if phys else None
-    table = read_parquet(files, phys_cols, device)
-    out = attach_partition_columns(table, relation, files, wanted,
-                                   parquet_row_counts(files))
+    if fmt == "parquet":
+        table = read_parquet(files, phys_cols, device)
+        out = attach_partition_columns(table, relation, files, wanted,
+                                       parquet_row_counts(files))
+    else:
+        base = relation.partition_base_path
+        parts = []
+        for _, run in groupby(files, key=lambda f: file_partition_values(base, f, wanted)):
+            run = list(run)
+            table = read_parquet(run, phys_cols, device, fmt=fmt)
+            parts.append(attach_partition_columns(table, relation, [run[0]], wanted,
+                                                  [table.num_rows]))
+        out = Table.concat(parts)
     if cols is not None:
         out = out.select([c for c in cols if c in out.names])
     return out

@@ -11,7 +11,10 @@ TPC-H Q4, Q16 and Q17 through ``session.sql``, the serving tier: a
 frontend wave of four Q6 literal variants as one sweep over one shared
 scan, and a result-cache hit, and the streaming tier: an append and a
 commit landing a covering and a sketch delta, a standing query's
-delivery, ``compact()`` and ``recover()``) still run end to end on the CPU, with the
+delivery, ``compact()`` and ``recover()``; and the formats, the writer and
+the optimizer: every reader and writer format, bucket_by, partition_by,
+avro, BucketUnion, indexes over csv and orc, and a reordered join with its
+actuals and explain section) still run end to end on the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -250,6 +253,99 @@ def test_slice_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "SLICE_OK 12000 3000 2 3 Q3 10 Q17 1 SOURCES_OK MUTABLE_OK SQL_OK SERVING_OK " \
         "STREAMING_OK" in proc.stdout
+
+
+FORMATS = textwrap.dedent("""
+    import datetime, json, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants, col, sum_
+    from hyperspace_tpu_torch.optimizer import cardinality, join_order, stats
+    from hyperspace_tpu_torch.optimizer.constants import OptimizerConstants
+    from hyperspace_tpu_torch.plan.nodes import BucketSpec, BucketUnion
+    from hyperspace_tpu_torch.plananalysis.explain import explain_string
+    from hyperspace_tpu_torch.util import avro
+    root = tempfile.mkdtemp()
+    rng = np.random.default_rng(1)
+    src = os.path.join(root, "src")
+    os.makedirs(src)
+    pq.write_table(pa.table({{
+        "k": np.arange(400, dtype=np.int64), "c": rng.integers(0, 20, 400),
+        "v": np.round(rng.uniform(0, 9, 400), 2),
+        "d": pa.array(rng.integers(9000, 9100, 400).astype(np.int32)).cast(pa.date32()),
+    }}), os.path.join(src, "p0.parquet"))
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu",
+                   conf={{"hyperspace.index.numBuckets": "4"}})
+    df = s.read.parquet(src)
+    # The writer in every format, bucketed and partitioned, read back.
+    for fmt in ("csv", "json", "avro", "parquet"):
+        getattr(df.write, fmt)(os.path.join(root, fmt))
+        back = getattr(s.read, fmt)(os.path.join(root, fmt))
+        assert back.count() == 400, fmt
+    df.write.bucket_by(4, "k").parquet(os.path.join(root, "bucketed"))
+    with open(os.path.join(root, "bucketed", "_bucket_spec.json")) as f:
+        assert json.load(f) == {{"numBuckets": 4, "columns": ["k"]}}
+    df.write.partition_by("c").parquet(os.path.join(root, "parted"))
+    parted = s.read.parquet(os.path.join(root, "parted"))
+    assert parted.filter(col("c") == 3).count() == int((np.asarray(
+        pq.read_table(src).column("c")) == 3).sum())
+    orc = os.path.join(root, "orc")
+    os.makedirs(orc)
+    import pyarrow.orc as pa_orc
+    pa_orc.write_table(pq.read_table(src), os.path.join(orc, "p0.orc"))
+    txt = os.path.join(root, "txt")
+    os.makedirs(txt)
+    with open(os.path.join(txt, "a.txt"), "w", newline="") as f:
+        f.write("a\\r\\nb\\rc\\n")
+    assert s.read.text(txt).to_arrow().column("value").to_pylist() == ["a", "b", "c"]
+    # An index over csv and a MinMax sketch over orc.
+    hs = ht.Hyperspace(s)
+    csv_df = s.read.csv(os.path.join(root, "csv"))
+    hs.create_index(csv_df, ht.IndexConfig("csv_idx", ["k"], ["v"]))
+    hs.create_index(s.read.orc(orc), ht.DataSkippingIndexConfig(
+        "orc_skip", [ht.MinMaxSketch("k")]))
+    s.enable_hyperspace()
+    q = csv_df.filter(col("k") == 17).select("k", "v")
+    assert "IndexScan" in q.optimized_plan().tree_string() and q.count() == 1
+    s.disable_hyperspace()
+    tbl = pq.read_table(src)
+    avro.write_avro(tbl, os.path.join(root, "t.avro"), codec="deflate")
+    assert avro.read_avro(os.path.join(root, "t.avro")).equals(tbl)
+    u = s.create_dataframe(BucketUnion([df.plan, df.plan], BucketSpec(4, ("k",), ("k",))))
+    assert u.count() == 800
+    # Join reordering with its statistics, actuals and explain section.
+    dim = os.path.join(root, "dim")
+    os.makedirs(dim)
+    pq.write_table(pa.table({{"dk": np.arange(20, dtype=np.int64),
+                             "cat": rng.integers(0, 4, 20)}}), os.path.join(dim, "p0.parquet"))
+    s.conf.set(OptimizerConstants.JOIN_REORDER_ENABLED, "true")
+    left = s.read.parquet(src)
+    d1 = s.read.parquet(dim).filter(col("cat") == 1)
+    d2 = s.read.parquet(dim).select(col("dk").alias("dk2"), col("cat").alias("cat2"))
+    q = left.join(d2, col("c") == col("dk2")).join(d1, col("c") == col("dk")).agg(
+        sum_(col("v")).alias("t"))
+    assert "[reordered, est~" in q.optimized_plan().tree_string()
+    q.to_arrow()
+    assert "Join order:" in explain_string(s, q.plan) and len(s._join_actuals) == 2
+    assert cardinality.equi_join_rows(10.0, 10.0, [(2.0, None)]) == 10.0
+    bad = [m for m, v in sys.modules.items() if v is not None and (
+        m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+        or m.startswith("hyperspace_tpu."))]
+    assert not bad, bad
+    print("FORMATS_OK")
+""")
+
+
+def test_formats_writer_and_optimizer_run_without_jax():
+    proc = subprocess.run([sys.executable, "-c", FORMATS.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "FORMATS_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

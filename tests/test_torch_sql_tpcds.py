@@ -8,6 +8,10 @@ strings exact, float64 within 1e-9 relative, since an index scan reads
 the rows in bucket order and a sum adds them in that order (the JAX
 package's indexed answers differ from its scanned ones in the same way).
 
+The port's optimized plans are also held to the JAX package's golden
+files (``tests/resources/golden_plans/{enabled,disabled}/``, normalized by
+``tests/test_tpcds_real.normalize_plan``): one case per file, exact.
+
 The JAX side runs on the CPU with its distributed tier off; the port runs
 its plain torch paths on CPU tensors.
 """
@@ -23,6 +27,7 @@ import hyperspace_tpu_torch as ht
 from goldstandard import tpcds_real
 from hyperspace_tpu_torch.index.constants import IndexConstants
 from test_torch_sql import assert_same
+from test_tpcds_real import GOLDEN_DIR, normalize_plan
 
 CONF = {IndexConstants.INDEX_NUM_BUCKETS: "4", "hyperspace.tpu.distributed.enabled": "false",
         "hyperspace.tpu.execution.fusion.enabled": "false"}
@@ -33,7 +38,8 @@ def lakes(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("torch_tpcds"))
     jax_session = hst.Session(conf=dict(CONF), system_path=os.path.join(root, "jax"))
     tpcds_real.register_tables(jax_session, os.path.join(root, "data"))
-    torch_session = ht.Session(conf=dict(CONF), system_path=os.path.join(root, "torch"),
+    # The golden files name the index root ".../indexes/".
+    torch_session = ht.Session(conf=dict(CONF), system_path=os.path.join(root, "indexes"),
                                device="cpu")
     for name in sorted(os.listdir(os.path.join(root, "data"))):
         torch_session.create_temp_view(
@@ -67,3 +73,16 @@ def test_tpcds_text_equals_jax(lakes, name):
             assert np.allclose(x, y, rtol=1e-9, atol=0.0, equal_nan=True), column
         else:
             assert a.equals(b), column
+
+
+@pytest.mark.parametrize("mode", ["disabled", "enabled"])
+@pytest.mark.parametrize("name", tpcds_real.QUERY_NAMES)
+def test_tpcds_plan_equals_golden_file(lakes, name, mode):
+    session = lakes["torch"]
+    (session.enable_hyperspace if mode == "enabled" else session.disable_hyperspace)()
+    try:
+        plan = session.sql(tpcds_real.QUERY_TEXTS[name]).optimized_plan().tree_string()
+    finally:
+        session.disable_hyperspace()
+    with open(os.path.join(GOLDEN_DIR, mode, f"{name}.txt")) as f:
+        assert normalize_plan(plan) == f.read()
