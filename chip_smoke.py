@@ -102,7 +102,8 @@ Phases, each of which fails the run on any error:
 7. breakdown -- host spans, peak device memory and the profiler's
               device time for rebuilds of li_ship_idx, li_pk_idx, pt_idx,
               od_skip and od_bloom and for the four filter queries and Q3
-              and Q17, indexed and scanned;
+              and Q17, indexed and scanned; left out when the script's
+              clock is past BREAKDOWN_LATE_S at its start;
    mutations -- after every other path, since appends change every
               source signature; a session at the default device budget
               (8,388,608 rows), so builds and filtered scans of lineitem
@@ -146,14 +147,34 @@ Phases, each of which fails the run on any error:
               demotion); prints the ``serving`` line;
    streaming -- after the serving path, on its lake and session: the
               TPC-H New Sales Refresh (RF1: SF x 1,500 orders and their
-              1-7 lineitems) in 8 rounds, four threads appending a
-              quarter of each round's lineitem and committing together (one
+              1-7 lineitems) in 8 rounds (at least 4: no later one starts
+              once the script's clock passes STREAMING_LATE_S), four
+              threads appending a quarter of each round's lineitem and
+              committing together (one
               group-commit wave), a fifth the round's orders, with 16
               standing Q6 queries (Q6_PARAMS) delivering after every
               lineitem commit within 1e-9 of the reference; one bulk round
               of a quarter of each table; a child killed by SIGKILL at
               ingest.publish and rolled back by recover(); compact()
               (run_streaming_path); prints the ``streaming`` line;
+   telemetry -- after the streaming path, on the main path's lake and
+              session (run_telemetry_path): indexed Q3 and the cutoff
+              filter indexed, warm 10 runs and cold (the buffer pool
+              emptied before each run) 3 runs a setting, alternating
+              telemetry.trace.enabled false and true (the medians and the
+              overhead; answers byte-equal, the overhead is reported, not a
+              gate); one cold traced Q3 whose last_trace() holds query,
+              plan.normalize, rewrite.index_rules, an exec.stage span per
+              executed plan node and io.read spans under the scans;
+              explain_analyze(Q3), metrics_text(), dump_flight_recorder()
+              and health(); after phase 6 (telemetry_capture), the armed
+              one-shot torch.profiler capture of a cold range query, then
+              one capture around a cold cutoff (compare) query and the
+              rebuilds of pt_idx and od_skip: the exported chrome traces
+              must hold the CUDA kernels hash_bucket_kernel,
+              bucket_histogram_kernel, masked_minmax_kernel and mask_kernel
+              for both predicates; prints the ``telemetry`` line. Every
+              path runs traced: tracing is on by default;
 8. parity  -- Q3 and Q17 on a small lake on the card and through the
               port on the CPU (which the tests hold to the JAX package),
               reported bit for bit; the sql path's queries on a lake at
@@ -161,11 +182,12 @@ Phases, each of which fails the run on any error:
 
 Launch counters are reset just before each path (lineitem, orders,
 joins and sources of phases 4-5, io, formats, sql, reorder, serving,
-streaming, then mutations) and read just after it. Phase 5 runs each
+streaming, telemetry (its capture counted with it), then mutations) and
+read just after it. Phase 5 runs each
 query twice: since the buffer pool is on, the second run is warm; phase 7
 empties the pool before each query it times. The last lines of standard
 output are the summary, ``formats``, ``reorder``, ``serving``,
-``streaming`` and ``kernels`` JSON objects, the card's name and power
+``streaming``, ``telemetry`` and ``kernels`` JSON objects, the card's name and power
 limit as nvidia-smi reports them, and the status object ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -179,6 +201,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -223,6 +246,24 @@ PATH_KERNELS = {
     # The reordered text (Q17) filters strings and compares floats: no
     # kernel of the repo.
     "reorder": (),
+    # Q3 and the cutoff filter (compare); the capture's range query, the
+    # pt_idx rebuild (hash, histogram) and the od_skip rebuild (minmax).
+    "telemetry": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
+                  "masked_minmax"),
+}
+# The telemetry path's runs a setting, warm and cold (a cold run decodes
+# its scans again), and the CUDA kernels its profiler captures must hold:
+# label -> what the demangled name contains. The runs are few because the
+# whole script must finish inside its 1200 s limit, which the other paths
+# alone come within 60 s of on a slow host.
+TELEMETRY_RUNS = 10
+TELEMETRY_COLD_RUNS = 3
+CAPTURED_KERNELS = {
+    "hash_bucket_kernel": ("hash_bucket_kernel",),
+    "bucket_histogram_kernel": ("bucket_histogram_kernel",),
+    "masked_minmax_kernel": ("masked_minmax_kernel",),
+    "mask_kernel (compare)": ("mask_kernel", "ComparePred"),
+    "mask_kernel (range)": ("mask_kernel", "RangePred"),
 }
 # The io path's queries, and what each path's query phases hold them to:
 # name -> ("rows", pyarrow table) | ("q3", (rows, tied_last)) | ("q17", value).
@@ -273,12 +314,17 @@ def make_tpch(root: str, scale: float, seed: int = 0):
     base = (datetime.date(1992, 1, 1) - EPOCH).days
 
     def write_parts(table, out_dir, n_parts, name):
+        from concurrent.futures import ThreadPoolExecutor
         os.makedirs(out_dir)
         n = table.num_rows
         step = n // n_parts
-        for i in range(n_parts):
+
+        def part(i):
             lo, hi = i * step, (i + 1) * step if i < n_parts - 1 else n
             pq.write_table(table.slice(lo, hi - lo), os.path.join(out_dir, name(i)))
+
+        with ThreadPoolExecutor(min(n_parts, 8)) as pool:
+            list(pool.map(part, range(n_parts)))
 
     o_orderdate = np.sort(rng.integers(0, 2400, n_od) + base).astype(np.int32)
     orders = pa.table({
@@ -2704,6 +2750,12 @@ def run_serving_path(session, dirs: dict, results: dict) -> None:
 # (TPC-H specification 2.26.2); the bulk round loads a quarter of each table.
 RF1_ORDERS_PER_SF = 1500
 STREAMING_ROUNDS = 8
+# A slow host still finishes inside the 1200 s limit: past this many
+# seconds of the script's clock, no round after the fourth starts. On an
+# H100 host where the whole script takes about 930 s the last round starts
+# near 600 s, so all eight run.
+STREAMING_MIN_ROUNDS = 4
+STREAMING_LATE_S = 720
 STREAMING_APPENDERS = 4
 STREAMING_CONF = {"hyperspace.tpu.streaming.enabled": "true",
                   "hyperspace.tpu.streaming.groupCommit.windowMs": "50"}
@@ -2868,14 +2920,16 @@ def adhoc_q6(session, li_dir: str, texts: list, check_plan: bool) -> list:
 
 
 def run_streaming_path(root: str, session, dirs: dict, rows: dict, q6_refs: list,
-                       results: dict) -> None:
+                       results: dict, late_at: float = float("inf")) -> None:
     """The streaming tier on the sql lake (after the serving path): TPC-H
     RF1 refreshes at the lake's scale, with 16 standing Q6 queries.
 
     1. Setup: st_od_skip (MinMax o_orderdate) and st_od_bloom (Bloom
        o_orderkey) on orders; streaming on, groupCommit.windowMs=50; the 16
        Q6 texts of Q6_PARAMS subscribed on a frontend, hyperspace enabled.
-    2. STREAMING_ROUNDS rounds (seed 100 + round): four threads append a
+    2. STREAMING_ROUNDS rounds (seed 100 + round; none after the
+       STREAMING_MIN_ROUNDS-th starts once ``time.perf_counter()`` passes
+       ``late_at``): four threads append a
        quarter of the round's lineitem each, then commit together; a fifth
        appends and commits the round's orders. Each lineitem round lands as
        one wave (one table-log entry pair, the other committers riders),
@@ -3011,7 +3065,12 @@ def run_streaming_path(root: str, session, dirs: dict, rows: dict, q6_refs: list
                 "leader_s": leaders[0]["seconds"], "tables": tables}
 
     # 2. The RF1 rounds.
+    out["rounds_planned"] = STREAMING_ROUNDS
     for r in range(STREAMING_ROUNDS):
+        if r >= STREAMING_MIN_ROUNDS and time.perf_counter() > late_at:
+            log(f"streaming: the script's clock passed {STREAMING_LATE_S} s; rounds {r}-"
+                f"{STREAMING_ROUNDS - 1} are left out so that it ends inside its limit")
+            break
         od_batch, li_batch = rf1_tables(rows, schemas, next_key, n_rf1, 100 + r)
         next_key += n_rf1
         step = -(-li_batch.num_rows // STREAMING_APPENDERS)
@@ -3177,7 +3236,7 @@ def streaming_summary(st: dict, launches: dict, card: str) -> dict:
         return {"p50": _percentile(values, 50), "p99": _percentile(values, 99)}
     bulk = st["bulk"]
     return {
-        "rounds": len(st["rounds"]),
+        "rounds": len(st["rounds"]), "rounds_planned": st["rounds_planned"],
         "rf1_rows": {"lineitem": st["rounds"][0]["lineitem_rows"],
                      "orders": st["rounds"][0]["orders_rows"]},
         "append_with_lock_wait_s": pct(st["append_s"]),
@@ -4233,6 +4292,12 @@ def copy_rate(x) -> dict:
 # Phase 7: where the time goes.
 # ---------------------------------------------------------------------------
 
+# Phase 7 only measures: it checks no answer and no launch. It is left out
+# when the script's clock has passed this many seconds at its start, so that
+# a slow host ends inside the 1200 s limit (on an H100 host where the whole
+# script takes about 930 s it starts near 785 s).
+BREAKDOWN_LATE_S = 940
+
 def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
               n_od: int) -> dict:
     """Host timers around the layers of rebuilds of li_ship_idx, li_pk_idx,
@@ -4371,6 +4436,233 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     return out
 
 
+def _stage_nodes(plan) -> list:
+    """The plan's nodes that execute as a stage of their own, in pre-order:
+    a scan under a Filter is read by the Filter's stage."""
+    out = [plan.node_name]
+    for child in plan.children:
+        if plan.node_name == "Filter" and not child.children:
+            continue
+        out.extend(_stage_nodes(child))
+    return out
+
+
+def check_q3_trace(trace, optimized) -> int:
+    """The cold Q3's span tree: the query root over plan.normalize,
+    rewrite.index_rules and one exec.stage span per executed plan node (in
+    plan order), with an io.read span under each scan's stage. Returns
+    the span count."""
+    from hyperspace_tpu_torch.telemetry import span_names as SN
+
+    root = trace.root
+    if root is None or root.name != SN.QUERY:
+        raise AssertionError(f"telemetry: the trace's root is {root}, not a query span")
+    by_id = {s.span_id: s for s in trace.spans}
+    kids = {}
+    for s in trace.spans:
+        kids.setdefault(s.parent_id, []).append(s)
+    top = [s.name for s in kids.get(root.span_id, [])]
+    for name in (SN.PLAN_NORMALIZE, SN.INDEX_REWRITE, SN.EXEC_STAGE):
+        if name not in top:
+            raise AssertionError(f"telemetry: no {name} span under the query root: {top}")
+    stages = []
+
+    def walk(span):
+        if span.name == SN.EXEC_STAGE:
+            stages.append(span.attrs.get("node"))
+        for k in kids.get(span.span_id, []):
+            walk(k)
+
+    walk(root)
+    want = _stage_nodes(optimized)
+    if stages != want:
+        raise AssertionError(f"telemetry: exec.stage spans {stages}, plan nodes {want}")
+    reads = trace.find(SN.IO_READ)
+    scans = sum(1 for leaf in optimized.collect_leaves())
+    if len(reads) < scans or any(by_id[r.parent_id].name != SN.EXEC_STAGE for r in reads):
+        raise AssertionError(f"telemetry: {len(reads)} io.read spans for {scans} scans, "
+                             f"not each under a stage")
+    return len(trace.spans)
+
+
+def trace_arms(session, df, runs: int, cold: bool) -> dict:
+    """Wall seconds of ``runs`` runs of ``df`` with tracing off and as many
+    with it on, the settings alternating run by run (each pair in the
+    other order than the last, so a drift falls on both); ``cold`` empties
+    the buffer pool before each run. Every answer must equal the first."""
+    import torch
+
+    from hyperspace_tpu_torch.execution import buffer_pool
+    from hyperspace_tpu_torch.telemetry.constants import TelemetryConstants as TC
+
+    want = df.to_arrow()
+    secs = {"off": [], "on": []}
+    for i in range(runs):
+        for arm in ("off", "on") if i % 2 == 0 else ("on", "off"):
+            session.conf.set(TC.TRACE_ENABLED, "true" if arm == "on" else "false")
+            if cold:
+                buffer_pool.get_pool().clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = df.to_arrow()
+            torch.cuda.synchronize()
+            secs[arm].append(time.perf_counter() - t)
+            if not same_bytes(got, want):
+                raise AssertionError(f"telemetry: tracing {arm} gives another answer")
+    off, on = statistics.median(secs["off"]), statistics.median(secs["on"])
+    return {"untraced_median_s": off, "traced_median_s": on,
+            "overhead_pct": (on - off) / off * 100.0,
+            "untraced_s": secs["off"], "traced_s": secs["on"]}
+
+
+def run_telemetry_path(session, hs, queries: dict, results: dict) -> None:
+    """The telemetry path's first part, on the main path's session: the
+    traced-against-untraced medians of indexed Q3 and the cutoff filter
+    indexed, warm and cold, alternating the switch run by run; one cold
+    traced Q3's span tree; the report surfaces."""
+    from hyperspace_tpu_torch.execution import buffer_pool
+    from hyperspace_tpu_torch.telemetry import flight_recorder
+    from hyperspace_tpu_torch.telemetry.constants import TelemetryConstants as TC
+
+    t0 = time.perf_counter()
+    out = results["telemetry"] = {"runs": TELEMETRY_RUNS, "cold_runs": TELEMETRY_COLD_RUNS}
+    session.enable_hyperspace()
+    try:
+        for key, runs, cold in (("overhead", TELEMETRY_RUNS, False),
+                                ("cold_overhead", TELEMETRY_COLD_RUNS, True)):
+            arms = out[key] = {}
+            for name in ("q3", "cutoff"):
+                arms[name] = a = trace_arms(session, queries[name], runs, cold)
+                log(f"telemetry: {name} {'cold' if cold else 'warm'} median untraced "
+                    f"{a['untraced_median_s']:.5f} s, traced {a['traced_median_s']:.5f} s "
+                    f"({a['overhead_pct']:+.2f}%)")
+        session.conf.set(TC.TRACE_ENABLED, "true")
+
+        # One cold traced Q3 (the buffer pool emptied: its scans read),
+        # with the events it rang into the flight recorder (emitted
+        # whether or not a trace is open).
+        buffer_pool.get_pool().clear()
+        session._last_trace = None
+        events = flight_recorder.get_recorder().stats()["event_total"]
+        queries["q3"].to_arrow()
+        out["q3_cold_events"] = flight_recorder.get_recorder().stats()["event_total"] - events
+        trace = hs.last_trace()
+        if trace is None:
+            raise AssertionError("telemetry: a traced Q3 left no trace")
+        out["q3_cold_spans"] = check_q3_trace(trace, queries["q3"].optimized_plan())
+        out["q3_cold_ms"] = trace.duration_s() * 1000.0
+
+        report = hs.explain_analyze(queries["q3"])
+        if "== Explain Analyze ==" not in report or "exec.stage" not in report:
+            raise AssertionError(f"telemetry: explain_analyze(Q3) rendered {report[:400]}")
+        text = hs.metrics_text()
+        if "hst_trace_sampled_total" not in text or not text.endswith("# EOF\n"):
+            raise AssertionError("telemetry: metrics_text() holds no trace.sampled")
+        dump = json.loads(hs.dump_flight_recorder())
+        health = hs.health()
+        if "healthy" not in health or not dump["otherData"]["trace_ids"]:
+            raise AssertionError("telemetry: health() or the flight recorder is empty")
+        out["surfaces"] = {"explain_analyze_lines": len(report.splitlines()),
+                           "metrics_text_bytes": len(text),
+                           "flight_recorder_traces": len(dump["otherData"]["trace_ids"]),
+                           "health": {k: health[k] for k in ("healthy", "count", "errors")}}
+    finally:
+        session.conf.set(TC.TRACE_ENABLED, "true")
+        session.disable_hyperspace()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"telemetry: cold Q3 {out['q3_cold_spans']} spans; {out['seconds']:.1f} s")
+
+
+def captured_kernels(path: str) -> dict:
+    """Label -> calls of each CAPTURED_KERNELS kernel among the CUDA kernel
+    events of an exported chrome trace; fails on a trace with no CUDA
+    kernel event."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    if not names:
+        raise AssertionError(f"telemetry: the capture {path} holds no CUDA kernel event")
+    return {label: sum(1 for n in names if all(part in n for part in parts))
+            for label, parts in CAPTURED_KERNELS.items()}
+
+
+def telemetry_capture(root: str, session, hs, queries: dict, od_dir: str, pt_dir: str,
+                      results: dict) -> None:
+    """The telemetry path's second part, after every host-paced timing
+    (a profiling session slows the process's host path for good): the
+    armed one-shot capture (telemetry.profiler.enabled and .dir) of a cold
+    range query, then one capture (telemetry.trace.profile_into, the same
+    exporter) around a cold cutoff query and the rebuilds of pt_idx and
+    od_skip. The captures must hold every kernel of the repo."""
+    import glob
+
+    from hyperspace_tpu_torch import (DataSkippingIndexConfig, IndexConfig, IndexConstants,
+                                      MinMaxSketch)
+    from hyperspace_tpu_torch.execution import buffer_pool
+    from hyperspace_tpu_torch.telemetry import trace as _trace
+    from hyperspace_tpu_torch.telemetry.constants import TelemetryConstants as TC
+
+    t0 = time.perf_counter()
+    out = results["telemetry"]
+    armed_dir = os.path.join(root, "telemetry_capture", "armed")
+    session.conf.set(TC.PROFILER_ENABLED, "true")
+    session.conf.set(TC.PROFILER_DIR, armed_dir)
+    _trace.reset_profiler()
+    session.enable_hyperspace()
+    try:
+        buffer_pool.get_pool().clear()
+        queries["range"].to_arrow()
+        queries["range"].to_arrow()  # one-shot: not captured
+    finally:
+        session.conf.set(TC.PROFILER_ENABLED, "false")
+        session.disable_hyperspace()
+    armed = glob.glob(os.path.join(armed_dir, "*.json"))
+    if len(armed) != 1:
+        raise AssertionError(f"telemetry: the one-shot capture wrote {len(armed)} files")
+    with _trace.profile_into(os.path.join(root, "telemetry_capture", "work")) as work:
+        session.enable_hyperspace()
+        try:
+            buffer_pool.get_pool().clear()
+            queries["cutoff"].to_arrow()
+        finally:
+            session.disable_hyperspace()
+        hs.delete_index("pt_idx")
+        hs.vacuum_index("pt_idx")
+        session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+        hs.create_index(session.read.parquet(pt_dir),
+                        IndexConfig("pt_idx", ["p_partkey"], ["p_brand", "p_container"]))
+        hs.delete_index("od_skip")
+        hs.vacuum_index("od_skip")
+        hs.create_index(session.read.parquet(od_dir),
+                        DataSkippingIndexConfig("od_skip", [MinMaxSketch("o_orderdate")]))
+    check_minmax_sketch(hs, od_dir)
+    seen = {"armed": captured_kernels(armed[0]), "work": captured_kernels(work)}
+    missing = [label for label in CAPTURED_KERNELS
+               if not any(counts[label] for counts in seen.values())]
+    if seen["armed"]["mask_kernel (range)"] == 0:
+        missing.append("mask_kernel (range) in the armed capture")
+    if missing:
+        raise AssertionError(f"telemetry: the captures miss {missing}: {seen}")
+    out["captured_kernels"] = seen
+    out["capture_s"] = time.perf_counter() - t0
+    out["seconds"] += out["capture_s"]
+    log(f"telemetry: captured {seen}; {out['capture_s']:.1f} s")
+
+
+def telemetry_summary(tm: dict, launches: dict, card: str) -> dict:
+    return {**{key: {name: {k: v[k] for k in ("untraced_median_s", "traced_median_s",
+                                              "overhead_pct")}
+                     for name, v in tm[key].items()}
+               for key in ("overhead", "cold_overhead")},
+            "runs": tm["runs"], "cold_runs": tm["cold_runs"],
+            "q3_cold_spans": tm["q3_cold_spans"], "q3_cold_ms": tm["q3_cold_ms"],
+            "q3_cold_events": tm["q3_cold_events"],
+            "captured_kernels": sorted(label for label in CAPTURED_KERNELS
+                                       if any(c[label] for c in tm["captured_kernels"].values())),
+            "capture_s": tm["capture_s"], "seconds": tm["seconds"], "launches": launches,
+            "card": card}
+
+
 def serving_summary(sv: dict, launches: dict, card: str) -> dict:
     """The serving line: members, batches, shared scans and their hits,
     member reruns and mask-kernel launches of each wave; the result cache's hits and misses by tier and its device bytes;
@@ -4502,17 +4794,20 @@ def main(argv=None) -> int:
             f"{results['serving']['seconds']:.1f} s")
         ck.reset_launches()
         run_streaming_path(root, sql_session_, sql_dirs, results["sql"]["rows"], q6_refs,
-                           results)
+                           results, late_at=t_start + STREAMING_LATE_S)
         launches["streaming"] = dict(ck.LAUNCHES)
         log(f"streaming: launches {launches['streaming']}; "
             f"{results['streaming']['seconds']:.1f} s")
+        ck.reset_launches()
+        run_telemetry_path(session, hs, queries, results)
+        launches["telemetry"] = dict(ck.LAUNCHES)
         del sql_session_
         shutil.rmtree(os.path.join(root, "sql_data"), ignore_errors=True)
         shutil.rmtree(os.path.join(root, "sql_indexes"), ignore_errors=True)
         results["launches"] = launches
         log(f"phases 4-5: launches on the main path {launches}")
         missing = [f"{k} ({path})" for path in launches for k in PATH_KERNELS[path]
-                   if launches[path][k] <= 0]
+                   if launches[path][k] <= 0 and path != "telemetry"]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
         if launches["orders"]["masked_minmax"] != ORDERS_PARTS:
@@ -4526,7 +4821,25 @@ def main(argv=None) -> int:
         results["kernels_full_rows"] = full
         log(f"phase 6: timed in {time.perf_counter() - t0:.1f} s")
         del inputs
-        results["breakdown"] = breakdown(session, hs, queries, li_dir, od_dir, pt_dir, n_od)
+        # The capture's launches count with the telemetry path's.
+        ck.reset_launches()
+        telemetry_capture(root, session, hs, queries, od_dir, pt_dir, results)
+        for k, n in ck.LAUNCHES.items():
+            launches["telemetry"][k] += n
+        missing = [k for k in PATH_KERNELS["telemetry"] if launches["telemetry"][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the telemetry path: {missing}")
+        for e in main_path:
+            e["launches_by_path"]["telemetry"] = launches["telemetry"][e["name"]]
+            e["launches"] = sum(e["launches_by_path"].values())
+        late = time.perf_counter() - t_start
+        if late > BREAKDOWN_LATE_S:
+            log(f"phase 7 left out: the script's clock is at {late:.0f} s, past "
+                f"{BREAKDOWN_LATE_S} s")
+            results["breakdown"] = {"left_out_at_s": late}
+        else:
+            results["breakdown"] = breakdown(session, hs, queries, li_dir, od_dir, pt_dir,
+                                             n_od)
         # The appends invalidate every earlier path's signatures: this path
         # runs after them all.
         t0 = time.perf_counter()
@@ -4588,6 +4901,9 @@ def main(argv=None) -> int:
                                                  card)}, default=str))
     print(json.dumps({"streaming": streaming_summary(results["streaming"],
                                                      launches["streaming"], card)},
+                     default=str))
+    print(json.dumps({"telemetry": telemetry_summary(results["telemetry"],
+                                                     launches["telemetry"], card)},
                      default=str))
     print(json.dumps({"kernels": main_path}))
     print(card)

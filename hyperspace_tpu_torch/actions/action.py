@@ -8,7 +8,9 @@ mutation runs as
 
 Concurrency control is optimistic: the transient write fails if another
 action already claimed baseId+1. ``NoChangesException`` from validate()
-makes the action a no-op that returns quietly.
+makes the action a no-op that returns quietly. Every run emits its event
+(``event(message)``) when it starts and when it succeeds, records a no-op
+or fails, through the session's event logger.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from ..index.log_manager import IndexLogManager
 from ..parallel import io as pio
 from ..robustness import fault_names as _fn
 from ..robustness import faults as _faults
+from ..telemetry.events import HyperspaceEvent
+from ..telemetry.logging import get_logger
 
 
 class Action:
@@ -56,19 +60,28 @@ class Action:
     def op(self) -> None:
         raise NotImplementedError
 
+    def event(self, message: str) -> HyperspaceEvent:
+        raise NotImplementedError
+
     def run(self) -> None:
+        logger = get_logger(self.session.hs_conf.event_logger_class())
         # Reads under this action (sketch builds, chunk streams, the spill
         # merge) take the session's io conf; the fault scope arms the
         # session's robustness.faults.* conf for exactly this run.
         try:
+            logger.log_event(self.event("Operation started."))
             with pio.use_session(self.session), _faults.scope_for(self.session.hs_conf):
                 self.validate()
                 self._begin()
                 _faults.fault_point(_fn.ACTION_OP)
                 self.op()
                 self._end()
-        except NoChangesException:
-            pass
+            logger.log_event(self.event("Operation succeeded."))
+        except NoChangesException as e:
+            logger.log_event(self.event(f"No-op operation recorded: {e}"))
+        except Exception as e:
+            logger.log_event(self.event(f"Operation failed: {e}"))
+            raise
 
     def _begin(self) -> None:
         entry = self.log_entry

@@ -27,9 +27,11 @@ from ..index.log_entry import (Content, CoveringIndex, Directory, FileIdTracker,
 from ..index.log_manager import IndexLogManager
 from ..index.signatures import IndexSignatureProvider
 from ..ops import index_build
+from ..parallel import io as pio
 from ..plan.nodes import Scan
 from ..schema import INT64, Field, Schema
 from ..sources.partitions import read_relation_files
+from ..telemetry import events as _ev
 from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
@@ -39,14 +41,22 @@ def write_bucket_files(table: Table, bounds, num_buckets: int, out_dir: str,
                        row_group_size: int, file_name=None) -> None:
     """One parquet file per non-empty bucket from bucket-contiguous rows;
     ``bounds[b]``..``bounds[b+1]`` delimit bucket b. ``file_name(b)``
-    names bucket b's file (default ``index_build.bucket_file_name``)."""
+    names bucket b's file (default ``index_build.bucket_file_name``). The
+    table is fetched to the host at once (a no-op for a host table), then
+    the files are written over threads, each by one."""
     name_for = file_name or index_build.bucket_file_name
-    for b in range(num_buckets):
-        lo, hi = int(bounds[b]), int(bounds[b + 1])
-        if hi <= lo:
-            continue  # empty buckets produce no file.
+    table = table.to_host()
+    bounds = [int(x) for x in bounds]
+    # Empty buckets produce no file.
+    runs = [(b, bounds[b], bounds[b + 1]) for b in range(num_buckets)
+            if bounds[b + 1] > bounds[b]]
+
+    def write(run) -> None:
+        b, lo, hi = run
         write_parquet(table.slice(lo, hi), os.path.join(out_dir, name_for(b)),
                       row_group_size=row_group_size)
+
+    pio.run_all(write, runs)
 
 
 def build_source(relation, plan, tracker: FileIdTracker) -> Source:
@@ -226,3 +236,8 @@ class CreateAction(CreateActionBase):
             self.index_config.index_name, self.df.plan.relation, self.df.plan, indexed,
             included, self._index_schema(False), FileIdTracker(),
             Content(root=Directory("/"))).with_log_version(0)
+
+    def event(self, message: str) -> _ev.CreateActionEvent:
+        return _ev.CreateActionEvent(message=message,
+                                     index_name=self.index_config.index_name,
+                                     index_config=self.index_config)

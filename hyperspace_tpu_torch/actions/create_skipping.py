@@ -32,6 +32,7 @@ from ..ops import sketches as sk
 from ..parallel import io as pio
 from ..plan.nodes import Scan
 from ..schema import INT64, STRING, Field, Schema
+from ..telemetry import events as _ev
 from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
@@ -77,7 +78,8 @@ def build_sketch_rows(relation, sketch_list: List[Sketch], files: List[str],
             raise HyperspaceException(f"Unknown sketch kind: {s.kind}")
     fmt = relation.file_format
     for path, table in pio.zip_prefetch(
-            files, lambda f: read_parquet([f], needed, device, fmt=fmt), weight=os.path.getsize):
+            files, lambda f: read_parquet([f], needed, device, fmt=fmt), weight=os.path.getsize,
+            label="sketch_build"):
         rows[FILE_COL].append(path)
         rows[FILE_ID_COL].append(tracker.add_file(*file_info_triple(path)))
         for s in sketch_list:
@@ -202,6 +204,11 @@ class CreateDataSkippingAction(Action):
         # begin() runs before op(): write a placeholder entry.
         return self._build_entry(Content(root=Directory("/")), FileIdTracker())
 
+    def event(self, message: str) -> _ev.CreateActionEvent:
+        return _ev.CreateActionEvent(message=message,
+                                     index_name=self.index_config.index_name,
+                                     index_config=self.index_config)
+
 
 class RefreshDataSkippingAction(RefreshActionBase):
     """Full refresh: the whole sketch table rebuilt over the current file
@@ -226,6 +233,9 @@ class RefreshDataSkippingAction(RefreshActionBase):
         self._commit(sketch_table(rows, sketch_arrow_schema(self.relation.schema,
                                                             sketch_list)), tracker)
 
+    def event(self, message: str) -> _ev.RefreshActionEvent:
+        return _ev.RefreshActionEvent(message=message, index_name=self.previous_entry.name)
+
 
 class RefreshDataSkippingIncrementalAction(RefreshDataSkippingAction):
     """Incremental refresh: the sketch rows of unchanged files kept, those
@@ -248,6 +258,10 @@ class RefreshDataSkippingIncrementalAction(RefreshDataSkippingAction):
                                      self.session.device)
         self._commit(pa.concat_tables([kept.cast(arrow_schema),
                                        sketch_table(new_rows, arrow_schema)]), tracker)
+
+    def event(self, message: str) -> _ev.RefreshIncrementalActionEvent:
+        return _ev.RefreshIncrementalActionEvent(message=message,
+                                                 index_name=self.previous_entry.name)
 
 
 def _sketch_file(entry: IndexLogEntry) -> str:

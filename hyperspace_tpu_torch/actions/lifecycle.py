@@ -17,6 +17,7 @@ from ..index.constants import STABLE_STATES, States
 from ..index.data_manager import IndexDataManager
 from ..index.log_entry import IndexLogEntry
 from ..index.log_manager import IndexLogManager
+from ..telemetry import events as _ev
 from .action import Action
 
 
@@ -59,11 +60,17 @@ class DeleteAction(_TransitionAction):
     final_state = States.DELETED
     expected_states = (States.ACTIVE,)
 
+    def event(self, message: str) -> _ev.DeleteActionEvent:
+        return _ev.DeleteActionEvent(message=message, index_name=self.prev_entry.name)
+
 
 class RestoreAction(_TransitionAction):
     transient_state = States.RESTORING
     final_state = States.ACTIVE
     expected_states = (States.DELETED,)
+
+    def event(self, message: str) -> _ev.RestoreActionEvent:
+        return _ev.RestoreActionEvent(message=message, index_name=self.prev_entry.name)
 
 
 class VacuumAction(_TransitionAction):
@@ -74,6 +81,9 @@ class VacuumAction(_TransitionAction):
     def op(self) -> None:
         for version in self.data_manager.get_all_version_ids():
             self.data_manager.delete(version)
+
+    def event(self, message: str) -> _ev.VacuumActionEvent:
+        return _ev.VacuumActionEvent(message=message, index_name=self.prev_entry.name)
 
 
 class CancelAction(_TransitionAction):
@@ -107,3 +117,6 @@ class CancelAction(_TransitionAction):
             raise HyperspaceException(
                 f"Cancel is not needed: index is in stable state {latest.state}")
         self.final_state = self.prev_entry.state
+
+    def event(self, message: str) -> _ev.CancelActionEvent:
+        return _ev.CancelActionEvent(message=message, index_name=self.prev_entry.name)

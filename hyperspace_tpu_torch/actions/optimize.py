@@ -21,6 +21,7 @@ from ..execution.columnar import read_parquet, write_parquet
 from ..index.constants import IndexConstants, States
 from ..index.log_entry import Content, FileIdTracker, FileInfo, IndexLogEntry
 from ..ops import index_build, kernels
+from ..telemetry import events as _ev
 from .refresh import ExistingIndexActionBase
 
 
@@ -93,3 +94,6 @@ class OptimizeAction(ExistingIndexActionBase):
         self._entry = IndexLogEntry.create(
             prev.name, prev.derivedDataset, index_content, prev.source,
             dict(prev.properties)).with_log_version(version)
+
+    def event(self, message: str) -> _ev.OptimizeActionEvent:
+        return _ev.OptimizeActionEvent(message=message, index_name=self.previous_entry.name)

@@ -23,6 +23,7 @@ from ..index.log_entry import (Content, Directory, FileIdTracker, FileInfo,
                                IndexLogEntry, Update)
 from ..ops import kernels
 from ..plan.nodes import Scan
+from ..telemetry import events as _ev
 from .create import CreateActionBase
 
 
@@ -168,6 +169,9 @@ class RefreshAction(RefreshActionBase):
         index_content = Content.from_directory(out_dir, tracker)
         self._entry = self._rebuilt_entry(tracker, index_content, version)
 
+    def event(self, message: str) -> _ev.RefreshActionEvent:
+        return _ev.RefreshActionEvent(message=message, index_name=self.previous_entry.name)
+
 
 class RefreshIncrementalAction(RefreshActionBase):
     """Incremental refresh:
@@ -213,6 +217,10 @@ class RefreshIncrementalAction(RefreshActionBase):
             index_content = prev.content.merge(Content.from_directory(out_dir, tracker))
         self._entry = self._rebuilt_entry(tracker, index_content, version)
 
+    def event(self, message: str) -> _ev.RefreshIncrementalActionEvent:
+        return _ev.RefreshIncrementalActionEvent(message=message,
+                                                 index_name=self.previous_entry.name)
+
 
 class RefreshQuickAction(RefreshActionBase):
     """Quick refresh: metadata only. The appended and deleted files go into
@@ -240,3 +248,6 @@ class RefreshQuickAction(RefreshActionBase):
                 deletedFiles=content_from_file_infos(list(self.deleted_files)))
             self._entry = prev.with_log_version(prev.log_version)
         return self._entry
+
+    def event(self, message: str) -> _ev.RefreshQuickActionEvent:
+        return _ev.RefreshQuickActionEvent(message=message, index_name=self.previous_entry.name)

@@ -2,7 +2,10 @@
 data-skipping indexes; create, delete, restore, vacuum, refresh, optimize
 and cancel; the introspection calls indexes, index, explain and why_not;
 the streaming tier's append, commit, compact, recover and continuous
-sources)."""
+sources; the telemetry surfaces metrics, metrics_delta, metrics_text,
+serve_metrics, health, dump_flight_recorder, explain_analyze and
+last_trace). The JAX package's fleet_metrics (cluster tier), spmd_stats
+(mesh tier) and advisor calls wait with their tiers."""
 
 from __future__ import annotations
 
@@ -248,18 +251,111 @@ class Hyperspace:
     def io_stats(self) -> dict:
         """The process-wide reader-pool counters (parallel/io.py): pooled
         fan-outs, file tasks, byte estimates, in-worker read seconds,
-        consumer wait seconds, prefetch streams and items, pool width."""
+        consumer wait seconds, prefetch streams and items, pool width.
+        Read through the metrics registry's ``io`` collector."""
         from .parallel import io as pio
-        return pio.pool_stats()
+        from .telemetry import metric_names as MN
+        from .telemetry.metrics import get_registry
+        out = get_registry().collect(MN.COLLECTOR_IO)
+        return out if out is not None else pio.pool_stats()
 
     def buffer_pool_stats(self) -> dict:
         """The buffer pool's counters (execution/buffer_pool.py): hits per
         tier, misses, admissions, host->device ``transfers`` (0 new ones on
         a fully warm repeat), demotions and evictions,
         ``decode_bytes_saved``, residency against the budgets, and the
-        probes per namespace."""
+        probes per namespace. Read through the metrics registry's
+        ``buffer_pool`` collector."""
         from .execution import buffer_pool
-        return buffer_pool.pool_stats()
+        from .telemetry import metric_names as MN
+        from .telemetry.metrics import get_registry
+        out = get_registry().collect(MN.COLLECTOR_BUFFER_POOL)
+        return out if out is not None else buffer_pool.pool_stats()
+
+    # The telemetry tier (telemetry/).
+
+    def metrics(self) -> dict:
+        """One snapshot over every subsystem (telemetry/metrics.py): the
+        process registry's counters and gauges, the live histograms
+        (``query.latency_ms``, ``serving.latency_ms``: rolling
+        p50/p95/p99 and QPS) and every named collector (``io``,
+        ``robustness``, ``streaming``, ``serving``, ``buffer_pool``,
+        ``flight_recorder``), plus this session's ``result_cache``."""
+        from .execution import buffer_pool
+        from .parallel import io as pio
+        from .telemetry import metric_names as MN
+        from .telemetry.metrics import get_registry
+        snap = get_registry().snapshot()
+        cols = snap["collectors"]
+        cols.setdefault(MN.COLLECTOR_IO, pio.pool_stats())
+        cols.setdefault(MN.COLLECTOR_BUFFER_POOL, buffer_pool.pool_stats())
+        cols["result_cache"] = self.result_cache_stats()
+        if MN.COLLECTOR_SERVING not in cols:
+            cols[MN.COLLECTOR_SERVING] = self.serving_stats()
+        return snap
+
+    def metrics_delta(self, before: dict, after: Optional[dict] = None) -> dict:
+        """The numeric leaves that changed between two ``metrics()``
+        snapshots, as one flat ``{dotted.path: delta}`` dict; ``after``
+        defaults to a snapshot now."""
+        from .telemetry.exposition import delta
+        return delta(before, after if after is not None else self.metrics())
+
+    def metrics_text(self) -> str:
+        """The whole ``metrics()`` surface as OpenMetrics text exposition
+        (telemetry/exposition.py)."""
+        from .telemetry.exposition import render_text
+        return render_text(self.metrics())
+
+    def serve_metrics(self, port: Optional[int] = None) -> int:
+        """Start the opt-in scrape endpoint (``GET
+        127.0.0.1:<port>/metrics`` serves ``metrics_text()``).
+        ``port=None`` reads ``hyperspace.tpu.telemetry.export.httpPort``
+        (raising while it is 0, the default); an explicit ``port=0`` binds
+        an ephemeral port. Returns the bound port."""
+        from .telemetry.exposition import start_http_exporter
+        return start_http_exporter(self.session, port)
+
+    def stop_serving_metrics(self) -> None:
+        from .telemetry.exposition import stop_http_exporter
+        stop_http_exporter()
+
+    def health(self) -> dict:
+        """This session's SLO objectives (``hyperspace.tpu.telemetry.slo.*``)
+        evaluated now over the sliding window of completed queries:
+        ``healthy`` and, per objective, observed, threshold and breached.
+        A healthy→breached transition emits SloBreachEvent."""
+        from .telemetry.slo import health
+        return health(self.session)
+
+    def dump_flight_recorder(self, path: Optional[str] = None) -> str:
+        """The flight recorder's rings (retained traces, recent events,
+        anomalies, metrics snapshots) as one Perfetto / chrome://tracing
+        JSON document (telemetry/flight_recorder.py); written to ``path``
+        when given, returned either way."""
+        import json
+        from .telemetry.flight_recorder import get_recorder
+        text = json.dumps(get_recorder().dump(), default=str)
+        if path:
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(text)
+        return text
+
+    def explain_analyze(self, df) -> str:
+        """Execute the query with its trace forced on and return one report:
+        the span timeline (wall and self times; host times, see
+        telemetry/trace.py), estimated against actual join rows, and the
+        query's io, cache and robustness tallies
+        (plananalysis/analyze.py)."""
+        from .plananalysis.analyze import explain_analyze_string
+        return explain_analyze_string(self.session, df.plan)
+
+    def last_trace(self):
+        """The span tree (:class:`~.telemetry.trace.Trace`) of this
+        session's most recent retained trace, or None. Export with
+        ``.to_chrome_json()``; render with
+        ``telemetry.trace.render_timeline``."""
+        return self.session._last_trace
 
     def result_cache_stats(self) -> dict:
         """The result cache's counters per tier (None while it is off), the

@@ -14,6 +14,7 @@ from .optimizer.constants import OptimizerConstants
 from .robustness.constants import RobustnessConstants
 from .serving.constants import ServingConstants
 from .streaming.constants import StreamingConstants
+from .telemetry.constants import TelemetryConstants
 
 T = TypeVar("T")
 
@@ -152,6 +153,12 @@ class HyperspaceConf:
     def case_sensitive(self) -> bool:
         return self._get_bool(IndexConstants.CASE_SENSITIVE,
                               IndexConstants.CASE_SENSITIVE_DEFAULT)
+
+    def event_logger_class(self) -> Optional[str]:
+        return self._conf.get(IndexConstants.EVENT_LOGGER_CLASS)
+
+    def trace_dir(self) -> Optional[str]:
+        return self._conf.get(IndexConstants.TPU_TRACE_DIR)
 
     # The result cache and the SQL plan memo (serving/result_cache.py).
 
@@ -292,6 +299,42 @@ class HyperspaceConf:
     def join_reorder_enabled(self) -> bool:
         return self._get_bool(OptimizerConstants.JOIN_REORDER_ENABLED,
                               OptimizerConstants.JOIN_REORDER_ENABLED_DEFAULT)
+
+    # Telemetry (telemetry/constants.py): tracing, SLOs, export, profiler.
+
+    def telemetry_trace_enabled(self) -> bool:
+        return self._get_bool(TelemetryConstants.TRACE_ENABLED,
+                              TelemetryConstants.TRACE_ENABLED_DEFAULT)
+
+    def telemetry_trace_sample_rate(self) -> float:
+        """Head-sampled trace retention probability, clamped to [0, 1]."""
+        return min(max(float(self._conf.get(
+            TelemetryConstants.TRACE_SAMPLE_RATE,
+            TelemetryConstants.TRACE_SAMPLE_RATE_DEFAULT)), 0.0), 1.0)
+
+    def telemetry_slo_p99_ms(self) -> float:
+        return max(float(self._conf.get(TelemetryConstants.SLO_P99_MS,
+                                        TelemetryConstants.SLO_P99_MS_DEFAULT)), 0.0)
+
+    def telemetry_slo_error_rate(self) -> float:
+        return max(float(self._conf.get(TelemetryConstants.SLO_ERROR_RATE,
+                                        TelemetryConstants.SLO_ERROR_RATE_DEFAULT)), 0.0)
+
+    def telemetry_slo_min_count(self) -> int:
+        return max(int(self._conf.get(TelemetryConstants.SLO_MIN_COUNT,
+                                      TelemetryConstants.SLO_MIN_COUNT_DEFAULT)), 1)
+
+    def telemetry_export_http_port(self) -> int:
+        return max(int(self._conf.get(TelemetryConstants.EXPORT_HTTP_PORT,
+                                      TelemetryConstants.EXPORT_HTTP_PORT_DEFAULT)), 0)
+
+    def telemetry_profiler_enabled(self) -> bool:
+        return self._get_bool(TelemetryConstants.PROFILER_ENABLED,
+                              TelemetryConstants.PROFILER_ENABLED_DEFAULT)
+
+    def telemetry_profiler_dir(self) -> str:
+        return self._conf.get(TelemetryConstants.PROFILER_DIR,
+                              TelemetryConstants.PROFILER_DIR_DEFAULT) or ""
 
     def _get_bool(self, key: str, default: str) -> bool:
         return (self._conf.get(key, default) or "").strip().lower() == "true"

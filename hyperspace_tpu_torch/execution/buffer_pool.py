@@ -19,6 +19,11 @@ found again and age out of the LRU. Eviction runs device -> host -> drop;
 the copies run outside the lock. A failed load raises: the pool has no
 silent-miss path. Tables that come out of the pool are shared by every
 query that hits them, so nothing may write into their tensors in place.
+
+Every probe emits a BufferPoolHitEvent or BufferPoolMissEvent, and every
+step down the eviction ladder a BufferPoolEvictEvent, through the
+executing session's logger; the counters are the ``buffer_pool``
+collector of the metrics registry.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ import os
 import threading
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+from ..telemetry import metric_names as _mn
+from ..telemetry import metrics as _metrics
 
 # Budgets when no session is in scope (the JAX package's defaults).
 _DEVICE_BYTES_DEFAULT = 4 << 30
@@ -62,6 +70,35 @@ def _note_query(**deltas) -> None:
     ctx = active_context()
     if ctx is not None:
         ctx.note_io(**deltas)
+
+
+def _hit_event(ns: str, tier: str, nbytes: int):
+    from ..telemetry.events import BufferPoolHitEvent
+    return BufferPoolHitEvent(message=f"buffer pool hit ({ns}, {tier} tier)",
+                              namespace=ns, tier=tier, nbytes=nbytes)
+
+
+def _miss_event(ns: str, reason: str):
+    from ..telemetry.events import BufferPoolMissEvent
+    return BufferPoolMissEvent(message=f"buffer pool miss ({ns})", namespace=ns,
+                               reason=reason)
+
+
+def _evict_event(tier: str, nbytes: int, demoted: bool):
+    from ..telemetry.events import BufferPoolEvictEvent
+    return BufferPoolEvictEvent(
+        message=f"buffer pool {'demotion' if demoted else 'eviction'} ({tier} tier)",
+        tier=tier, nbytes=nbytes, demoted=demoted)
+
+
+def _emit_event(make, *args) -> None:
+    """Build the event only when a session is in scope to receive it."""
+    from ..parallel import io as pio
+    session = pio.active_session()
+    if session is None:
+        return
+    from ..telemetry.logging import log_event
+    log_event(session, make(*args))
 
 
 def _tensors(table):
@@ -181,6 +218,7 @@ class BufferPool:
         """The cached payload, or None (a miss: the caller reads)."""
         full = (pk.ns,) + tuple(pk.key)
         promote = None
+        tier = "device"
         with self._lock:
             e = self._device.get(full)
             if e is not None:
@@ -191,17 +229,22 @@ class BufferPool:
                 if e is None:
                     self.misses += 1
                     self._bump_ns(pk.ns, "misses")
-                    _note_query(pool_misses=1)
-                    return None
-                self._host.move_to_end(full)
-                self.host_hits += 1
-                promote = e
-            self.decode_bytes_saved += e.source_bytes
-            self._bump_ns(pk.ns, "hits")
-            payload = e.payload
+                else:
+                    self._host.move_to_end(full)
+                    self.host_hits += 1
+                    promote, tier = e, "host"
+            if e is not None:
+                self.decode_bytes_saved += e.source_bytes
+                self._bump_ns(pk.ns, "hits")
+                payload = e.payload
+        if e is None:
+            _note_query(pool_misses=1)
+            _emit_event(_miss_event, pk.ns, "")
+            return None
         if promote is not None:
             payload = self._promote(full, promote)
         _note_query(pool_hits=1, pool_bytes_saved=e.source_bytes)
+        _emit_event(_hit_event, pk.ns, tier, e.nbytes)
         return payload
 
     def _promote(self, full: tuple, e: _Entry):
@@ -244,20 +287,25 @@ class BufferPool:
     def _settle(self, victims: list) -> None:
         """Device victims move to the host tier, or drop when device-only or
         when the host tier has no budget; host victims drop."""
-        evicted = 0
+        dropped = []  # (tier, nbytes, demoted)
         for full, e in victims:
             if e.device_only or self.host_bytes <= 0:
-                evicted += 1
+                dropped.append(("device", e.nbytes, False))
                 continue
             e.payload = _table_to_host(e.payload)
             with self._lock:
                 self._host[full] = e
                 self._host_nbytes += e.nbytes
                 self.demotions += 1
-                evicted += len(self._pop_victims(self._host, "_host_nbytes", self.host_bytes))
+                host_victims = self._pop_victims(self._host, "_host_nbytes", self.host_bytes)
+            dropped.append(("device", e.nbytes, True))
+            dropped.extend(("host", he.nbytes, False) for _, he in host_victims)
+        evicted = sum(1 for _, _, demoted in dropped if not demoted)
         if evicted:
             with self._lock:
                 self.evictions += evicted
+        for tier, nbytes, demoted in dropped:
+            _emit_event(_evict_event, tier, nbytes, demoted)
 
     # Maintenance and observability.
 
@@ -356,8 +404,12 @@ def get_pool() -> BufferPool:
 
 
 def pool_stats() -> dict:
-    """``Hyperspace.buffer_pool_stats()``."""
+    """``Hyperspace.buffer_pool_stats()`` and the ``buffer_pool``
+    collector."""
     return get_pool().stats()
+
+
+_metrics.get_registry().register_collector(_mn.COLLECTOR_BUFFER_POOL, pool_stats)
 
 
 # ---------------------------------------------------------------------------

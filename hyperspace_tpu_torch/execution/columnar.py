@@ -20,6 +20,7 @@ import datetime
 import functools
 import os
 import re
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -196,10 +197,17 @@ class Table:
             if col.dtype == STRING:
                 codes = np_data
                 safe = np.where(codes >= 0, codes, 0)
-                values = col.dictionary[safe] if len(col.dictionary) else \
-                    np.array([""] * len(codes), dtype=object)
-                arr = pa.array(values, type=pa.string(),
-                               mask=mask if mask is not None else (codes < 0))
+                mask = mask if mask is not None else (codes < 0)
+                if len(col.dictionary):
+                    # Decoded by arrow from the codes: the same strings as
+                    # indexing the dictionary on the host, without a Python
+                    # object a row.
+                    arr = pa.DictionaryArray.from_arrays(
+                        pa.array(safe, mask=mask),
+                        pa.array(col.dictionary, type=pa.string())).cast(pa.string())
+                else:
+                    arr = pa.array(np.array([""] * len(codes), dtype=object),
+                                   type=pa.string(), mask=mask)
             elif col.dtype == DATE:
                 arr = pa.array(np_data.astype("int32"), type=pa.int32(), mask=mask)
                 arr = arr.cast(pa.date32())
@@ -394,18 +402,30 @@ def _read_parquet_pooled(files: Sequence[str], read_cols, filters) -> pa.Table:
     if len(files) > 1 and n > 1 and not pio.in_worker():
         step = (len(files) + n - 1) // n
         groups = [files[i:i + step] for i in range(0, len(files), step)]
-        def weight(group) -> int:
-            return sum(map(_file_size_weight, group))
+        weights = [sum(map(_file_size_weight, g)) for g in groups]
 
         # The pool reads at its full width only when the in-flight budget
         # holds a sublist for every thread; narrower, it decodes on fewer
         # threads than pyarrow's own read uses (PERF.md, the read splits).
-        if min(n, len(groups)) * max(map(weight, groups)) <= p.max_inflight_bytes:
-            parts = pio.map_ordered(lambda g: read(g, False), groups, weight=weight, params=p)
+        if min(n, len(groups)) * max(weights) <= p.max_inflight_bytes:
+            parts = pio.map_ordered(lambda gw: read(gw[0], False), list(zip(groups, weights)),
+                                    weight=lambda gw: gw[1], params=p, label="read_parquet")
             try:
                 return pa.concat_tables(parts)
             except (pa.ArrowInvalid, pa.ArrowTypeError):
                 pass  # files of differing schemas: the dataset reader unifies them.
+        else:
+            # The same sublists read on pyarrow's threads: the read still
+            # records the io.read span the JAX package's fan-out (which has
+            # no budget) records.
+            from ..telemetry import span_names as SN
+            from ..telemetry import trace as _trace
+            t0 = time.perf_counter()
+            at = read(files, True)
+            _trace.add_span(SN.IO_READ, start_perf=t0, label="read_parquet",
+                            files=len(groups), nbytes=sum(weights),
+                            threads=n, route="pyarrow")
+            return at
     return read(files, n > 1 and not pio.in_worker())
 
 
@@ -501,7 +521,8 @@ def read_format(files: Sequence[str], columns: Optional[Sequence[str]],
             return pa.table({"value": pa.array(lines, type=pa.string())})
     else:
         raise HyperspaceException(f"Unsupported format: {fmt}")
-    at = pa.concat_tables(pio.map_ordered(read_one, list(files), weight=_file_size_weight))
+    at = pa.concat_tables(pio.map_ordered(read_one, list(files), weight=_file_size_weight,
+                                          label=f"read_{fmt}"))
     if columns and fmt in ("csv", "json", "text"):
         at = at.select(list(columns))
     return at

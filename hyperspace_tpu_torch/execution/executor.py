@@ -49,6 +49,8 @@ from ..serving import batcher
 from ..serving import context as qctx
 from ..serving.fingerprint import _node_detail
 from ..sources.partitions import read_relation_files
+from ..telemetry import span_names as SN
+from ..telemetry import trace as _trace
 from . import index_cache
 from .buffer_pool import file_signature
 from .columnar import (DEVICE_DTYPE, Column, Table, dictionaries_equal, empty_table,
@@ -66,12 +68,24 @@ def execute(plan: LogicalPlan, session) -> Table:
 
 
 def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
-    """One plan node. Every stage boundary, on entry and on exit, is a
-    cancellation point for the query's deadline (serving/context.py)."""
+    """One plan node, under one ``exec.stage`` span (attributes ``node``
+    and ``rows``) while a trace is active, so the span tree mirrors the
+    plan tree; ``idle()`` makes it a plain call while tracing is off. The
+    span ends when the host returns: it waits for no kernel. Every stage
+    boundary, on entry and on exit, is a cancellation point for the
+    query's deadline (serving/context.py)."""
     qctx.check_deadline("exec.stage")
-    table = _execute_node(plan, needed, session)
-    qctx.check_deadline("exec.stage")
-    return table
+    if _trace.idle():
+        table = _execute_node(plan, needed, session)
+        qctx.check_deadline("exec.stage")
+        return table
+    with _trace.span(SN.EXEC_STAGE, node=plan.node_name) as sp:
+        table = _execute_node(plan, needed, session)
+        if sp is not None:
+            # A tensor's length: no device sync.
+            sp.attrs["rows"] = int(table.num_rows)
+        qctx.check_deadline("exec.stage")
+        return table
 
 
 def _shared_scan_key(plan: Scan, needed: Optional[Set[str]], device):
@@ -463,6 +477,7 @@ def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
         cache = index_cache.get_cache()
         key = (entry.id, entry.name, file_signature(index_files), tuple(cols), str(device))
         table = cache.get(key)
+        _emit_index_cache_probe(entry.name, hit=table is not None)
         if table is None:
             table = read_parquet(index_files, cols, device)
             cache.put(key, table)
@@ -484,6 +499,19 @@ def _execute_index_scan(plan: IndexScan, needed: Optional[Set[str]], device,
         else:
             table = Table.concat([table, appended.select(table.names)])
     return _drop_unwanted_lineage(plan, table, needed)
+
+
+def _emit_index_cache_probe(index_name: str, hit: bool) -> None:
+    """One IndexCacheHitEvent or IndexCacheMissEvent per index-table cache
+    probe, through the executing session's logger."""
+    session = pio.active_session()
+    if session is None:
+        return
+    from ..telemetry.events import IndexCacheHitEvent, IndexCacheMissEvent
+    from ..telemetry.logging import log_event
+    cls = IndexCacheHitEvent if hit else IndexCacheMissEvent
+    log_event(session, cls(message=f"index table cache {'hit' if hit else 'miss'}",
+                           index_name=index_name))
 
 
 # How often the shuffle-free paths were taken (tests and chip_smoke.py

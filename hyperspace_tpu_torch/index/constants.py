@@ -84,6 +84,9 @@ class IndexConstants:
     CASE_SENSITIVE = "hyperspace.caseSensitive"
     CASE_SENSITIVE_DEFAULT = "false"
 
+    # The event sink's class name (telemetry/logging.py); unset is a no-op.
+    EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
+
     # Parquet row-group size for index files: smaller groups give finer
     # row-group pruning on the sorted indexed columns.
     INDEX_ROW_GROUP_SIZE = "hyperspace.index.rowGroupSize"
@@ -94,6 +97,10 @@ class IndexConstants:
     # most this many (ops/index_build.py, execution/executor.py).
     TPU_MAX_CHUNK_ROWS = "hyperspace.tpu.maxChunkRows"
     TPU_MAX_CHUNK_ROWS_DEFAULT = str(8 * 1024 * 1024)
+    # When set, every plan execution runs under torch.profiler and writes
+    # its chrome trace (CPU and CUDA timeline) into this directory, one
+    # file per execution (telemetry/trace.profile_into).
+    TPU_TRACE_DIR = "hyperspace.tpu.trace.dir"
 
     # Parallel I/O (parallel/io.py): the process-wide bounded reader pool
     # and the producer/consumer prefetch pipelines behind multi-file reads,

@@ -219,7 +219,7 @@ class IndexLogManager:
             _faults.fault_point(_fn.LOG_STABLE)
             self._store.put_overwrite(self._latest_stable_path, data)
 
-        _retry.call(_put)
+        _retry.call(_put, where="log.stable")
         _LOOKUP_CACHE.invalidate(self._log_path)
         return True
 
@@ -248,7 +248,7 @@ class IndexLogManager:
                 state["transient"] = True
                 raise
 
-        won = _retry.call(_put)
+        won = _retry.call(_put, where="log.write")
         if not won and state["transient"]:
             won = self._store.read(path) == data
         _LOOKUP_CACHE.invalidate(self._log_path)

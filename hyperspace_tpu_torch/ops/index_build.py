@@ -110,7 +110,7 @@ def build_sorted_buckets_chunked(
                                            device),
                 weight=lambda batch: sum(os.path.getsize(_spill_path(spill_dir, b))
                                          for b in batch),
-                params=merge_params):
+                params=merge_params, label="spill_merge"):
             _note_device_rows(merged.num_rows)
             merged = _sort_batch(merged, [rows_of[b] for b in batch], indexed_cols)
             _write_batch(merged, batch, [rows_of[b] for b in batch], out_dir, row_group_size)
@@ -147,18 +147,20 @@ def _spill_chunks(files, columns, indexed_cols, num_buckets, chunk_rows, device,
 
 def _spill_runs(sorted_chunk: Table, bounds, num_buckets: int,
                 writers: Dict[int, pq.ParquetWriter], spill_dir: str) -> None:
-    """Append each non-empty bucket run of a sorted chunk to its spill file."""
+    """Append each non-empty bucket run of a sorted chunk to its spill file,
+    the files written over threads (each by one)."""
     at = sorted_chunk.to_arrow()
+    runs = []
     for b in range(num_buckets):
         lo, hi = int(bounds[b]), int(bounds[b + 1])
         if hi <= lo:
             continue
         run = at.slice(lo, hi - lo)
         _bump_chunk_stat("spill_bytes", run.nbytes)
-        w = writers.get(b)
-        if w is None:
-            w = writers[b] = pq.ParquetWriter(_spill_path(spill_dir, b), run.schema)
-        w.write_table(run)
+        if b not in writers:
+            writers[b] = pq.ParquetWriter(_spill_path(spill_dir, b), run.schema)
+        runs.append((writers[b], run))
+    pio.run_all(lambda wr: wr[0].write_table(wr[1]), runs)
 
 
 def _bucket_batches(rows_of: Dict[int, int], chunk_rows: int) -> List[List[int]]:
@@ -189,13 +191,12 @@ def _sort_batch(merged: Table, rows: Sequence[int], indexed_cols: Sequence[str])
 
 def _write_batch(merged: Table, batch: Sequence[int], rows: Sequence[int], out_dir: str,
                  row_group_size: int) -> None:
-    """One parquet file per bucket of a sorted batch."""
+    """One parquet file per bucket of a sorted batch, written over threads."""
     at = merged.to_arrow()
-    lo = 0
-    for b, n in zip(batch, rows):
-        pq.write_table(at.slice(lo, n), os.path.join(out_dir, bucket_file_name(b)),
-                       row_group_size=row_group_size)
-        lo += n
+    starts = np.concatenate([[0], np.cumsum(rows, dtype=np.int64)[:-1]]).tolist()
+    pio.run_all(lambda job: pq.write_table(
+        at.slice(job[1], job[2]), os.path.join(out_dir, bucket_file_name(job[0])),
+        row_group_size=row_group_size), list(zip(batch, starts, rows)))
 
 
 def bucket_file_name(bucket: int) -> str:

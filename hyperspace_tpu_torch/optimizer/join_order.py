@@ -22,9 +22,11 @@ original.
 
 Estimates come from optimizer/stats.py and optimizer/cardinality.py. Each
 chain leaves a record on ``session._last_join_order``, which explain's
-"Join order:" section reads. The JAX package's adaptive correction hook
-waits for the adaptive tier, and its telemetry events for the telemetry
-tier: neither is ported.
+"Join order:" section reads. The pass runs under the
+``optimize.join_reorder`` span; a pass that is not diagnostic and changed
+an order emits one JoinReorderEvent per reordered chain and one
+CardinalityEstimateEvent per step. The JAX package's adaptive correction
+hook waits for the adaptive tier.
 """
 
 from __future__ import annotations
@@ -310,14 +312,39 @@ def _enumerate_dp(ests: List[_Est], edges) -> List[int]:
 # The rewrite.
 # ---------------------------------------------------------------------------
 
-def reorder_joins(session, plan: LogicalPlan) -> LogicalPlan:
+def reorder_joins(session, plan: LogicalPlan, diagnostic: bool = False) -> LogicalPlan:
     """Rewrite every eligible inner-equi-join chain of ``plan`` to its
     cheapest estimated linear order. Leaves a list of chain records on
-    ``session._last_join_order`` (explain reads it back)."""
+    ``session._last_join_order`` (explain reads it back); a pass that is
+    not ``diagnostic`` (explain's) and changed an order emits its events."""
+    from ..telemetry import span_names as SN
+    from ..telemetry import trace as _trace
     records: List[dict] = []
-    out = _rewrite(session, plan, records)
+    with _trace.span(SN.JOIN_REORDER) as sp:
+        out = _rewrite(session, plan, records)
+        if sp is not None:
+            sp.attrs["chains"] = len(records)
+            sp.attrs["reordered"] = sum(1 for r in records if r["reordered"])
     session._last_join_order = records
+    if not diagnostic and any(r["reordered"] for r in records):
+        _emit_events(session, records)
     return out
+
+
+def _emit_events(session, records: List[dict]) -> None:
+    from ..telemetry.events import CardinalityEstimateEvent, JoinReorderEvent
+    from ..telemetry.logging import get_logger
+    logger = get_logger(session.hs_conf.event_logger_class())
+    for r in records:
+        if not r["reordered"]:
+            continue
+        logger.log_event(JoinReorderEvent(
+            message="Join chain reordered.", tables=list(r["labels"]),
+            order=list(r["order"]), estimated_rows=[s["est_rows"] for s in r["steps"]]))
+        for s in r["steps"]:
+            logger.log_event(CardinalityEstimateEvent(
+                message="Equi-join output estimate.", subject=s["key"],
+                estimated_rows=s["est_rows"]))
 
 
 def _rewrite(session, node: LogicalPlan, records: List[dict]) -> LogicalPlan:

@@ -218,7 +218,8 @@ class StatsProvider:
         # fails the whole harvest.
         from ..parallel import io as pio
         try:
-            footers = pio.map_ordered(lambda p: pq.ParquetFile(p).metadata, list(files))
+            footers = pio.map_ordered(lambda p: pq.ParquetFile(p).metadata, list(files),
+                                      label="stats_footer")
         except Exception:
             return None
         for md in footers:

@@ -1,24 +1,32 @@
-"""Parallel I/O: pooled ordered file reads and prefetch pipelines
+"""Parallel I/O: pooled ordered file reads, file writes and prefetch pipelines
 (counterpart of ``hyperspace_tpu/parallel/io.py``).
 
-Two primitives, both with the sequential loop's results at any thread
+Three primitives, each with the sequential loop's results at any thread
 count:
 
 - ``map_ordered`` / ``imap_ordered`` fan ``fn(item)`` out over one
   process-wide bounded reader pool and gather the results in submission
   order: the multi-file parquet read, the sketch build's per-file reads and
   the chunked build's spill read-back.
+- ``run_all`` runs ``fn(item)`` over threads of its own and waits for
+  every call: the index builds' writes of one file a bucket.
 - ``prefetch_iter`` advances a stream on a producer thread up to
   ``prefetchDepth`` items (and ``maxInflightBytes`` estimated bytes) ahead
   of the consumer, so chunk k+1 decodes while chunk k runs on the device.
 
-Neither reorders anything, so file-to-row provenance (lineage ids, the
+None reorders anything, so file-to-row provenance (lineage ids, the
 ``FileIdTracker``'s ids, string dictionaries) does not depend on the thread
 count. A failed read raises at the consumer; nothing falls back to another
 path. A pooled task that itself fans out runs that fan-out sequentially
 inside the worker, so the pool never waits on itself. The conf is the
 ``hyperspace.tpu.io.*`` keys of the session that ``use_session`` scopes
 (the executor and the action framework set it).
+
+Telemetry rides the consumer side, where the per-query io counters are
+credited (pool workers never see the query's context): one ``io.read``
+span and one IoReadEvent per pooled fan-out, one ``io.prefetch`` span and
+one IoWaitEvent per prefetch stream. The counters are the ``io`` collector
+of the metrics registry.
 """
 
 from __future__ import annotations
@@ -34,6 +42,10 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, Iterator, Optional
 
 from ..serving.context import active_context
+from ..telemetry import metric_names as _mn
+from ..telemetry import metrics as _metrics
+from ..telemetry import span_names as _sn
+from ..telemetry import trace as _trace
 
 
 @dataclass(frozen=True)
@@ -190,10 +202,37 @@ def pool_stats() -> dict:
     return out
 
 
+_metrics.get_registry().register_collector(_mn.COLLECTOR_IO, pool_stats)
+
+
 def reset_stats() -> None:
     with _stats_lock:
         for k in _STATS:
             _STATS[k] = 0 if isinstance(_STATS[k], int) else 0.0
+
+
+def _emit(session, event) -> None:
+    target = session if session is not None else _SESSION.get()
+    if target is None:
+        return
+    from ..telemetry.logging import log_event
+    log_event(target, event)
+
+
+def _emit_read(session, label: str, files: int, nbytes: int, seconds: float,
+               threads: int) -> None:
+    from ..telemetry.events import IoReadEvent
+    _emit(session, IoReadEvent(message=f"pooled read '{label}': {files} file task(s)",
+                               files=files, nbytes=nbytes, seconds=round(seconds, 4),
+                               threads=threads))
+
+
+def _emit_wait(session, label: str, wait_seconds: float, read_seconds: float,
+               items: int) -> None:
+    from ..telemetry.events import IoWaitEvent
+    _emit(session, IoWaitEvent(message=f"prefetch stream '{label}': {items} item(s)",
+                               where=label, wait_seconds=round(wait_seconds, 4),
+                               read_seconds=round(read_seconds, 4), items=items))
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +240,8 @@ def reset_stats() -> None:
 # ---------------------------------------------------------------------------
 
 def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = None,
-                 params: Optional[IoParams] = None) -> Iterator:
+                 params: Optional[IoParams] = None, label: str = "read",
+                 session=None) -> Iterator:
     """Yield ``fn(item)`` for every item in order, the calls fanned out over
     the shared pool with a bounded window and in-flight byte budget.
 
@@ -212,7 +252,8 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
     refilled just before each yield, plus the one the consumer holds.
 
     Sequential (a plain loop) when the pool is disabled, threads <= 1, for
-    one item, or inside a pool worker.
+    one item, or inside a pool worker. ``label`` names the fan-out in its
+    span and event; ``session`` receives the event (else the scoped one).
     """
     items = list(items)
     p = params if params is not None else active_params()
@@ -251,6 +292,7 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
     inflight = 0
     i = done = nbytes = 0
     read_s = wait_s = 0.0
+    t_start = time.perf_counter()
 
     def _refill():
         nonlocal i, inflight
@@ -282,11 +324,36 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
             fut.cancel()
         _note(pooled_reads=1, read_tasks=done, read_bytes=nbytes,
               read_seconds=read_s, wait_seconds=wait_s)
+        _trace.add_span(_sn.IO_READ, start_perf=t_start, label=label, files=done,
+                        nbytes=nbytes, read_seconds=round(read_s, 4),
+                        wait_seconds=round(wait_s, 4), threads=n)
+        _emit_read(session, label, done, nbytes, read_s, n)
 
 
 def map_ordered(fn: Callable, items: Iterable, **kwargs) -> list:
     """``list(imap_ordered(...))``, for callers that need every result."""
     return list(imap_ordered(fn, items, **kwargs))
+
+
+def run_all(fn: Callable, items: Iterable, *, params: Optional[IoParams] = None) -> None:
+    """Call ``fn(item)`` for every item on up to ``threads`` threads of the
+    call's own: the writes of separate files, which the reader pool's
+    size, counters, spans and events leave out. Sequential when the pool
+    is disabled, threads <= 1, for one item, or inside a pool worker,
+    where the first error stops the loop. Threaded, every call has ended
+    when this returns, and the first error is raised then."""
+    items = list(items)
+    p = params if params is not None else active_params()
+    n = p.resolved_threads()
+    if not p.enabled or n <= 1 or len(items) <= 1 or in_worker():
+        for it in items:
+            fn(it)
+        return
+    with ThreadPoolExecutor(max_workers=min(n, len(items)),
+                            thread_name_prefix="hst-torch-write") as ex:
+        futures = [ex.submit(fn, it) for it in items]
+    for fut in futures:
+        fut.result()
 
 
 def zip_prefetch(items, fn: Callable, **kwargs) -> Iterator:
@@ -305,7 +372,7 @@ _DONE = object()
 
 def prefetch_iter(source: Iterable, *, nbytes: Optional[Callable] = None,
                   params: Optional[IoParams] = None,
-                  label: str = "prefetch") -> Iterator:
+                  label: str = "prefetch", session=None) -> Iterator:
     """Iterate ``source`` with a producer thread up to ``prefetchDepth``
     items (and ``maxInflightBytes`` estimated bytes) ahead of the consumer.
     Order, values and exceptions are the source's own: an error in the
@@ -377,6 +444,7 @@ def prefetch_iter(source: Iterable, *, nbytes: Optional[Callable] = None,
     producer.start()
     wait_s = 0.0
     items = 0
+    t_start = time.perf_counter()
     try:
         while True:
             t0 = time.perf_counter()
@@ -404,3 +472,7 @@ def prefetch_iter(source: Iterable, *, nbytes: Optional[Callable] = None,
         producer.join()
         _note(prefetch_streams=1, prefetch_items=items, wait_seconds=wait_s,
               read_seconds=state["read_s"])
+        _trace.add_span(_sn.IO_PREFETCH, start_perf=t_start, label=label, items=items,
+                        read_seconds=round(state["read_s"], 4),
+                        wait_seconds=round(wait_s, 4))
+        _emit_wait(session, label, wait_s, state["read_s"], items)

@@ -9,12 +9,15 @@ diagnostic pass: it counts no index usage. With ``diagnostics`` follow the
 "Result cache:" section while the result cache is enabled, the I/O section
 once the reader pool or a prefetch stream has done work, and the
 "Serving:" section while the serving tier is enabled or a frontend has
-taken queries. While ``optimizer.joinReorder.enabled`` is set, the "Join
-order:" section shows each join chain's order and its estimates beside
-the actual rows of its last run. The JAX package's other runtime sections
-(compilation, SPMD, robustness, SLO, trace, advisor) read tiers this
-package does not have yet; its "Serving:" section's program-bank line has no
-counterpart (eager torch compiles no programs).
+taken queries, the "SLO:" section once the SLO monitor's window holds
+queries, and the "Trace:" section once a trace was retained. While
+``optimizer.joinReorder.enabled`` is set, the "Join order:" section shows
+each join chain's order and its estimates beside the actual rows of its
+last run. The JAX package's other runtime sections wait with their tiers:
+"Compilation:" (eager torch compiles no programs), "Distributed:" (the
+mesh tier), "Robustness:" (the rest of robustness/) and "Advisor:"; its
+"Serving:" section's program-bank line and its "SLO:" section's admission
+line have no counterpart here.
 """
 
 from __future__ import annotations
@@ -119,6 +122,8 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
         _write_cache_section(buf, session, plan)
         _write_io_section(buf, session)
         _write_serving_section(buf, session)
+        _write_slo_section(buf, session)
+        _write_trace_section(buf, session)
     _write_join_order_section(buf, session)
     if verbose:
         buf.write_line()
@@ -224,6 +229,45 @@ def _write_serving_section(buf: BufferStream, session) -> None:
                        f"batched_queries={s['batched_queries']} "
                        f"shared_scans={s['shared_scans']} "
                        f"member_fallbacks={s['member_fallbacks']}")
+
+
+def _write_slo_section(buf: BufferStream, session) -> None:
+    """``Hyperspace.health()``'s verdict per armed objective; rendered only
+    once the monitor's window holds completed queries."""
+    from ..telemetry.slo import get_monitor
+    verdict = get_monitor().evaluate(session, emit=False)
+    if not verdict.get("count"):
+        return
+    buf.write_line()
+    _header(buf, "SLO:")
+    buf.write_line(f"{'healthy' if verdict['healthy'] else 'BREACHED'} over "
+                   f"{verdict['window_s']:g}s window ({verdict['count']} queries, "
+                   f"{verdict['errors']} errors, {verdict['degraded']} degraded)")
+    for name, obj in verdict["objectives"].items():
+        if not obj["armed"]:
+            continue
+        observed = obj["observed"]
+        buf.write_line(f"{name}: observed "
+                       f"{'n/a' if observed is None else f'{observed:.4g}'} "
+                       f"objective {obj['threshold']:g}"
+                       + (" BREACHED" if obj["breached"] else ""))
+
+
+def _write_trace_section(buf: BufferStream, session) -> None:
+    """The span timeline of the session's most recent retained trace, with
+    per-span wall and self times (host times); rendered only once a trace
+    was retained."""
+    trace = session._last_trace
+    if trace is None:
+        return
+    from ..telemetry.trace import render_timeline
+    buf.write_line()
+    _header(buf, "Trace:")
+    buf.write_line(f"trace {trace.trace_id}: {len(trace.spans)} span(s), "
+                   f"{trace.duration_s() * 1000:.2f} ms total "
+                   f"(hs.last_trace().to_chrome_json() exports it)")
+    for line in render_timeline(trace):
+        buf.write_line(line)
 
 
 def _write_join_order_section(buf: BufferStream, session) -> None:

@@ -10,10 +10,12 @@ fault-point registry and crash recovery.
   (transient-state rollback, orphaned data-version vacuum, the streaming
   tier's undo/redo).
 
-Not ported here: the retry of pooled reads, and the degradation ladders'
-fault points (io, scan, serving, result cache,
-buffer pool, artifacts, cluster), which wait for the telemetry and
-robustness tiers.
+Its counters are the ``robustness`` collector of the metrics registry
+(telemetry/metrics.py); a retried sequence emits a RetryEvent, and an
+incident marks the query's trace tail-keep. Not ported here: the retry of
+pooled reads, and the degradation ladders' fault points (io, scan,
+serving, result cache, buffer pool, artifacts, cluster), which wait for
+the rest of the robustness tier.
 """
 
 from .faults import (FaultRegistry, FaultSpec, InjectedFaultError,  # noqa: F401

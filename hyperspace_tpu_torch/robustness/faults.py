@@ -208,8 +208,17 @@ def scope_for(hs_conf):
 
 
 # Process-wide robustness counters (the ones this package moves).
-_COUNTER_KEYS = ("injected", "retries", "retry_failures", "recovered_indexes",
-                 "vacuumed_orphans")
+_COUNTER_KEYS = ("injected", "retries", "retry_failures", "deadline_cancellations",
+                 "member_fallbacks", "recovered_indexes", "vacuumed_orphans")
+
+# Incidents that make the in-flight query's trace worth keeping under head
+# sampling (telemetry/trace.py tail-keep); not the recovery counters: a
+# maintenance sweep is not a query anomaly.
+_TAIL_KEEP_KEYS = frozenset({"injected", "retries", "retry_failures",
+                             "deadline_cancellations", "member_fallbacks"})
+# The subset that flips the active QueryContext's ``degraded`` flag (the
+# SLO degrade-rate objective's per-query signal).
+_DEGRADE_KEYS = frozenset({"member_fallbacks"})
 
 
 class _Stats:
@@ -232,8 +241,26 @@ _STATS = _Stats()
 
 def note(**deltas) -> None:
     _STATS.note(**deltas)
+    fired = {k for k, v in deltas.items() if v}
+    if not fired & _TAIL_KEEP_KEYS:
+        return
+    from ..telemetry import trace as _trace
+    _trace.keep_active("robustness")
+    if fired & _DEGRADE_KEYS:
+        from ..serving.context import active_context
+        ctx = active_context()
+        if ctx is not None:
+            ctx.degraded = True
 
 
 def stats() -> dict:
     """Process-lifetime robustness counters."""
     return _STATS.snapshot()
+
+
+# The robustness counters are a named collector in the process metrics
+# registry (telemetry/metrics.py).
+from ..telemetry import metric_names as _mn  # noqa: E402
+from ..telemetry import metrics as _metrics  # noqa: E402
+
+_metrics.get_registry().register_collector(_mn.COLLECTOR_ROBUSTNESS, stats)

@@ -58,6 +58,12 @@ def recover_indexes(session, names: Optional[List[str]] = None) -> Dict:
             recover_streaming(session, summary)
         except Exception as e:
             summary["errors"]["_streaming"] = f"{type(e).__name__}: {e}"
+    if summary["cancelled"] or summary["vacuumed"]:
+        # A sweep that found wrecks is the incident record (another process
+        # died mid-action): a flight-recorder anomaly for the post-mortem.
+        from ..telemetry.flight_recorder import note_anomaly
+        note_anomaly("crash.recovery", f"cancelled={summary['cancelled']} "
+                                       f"vacuumed={sorted(summary['vacuumed'])}")
     return summary
 
 

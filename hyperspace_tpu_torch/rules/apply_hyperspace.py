@@ -5,7 +5,10 @@ plan and the score-based optimizer picks the join and filter rewrites;
 then GroupByIndexRule probes an index under unfiltered group-bys over the
 Scan leaves left in place; then DataSkippingIndexRule narrows the Scan
 leaves left after that. Each real pass adds one to the session's usage
-count of every index its plan applies; a silent pass adds none.
+count of every index its plan applies, and emits one
+HyperspaceIndexUsageEvent; a silent pass does neither. The pass runs under
+the ``rewrite.index_rules`` span, whose ``applied`` attribute counts the
+IndexScans of its plan.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import List, Optional
 from ..index.constants import States
 from ..index.log_entry import IndexLogEntry
 from ..plan.nodes import IndexScan, LogicalPlan
+from ..telemetry import span_names as SN
+from ..telemetry import trace as _trace
 from .data_skipping_rule import DataSkippingIndexRule
 from .groupby_rule import GroupByIndexRule
 from .index_filters import CandidateIndexCollector, ReasonCollector
@@ -36,6 +41,15 @@ def apply_hyperspace(session, plan: LogicalPlan,
                      ctx: Optional[ReasonCollector] = None) -> LogicalPlan:
     """One rewrite pass. ``ctx`` collects the whyNot reasons; a query's
     own pass (no ``ctx``) builds none, as nothing reads them."""
+    with _trace.span(SN.INDEX_REWRITE) as sp:
+        plan = _apply_hyperspace(session, plan, ctx)
+        if sp is not None:
+            sp.attrs["applied"] = len(applied_index_names(plan))
+        return plan
+
+
+def _apply_hyperspace(session, plan: LogicalPlan,
+                      ctx: Optional[ReasonCollector]) -> LogicalPlan:
     if ctx is None:
         ctx = ReasonCollector(enabled=False)
     covering = [e for e in active_indexes(session)
@@ -45,7 +59,8 @@ def apply_hyperspace(session, plan: LogicalPlan,
     # The final plan's indexes, not every rewrite scored on the way.
     ctx.applied = applied_index_names(plan)
     if ctx.applied:
-        log_index_usage(session, ctx, sorted(set(ctx.applied)))
+        log_index_usage(session, ctx, sorted(set(ctx.applied)), plan.tree_string(),
+                        "Hyperspace indexes applied.")
     plan = GroupByIndexRule().apply(session, plan, ctx)
     ctx.applied = applied_index_names(plan)
     # Data skipping last: the covering rewrite is the better win when it

@@ -45,7 +45,8 @@ class DataSkippingIndexRule:
 
         new_plan = plan.transform_up(rewrite)
         if applied:
-            log_index_usage(session, ctx, sorted(set(applied)))
+            log_index_usage(session, ctx, sorted(set(applied)), new_plan.tree_string(),
+                            "Data skipping index applied.")
             ctx.applied.extend(sorted(set(applied)))
         return new_plan
 

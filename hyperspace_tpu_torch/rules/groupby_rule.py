@@ -79,5 +79,6 @@ class GroupByIndexRule:
 
         new_plan = plan.transform_up(rewrite)
         if applied:
-            log_index_usage(session, ctx, sorted(set(applied)))
+            log_index_usage(session, ctx, sorted(set(applied)), new_plan.tree_string(),
+                            "Group-by index applied.")
         return new_plan

@@ -22,16 +22,21 @@ from ..plan.nodes import Filter, IndexScan, LogicalPlan, Project, Scan
 from ..schema import Schema
 
 
-def log_index_usage(session, ctx, index_names: List[str]) -> None:
-    """Add one to the session's usage count of each index, unless ``ctx``
-    is a silent (diagnostic) pass: the one place that keeps explain and
-    why_not from counting."""
+def log_index_usage(session, ctx, index_names: List[str], plan_string: str,
+                    message: str) -> None:
+    """Add one to the session's usage count of each index and emit a
+    HyperspaceIndexUsageEvent, unless ``ctx`` is a silent (diagnostic)
+    pass: the one place that keeps explain and why_not from counting."""
     if ctx.silent:
         return
     with session._usage_counts_lock:
         counts = session._index_usage_counts
         for name in index_names:
             counts[name] = counts.get(name, 0) + 1
+    from ..telemetry.events import HyperspaceIndexUsageEvent
+    from ..telemetry.logging import log_event
+    log_event(session, HyperspaceIndexUsageEvent(
+        index_names=index_names, plan_string=plan_string, message=message))
 
 
 def get_relation(session, plan: LogicalPlan):

@@ -12,7 +12,13 @@ session attributes:
 - ``io``: the query's read counters. ``parallel/io.py`` and the buffer pool
   credit the active context beside their process-wide counters;
 - ``deadline_s``: a cooperative deadline, checked at the executor's stage
-  boundaries by :func:`check_deadline`.
+  boundaries by :func:`check_deadline`; expiry raises QueryDeadlineError
+  and emits one QueryCancelledEvent;
+- ``trace``: the span tree this query's spans landed in
+  (telemetry/trace.py), ``trace_parent`` the shared sweep span a literal
+  sweep hands its members, ``trace_force`` (explain_analyze) a trace kept
+  whatever the sampling conf; ``degraded`` and ``slo_suppress_error``
+  feed the SLO monitor (telemetry/slo.py).
 
 :func:`record_join_actual` keeps an executed inner join's output rows on
 its session, keyed by :func:`join_actual_key`, which explain pairs with the
@@ -53,6 +59,16 @@ class QueryContext:
         self.result_cache = result_cache
         # An absolute perf_counter stamp, or None.
         self.deadline_s = deadline_s
+        self._cancel_emitted = False
+        self.trace = None
+        self.trace_parent = None
+        self.trace_force = False
+        # A robustness degradation ladder fired during this query (the SLO
+        # degrade-rate objective reads it).
+        self.degraded = False
+        # A sweep member's attempt whose failure the frontend reruns alone:
+        # the rerun's outcome is the one the SLO window records.
+        self.slo_suppress_error = False
         self._io_lock = threading.Lock()
         self._io = {k: 0.0 if k.endswith("seconds") else 0 for k in _IO_COUNTER_KEYS}
 
@@ -159,13 +175,37 @@ def check_deadline(where: str = "") -> None:
     ctx = _CONTEXT.get()
     if ctx is None or ctx.deadline_s is None or time.perf_counter() < ctx.deadline_s:
         return
-    deadline_cancel(ctx.query_id, where, (time.perf_counter() - ctx.created_s) * 1000.0)
+    with ctx._io_lock:
+        first = not ctx._cancel_emitted
+        ctx._cancel_emitted = True
+    if first:
+        from ..telemetry import trace as _trace
+        pair = _trace.active()
+        if pair is not None and pair[1] is not None:
+            # Flag the span the cancellation struck.
+            pair[1].attrs["deadline_exceeded"] = True
+            pair[1].attrs["cancelled_at"] = where
+    deadline_cancel(ctx.session, ctx.query_id, where,
+                    (time.perf_counter() - ctx.created_s) * 1000.0, emit=first)
 
 
-def deadline_cancel(query_id: int, where: str, elapsed_ms: float) -> None:
+def deadline_cancel(session, query_id: int, where: str, elapsed_ms: float,
+                    emit: bool = True) -> None:
     """Raise the typed deadline error (shared by the mid-query check and
-    the frontend's check before a queued query starts)."""
+    the frontend's check before a queued query starts). The first
+    cancellation of a query counts ``deadline_cancellations`` and emits
+    one QueryCancelledEvent (``emit=False`` on a re-trip)."""
     from ..exceptions import QueryDeadlineError
+    if emit:
+        from ..robustness import faults as _faults
+        _faults.note(deadline_cancellations=1)
+        if session is not None:
+            from ..telemetry.events import QueryCancelledEvent
+            from ..telemetry.logging import log_event
+            log_event(session, QueryCancelledEvent(
+                message=(f"query {query_id} cancelled at {where or 'boundary'}: "
+                         f"deadline expired after {elapsed_ms:.1f} ms"),
+                query_id=query_id, where=where, elapsed_ms=round(elapsed_ms, 3)))
     raise QueryDeadlineError(
         f"query {query_id} exceeded its deadline ({elapsed_ms:.1f} ms elapsed; "
         f"cancelled at {where or 'stage boundary'})")

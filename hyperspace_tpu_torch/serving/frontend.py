@@ -29,9 +29,13 @@ streaming/subscriptions.py) fire through the same workers on every
 streaming commit to a table they read.
 
 The conf is ``hyperspace.tpu.serving.*``, read from the frontend's
-governing session at each decision. Not ported here: the SLO admission,
-trace spans, events and fault points (with the telemetry and robustness
-tiers); none of them changes an answer.
+governing session at each decision. Telemetry: the ServingAdmit, Reject
+and Batch events; a sweep's members nest their ``query`` spans under one
+shared ``serving.sweep`` span; every completed query feeds the
+``serving.latency_ms`` histogram; the process-default frontend is the
+``serving`` collector. Not ported here: the SLO admission controller and
+the fault points (with the adaptive and robustness tiers); neither changes
+an answer.
 """
 
 from __future__ import annotations
@@ -161,6 +165,9 @@ class ServingFrontend:
             _ALL_FRONTENDS.add(self)
             if _DEFAULT is None:
                 _DEFAULT = self
+                from ..telemetry import metric_names as MN
+                from ..telemetry import metrics as _metrics
+                _metrics.get_registry().register_collector(MN.COLLECTOR_SERVING, self.stats)
 
     def result_cache(self):
         """The cross-session result cache (None while the governing conf
@@ -191,16 +198,18 @@ class ServingFrontend:
         max_bytes = self._hs_conf.serving_admission_max_bytes()
         with self._lock:
             self._stats["submitted"] += 1
-            self._admit_or_raise(est, depth, max_bytes)
+            self._admit_or_raise(session, client, est, depth, max_bytes)
             entry = _Entry(plan, norm, session, contextvars.copy_context(), pending,
                            batch_key, deadline_s)
             self._queue.append(entry)
+            queued = len(self._queue)
             spawn = self._active_workers < self._hs_conf.serving_max_concurrency()
             if spawn:
                 self._active_workers += 1
             # Wake every worker waiting out a batching window: notify()
             # could pick one holding an incompatible batch.
             self._cv.notify_all()
+        self._emit_admit(session, client, est, queued)
         if spawn:
             try:
                 pio.submit_serving(self._drain, self._hs_conf.serving_max_concurrency())
@@ -218,15 +227,17 @@ class ServingFrontend:
                 raise
         return pending
 
-    def _admit_or_raise(self, est: int, depth: int, max_bytes: int) -> None:
+    def _admit_or_raise(self, session, client: str, est: int, depth: int,
+                        max_bytes: int) -> None:
         """Under the lock: count the admission and charge its bytes, or
-        count the rejection and raise."""
+        count the rejection, emit its event and raise."""
         queued = len(self._queue)
         inflight = self._inflight_bytes
         if queued >= depth or (inflight > 0 and inflight + est > max_bytes):
             self._stats["rejected"] += 1
             reason = (f"queue full ({queued}/{depth})" if queued >= depth
                       else f"byte budget ({inflight + est} > {max_bytes})")
+            self._emit_reject(session, client, est, reason)
             raise ServingRejectedError(f"serving admission rejected query: {reason}")
         self._stats["admitted"] += 1
         self._inflight_bytes += est
@@ -257,7 +268,9 @@ class ServingFrontend:
                     if deadline_ms is not None and deadline_ms > 0 else None
                 with self._lock:
                     self._stats["submitted"] += 1
-                    self._admit_or_raise(est, depth, max_bytes)
+                    self._admit_or_raise(session, client, est, depth, max_bytes)
+                    queued = len(self._queue)
+                self._emit_admit(session, client, est, queued)
                 entries.append(_Entry(plan, norm, session, contextvars.copy_context(),
                                       pending, None, deadline_s))
                 out.append(pending)
@@ -399,28 +412,45 @@ class ServingFrontend:
             self._note(failed=1)
         finally:
             self._release(entry)
+            self._observe_latency(entry.pending)
 
     @staticmethod
     def _check_entry_deadline(entry: _Entry) -> None:
         """Fail a query whose deadline passed in the queue before paying for
-        any execution."""
+        any execution. The SLO window records it as a failed query: it never
+        reaches Session.execute's own feed."""
         if entry.deadline_s is None or time.perf_counter() < entry.deadline_s:
             return
-        deadline_cancel(entry.pending.query_id, "serving.queue",
-                        (time.perf_counter() - entry.pending.submitted_s) * 1000.0)
+        from ..telemetry import slo as _slo
+        waited_ms = (time.perf_counter() - entry.pending.submitted_s) * 1000.0
+        _slo.observe_query(entry.session, waited_ms, error=True)
+        deadline_cancel(entry.session, entry.pending.query_id, "serving.queue", waited_ms)
+
+    def _sweep_trace(self, batch: List[_Entry]):
+        """The shared sweep trace: one ``serving.sweep`` span whose
+        children are the members' ``query`` roots, opened only when the
+        governing conf traces, and handed to members through
+        ``QueryContext.trace_parent`` (their submit-time context snapshots
+        predate the batch). The sweep shares one retention coin."""
+        if not self._hs_conf.telemetry_trace_enabled():
+            return None
+        from ..telemetry import span_names as SN
+        from ..telemetry import trace as _trace
+        tr = _trace.Trace(label="sweep", sampled=_trace.sample_coin(self._session))
+        return tr, tr.new_span(SN.SERVING_SWEEP, None, {"size": len(batch)})
 
     def _run_batch(self, batch: List[_Entry]) -> None:
         """Literal-variant members under one SweepContext: one shared scan
         per source; each member otherwise runs its own path (its own masks,
         result-cache key and pipeline)."""
         try:
-            for e in batch:
-                batcher.plan_template(e.norm)
+            conditions = [batcher.plan_template(e.norm)[1] for e in batch]
         except batcher.Unbatchable:
             for e in batch:
                 self._run_single(e)
             return
         sweep = batcher.SweepContext(len(batch))
+        trace_parent = self._sweep_trace(batch)
         for e in batch:
             e.pending.started_s = time.perf_counter()
             e.pending.batched = True
@@ -428,15 +458,18 @@ class ServingFrontend:
             try:
                 self._check_entry_deadline(e)
                 try:
-                    result = e.ctx.run(self._execute_entry, e, sweep)
+                    result = e.ctx.run(self._execute_entry, e, sweep, trace_parent)
                 except QueryDeadlineError:
                     raise
                 except BaseException:
                     # One member's failure inside the sweep must poison
                     # neither its siblings nor itself: it runs again alone,
                     # and a lasting error comes from that run unchanged.
+                    # The rerun counts as degraded (the SLO degrade rate).
+                    from ..robustness import faults as _faults
                     self._note(member_fallbacks=1)
-                    result = e.ctx.run(self._execute_entry, e, None)
+                    _faults.note(member_fallbacks=1)
+                    result = e.ctx.run(self._execute_entry, e, None, trace_parent, True)
                 e.pending._finish(result=result)
                 self._note(completed=1)
             except BaseException as err:
@@ -444,18 +477,45 @@ class ServingFrontend:
                 self._note(failed=1)
             finally:
                 self._release(e)
+                self._observe_latency(e.pending)
         s = sweep.stats()
+        if trace_parent is not None:
+            sweep_tr, sweep_span = trace_parent
+            if sweep_span is not None:
+                sweep_span.attrs["positions"] = len(conditions[0])
+                sweep_span.attrs["members"] = len(batch)
+                sweep_span.finish()
+            # The frontend owns the shared trace's retention.
+            from ..telemetry import trace as _trace
+            _trace.finish_root(self._session, sweep_tr)
         self._note(batches=1, batched_queries=len(batch), shared_scans=s["shared_scans"],
                    shared_scan_hits=s["shared_scan_hits"])
+        self._emit_batch(batch, len(conditions[0]), s)
 
-    def _execute_entry(self, entry: _Entry, sweep: Optional[batcher.SweepContext]):
+    def _execute_entry(self, entry: _Entry, sweep: Optional[batcher.SweepContext],
+                       trace_parent=None, degraded: bool = False):
         qc = QueryContext.for_session(entry.session, shared_cache=self.result_cache(),
                                       client=entry.pending.client,
                                       deadline_s=entry.deadline_s,
                                       query_id=entry.pending.query_id)
+        qc.trace_parent = trace_parent
+        qc.degraded = degraded
+        # A sweep attempt's failure is rescued by a rerun alone, whose
+        # outcome is the query's real SLO sample.
+        qc.slo_suppress_error = sweep is not None
         entry.pending.context = qc
         with batcher.use_sweep(sweep):
             return entry.session.execute(entry.plan, context=qc)
+
+    def _observe_latency(self, pending: PendingQuery) -> None:
+        """Feed the live ``serving.latency_ms`` histogram (the rolling
+        p50/p95/p99 and QPS of ``Hyperspace.metrics()``)."""
+        if pending.latency_s is None:
+            return
+        from ..telemetry import metric_names as MN
+        from ..telemetry import metrics as _metrics
+        _metrics.get_registry().histogram(MN.SERVING_LATENCY_MS).record(
+            pending.latency_s * 1000.0)
 
     def _release(self, entry: _Entry) -> None:
         with self._lock:
@@ -478,6 +538,29 @@ class ServingFrontend:
         out["shared_result_cache"] = cache.stats() if cache is not None else None
         out["subscriptions"] = self._subscriptions.stats()
         return out
+
+    def _emit_admit(self, session, client: str, est: int, depth: int) -> None:
+        from ..telemetry.events import ServingAdmitEvent
+        from ..telemetry.logging import log_event
+        log_event(session, ServingAdmitEvent(
+            message=f"query admitted (queue depth {depth})", client=client,
+            estimated_bytes=est, queue_depth=depth))
+
+    def _emit_reject(self, session, client: str, est: int, reason: str) -> None:
+        from ..telemetry.events import ServingRejectEvent
+        from ..telemetry.logging import log_event
+        log_event(session, ServingRejectEvent(
+            message=f"query rejected: {reason}", client=client, estimated_bytes=est,
+            reason=reason))
+
+    def _emit_batch(self, batch: List[_Entry], positions: int, s: dict) -> None:
+        from ..telemetry.events import ServingBatchEvent
+        from ..telemetry.logging import log_event
+        log_event(batch[0].session, ServingBatchEvent(
+            message=(f"literal sweep: {len(batch)} queries, 0 batched invocation(s), "
+                     f"{s['shared_scans']} shared scan(s)"),
+            size=len(batch), positions=positions, sweep_invocations=0,
+            shared_scans=s["shared_scans"]))
 
     def drain(self, timeout: float = 60.0) -> None:
         """Block until the queue is empty and the workers idle."""

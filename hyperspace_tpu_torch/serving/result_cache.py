@@ -57,7 +57,8 @@ def _to_device(table, device):
 
 class ResultCache:
     def __init__(self, device_bytes: int, host_bytes: int, on_evict=None,
-                 spill_dir: Optional[str] = None, spill_bytes: int = 0, device="cpu"):
+                 spill_dir: Optional[str] = None, spill_bytes: int = 0, device="cpu",
+                 on_spill_corrupt=None):
         import torch
         self.device = torch.device(device)
         self.device_bytes = device_bytes
@@ -72,6 +73,9 @@ class ResultCache:
         # on_evict(tier, nbytes, demoted) may run under the lock: it must not
         # call back into the cache.
         self._on_evict = on_evict
+        # on_spill_corrupt(nbytes): a corrupt spill file was dropped and
+        # served as a miss.
+        self._on_spill_corrupt = on_spill_corrupt
         self._lock = threading.Lock()
         self._device: "OrderedDict[ResultCacheKey, Tuple[object, int]]" = OrderedDict()
         self._host: "OrderedDict[ResultCacheKey, Tuple[object, int]]" = OrderedDict()
@@ -129,6 +133,8 @@ class ResultCache:
                     self.spill_corruptions += 1
             if corrupt:
                 self._unlink(path)
+                if self._on_spill_corrupt is not None:
+                    self._on_spill_corrupt(old[1])
             return None
         # A hit comes back to the host tier, so a hot entry stops paying the
         # disk read; host victims it displaces spill as usual.
@@ -370,22 +376,58 @@ def build_result_cache(session) -> Optional[ResultCache]:
     conf = session.hs_conf
     if not conf.result_cache_enabled():
         return None
+
+    def on_evict(tier: str, nbytes: int, demoted: bool) -> None:
+        from ..telemetry.events import ResultCacheEvictionEvent
+        from ..telemetry.logging import get_logger
+        get_logger(conf.event_logger_class()).log_event(ResultCacheEvictionEvent(
+            message=f"result cache evicted {nbytes} bytes from {tier} tier"
+                    + (" (demoted)" if demoted else ""),
+            tier=tier, nbytes=nbytes, demoted=demoted))
+
+    def on_spill_corrupt(nbytes: int) -> None:
+        from ..telemetry.events import ResultCacheMissEvent
+        from ..telemetry.logging import get_logger
+        get_logger(conf.event_logger_class()).log_event(ResultCacheMissEvent(
+            message="corrupt/truncated spill entry evicted; serving as a miss",
+            tier=TIER_SPILL, nbytes=nbytes, reason="spill-corrupt"))
+
     return ResultCache(conf.result_cache_device_bytes(), conf.result_cache_host_bytes(),
-                       spill_dir=conf.result_cache_spill_dir() or None,
-                       spill_bytes=conf.result_cache_spill_bytes(), device=session.device)
+                       on_evict, spill_dir=conf.result_cache_spill_dir() or None,
+                       spill_bytes=conf.result_cache_spill_bytes(), device=session.device,
+                       on_spill_corrupt=on_spill_corrupt)
 
 
 def execute_with_cache(session, cache: ResultCache, plan):
     """``Session.execute`` with the cache on: probe, serve a hit (no
-    rewrite, no execution), else execute and apply the admission floors."""
-    norm = normalize(plan)
-    key = compute_key(session, plan, normalized=norm)
+    rewrite, no execution), else execute and apply the admission floors.
+    The ``serving.cache_lookup`` span covers the key and the probe, not
+    the recompute on a miss; each outcome emits its ResultCache event."""
+    from ..telemetry import span_names as SN
+    from ..telemetry import trace as _trace
+    from ..telemetry.events import (ResultCacheAdmitEvent, ResultCacheHitEvent,
+                                    ResultCacheMissEvent)
+    from ..telemetry.logging import log_event
+    with _trace.span(SN.CACHE_LOOKUP) as sp:
+        norm = normalize(plan)
+        key = compute_key(session, plan, normalized=norm)
+        hit = cache.get(key) if key is not None else None
+        if sp is not None:
+            sp.attrs["cacheable"] = key is not None
+            sp.attrs["hit"] = hit is not None
+            if hit is not None:
+                sp.attrs["tier"] = hit[1]
     if key is None:
         # Not cacheable: execute as if there were no cache.
         return session._run_optimized(session.optimize(norm, _pre_normalized=True))
-    hit = cache.get(key)
     if hit is not None:
-        return hit[0]
+        table, tier = hit
+        log_event(session, ResultCacheHitEvent(
+            message=f"result served from cache ({tier} tier)", key_digest=key.digest(),
+            tier=tier, nbytes=table_nbytes(table)))
+        return table
+    log_event(session, ResultCacheMissEvent(message="result cache miss",
+                                            key_digest=key.digest()))
     optimized = session.optimize(norm, _pre_normalized=True)
     t0 = time.perf_counter()
     table = session._run_optimized(optimized)
@@ -393,6 +435,11 @@ def execute_with_cache(session, cache: ResultCache, plan):
     conf = session.hs_conf
     admit = elapsed >= conf.result_cache_min_compute_seconds() and \
         estimate_recompute_bytes(optimized) >= conf.result_cache_min_input_bytes()
-    if not admit or cache.put(key, table) is None:
+    tier = cache.put(key, table) if admit else None
+    if tier is not None:
+        log_event(session, ResultCacheAdmitEvent(
+            message=f"result admitted to cache ({tier} tier)", key_digest=key.digest(),
+            tier=tier, nbytes=table_nbytes(table)))
+    else:
         cache.note_rejected()
     return table

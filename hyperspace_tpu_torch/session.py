@@ -18,6 +18,15 @@ result cache first (``Session.result_cache``, rebuilt whenever its budgets
 change), and ``sql`` memoizes lowered plans by (text, temp-view version,
 case mode).
 
+Each execution opens a span-tree trace (telemetry/trace.py) while
+``telemetry.trace.enabled`` is on (the default), with the
+``plan.normalize`` and ``rewrite.index_rules`` spans of the optimizer
+under its ``query`` root; the retained one is ``_last_trace``
+(``Hyperspace.last_trace()``). Every execution feeds the SLO monitor
+(telemetry/slo.py). ``telemetry.profiler.{enabled,dir}`` capture one query
+with torch.profiler; ``hyperspace.tpu.trace.dir`` captures every
+execution.
+
 The device defaults to ``"cuda"``. A session asked for CUDA on a machine
 without it raises; it never carries on quietly on the CPU. Pass
 ``device="cpu"`` to run the plain torch versions of the kernels.
@@ -29,6 +38,7 @@ import json
 import os
 import shutil
 import threading
+import time
 import uuid
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple, Union as TUnion
@@ -44,6 +54,8 @@ from .plan.nodes import (Aggregate, Filter, Join, Limit, LogicalPlan, Project, S
 from .schema import Schema
 from .sources.default import DefaultFileBasedSourceBuilder
 from .sources.interfaces import FileBasedSourceProviderManager
+from .telemetry import span_names as SN
+from .telemetry import trace as _trace
 
 
 def resolve_device(device) -> torch.device:
@@ -94,6 +106,9 @@ class Session:
         self._last_join_order: Optional[list] = None
         self._join_actuals: "OrderedDict[str, int]" = OrderedDict()
         self._join_actuals_lock = threading.Lock()
+        # The span tree of the most recent retained trace (telemetry/trace.py);
+        # Hyperspace.last_trace() and explain's "Trace:" section read it.
+        self._last_trace = None
 
     @property
     def index_collection_manager(self):
@@ -200,13 +215,14 @@ class Session:
         from .rules.pushdown import push_filters
         from .sources.partitions import prune_partitions
         if not _pre_normalized:
-            plan = prune_columns(push_filters(plan))
+            with _trace.span(SN.PLAN_NORMALIZE):
+                plan = prune_columns(push_filters(plan))
         # Join reordering wants the pushed filters (selectivity) and runs
         # before the index rules, which then match the reordered tree. The
         # result cache's key pins the flag through the conf hash.
         if self.hs_conf.join_reorder_enabled():
             from .optimizer.join_order import reorder_joins
-            plan = reorder_joins(self, plan)
+            plan = reorder_joins(self, plan, diagnostic=diagnostic)
         if self._hyperspace_enabled:
             from .rules.apply_hyperspace import apply_hyperspace
             from .rules.index_filters import ReasonCollector
@@ -218,22 +234,46 @@ class Session:
         """Execute a plan under a :class:`~.serving.context.QueryContext`:
         the one given (the serving frontend's), else one made for this
         call. The context pins the result cache, carries the query's io
-        counters and its deadline."""
+        counters, its deadline and its trace. The trace root and the
+        one-shot profiler capture bracket the whole execution; the SLO
+        monitor records every query's latency and outcome."""
         from .serving.context import QueryContext
         ctx = context if context is not None else QueryContext.for_session(self)
-        with ctx.activate():
-            cache = ctx.result_cache
-            if cache is not None:
-                # A hit skips the rewrite and the execution; a miss executes
-                # and applies the admission floors. The frontend's context
-                # may carry its cross-session cache: the keys pin the plan,
-                # the sources, the index versions and this session's conf.
-                from .serving.result_cache import execute_with_cache
-                return execute_with_cache(self, cache, plan)
-            return self._run_optimized(self.optimize(plan))
+        with ctx.activate(), _trace.maybe_profile(self), _trace.query_trace(self, ctx):
+            t0 = time.perf_counter()
+            error = suppress = False
+            try:
+                cache = ctx.result_cache
+                if cache is not None:
+                    # A hit skips the rewrite and the execution; a miss
+                    # executes and applies the admission floors. The
+                    # frontend's context may carry its cross-session cache:
+                    # the keys pin the plan, the sources, the index
+                    # versions and this session's conf.
+                    from .serving.result_cache import execute_with_cache
+                    return execute_with_cache(self, cache, plan)
+                return self._run_optimized(self.optimize(plan))
+            except BaseException as exc:
+                error = True
+                # A failed query is tail-keep-worthy by definition.
+                _trace.keep_active("error")
+                # A sweep member the frontend reruns alone records its
+                # outcome from the rerun; a cancellation is never rerun.
+                from .exceptions import QueryDeadlineError
+                suppress = ctx.slo_suppress_error and not isinstance(exc, QueryDeadlineError)
+                raise
+            finally:
+                if not suppress:
+                    from .telemetry import slo as _slo
+                    _slo.observe_query(self, (time.perf_counter() - t0) * 1000.0,
+                                       error=error, degraded=ctx.degraded)
 
     def _run_optimized(self, optimized: LogicalPlan):
         from .execution.executor import execute
+        trace_dir = self.hs_conf.trace_dir()
+        if trace_dir:
+            with _trace.profile_into(trace_dir, "execution"):
+                return execute(optimized, self)
         return execute(optimized, self)
 
 

@@ -30,6 +30,8 @@ from typing import Dict, List, Optional
 from ..index.constants import STABLE_STATES, IndexConstants
 from ..index.log_entry import IndexLogEntry
 from ..index.log_manager import IndexLogManager
+from ..telemetry import span_names as SN
+from ..telemetry import trace as _trace
 from .constants import StreamingConstants as SC
 
 
@@ -46,7 +48,11 @@ def compact(session, names: Optional[List[str]] = None) -> Dict:
                 and name.replace("streaming:", "", 1) not in names:
             continue
         try:
-            _compact_one(name, path, min_entries, summary)
+            with _trace.maintenance_trace(session, "compact"), \
+                    _trace.span(SN.INGEST_COMPACT) as sp:
+                _compact_one(session, name, path, min_entries, summary)
+                if sp is not None and name in summary["compacted"]:
+                    sp.attrs["folded"] = summary["compacted"][name]["entries_folded"]
         except Exception as e:
             summary["errors"][name] = f"{type(e).__name__}: {e}"
     session.index_collection_manager.clear_cache()
@@ -73,7 +79,7 @@ def _log_dirs(root: str) -> List[tuple]:
     return out
 
 
-def _compact_one(name: str, path: str, min_entries: int, summary: Dict) -> None:
+def _compact_one(session, name: str, path: str, min_entries: int, summary: Dict) -> None:
     mgr = IndexLogManager(path)
     latest_id = mgr.get_latest_id()
     if latest_id is None:
@@ -102,3 +108,9 @@ def _compact_one(name: str, path: str, min_entries: int, summary: Dict) -> None:
     orphans = _vacuum_orphan_versions(mgr, path)
     summary["compacted"][name] = {"entries_folded": folded, "generation": generation,
                                   "versions_vacuumed": len(orphans)}
+    from ..telemetry.events import StreamingCompactionEvent
+    from ..telemetry.logging import log_event
+    log_event(session, StreamingCompactionEvent(
+        message=f"folded {folded} op-log entries into checkpoint generation {generation}",
+        subject=name, entries_folded=folded, generation=generation,
+        versions_vacuumed=len(orphans)))

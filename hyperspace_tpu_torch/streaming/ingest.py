@@ -25,8 +25,11 @@ files landed is undone (landed files deleted, the log cancelled, staging
 swept); one that died after all of them landed is redone (the final entry
 written). An index delta's wreck recovers through the ordinary index sweep.
 
-Not ported here, with the telemetry tier: the trace spans and events of
-append, commit and waves; and the cluster broadcast of a commit.
+Telemetry: ``ingest.append``, ``ingest.commit`` and ``ingest.wave`` spans
+(a maintenance trace of their own when no query trace is active) and the
+StreamingAppend, StreamingCommit, StreamingIndexDelta and StreamingWave
+events; the commit queue is the ``streaming`` collector. Not ported here:
+the cluster broadcast of a commit (with the cluster tier).
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ from ..index.path_resolver import PathResolver
 from ..robustness import fault_names as _fn
 from ..robustness import faults as _faults
 from ..schema import Schema
+from ..telemetry import events as _ev
+from ..telemetry import span_names as SN
+from ..telemetry import trace as _trace
 from ..util import file_utils, hashing
 from .constants import StreamingConstants as SC
 
@@ -308,11 +314,15 @@ _QUEUE_LOCK = threading.Lock()
 
 
 def get_queue() -> CommitQueue:
-    """The process-wide commit queue."""
+    """The process-wide commit queue; first use registers the
+    ``streaming`` collector in the metrics registry."""
     global _QUEUE
     with _QUEUE_LOCK:
         if _QUEUE is None:
             _QUEUE = CommitQueue()
+            from ..telemetry import metric_names as MN
+            from ..telemetry.metrics import get_registry
+            get_registry().register_collector(MN.COLLECTOR_STREAMING, _QUEUE.stats)
         return _QUEUE
 
 
@@ -415,19 +425,25 @@ class CommitCoordinator:
             max_wave = session.hs_conf.streaming_group_commit_max_wave()
             if window_s > 0:
                 time.sleep(window_s)  # let appends and committers join
-            while True:
-                with self._cv:
-                    st.pop_mark = st.push_seq
-                    self._cv.notify_all()
-                res, truncated = _commit_once(session, table_path, limit=max_wave)
-                sub_waves += 1
-                agg = res if agg is None else _merge_commit_summary(agg, res)
-                if not truncated:
-                    break
-            if agg["committed_batches"]:
-                agg["subscriptions_fired"] = _fire_subscriptions(session, table_path)
-            agg["sub_waves"] = sub_waves
-            agg["seconds"] = time.perf_counter() - t0
+            with _trace.maintenance_trace(session, "ingest"), \
+                    _trace.span(SN.INGEST_WAVE) as sp:
+                while True:
+                    with self._cv:
+                        st.pop_mark = st.push_seq
+                        self._cv.notify_all()
+                    res, truncated = _commit_once(session, table_path, limit=max_wave)
+                    sub_waves += 1
+                    agg = res if agg is None else _merge_commit_summary(agg, res)
+                    if not truncated:
+                        break
+                if agg["committed_batches"]:
+                    agg["subscriptions_fired"] = _fire_subscriptions(session, table_path)
+                agg["sub_waves"] = sub_waves
+                agg["seconds"] = time.perf_counter() - t0
+                if sp is not None:
+                    sp.attrs["batches"] = agg["committed_batches"]
+                    sp.attrs["sub_waves"] = sub_waves
+                    sp.attrs["joined"] = st.riders
             return agg
         except BaseException as e:
             error = e
@@ -437,6 +453,7 @@ class CommitCoordinator:
                 gen = st.generation
                 st.generation = gen + 1
                 st.leader = False
+                riders = st.riders
                 st.outcomes[gen] = (agg if error is None else None, error)
                 for old in [g for g in st.outcomes if g < gen - 3]:
                     del st.outcomes[old]
@@ -446,6 +463,28 @@ class CommitCoordinator:
                     self._stats["sub_waves"] += sub_waves
                     self._stats["wave_batches"] += agg["committed_batches"] if agg else 0
                 self._cv.notify_all()
+            if error is None and agg is not None and agg["committed_batches"]:
+                _emit_wave(session, table_path, agg, riders, sub_waves)
+
+
+def _emit_wave(session, table_path: str, agg: dict, riders: int, sub_waves: int) -> None:
+    from ..telemetry.events import StreamingWaveEvent
+    from ..telemetry.logging import log_event
+    log_event(session, StreamingWaveEvent(
+        message=f"wave of {agg['committed_batches']} batches ({riders} committers rode it)",
+        table=table_path, batches=agg["committed_batches"], rows=agg["rows"], joined=riders,
+        sub_waves=sub_waves, seconds=agg["seconds"]))
+
+
+def _emit_append(session, staged: StagedBatch, seconds: float) -> None:
+    from ..telemetry.events import StreamingAppendEvent
+    from ..telemetry.logging import log_event
+    log_event(session, StreamingAppendEvent(
+        message=(f"staged {staged.rows} rows ({len(staged.covering)} covering, "
+                 f"{len(staged.sketches)} sketch deltas)"),
+        table=staged.table_path, rows=staged.rows, nbytes=staged.nbytes,
+        covering_deltas=len(staged.covering), sketch_deltas=len(staged.sketches),
+        seconds=seconds))
 
 
 def _empty_commit_summary() -> dict:
@@ -573,7 +612,10 @@ def append(session, table_path: str, batch, block: bool = False) -> dict:
     table_path = os.path.abspath(table_path)
     queue = get_queue()
     timeout_s = session.hs_conf.streaming_backpressure_timeout_ms() / 1000.0
-    with queue.table_lock(table_path), _faults.scope_for(session.hs_conf):
+    with queue.table_lock(table_path), _faults.scope_for(session.hs_conf), \
+            _trace.maintenance_trace(session, "ingest"), \
+            _trace.span(SN.INGEST_APPEND) as sp:
+        t0 = time.perf_counter()
         # Backpressure first: a refused append pays neither the parquet
         # write nor the delta builds.
         max_staged = session.hs_conf.streaming_max_staged_batches()
@@ -622,6 +664,12 @@ def append(session, table_path: str, batch, block: bool = False) -> dict:
                             for f in file_utils.list_leaf_files(table_path)):
                 queue.forget_schema_if_unused(table_path)
             raise
+        seconds = time.perf_counter() - t0
+        if sp is not None:
+            sp.attrs["rows"] = staged.rows
+            sp.attrs["covering_deltas"] = len(staged.covering)
+            sp.attrs["sketch_deltas"] = len(staged.sketches)
+        _emit_append(session, staged, seconds)
         return {"batch_id": batch_id, "rows": staged.rows,
                 "staged_batches": queue.staged_count(table_path),
                 "covering_deltas": len(staged.covering),
@@ -874,6 +922,9 @@ class _LandDeltasBase(Action):
         os.makedirs(out_dir, exist_ok=True)
         return version, out_dir
 
+    def event(self, message: str) -> _ev.StreamingIndexDeltaEvent:
+        return _ev.StreamingIndexDeltaEvent(message=message, index_name=self.index_name)
+
 
 class _LandCoveringDeltas(_LandDeltasBase):
     """Move one covering index's prebuilt part files for every batch of a
@@ -1032,6 +1083,12 @@ class _StreamingCommitAction(Action):
         else:
             self.indexes_updated.append(name)
 
+    def event(self, message: str) -> _ev.StreamingCommitEvent:
+        return _ev.StreamingCommitEvent(
+            message=message, table=self.table_path, batches=len(self.batches),
+            files=len(self.batches), rows=sum(b.rows for b in self.batches),
+            indexes_updated=list(self.indexes_updated))
+
 
 def commit(session, table_path: str) -> dict:
     """Publish every staged batch for ``table_path`` atomically. Returns a
@@ -1062,7 +1119,12 @@ def _commit_once(session, table_path: str, limit: Optional[int] = None):
         log_mgr = IndexLogManager(table_log_dir(session, table_path))
         action = _StreamingCommitAction(session, log_mgr, table_path, batches)
         try:
-            action.run()
+            with _trace.maintenance_trace(session, "ingest"), \
+                    _trace.span(SN.INGEST_COMMIT) as sp:
+                action.run()
+                if sp is not None:
+                    sp.attrs["batches"] = len(batches)
+                    sp.attrs["indexes"] = len(action.indexes_updated)
         except BaseException:
             if not action.op_started:
                 queue.requeue(table_path, batches)  # nothing landed: retryable

@@ -36,6 +36,8 @@ from ..exceptions import HyperspaceException
 from ..parallel import io as pio
 from ..robustness import fault_names as _fn
 from ..robustness import faults as _faults
+from ..telemetry import span_names as SN
+from ..telemetry import trace as _trace
 from . import ingest
 
 
@@ -156,40 +158,56 @@ class ContinuousSource:
         max_staged = session.hs_conf.streaming_max_staged_batches()
         queue = ingest.get_queue()
         appended = rows = commits = waits = 0
-        for item in items:
-            if self._stop_flag.is_set():
-                break
-            payload = self._load(item)
-            if payload is None:
+        with _trace.maintenance_trace(session, "source"), \
+                _trace.span(SN.INGEST_SOURCE) as sp:
+            for item in items:
+                if self._stop_flag.is_set():
+                    break
+                payload = self._load(item)
+                if payload is None:
+                    self._ack(item)
+                    continue
+                if queue.staged_count(self._table_path) >= max_staged:
+                    waits += 1  # the blocking append will wait
+                res = ingest.append(session, self._table_path, payload, block=True)
                 self._ack(item)
-                continue
-            if queue.staged_count(self._table_path) >= max_staged:
-                waits += 1  # the blocking append will wait
-            res = ingest.append(session, self._table_path, payload, block=True)
-            self._ack(item)
-            appended += 1
-            rows += res["rows"]
-            with self._lock:
-                self._pending += 1
-                flushed = self._pending
-                flush = flushed >= commit_every
+                appended += 1
+                rows += res["rows"]
+                with self._lock:
+                    self._pending += 1
+                    flushed = self._pending
+                    flush = flushed >= commit_every
+                    if flush:
+                        self._pending = 0
                 if flush:
-                    self._pending = 0
-            if flush:
-                try:
-                    ingest.commit(session, self._table_path)
-                except BaseException:
-                    with self._lock:
-                        self._pending += flushed
-                    raise
-                commits += 1
+                    try:
+                        ingest.commit(session, self._table_path)
+                    except BaseException:
+                        with self._lock:
+                            self._pending += flushed
+                        raise
+                    commits += 1
+            if sp is not None:
+                sp.attrs["batches"] = appended
+                sp.attrs["rows"] = rows
+                sp.attrs["commits"] = commits
         if appended or commits:
             with self._lock:
                 self._stats["batches"] += appended
                 self._stats["rows"] += rows
                 self._stats["commits"] += commits
                 self._stats["waits"] += waits
+            self._emit(appended, rows, commits, waits)
         return bool(appended)
+
+    def _emit(self, batches: int, rows: int, commits: int, waits: int) -> None:
+        from ..telemetry.events import StreamingSourceEvent
+        from ..telemetry.logging import log_event
+        log_event(self._session, StreamingSourceEvent(
+            message=(f"{self._name}: appended {batches} batches ({rows} rows), "
+                     f"drove {commits} commits"),
+            source=self._name, table=self._table_path, batches=batches, rows=rows,
+            commits=commits, waits=waits))
 
 
 class DirectoryTailSource(ContinuousSource):

@@ -233,7 +233,21 @@ class SubscriptionRegistry:
             self._stats["rejected_queries"] += rejected
             self._stats["wave_groups"] += waves
             self._stats["wave_members"] += members
+        if subs:
+            self._emit(session, table, fired, rejected, waves)
         return fired
+
+    @staticmethod
+    def _emit(session, table: str, fired: int, rejected: int, groups: int) -> None:
+        from ..telemetry.events import StandingQueryEvent
+        from ..telemetry.logging import log_event
+        log_event(session, StandingQueryEvent(
+            message=(f"commit re-fired {fired} standing "
+                     f"quer{'y' if fired == 1 else 'ies'}"
+                     + (f" in {groups} shared-scan group{'s' if groups != 1 else ''}"
+                        if groups else "")
+                     + (f", shed {rejected}" if rejected else "")),
+            table=table, fired=fired, rejected=rejected, groups=groups))
 
     def _fire_singles(self, frontend, table: str, group: List[tuple]) -> tuple:
         fired = rejected = 0

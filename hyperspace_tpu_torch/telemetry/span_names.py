@@ -1,0 +1,62 @@
+"""Frozen registry of trace span names (counterpart of
+``hyperspace_tpu/telemetry/span_names.py``, trimmed to the spans this
+package opens).
+
+Every ``trace.span(...)`` / ``trace.add_span(...)`` site in the package
+names its span with one of these constants, and every name registered
+here is observed by a test (``tests/test_torch_tracing.py`` holds both).
+Variable detail (node kinds, hit/miss, byte counts) rides in span
+attributes, never in the name. The names equal the JAX package's, so
+dashboards and explain's "Trace:" section read the same strings.
+
+The reference's other names wait with their tiers: ``bank.*`` (no program
+bank: eager torch compiles no programs), ``exec.fused`` (fusion),
+``spmd.*`` (the mesh tier), ``artifact.*`` (left out by design) and
+``cluster.*`` (the cluster tier).
+"""
+
+from __future__ import annotations
+
+# The per-query root span, opened by Session.execute (one per
+# QueryContext; literal-sweep members nest under SERVING_SWEEP).
+QUERY = "query"
+
+# Plan normalization (push_filters + prune_columns) in Session.optimize.
+PLAN_NORMALIZE = "plan.normalize"
+
+# Cost-based join reordering (optimizer/join_order.reorder_joins).
+JOIN_REORDER = "optimize.join_reorder"
+
+# The hyperspace index-rewrite batch (rules/apply_hyperspace).
+INDEX_REWRITE = "rewrite.index_rules"
+
+# Result-cache key computation + probe (serving/result_cache).
+CACHE_LOOKUP = "serving.cache_lookup"
+
+# One span per executed plan node (execution/executor._execute).
+EXEC_STAGE = "exec.stage"
+
+# Pooled multi-file read fan-out / prefetch stream (parallel/io.py),
+# recorded on the consumer side of the per-query io attribution.
+IO_READ = "io.read"
+IO_PREFETCH = "io.prefetch"
+
+# The shared literal-sweep batch span (serving/frontend._run_batch);
+# member queries' QUERY spans are its children.
+SERVING_SWEEP = "serving.sweep"
+
+# Streaming ingestion tier (streaming/): one INGEST_APPEND per staged
+# batch, one INGEST_COMMIT per published commit, one INGEST_COMPACT per
+# compacted log, one INGEST_WAVE per group-commit wave, one INGEST_SOURCE
+# per productive continuous-source poll.
+INGEST_APPEND = "ingest.append"
+INGEST_COMMIT = "ingest.commit"
+INGEST_COMPACT = "ingest.compact"
+INGEST_WAVE = "ingest.wave"
+INGEST_SOURCE = "ingest.source"
+
+SPAN_NAMES = frozenset({
+    QUERY, PLAN_NORMALIZE, JOIN_REORDER, INDEX_REWRITE, CACHE_LOOKUP,
+    EXEC_STAGE, IO_READ, IO_PREFETCH, SERVING_SWEEP,
+    INGEST_APPEND, INGEST_COMMIT, INGEST_COMPACT, INGEST_WAVE, INGEST_SOURCE,
+})

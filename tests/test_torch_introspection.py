@@ -39,6 +39,7 @@ from hyperspace_tpu_torch.index.statistics import IndexStatistics
 from hyperspace_tpu_torch.parallel import io as tio
 from hyperspace_tpu_torch.plan.expr import sum_ as tsum
 from test_torch_mutability import _begin_refresh
+from test_torch_tracing import fresh_telemetry_state
 
 BASE_CONF = {
     # conftest gives JAX 8 virtual devices, which would take its mesh build.
@@ -389,12 +390,14 @@ QUERIES = _queries()
 
 
 def fresh_io_counters() -> None:
-    """Zero both packages' process-wide reader-pool counters and empty their
-    buffer pools: explain's I/O section renders from them once any read
-    has been pooled in the process."""
+    """Zero both packages' process-wide reader-pool counters, empty their
+    buffer pools and start their SLO monitors anew: explain's I/O and SLO
+    sections render from them once any read has been pooled, or any query
+    run, in the process."""
     for io_mod, bp in ((jio, jbuffer_pool), (tio, tbuffer_pool)):
         io_mod.reset_stats()
         bp.get_pool().clear()
+    fresh_telemetry_state()
 
 
 @pytest.fixture()

@@ -7,8 +7,9 @@ package's, and the reads built on them, on the same numpy-seeded files:
   its producer when the consumer stops early;
 - the pooled multi-file read equals the sequential read and the JAX
   package's, and chunk streams keep the sequential order and provenance;
-- sketch tables and chunked-build bucket files are byte-equal at
-  ``io.threads`` 1 and 4;
+- sketch tables and covering and chunked-build bucket files are
+  byte-equal at ``io.threads`` 1 and 4, and ``run_all``, which writes
+  them, ends every call before it raises and counts no read;
 - a string column's dictionary and codes equal the JAX package's;
 - explain's I/O section counts the same fan-outs as the JAX package's
   after the same reads.
@@ -237,6 +238,38 @@ def test_chunked_build_files_are_byte_equal_at_any_thread_count(files, tmp_path,
                                       ht.IndexConfig("ci", ["k"], ["v", "s"]))
         trees[threads] = file_bytes(str(tmp_path / f"t{threads}" / "sys_torch" / "ci"))
     assert len(trees[1]) == 5 and trees[1] == trees[4]
+
+
+def test_covering_build_files_are_byte_equal_at_any_thread_count(files, tmp_path):
+    trees = {}
+    for threads in (1, 4):
+        s = session("torch", tmp_path / f"t{threads}", threads,
+                    **{IndexConstants.INDEX_NUM_BUCKETS: "5"})
+        ht.Hyperspace(s).create_index(s.read.parquet(os.path.dirname(files[0])),
+                                      ht.IndexConfig("ci", ["k"], ["v", "s"]))
+        trees[threads] = file_bytes(str(tmp_path / f"t{threads}" / "sys_torch" / "ci"))
+    assert len(trees[1]) == 5 and trees[1] == trees[4]
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_run_all_ends_every_call_and_raises_the_first_error(threads):
+    done = []
+
+    def task(i):
+        time.sleep(0.002 * (5 - i % 5))
+        if i in (3, 7):
+            raise ValueError(f"write {i} failed")
+        done.append(i)
+
+    tio.reset_stats()
+    before = tio.pool_stats()
+    with pytest.raises(ValueError, match="write 3 failed"):
+        tio.run_all(task, range(10), params=tio.IoParams(threads=threads))
+    # The pool lets the other calls end; the loop stops at the error.
+    assert sorted(done) == ([i for i in range(10) if i not in (3, 7)] if threads > 1
+                            else [0, 1, 2])
+    # Writes count in no read statistic, nor do they size the reader pool.
+    assert tio.pool_stats() == before
 
 
 STRING_CASES = {

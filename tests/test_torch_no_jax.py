@@ -348,6 +348,54 @@ def test_formats_writer_and_optimizer_run_without_jax():
     assert "FORMATS_OK" in proc.stdout
 
 
+TELEMETRY = textwrap.dedent("""
+    import glob, importlib, json, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import col
+    pkg_dir = os.path.join({root!r}, "hyperspace_tpu_torch", "telemetry")
+    for f in sorted(glob.glob(os.path.join(pkg_dir, "*.py"))):
+        name = os.path.basename(f)[:-3]
+        if name != "__init__":
+            importlib.import_module("hyperspace_tpu_torch.telemetry." + name)
+    from hyperspace_tpu_torch.plananalysis import analyze  # noqa: F401
+    root = tempfile.mkdtemp()
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
+    hs = ht.Hyperspace(s)
+    hs.create_index(s.read.parquet(li_dir), ht.IndexConfig(
+        "li_idx", ["l_orderkey"], ["l_extendedprice", "l_discount", "l_shipdate"]))
+    s.enable_hyperspace()
+    q3 = chip_smoke.build_q3(s, li_dir, od_dir)
+    assert q3.to_arrow().num_rows == 10
+    tr = hs.last_trace()
+    names = {{sp.name for sp in tr.spans}}
+    assert {{"query", "plan.normalize", "rewrite.index_rules", "exec.stage"}} <= names, names
+    report = hs.explain_analyze(q3)
+    assert "== Explain Analyze ==" in report and "exec.stage" in report
+    text = hs.metrics_text()
+    assert "hst_trace_sampled_total" in text and text.endswith("# EOF\\n")
+    dump = json.loads(hs.dump_flight_recorder())
+    assert dump["otherData"]["trace_ids"]
+    assert hs.health()["count"] >= 2
+    assert sys.modules["jax"] is None and sys.modules["hyperspace_tpu"] is None
+    print("TELEMETRY_OK", len(tr.spans))
+""")
+
+
+def test_telemetry_runs_without_jax():
+    """Every telemetry module imports, a traced Q3 runs, and
+    explain_analyze, metrics_text and dump_flight_recorder answer, with
+    ``jax`` and ``hyperspace_tpu`` unimportable."""
+    proc = subprocess.run([sys.executable, "-c", TELEMETRY.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "TELEMETRY_OK" in proc.stdout
+
+
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ht.HyperspaceException, match="CUDA is not available"):

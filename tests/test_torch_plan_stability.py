@@ -111,3 +111,24 @@ class TestTorchPlanStability:
                                            y.to_numpy(zero_copy_only=False), rtol=1e-9)
             else:
                 assert x.equals(y), column
+
+
+class TestTorchExplainGolden:
+    """The port's rendered explain against the explain golden files
+    (``tests/resources/golden_plans/explain/{plaintext,console,html}/``),
+    as ``tests/test_plan_stability.py``'s TestExplainGolden holds the JAX
+    package's: the plan-only explain (``diagnostics=False``: the runtime
+    sections read process-wide counters), verbose, in every display mode."""
+
+    CASES = ["tpch_q6", "tpch_q3", "groupby_index", "tpch_q1"]
+
+    @pytest.mark.parametrize("name", CASES)
+    @pytest.mark.parametrize("mode", ["plaintext", "console", "html"])
+    def test_rendered_explain(self, harness, name, mode):
+        from hyperspace_tpu_torch.plananalysis.explain import explain_string
+
+        session, queries, _ = harness
+        out = explain_string(session, queries[name].plan, verbose=True, mode=mode,
+                             diagnostics=False)
+        with open(f"{GOLDEN_DIR}/explain/{mode}/{name}.txt") as f:
+            assert normalize_plan(out) == f.read()

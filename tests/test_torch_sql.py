@@ -37,6 +37,7 @@ from hyperspace_tpu_torch.index.constants import IndexConstants
 from hyperspace_tpu_torch.ops import kernels as tk
 from hyperspace_tpu_torch.parallel import io as tio
 from hyperspace_tpu_torch.plan import expr as TE
+from test_torch_tracing import fresh_telemetry_state
 
 N_A, N_B = 240, 70
 STRINGS = ["PROMO BRUSHED", "promo%x", "a_b", "a.b", "axb", "line\nbreak", "ünïcode",
@@ -543,6 +544,7 @@ def test_explain_and_why_not_equal_jax(lake, tmp_path, name):
         for io_mod, bp in ((jio, jbuffer_pool), (tio, tbuffer_pool)):
             io_mod.reset_stats()
             bp.get_pool().clear()
+        fresh_telemetry_state(session)
         session.enable_hyperspace()
         try:
             if key == "jax":
