@@ -92,6 +92,30 @@ Phases, each of which fails the run on any error:
               (IndexScan), a date window (2-3 of 16 files kept) and the
               orders after it, indexed and scanned, equal to pyarrow's
               answer; prints the ``formats`` line;
+   lake    -- after the formats path, on a lake of its own made from
+              phase 3's orders: a delta table (lake/delta.py) of files 0-11
+              as 12 parts (v0), dl_od_idx (o_orderdate; o_orderkey,
+              o_totalprice; 32 buckets, lineage) at v0, files 12-13
+              appended (v1), a date point query (==) and a date window
+              (BETWEEN) under Hybrid Scan (hybrid(+2 appended, -0 deleted
+              files)), the earliest part removed (v2) and both again
+              (-1 deleted), an incremental refresh and both with Hybrid
+              Scan off (log id 3), both on read.delta(version_as_of=0)
+              (the log id 1 built at v0, deltaVersionHistory "1:0,3:2");
+              an iceberg table (lake/iceberg.py) of all 16 files,
+              ib_od_skip (MinMax on o_orderdate; its sketch rows equal each
+              part's pyarrow min and max), a window that keeps exactly the
+              parts whose range meets it, one appended snapshot (a full
+              scan until the sketch is refreshed), the old snapshot by
+              snapshot_id, an incremental refresh; st_od_idx over a
+              hard-linked copy of orders with its system path on an
+              hsobj:// object store registered here (pyarrow's
+              SubTreeFileSystem behind a handler that counts calls and
+              fails any rename; an O_EXCL log store): create, the window,
+              refresh after an appended file, optimize, delete and vacuum,
+              the index's files under the store's root and nowhere else.
+              Every answer equals pyarrow's over the snapshot's files,
+              cold and warm; prints the ``lake`` line;
    reorder -- after the sql path, on its lake: each of the nine texts
               optimized with optimizer.joinReorder.enabled off and on; a
               text whose tree changes runs twice each way (warm seconds),
@@ -181,12 +205,12 @@ Phases, each of which fails the run on any error:
               scale 0.01, which must be equal bit for bit.
 
 Launch counters are reset just before each path (lineitem, orders,
-joins and sources of phases 4-5, io, formats, sql, reorder, serving,
+joins and sources of phases 4-5, io, formats, lake, sql, reorder, serving,
 streaming, telemetry (its capture counted with it), then mutations) and
 read just after it. Phase 5 runs each
 query twice: since the buffer pool is on, the second run is warm; phase 7
 empties the pool before each query it times. The last lines of standard
-output are the summary, ``formats``, ``reorder``, ``serving``,
+output are the summary, ``formats``, ``lake``, ``reorder``, ``serving``,
 ``streaming``, ``telemetry`` and ``kernels`` JSON objects, the card's name and power
 limit as nvidia-smi reports them, and the status object ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -243,6 +267,11 @@ PATH_KERNELS = {
     # (>); csv_od_skip's build.
     "formats": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
                 "masked_minmax"),
+    # The covering builds and refreshes over the delta table and on the
+    # object store; the date point query (==) and windows (BETWEEN) on
+    # their indexes; ib_od_skip's build and refresh over the iceberg table.
+    "lake": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
+             "masked_minmax"),
     # The reordered text (Q17) filters strings and compares floats: no
     # kernel of the repo.
     "reorder": (),
@@ -800,10 +829,10 @@ def files_meeting(od_dir: str, column: str, keep) -> list:
     return out
 
 
-def check_minmax_sketch(hs, od_dir: str, name: str = "od_skip") -> None:
-    """The sketch table of ``name`` holds one row for each orders file,
-    with the file's pyarrow min and max of o_orderdate: the masked_minmax
-    results of the build (or of a streaming append)."""
+def check_minmax_sketch(hs, od_dir: str, name: str = "od_skip", files=None) -> None:
+    """The sketch table of ``name`` holds one row for each orders file (or
+    each of ``files``), with the file's pyarrow min and max of o_orderdate:
+    the masked_minmax results of the build (or of a streaming append)."""
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
 
@@ -812,11 +841,13 @@ def check_minmax_sketch(hs, od_dir: str, name: str = "od_skip") -> None:
     table = pq.read_table(path, partitioning=None).to_pydict()
     got = {f: (lo, hi) for f, lo, hi in zip(table["_file"], table["minmax__o_orderdate__min"],
                                             table["minmax__o_orderdate__max"])}
-    files = sorted(f for f in os.listdir(od_dir) if f.endswith(".parquet"))
+    if files is None:
+        files = sorted(os.path.join(od_dir, f) for f in os.listdir(od_dir)
+                       if f.endswith(".parquet"))
     if len(table["_file"]) != len(files):
         raise AssertionError(f"{name}: {len(table['_file'])} sketch rows for {len(files)} files")
-    for f in files:
-        full = os.path.join(od_dir, f)
+    for full in files:
+        f = os.path.basename(full)
         mm = pc.min_max(pq.read_table(full, columns=["o_orderdate"]).column(0)).as_py()
         if got.get(full) != (mm["min"], mm["max"]):
             raise AssertionError(f"{name} sketch of {f}: {got.get(full)} != pyarrow's "
@@ -1630,6 +1661,444 @@ def run_formats_path(root: str, li_dir: str, od_dir: str, n_li: int, n_od: int,
         log(f"formats csv {name}: {want.num_rows} rows; indexed {times['indexed']} s, "
             f"scanned {times['scanned']} s; files kept {kept}")
     del session, hs
+    shutil.rmtree(base, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The lake path: delta and iceberg tables with time travel, and an index that
+# lives on an object store.
+# ---------------------------------------------------------------------------
+
+LAKE_BUCKETS = 32
+LAKE_COLUMNS = ["o_orderkey", "o_orderdate", "o_totalprice"]
+LAKE_SCHEME = "hsobj"
+# The delta table's version 0 holds orders files 0-11; version 1 appends
+# files 12-13.
+LAKE_DELTA_FILES = 12
+LAKE_DELTA_APPENDED = 2
+
+
+def object_store_double(root: str):
+    """A store of the ``hsobj://`` scheme over the local directory ``root``,
+    behaving as an object store: the data side is a pyarrow
+    SubTreeFileSystem behind a handler that counts every call and fails any
+    move (an object store has no rename); the log side creates each entry
+    with O_EXCL (the conditional put) and overwrites latestStable in place.
+    Neither needs fsspec. Returns (data store, log store, call counts)."""
+    import collections
+    import posixpath
+
+    import pyarrow.fs as pafs
+
+    from hyperspace_tpu_torch.index import data_store, log_store
+
+    calls = collections.Counter()
+    base = pafs.SubTreeFileSystem(root, pafs.LocalFileSystem())
+    prefix = LAKE_SCHEME + "://"
+
+    class Handler(pafs.FileSystemHandler):
+        def get_type_name(self):
+            return LAKE_SCHEME
+
+        def normalize_path(self, path):
+            return path
+
+        def get_file_info(self, paths):
+            calls["info"] += len(paths)
+            return base.get_file_info(paths)
+
+        def get_file_info_selector(self, selector):
+            calls["list"] += 1
+            return base.get_file_info(selector)
+
+        def create_dir(self, path, recursive):
+            calls["mkdir"] += 1
+            base.create_dir(path, recursive=recursive)
+
+        def delete_dir(self, path):
+            calls["delete"] += 1
+            base.delete_dir(path)
+
+        def delete_dir_contents(self, path, missing_dir_ok=False):
+            calls["delete"] += 1
+            base.delete_dir_contents(path, missing_dir_ok=missing_dir_ok)
+
+        def delete_root_dir_contents(self):
+            raise AssertionError("object store: a delete of the whole store")
+
+        def delete_file(self, path):
+            calls["delete"] += 1
+            base.delete_file(path)
+
+        def move(self, src, dest):
+            calls["rename"] += 1
+            raise AssertionError(f"object store: a rename of {src} to {dest}")
+
+        def copy_file(self, src, dest):
+            calls["copy"] += 1
+            base.copy_file(src, dest)
+
+        def open_input_stream(self, path):
+            calls["get"] += 1
+            return base.open_input_stream(path)
+
+        def open_input_file(self, path):
+            calls["get"] += 1
+            return base.open_input_file(path)
+
+        def open_output_stream(self, path, metadata):
+            calls["put"] += 1
+            return base.open_output_stream(path, metadata=metadata)
+
+        def open_append_stream(self, path, metadata):
+            raise AssertionError(f"object store: an append to {path}")
+
+    fs = pafs.PyFileSystem(Handler())
+
+    class Store(data_store.DataStore):
+        def filesystem(self):
+            return fs
+
+        def normalize(self, path):
+            return path[len(prefix):] if path.startswith(prefix) else path
+
+        def _info(self, path):
+            return fs.get_file_info(self.normalize(path))
+
+        def is_dir(self, path):
+            return self._info(path).type == pafs.FileType.Directory
+
+        def list_dir(self, path):
+            if not self.is_dir(path):
+                return []
+            return sorted(posixpath.basename(i.path) for i in
+                          fs.get_file_info(pafs.FileSelector(self.normalize(path))))
+
+        def list_leaf_files(self, path):
+            if not self.is_dir(path):
+                return []
+            p = self.normalize(path).rstrip("/")
+            out = []
+            for i in fs.get_file_info(pafs.FileSelector(p, recursive=True)):
+                rel = i.path[len(p):].lstrip("/")
+                if i.type == pafs.FileType.File and \
+                        not any(s.startswith((".", "_")) for s in rel.split("/")):
+                    out.append(prefix + i.path)
+            return sorted(out)
+
+        def file_info(self, path):
+            i = self._info(path)
+            if i.type != pafs.FileType.File:
+                raise FileNotFoundError(path)
+            return (path, int(i.size), int(i.mtime_ns // 1_000_000))
+
+        def makedirs(self, path):
+            fs.create_dir(self.normalize(path), recursive=True)
+
+        def delete_recursively(self, path):
+            i = self._info(path)
+            if i.type == pafs.FileType.Directory:
+                fs.delete_dir(i.path)
+            elif i.type == pafs.FileType.File:
+                fs.delete_file(i.path)
+
+    class Logs(log_store.LogStore):
+        @staticmethod
+        def _local(path):
+            return os.path.join(root, path[len(prefix):])
+
+        def put_if_absent(self, path, data):
+            calls["log_put"] += 1
+            local = self._local(path)
+            os.makedirs(os.path.dirname(local), exist_ok=True)
+            try:
+                fd = os.open(local, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                return False
+            with os.fdopen(fd, "w") as f:
+                f.write(data)
+            return True
+
+        def put_overwrite(self, path, data):
+            calls["log_put"] += 1
+            local = self._local(path)
+            os.makedirs(os.path.dirname(local), exist_ok=True)
+            with open(local, "w") as f:
+                f.write(data)
+
+        def read(self, path):
+            calls["log_get"] += 1
+            try:
+                with open(self._local(path)) as f:
+                    return f.read()
+            except FileNotFoundError:
+                return None
+
+        def list_numeric_ids(self, dirpath):
+            calls["log_list"] += 1
+            d = self._local(dirpath)
+            return [int(n) for n in os.listdir(d) if n.isdigit()] if os.path.isdir(d) else []
+
+        def delete(self, path):
+            calls["log_delete"] += 1
+            try:
+                os.unlink(self._local(path))
+            except FileNotFoundError:
+                pass
+            return True
+
+    return Store(), Logs(), calls
+
+
+def part_ranges(paths) -> dict:
+    """Each parquet file's pyarrow min and max of o_orderdate."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    out = {}
+    for p in paths:
+        mm = pc.min_max(pq.read_table(p, columns=["o_orderdate"]).column(0)).as_py()
+        out[p] = (mm["min"], mm["max"])
+    return out
+
+
+def snapshot_reference(paths, condition):
+    """The query answered by pyarrow alone over a snapshot's files."""
+    import pyarrow.dataset as pa_ds
+    return pa_ds.dataset(list(paths), format="parquet").to_table(columns=LAKE_COLUMNS,
+                                                                 filter=condition)
+
+
+def shifted_rows(table, key_offset: int):
+    """``table``'s rows with their order keys moved past every existing key
+    (new orders on the same dates)."""
+    import pyarrow.compute as pc
+    i = table.column_names.index("o_orderkey")
+    return table.set_column(i, "o_orderkey", pc.add(table.column("o_orderkey"), key_offset))
+
+
+def run_lake_path(root: str, od_dir: str, n_od: int, results: dict) -> None:
+    """Delta and iceberg tables made from phase 3's orders, and a covering
+    index on an object store (see the module docstring)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import (DataSkippingIndexConfig, IndexConfig, IndexConstants,
+                                      MinMaxSketch, col)
+    from hyperspace_tpu_torch.index import data_store, log_store
+    from hyperspace_tpu_torch.lake import DeltaTable, IcebergTable
+    from hyperspace_tpu_torch.plan.nodes import IndexScan, Scan
+
+    out = results["lake"] = {"seconds_of": {}, "queries": {}, "plans": {}}
+    secs_of = out["seconds_of"]
+    base = os.path.join(root, "lake")
+    os.makedirs(base)
+    files = sorted(os.path.join(od_dir, f) for f in os.listdir(od_dir))
+    step = n_od // ORDERS_PARTS
+    date = pc.field("o_orderdate")
+    hybrid_key = IndexConstants.INDEX_HYBRID_SCAN_ENABLED
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        secs_of[name] = time.perf_counter() - t0
+        log(f"lake: {name} in {secs_of[name]:.3f} s")
+        return value
+
+    def new_session(system_path):
+        s = ht.Session(system_path=system_path, device="cuda")
+        s.conf.set(IndexConstants.INDEX_NUM_BUCKETS, LAKE_BUCKETS)
+        s.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, n_od + 1)
+        return s, ht.Hyperspace(s)
+
+    def read(paths):
+        return pa.concat_tables([pq.read_table(p) for p in paths])
+
+    def leaf_of(session, df, hybrid: bool):
+        session.conf.set(hybrid_key, str(hybrid).lower())
+        session.enable_hyperspace()
+        try:
+            leaves = df.optimized_plan().collect_leaves()
+        finally:
+            session.disable_hyperspace()
+        if len(leaves) != 1:
+            raise AssertionError(f"lake: {len(leaves)} leaves in one query's plan")
+        return leaves[0]
+
+    def covering_plan(what, session, df, hybrid, index, log_id, note=""):
+        """The plan reads ``index`` at op-log id ``log_id`` (None: any),
+        its IndexScan saying ``note``."""
+        leaf = leaf_of(session, df, hybrid)
+        text = leaf.simple_string()
+        if not isinstance(leaf, IndexScan) or leaf.index_entry.name != index \
+                or (log_id is not None and leaf.index_entry.id != log_id) or note not in text:
+            raise AssertionError(f"lake {what}: the plan reads {text}, not {index} at log id "
+                                 f"{log_id} with {note!r}")
+        out["plans"][what] = {"index": index, "log_id": leaf.index_entry.id,
+                              "log_version": leaf.index_entry.log_version, "leaf": text}
+
+    def check_answer(what, session, df, hybrid, ref):
+        """Two runs, cold then warm, each equal to ``ref``."""
+        session.conf.set(hybrid_key, str(hybrid).lower())
+        tables, secs, _ = run_twice(session, df, True)
+        for t in tables:
+            if not same_rows(t, ref):
+                raise AssertionError(f"lake {what}: the answer differs from pyarrow's over "
+                                     "the snapshot's files")
+        if ref.num_rows == 0:
+            raise AssertionError(f"lake {what}: the reference holds no row")
+        out["queries"][what] = {"rows": ref.num_rows, "cold_s": secs[0], "warm_s": secs[1]}
+        log(f"lake {what}: {ref.num_rows} rows; cold {secs[0]:.3f} s, warm {secs[1]:.3f} s")
+
+    # 1. Delta: v0 = files 0-11 as 12 parts; dl_od_idx at v0; v1 appends
+    # files 12-13; v2 removes the earliest part.
+    d_path = os.path.join(base, "delta")
+    table = DeltaTable(d_path)
+    timed("delta_create", lambda: table.create(read(files[:LAKE_DELTA_FILES]),
+                                               max_rows_per_file=step))
+    ranges0 = part_ranges(table.snapshot(0).file_paths)
+    if len(ranges0) != LAKE_DELTA_FILES:
+        raise AssertionError(f"lake: delta v0 holds {len(ranges0)} parts")
+    earliest, second = sorted(ranges0, key=ranges0.get)[:2]
+    # The day the earliest part shares with the next one (at SF10 every
+    # part boundary splits a day), so the point query keeps rows after the
+    # earliest part is removed.
+    point_day = ranges0[second][0]
+    session, hs = new_session(os.path.join(base, "indexes"))
+    session.conf.set(IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    timed("dl_od_idx_build", lambda: hs.create_index(session.read.delta(d_path), IndexConfig(
+        "dl_od_idx", ["o_orderdate"], ["o_orderkey", "o_totalprice"])))
+    timed("delta_append", lambda: table.append(
+        read(files[LAKE_DELTA_FILES:LAKE_DELTA_FILES + LAKE_DELTA_APPENDED]),
+        max_rows_per_file=step))
+    appended = [p for p in table.snapshot(1).file_paths if p not in ranges0]
+    first_new = min(part_ranges(appended).values())[0]
+    last_old = max(r[1] for r in ranges0.values())
+    lo = last_old - datetime.timedelta(days=10)
+    hi = first_new + datetime.timedelta(days=10)
+    conditions = {"point": date == point_day, "window": (date >= lo) & (date <= hi)}
+
+    def delta_queries(df):
+        return {"point": df.filter(col("o_orderdate") == point_day).select(*LAKE_COLUMNS),
+                "window": df.filter(col("o_orderdate").between(lo, hi)).select(*LAKE_COLUMNS)}
+
+    def delta_round(tag, version, hybrid, log_id, note):
+        df = session.read.delta(d_path, version_as_of=version)
+        paths = table.snapshot(version).file_paths
+        for name, q in delta_queries(df).items():
+            covering_plan(f"delta_{tag}_{name}", session, q, hybrid, "dl_od_idx", log_id, note)
+            check_answer(f"delta_{tag}_{name}", session, q, hybrid,
+                         snapshot_reference(paths, conditions[name]))
+
+    delta_round("v1_hybrid", None, True, 1, f"hybrid(+{LAKE_DELTA_APPENDED} appended, -0 "
+                                            "deleted files)")
+    timed("delta_remove", lambda: table.remove_files([earliest]))
+    delta_round("v2_hybrid", None, True, 1, f"hybrid(+{LAKE_DELTA_APPENDED} appended, -1 "
+                                            "deleted files)")
+    timed("dl_od_idx_refresh_incremental",
+          lambda: hs.refresh_index("dl_od_idx", "incremental"))
+    delta_round("v2_refreshed", None, False, 3, "")
+    # Time travel to v0 takes the log version built at v0.
+    delta_round("v0_time_travel", 0, False, 1, "")
+    history = hs.index_manager.get_index("dl_od_idx").derivedDataset.properties[
+        "deltaVersionHistory"]
+    if history != "1:0,3:2":
+        raise AssertionError(f"lake: dl_od_idx's deltaVersionHistory is {history}")
+    out["delta_version_history"] = history
+
+    # 2. Iceberg: all 16 files as one snapshot; ib_od_skip; a window that
+    # keeps exactly the parts whose range meets it; one appended snapshot.
+    i_path = os.path.join(base, "iceberg")
+    ib = IcebergTable(i_path)
+    s0 = timed("iceberg_create", lambda: ib.create(read(files),
+                                                   max_rows_per_file=-(-n_od // ORDERS_PARTS)))
+    timed("ib_od_skip_build", lambda: hs.create_index(session.read.iceberg(i_path),
+                                                      DataSkippingIndexConfig(
+        "ib_od_skip", [MinMaxSketch("o_orderdate")])))
+    check_minmax_sketch(hs, i_path, "ib_od_skip", files=ib.snapshot(s0).file_paths)
+    window = (date >= SKIP_LO) & (date <= SKIP_HI)
+
+    def iceberg_round(tag, snapshot_id, pruned: bool):
+        paths = ib.snapshot(snapshot_id).file_paths
+        meets = sorted(p for p, (a, b) in part_ranges(paths).items()
+                       if a <= SKIP_HI and b >= SKIP_LO)
+        q = session.read.iceberg(i_path, snapshot_id=snapshot_id).filter(
+            col("o_orderdate").between(SKIP_LO, SKIP_HI)).select(*LAKE_COLUMNS)
+        leaf = leaf_of(session, q, False)
+        kept = sorted(leaf.relation.all_files()) if isinstance(leaf, Scan) else None
+        if pruned and (not leaf.skipping_note or kept != meets):
+            raise AssertionError(f"lake iceberg {tag}: the scan keeps {kept}, the window "
+                                 f"meets {meets}")
+        if not pruned and kept != sorted(paths):
+            raise AssertionError(f"lake iceberg {tag}: a stale sketch pruned the scan")
+        out["plans"][f"iceberg_{tag}"] = {"parts": len(paths), "kept": len(kept),
+                                          "note": leaf.skipping_note}
+        check_answer(f"iceberg_{tag}", session, q, False, snapshot_reference(paths, window))
+
+    iceberg_round("s0", s0, True)
+    new_rows = shifted_rows(snapshot_reference(ib.snapshot(s0).file_paths, window), n_od)
+    s1 = timed("iceberg_append", lambda: ib.append(new_rows))
+    iceberg_round("s1_stale_sketch", s1, False)
+    iceberg_round("s0_time_travel", s0, True)
+    timed("ib_od_skip_refresh_incremental",
+          lambda: hs.refresh_index("ib_od_skip", "incremental"))
+    iceberg_round("s1_refreshed", s1, True)
+
+    # 3. An index on the object store: st_od_idx over a copy of orders (hard
+    # links), its system path on hsobj://.
+    store_root = os.path.join(base, "store")
+    os.makedirs(store_root)
+    store, logs, calls = object_store_double(store_root)
+    data_store.register_scheme(LAKE_SCHEME, lambda: store)
+    log_store.register_scheme(LAKE_SCHEME, lambda path: logs)
+    src = os.path.join(base, "orders")
+    os.makedirs(src)
+    for f in files:
+        os.link(f, os.path.join(src, os.path.basename(f)))
+    so, hso = new_session(f"{LAKE_SCHEME}://lake/indexes")
+    st_window = (date >= SKIP_LO) & (date <= SKIP_HI)
+
+    def store_round(tag):
+        q = so.read.parquet(src).filter(col("o_orderdate").between(SKIP_LO, SKIP_HI)).select(
+            *LAKE_COLUMNS)
+        covering_plan(f"store_{tag}", so, q, False, "st_od_idx", None)
+        check_answer(f"store_{tag}", so, q, False, snapshot_reference(
+            sorted(os.path.join(src, f) for f in os.listdir(src)), st_window))
+
+    timed("st_od_idx_build", lambda: hso.create_index(so.read.parquet(src), IndexConfig(
+        "st_od_idx", ["o_orderdate"], ["o_orderkey", "o_totalprice"])))
+    store_round("created")
+    pq.write_table(shifted_rows(snapshot_reference(files, st_window), 2 * n_od),
+                   os.path.join(src, f"part{ORDERS_PARTS:02d}.parquet"))
+    timed("st_od_idx_refresh_incremental",
+          lambda: hso.refresh_index("st_od_idx", "incremental"))
+    store_round("refreshed")
+    timed("st_od_idx_optimize", lambda: hso.optimize_index("st_od_idx", "full"))
+    store_round("optimized")
+    index_dir = os.path.join(store_root, "lake", "indexes", "st_od_idx")
+    content = hso.index_manager.get_index("st_od_idx").content.files
+    local = {os.path.join(store_root, f[len(LAKE_SCHEME) + 3:]) for f in content}
+    if not content or not all(f.startswith(f"{LAKE_SCHEME}://lake/indexes/st_od_idx/")
+                              for f in content) or not all(map(os.path.isfile, local)):
+        raise AssertionError(f"lake: st_od_idx's files are not the store's: {content[:3]}")
+    strays = [os.path.join(d, n) for d, dirs, names in os.walk(base)
+              if not d.startswith(store_root) for n in dirs + names if n == "st_od_idx"]
+    if strays:
+        raise AssertionError(f"lake: index files outside the store: {strays[:3]}")
+    timed("st_od_idx_delete_vacuum", lambda: (hso.delete_index("st_od_idx"),
+                                              hso.vacuum_index("st_od_idx")))
+    if any(n.startswith("v__=") for n in os.listdir(index_dir)):
+        raise AssertionError("lake: vacuum left st_od_idx's data in the store")
+    if calls["rename"]:
+        raise AssertionError("lake: the object store was asked to rename")
+    out["store_calls"] = dict(calls)
+    log(f"lake: object-store calls {dict(calls)}")
+    del session, hs, so, hso
     shutil.rmtree(base, ignore_errors=True)
 
 
@@ -4295,8 +4764,9 @@ def copy_rate(x) -> dict:
 # Phase 7 only measures: it checks no answer and no launch. It is left out
 # when the script's clock has passed this many seconds at its start, so that
 # a slow host ends inside the 1200 s limit (on an H100 host where the whole
-# script takes about 930 s it starts near 785 s).
-BREAKDOWN_LATE_S = 940
+# script takes about 875 s it starts near 760 s). The lake path's time (22.5 s
+# there, rounded up to 30 s) comes out of phase 7's share, not the limit's.
+BREAKDOWN_LATE_S = 910
 
 def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
               n_od: int) -> dict:
@@ -4770,6 +5240,12 @@ def main(argv=None) -> int:
             f"{results['formats']['seconds']:.1f} s")
         ck.reset_launches()
         t0 = time.perf_counter()
+        run_lake_path(root, od_dir, n_od, results)
+        launches["lake"] = dict(ck.LAUNCHES)
+        results["lake"]["seconds"] = time.perf_counter() - t0
+        log(f"lake: launches {launches['lake']}; {results['lake']['seconds']:.1f} s")
+        ck.reset_launches()
+        t0 = time.perf_counter()
         sql_session_, sql_dirs = run_sql_path(root, args.scale, results)
         launches["sql"] = dict(ck.LAUNCHES)
         results["sql"]["seconds"] = time.perf_counter() - t0
@@ -4895,6 +5371,8 @@ def main(argv=None) -> int:
                       "total_s": results["total_s"]}, default=str))
     print(json.dumps({"formats": dict(results["formats"], launches=launches["formats"],
                                       card=card)}, default=str))
+    print(json.dumps({"lake": dict(results["lake"], launches=launches["lake"], card=card)},
+                     default=str))
     print(json.dumps({"reorder": dict(results["reorder"], launches=launches["reorder"],
                                       card=card)}, default=str))
     print(json.dumps({"serving": serving_summary(results["serving"], launches["serving"],

@@ -1,7 +1,8 @@
 """hyperspace_tpu_torch -- the PyTorch/CUDA port of hyperspace_tpu.
 
 Covering and data-skipping indexes over data lakes (parquet, csv, json,
-orc, text and avro files), built and
+orc, text and avro files, and versioned delta and iceberg tables with time
+travel), built and
 probed on an NVIDIA GPU: the covering build hash-partitions and sorts
 within buckets on the device, the sketch build reduces each source file's
 column there (MinMax, Bloom, value list), and queries evaluate their
@@ -16,7 +17,8 @@ results, bucketed by the same hash and histogram kernels or
 hive-partitioned, and the planner can reorder inner-join chains by
 estimated rows. Sketch probes at plan time are host numpy. The
 on-disk layout and the operation log are the JAX package's, so either
-package reads the other's indexes.
+package reads the other's indexes; an index may live on an object store
+registered for its system path's scheme.
 
 This package imports torch, numpy and pyarrow, and nothing of JAX or of
 ``hyperspace_tpu``.

@@ -32,6 +32,7 @@ from ..plan.nodes import Scan
 from ..schema import INT64, Field, Schema
 from ..sources.partitions import read_relation_files
 from ..telemetry import events as _ev
+from ..util import file_utils
 from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
@@ -103,7 +104,7 @@ class CreateActionBase(Action):
         files = list(files) if files is not None else relation.all_files()
         table = read_relation_files(relation, files, indexed + included, self.session.device)
         if self._lineage_enabled():
-            if relation.file_format != "parquet":
+            if relation.data_file_format != "parquet":
                 raise HyperspaceException("Lineage requires parquet sources in this version")
             ids = [tracker.add_file(*file_info_triple(f)) for f in files]
             lineage = np.repeat(np.asarray(ids, np.int64),
@@ -118,7 +119,7 @@ class CreateActionBase(Action):
         bucket under the version's directory."""
         num_buckets = self._num_buckets()
         out_dir = self.data_manager.get_path(version)
-        os.makedirs(out_dir, exist_ok=True)
+        file_utils.makedirs(out_dir)
         sorted_table, bounds = index_build.build_sorted_buckets(table, indexed, num_buckets)
         # One wholesale fetch; the per-bucket writes then slice host memory.
         write_bucket_files(sorted_table.to_host(), bounds, num_buckets, out_dir,
@@ -134,7 +135,7 @@ class CreateActionBase(Action):
         hive partition column or a struct leaf (no row groups or no
         physical column for the streaming reader)."""
         files = list(files) if files is not None else relation.all_files()
-        if not files or relation.file_format != "parquet":
+        if not files or relation.data_file_format != "parquet":
             return False
         physical = set(pq.read_schema(files[0]).names)
         if any(c not in physical for c in indexed + included):
@@ -146,7 +147,7 @@ class CreateActionBase(Action):
         if self._lineage_enabled():
             lineage_ids = [tracker.add_file(*file_info_triple(f)) for f in files]
         out_dir = self.data_manager.get_path(version)
-        os.makedirs(out_dir, exist_ok=True)
+        file_utils.makedirs(out_dir)
         index_build.build_sorted_buckets_chunked(
             files, indexed + included, indexed, self._num_buckets(), chunk_rows, out_dir,
             self.session.hs_conf.index_row_group_size(), self.session.device,
@@ -157,15 +158,21 @@ class CreateActionBase(Action):
         props = {}
         if self._lineage_enabled():
             props[IndexConstants.LINEAGE_PROPERTY] = "true"
-        if relation.file_format == "parquet":
+        if relation.data_file_format == "parquet":
             props[IndexConstants.HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY] = "true"
         return props
+
+    def _index_properties(self, relation) -> dict:
+        """The standard properties, then the source's own (a delta table's
+        version history), keyed by the log id this action commits at."""
+        return relation.enrich_index_properties(self._base_index_properties(relation),
+                                                self.end_id)
 
     def _build_entry(self, name: str, relation, plan, indexed: List[str],
                      included: List[str], index_schema: Schema, tracker: FileIdTracker,
                      index_content: Content) -> IndexLogEntry:
         derived = CoveringIndex(indexed, included, index_schema, self._num_buckets(),
-                                self._base_index_properties(relation))
+                                self._index_properties(relation))
         return IndexLogEntry.create(name, derived, index_content,
                                     build_source(relation, plan, tracker), {})
 

@@ -23,6 +23,7 @@ import pyarrow.parquet as pq
 
 from ..exceptions import HyperspaceException
 from ..execution.columnar import read_parquet
+from ..index import data_store
 from ..index.constants import States
 from ..index.data_manager import IndexDataManager
 from ..index.log_entry import (Content, DataSkippingIndex, Directory, FileIdTracker,
@@ -33,6 +34,7 @@ from ..parallel import io as pio
 from ..plan.nodes import Scan
 from ..schema import INT64, STRING, Field, Schema
 from ..telemetry import events as _ev
+from ..util import file_utils
 from ..util.file_utils import file_info_triple
 from ..util.resolver import resolve_all
 from .action import Action
@@ -76,7 +78,7 @@ def build_sketch_rows(relation, sketch_list: List[Sketch], files: List[str],
             rows[valuelist_col(s.column)] = []
         else:
             raise HyperspaceException(f"Unknown sketch kind: {s.kind}")
-    fmt = relation.file_format
+    fmt = relation.data_file_format
     for path, table in pio.zip_prefetch(
             files, lambda f: read_parquet([f], needed, device, fmt=fmt), weight=os.path.getsize,
             label="sketch_build"):
@@ -127,9 +129,10 @@ def write_sketch_table(rows: Dict[str, list], arrow_schema: pa.Schema,
 
 
 def _write_sketch_file(table: pa.Table, out_dir: str) -> str:
-    os.makedirs(out_dir, exist_ok=True)
+    file_utils.makedirs(out_dir)
     path = os.path.join(out_dir, SKETCH_FILE_NAME)
-    pq.write_table(table, path)
+    fs, norm = data_store.fs_and_path(path)
+    pq.write_table(table, norm, filesystem=fs)
     return path
 
 
@@ -248,7 +251,8 @@ class RefreshDataSkippingIncrementalAction(RefreshDataSkippingAction):
         sketch_list = prev.derivedDataset.sketches
         # partitioning=None: the file lies under a "v__=<n>" directory,
         # which pyarrow would otherwise read as a column.
-        old = pq.read_table(_sketch_file(prev), partitioning=None)
+        fs, path = data_store.fs_and_path(_sketch_file(prev))
+        old = pq.read_table(path, filesystem=fs, partitioning=None)
         deleted = {f.name for f in self.deleted_files}
         kept = old.filter(pa.array([name not in deleted
                                     for name in old.column(FILE_COL).to_pylist()]))

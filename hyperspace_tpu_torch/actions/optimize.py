@@ -22,6 +22,7 @@ from ..index.constants import IndexConstants, States
 from ..index.log_entry import Content, FileIdTracker, FileInfo, IndexLogEntry
 from ..ops import index_build, kernels
 from ..telemetry import events as _ev
+from ..util import file_utils
 from .refresh import ExistingIndexActionBase
 
 
@@ -76,7 +77,7 @@ class OptimizeAction(ExistingIndexActionBase):
         compact, skipped = self._files_to_optimize()
         version = self._new_version()
         out_dir = self.data_manager.get_path(version)
-        os.makedirs(out_dir, exist_ok=True)
+        file_utils.makedirs(out_dir)
         row_group_size = self.session.hs_conf.index_row_group_size()
         new_paths: List[str] = []
         for bucket in sorted(compact):

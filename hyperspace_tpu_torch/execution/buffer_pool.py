@@ -28,7 +28,6 @@ collector of the metrics registry.
 
 from __future__ import annotations
 
-import os
 import threading
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
@@ -417,17 +416,18 @@ _metrics.get_registry().register_collector(_mn.COLLECTOR_BUFFER_POOL, pool_stats
 # ---------------------------------------------------------------------------
 
 def file_signature(files: Sequence[str]) -> Optional[tuple]:
-    """((path, size, mtime_ns), ...): any rewrite, append, refresh or
+    """((path, size, mtime), ...): any rewrite, append, refresh or
     optimize changes a size, an mtime or a path, so stale entries are never
     found again. None when a file cannot be stat'ed (the caller reads
-    around the pool)."""
+    around the pool). A file on a data store is stat'ed through it."""
+    from ..index import data_store
     sig = []
     for f in files:
         try:
-            st = os.stat(f)
+            size, mtime = data_store.file_stamp(f)
         except OSError:
             return None
-        sig.append((str(f), int(st.st_size), int(st.st_mtime_ns)))
+        sig.append((str(f), int(size), int(mtime)))
     return tuple(sig)
 
 

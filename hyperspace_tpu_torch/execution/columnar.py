@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import datetime
 import functools
-import os
 import re
 import time
 from dataclasses import dataclass
@@ -368,8 +367,9 @@ def _concat_string_columns(cols: List[Column]) -> Column:
 def _file_size_weight(path: str) -> int:
     """A file's byte weight for the reader pool's in-flight budget (its
     decoded size is about its file size; 0 when it cannot be stat'ed)."""
+    from ..index import data_store
     try:
-        return int(os.path.getsize(path))
+        return int(data_store.file_stamp(path)[0])
     except OSError:
         return 0
 
@@ -388,14 +388,18 @@ def _read_parquet_pooled(files: Sequence[str], read_cols, filters) -> pa.Table:
     pyarrow infers no partitions from the paths (``partitioning=None``):
     ``sources/partitions.py`` attaches them, and a sublist holding only a
     null partition's files would leave pyarrow nothing to infer its type
-    from (the JAX package raises there; ROADMAP queue C 9)."""
+    from (the JAX package raises there; ROADMAP queue C 9).
+
+    Files on a data store are read through its filesystem."""
+    from ..index import data_store
     from ..parallel import io as pio
     p = pio.active_params()
     n = p.resolved_threads()
 
     def read(paths, use_threads: bool) -> pa.Table:
-        return pq.read_table(list(paths), columns=read_cols, filters=filters,
-                             partitioning=None, use_threads=use_threads)
+        fs, norm = data_store.resolve_files(paths)
+        return pq.read_table(norm, columns=read_cols, filters=filters, partitioning=None,
+                             use_threads=use_threads, filesystem=fs)
 
     if not p.enabled:
         return read(files, True)
@@ -444,6 +448,7 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
 
     ``pool=True`` (the executor's bulk scans) probes the buffer pool first
     and admits the table read on a miss; builds read around it."""
+    from ..index import data_store
     from . import buffer_pool as bp
     if not files:
         raise HyperspaceException("read_parquet: no files")
@@ -459,7 +464,8 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
     read_cols = list(columns) if columns else None
     flatten_select = None
     if columns:
-        top_level = set(pq.read_schema(files[0]).names)
+        fs, first = data_store.fs_and_path(files[0])
+        top_level = set(pq.read_schema(first, filesystem=fs).names)
         if any(c not in top_level for c in columns):
             roots: List[str] = []
             for c in columns:
@@ -529,19 +535,19 @@ def read_format(files: Sequence[str], columns: Optional[Sequence[str]],
 
 
 @functools.lru_cache(maxsize=65536)
-def _file_row_count(path: str, size: int, mtime_ns: int) -> int:
-    return pq.ParquetFile(path).metadata.num_rows
+def _file_row_count(path: str, size: int, mtime: int) -> int:
+    from ..index import data_store
+    fs, norm = data_store.fs_and_path(path)
+    return pq.ParquetFile(norm, filesystem=fs).metadata.num_rows
 
 
 def parquet_row_counts(files: Sequence[str]) -> List[int]:
     """Row count per file from parquet footers (no data read), memoized
-    per (path, size, mtime_ns): every filtered scan checks its budget, and
-    a file rewritten in place has a new size or mtime."""
-    out = []
-    for f in files:
-        st = os.stat(f)
-        out.append(_file_row_count(f, st.st_size, st.st_mtime_ns))
-    return out
+    per (path, size, mtime): every filtered scan checks its budget, and
+    a file rewritten in place has a new size or mtime. A file on a data
+    store is stat'ed through it."""
+    from ..index import data_store
+    return [_file_row_count(f, *data_store.file_stamp(f)) for f in files]
 
 
 def _table_nbytes_estimate(item) -> int:
@@ -644,9 +650,11 @@ def iter_parquet_chunks(files: Sequence[str], columns: Optional[Sequence[str]],
 
 
 def _iter_parquet_chunks(files, columns, chunk_rows: int, device):
+    from ..index import data_store
+    fs, files = data_store.resolve_files(files)
     read_cols = list(columns) if columns else None
     pieces = ((fi, pf.read_row_group(rg, columns=read_cols))
-              for fi, pf in enumerate(pq.ParquetFile(f) for f in files)
+              for fi, pf in enumerate(pq.ParquetFile(f, filesystem=fs) for f in files)
               for rg in range(pf.num_row_groups))
     for at, provenance in _rebatch(pieces, chunk_rows):
         yield Table.from_arrow(at, device), provenance
@@ -705,7 +713,9 @@ def _collect_stream(pool_key, stream, admit_bytes: int):
 def _iter_dataset_chunks(files, columns, chunk_rows: int, device, filters):
     import pyarrow.dataset as pa_ds
 
-    scanner = pa_ds.dataset(list(files), format="parquet").scanner(
+    from ..index import data_store
+    fs, files = data_store.resolve_files(files)
+    scanner = pa_ds.dataset(files, format="parquet", filesystem=fs).scanner(
         columns=list(columns) if columns else None, filter=filters,
         batch_size=max(chunk_rows, 1))
     pieces = ((0, pa.Table.from_batches([rb])) for rb in scanner.to_batches())
@@ -714,7 +724,10 @@ def _iter_dataset_chunks(files, columns, chunk_rows: int, device, filters):
 
 
 def write_parquet(table: Table, path: str, row_group_size: Optional[int] = None) -> None:
-    pq.write_table(table.to_arrow(), path, row_group_size=row_group_size)
+    """One parquet file, through the path's data store if it has one."""
+    from ..index import data_store
+    fs, norm = data_store.fs_and_path(path)
+    pq.write_table(table.to_arrow(), norm, row_group_size=row_group_size, filesystem=fs)
 
 
 def empty_table(schema: Schema, device) -> Table:

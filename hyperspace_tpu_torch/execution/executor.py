@@ -261,7 +261,7 @@ def _chunked_filtered_scan(plan: Scan, needed: Optional[Set[str]], condition, pa
     a struct leaf, which the in-memory reader attaches or flattens."""
     relation = plan.relation
     files = relation.all_files()
-    if not files or relation.file_format != "parquet":
+    if not files or relation.data_file_format != "parquet":
         return None
     cols = _read_columns(relation.schema.names, needed)
     if any(c not in set(pq.read_schema(files[0]).names) for c in cols):
@@ -347,7 +347,7 @@ def _chunked_filtered_index_scan(plan: IndexScan, needed: Optional[Set[str]], co
     index_files, cols, single_file_buckets = _index_scan_layout(plan, needed, bucket_subset)
     if not index_files:
         return None
-    if plan.appended_files and plan.source_relation.file_format != "parquet":
+    if plan.appended_files and plan.source_relation.data_file_format != "parquet":
         return None  # appended files without footers: the in-memory path
     if sum(parquet_row_counts(index_files + list(plan.appended_files))) <= chunk_rows:
         return None

@@ -24,13 +24,11 @@ class IndexDataManager:
         return max(versions) if versions else None
 
     def get_all_version_ids(self) -> List[int]:
-        if not os.path.isdir(self._index_path):
-            return []
         pattern = re.compile(re.escape(self._prefix) + r"(\d+)$")
         out = []
-        for name in sorted(os.listdir(self._index_path)):
+        for name in file_utils.list_dir(self._index_path):
             m = pattern.match(name)
-            if m and os.path.isdir(os.path.join(self._index_path, name)):
+            if m and file_utils.is_dir(os.path.join(self._index_path, name)):
                 out.append(int(m.group(1)))
         return sorted(out)
 

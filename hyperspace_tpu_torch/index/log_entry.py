@@ -97,13 +97,21 @@ class Directory:
             dir_path = dir_path.rstrip("/") or "/"
             if dir_path in dir_nodes:
                 return dir_nodes[dir_path]
+            if "://" in dir_path and "/" not in dir_path.split("://", 1)[1]:
+                # An object store's root ("hsmem://bucket") is one opaque
+                # child of "/": os.path.dirname would collapse its "//".
+                node = Directory(name=dir_path)
+                root.subDirs.append(node)
+                dir_nodes[dir_path] = node
+                return node
             parent = node_for(os.path.dirname(dir_path))
             node = Directory(name=os.path.basename(dir_path))
             parent.subDirs.append(node)
             dir_nodes[dir_path] = node
             return node
 
-        for p in sorted(os.path.abspath(p) for p in paths):
+        # A store's paths are already rooted.
+        for p in sorted(p if "://" in p else os.path.abspath(p) for p in paths):
             # Stat exactly once so the tracker key and the recorded FileInfo
             # can never disagree if the file changes mid-listing.
             full, size, mtime = file_utils.file_info_triple(p)
@@ -138,7 +146,10 @@ class Content:
         """Yield (full_path, FileInfo) for every leaf file in the tree."""
 
         def rec(node: Directory, prefix: str):
-            base = os.path.join(prefix, node.name) if node.name != "/" else "/"
+            if "://" in node.name:
+                base = node.name  # an object store's root is absolute
+            else:
+                base = os.path.join(prefix, node.name) if node.name != "/" else "/"
             for f in node.files:
                 full = f.name if os.path.isabs(f.name) else os.path.join(base, f.name)
                 yield full, f

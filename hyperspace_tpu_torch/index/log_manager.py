@@ -5,11 +5,14 @@
     <indexPath>/_hyperspace_log/latestStable -- copy of the latest stable entry
 
 ``write_log`` refuses to overwrite an existing id (put-if-absent through
-the log store), which is how concurrent actions detect conflicts.
+the log store), which is how concurrent actions detect conflicts. The
+store is the one registered for the index path's scheme
+(index/log_store.py), or the local filesystem.
 
-The per-query lookups (the latest id, the latest stable entry) are
-memoized process-wide by ``LogLookupCache``, keyed on the log directory's
-change token.
+The per-query lookups (the latest id, the latest stable entry) of a local
+log are memoized process-wide by ``LogLookupCache``, keyed on the log
+directory's change token; an object store has no such token, so its
+lookups are not memoized.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from ..robustness import retry as _retry
 from ..util import hashing, json_utils
 from .constants import STABLE_STATES, IndexConstants, States
 from .log_entry import IndexLogEntry
-from .log_store import LocalFsLogStore
+from .log_store import LocalFsLogStore, LogStore, store_for_path, strip_file_scheme
 
 
 class LogLookupCache:
@@ -117,8 +120,13 @@ def get_lookup_cache() -> LogLookupCache:
 
 
 class IndexLogManager:
-    def __init__(self, index_path: str):
-        self._store = LocalFsLogStore()
+    def __init__(self, index_path: str, store: Optional[LogStore] = None):
+        self._store = store or store_for_path(index_path)
+        # Only a local log has the directory token the lookup cache checks.
+        self._cacheable = isinstance(self._store, LocalFsLogStore)
+        if self._cacheable:
+            # A file:// URI becomes the path entry paths are joined under.
+            index_path = strip_file_scheme(index_path)
         self._index_path = index_path
         self._log_path = os.path.join(index_path, IndexConstants.HYPERSPACE_LOG)
         self._latest_stable_path = os.path.join(
@@ -138,8 +146,13 @@ class IndexLogManager:
     def get_log(self, log_id: int) -> Optional[IndexLogEntry]:
         return self._get_log_at(self._path_from_id(log_id))
 
+    def _memo(self, kind: str, compute):
+        if self._cacheable:
+            return _LOOKUP_CACHE.get(self._log_path, kind, compute)
+        return compute()
+
     def get_latest_id(self) -> Optional[int]:
-        return _LOOKUP_CACHE.get(self._log_path, "latest_id", self._compute_latest_id)
+        return self._memo("latest_id", self._compute_latest_id)
 
     def _compute_latest_id(self) -> Optional[int]:
         ids = self._store.list_numeric_ids(self._log_path)
@@ -150,7 +163,7 @@ class IndexLogManager:
         the result cache's change detector (a full refresh restarts the
         log at the same ids, so the id alone cannot pin the state).
         Memoized per log directory token, like the other lookups."""
-        return _LOOKUP_CACHE.get(self._log_path, "fingerprint", self._compute_fingerprint)
+        return self._memo("fingerprint", self._compute_fingerprint)
 
     def _compute_fingerprint(self) -> Optional[tuple]:
         latest = self._compute_latest_id()
@@ -180,10 +193,8 @@ class IndexLogManager:
         """Latest entry in a stable state; falls back to a backward scan past
         a broken tail, including an unparseable (torn) entry. Memoized as
         JSON text per log directory token and parsed per call."""
-        text = _LOOKUP_CACHE.get(
-            self._log_path, "stable_json",
-            lambda: (lambda e: None if e is None else e.to_json())(
-                self._compute_latest_stable_log()))
+        text = self._memo("stable_json", lambda: (lambda e: None if e is None else e.to_json())(
+            self._compute_latest_stable_log()))
         return None if text is None else IndexLogEntry.from_json(text)
 
     def _compute_latest_stable_log(self) -> Optional[IndexLogEntry]:

@@ -11,6 +11,7 @@ import os
 from typing import List, Optional
 
 from ..exceptions import HyperspaceException
+from ..util import file_utils
 from .cache import CreationTimeBasedIndexCache
 from .constants import IndexConstants, States
 from .data_manager import IndexDataManager
@@ -29,12 +30,17 @@ class IndexCollectionManager:
 
     def _log_manager(self, name: str, must_exist: bool = True) -> IndexLogManager:
         path = self._index_path(name)
-        if must_exist and not os.path.isdir(path):
+        if must_exist and not file_utils.is_dir(path):
             raise HyperspaceException(f"Index with name {name} could not be found.")
         return IndexLogManager(path)
 
     def _data_manager(self, name: str) -> IndexDataManager:
         return IndexDataManager(self._index_path(name))
+
+    def log_manager_for(self, name: str) -> IndexLogManager:
+        """An index's op-log manager (time-travel index selection reads
+        older log versions through it)."""
+        return self._log_manager(name)
 
     def create(self, df, index_config) -> None:
         from ..api import DataSkippingIndexConfig
@@ -103,11 +109,8 @@ class IndexCollectionManager:
 
     def _index_names(self) -> List[str]:
         system_path = self._path_resolver.system_path
-        if not os.path.isdir(system_path):
-            return []
-        return sorted(
-            n for n in os.listdir(system_path)
-            if os.path.isdir(os.path.join(system_path, n, IndexConstants.HYPERSPACE_LOG)))
+        return [n for n in file_utils.list_dir(system_path)
+                if file_utils.is_dir(os.path.join(system_path, n, IndexConstants.HYPERSPACE_LOG))]
 
     def latest_log_ids(self) -> tuple:
         """(index name, latest op-log id, entry-bytes md5) per index under

@@ -27,6 +27,7 @@ import torch
 
 from ..execution.columnar import (Column, Table, iter_parquet_chunks, parquet_row_counts,
                                   read_parquet)
+from ..index import data_store
 from ..parallel import io as pio
 from ..schema import INT64
 from . import cuda_kernels, kernels
@@ -191,12 +192,17 @@ def _sort_batch(merged: Table, rows: Sequence[int], indexed_cols: Sequence[str])
 
 def _write_batch(merged: Table, batch: Sequence[int], rows: Sequence[int], out_dir: str,
                  row_group_size: int) -> None:
-    """One parquet file per bucket of a sorted batch, written over threads."""
+    """One parquet file per bucket of a sorted batch, written over threads,
+    through the index path's data store if it has one."""
     at = merged.to_arrow()
     starts = np.concatenate([[0], np.cumsum(rows, dtype=np.int64)[:-1]]).tolist()
-    pio.run_all(lambda job: pq.write_table(
-        at.slice(job[1], job[2]), os.path.join(out_dir, bucket_file_name(job[0])),
-        row_group_size=row_group_size), list(zip(batch, starts, rows)))
+
+    def write(job) -> None:
+        fs, path = data_store.fs_and_path(os.path.join(out_dir, bucket_file_name(job[0])))
+        pq.write_table(at.slice(job[1], job[2]), path, row_group_size=row_group_size,
+                       filesystem=fs)
+
+    pio.run_all(write, list(zip(batch, starts, rows)))
 
 
 def bucket_file_name(bucket: int) -> str:

@@ -204,7 +204,7 @@ class StatsProvider:
         return stats
 
     def _harvest(self, relation) -> Optional[TableStats]:
-        if relation.file_format != "parquet":
+        if relation.data_file_format != "parquet":
             return None
         import pyarrow.parquet as pq
         self.harvest_count += 1

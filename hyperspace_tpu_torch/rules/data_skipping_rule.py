@@ -237,7 +237,9 @@ def _load_sketch_table(entry: IndexLogEntry) -> dict:
         return cached
     # partitioning=None: the file lives under a "v__=<n>" directory, from
     # which pyarrow would otherwise infer a "v__" column.
-    t = pq.read_table(path, partitioning=None)
+    from ..index import data_store
+    fs, norm = data_store.fs_and_path(path)
+    t = pq.read_table(norm, filesystem=fs, partitioning=None)
     table = {name: t.column(name).to_pylist() for name in t.column_names}
     if len(_SKETCH_CACHE) >= 8:  # keep at most a handful of tables alive.
         _SKETCH_CACHE.pop(next(iter(_SKETCH_CACHE)))

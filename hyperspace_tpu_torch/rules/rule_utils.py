@@ -1,8 +1,9 @@
 """Shared rule machinery: candidate selection, plan transformation and
 the base-column walk of linear plans (counterpart of
-``hyperspace_tpu/rules/rule_utils.py``; versioned sources' time travel is
-not ported).
+``hyperspace_tpu/rules/rule_utils.py``).
 
+A scan of a versioned source at an older version first swaps in the
+index log version built closest to it (``resolve_time_travel_entry``).
 Without Hybrid Scan an index applies when its recorded source fingerprint
 equals the scan's. With it, an index applies while its source shares files
 with the scan and the appended and deleted bytes stay within their
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
-from ..index.constants import IndexConstants
+from ..index.constants import IndexConstants, States
 from ..index.log_entry import FileInfo, IndexLogEntry
 from ..index.signatures import LogicalPlanSignatureProvider
 from ..plan import expr as E
@@ -61,6 +62,23 @@ def _current_file_infos(relation) -> List[FileInfo]:
     return [FileInfo(p, size, mtime) for p, size, mtime in relation.all_file_infos()]
 
 
+def resolve_time_travel_entry(session, entry: IndexLogEntry, relation) -> IndexLogEntry:
+    """For a versioned source (delta), the ACTIVE log version of ``entry``
+    built closest to the scanned table version; other relations, and a
+    scan the latest entry covers, keep ``entry``. History pairs are keyed
+    by op-log id, the id an action's final commit was written at."""
+    closest_fn = getattr(relation, "closest_index_log_version", None)
+    if closest_fn is None:
+        return entry
+    target = closest_fn(entry.derivedDataset.properties)
+    if target is None or target == entry.id:
+        return entry
+    older = session.index_collection_manager.log_manager_for(entry.name).get_log(target)
+    if older is not None and older.state == States.ACTIVE:
+        return older
+    return entry
+
+
 def get_candidate_indexes(session, indexes: List[IndexLogEntry], scan: Scan,
                           ctx=None) -> List[IndexLogEntry]:
     """Indexes applicable to this scan: equal fingerprints, or with Hybrid
@@ -69,6 +87,7 @@ def get_candidate_indexes(session, indexes: List[IndexLogEntry], scan: Scan,
     hybrid = session.hs_conf.hybrid_scan_enabled()
     out = []
     for entry in indexes:
+        entry = resolve_time_travel_entry(session, entry, scan.relation)
         if not hybrid:
             sig = _plan_signature(entry, scan)
             if sig is not None and sig == entry.signature.signatures[0].value:

@@ -53,6 +53,8 @@ from .plan.nodes import (Aggregate, Filter, Join, Limit, LogicalPlan, Project, S
                          Union, Window)
 from .schema import Schema
 from .sources.default import DefaultFileBasedSourceBuilder
+from .sources.delta import VERSION_AS_OF_OPTION, DeltaLakeSourceBuilder
+from .sources.iceberg import SNAPSHOT_ID_OPTION, IcebergSourceBuilder
 from .sources.interfaces import FileBasedSourceProviderManager
 from .telemetry import span_names as SN
 from .telemetry import trace as _trace
@@ -78,8 +80,9 @@ class Session:
             self.conf.set(IndexConstants.INDEX_SYSTEM_PATH, system_path)
         self.hs_conf = HyperspaceConf(self.conf)
         self._hyperspace_enabled = False
+        # The JAX package's default order of builders.
         self.source_provider_manager = FileBasedSourceProviderManager(
-            [DefaultFileBasedSourceBuilder()])
+            [DefaultFileBasedSourceBuilder(), DeltaLakeSourceBuilder(), IcebergSourceBuilder()])
         self._index_collection_manager = None
         # index name -> times a real rewrite pass applied it
         # (rules/rule_utils.log_index_usage increments under the lock).
@@ -279,8 +282,9 @@ class Session:
 
 class DataFrameReader:
     """``session.read``: parquet, csv, json (newline-delimited), orc, text
-    (one string column "value" per line) and avro files, or
-    ``format(fmt).load(...)``. ``option`` values travel with the relation."""
+    (one string column "value" per line) and avro files, delta and iceberg
+    tables (lake/), or ``format(fmt).load(...)``. ``option`` values travel
+    with the relation."""
 
     def __init__(self, session: Session):
         self._session = session
@@ -307,6 +311,21 @@ class DataFrameReader:
 
     def avro(self, *paths: str) -> "DataFrame":
         return self.format("avro").load(*paths)
+
+    def delta(self, path: str, version_as_of: Optional[int] = None) -> "DataFrame":
+        """A commit-log table (lake/delta.py), at ``version_as_of`` if given."""
+        reader = self.format("delta")
+        if version_as_of is not None:
+            reader._options[VERSION_AS_OF_OPTION] = str(version_as_of)
+        return reader.load(path)
+
+    def iceberg(self, path: str, snapshot_id: Optional[int] = None) -> "DataFrame":
+        """A snapshot/manifest table (lake/iceberg.py), at ``snapshot_id`` if
+        given."""
+        reader = self.format("iceberg")
+        if snapshot_id is not None:
+            reader._options[SNAPSHOT_ID_OPTION] = str(snapshot_id)
+        return reader.load(path)
 
     def format(self, fmt: str) -> "_FormattedReader":
         return _FormattedReader(self._session, fmt, dict(self._options))

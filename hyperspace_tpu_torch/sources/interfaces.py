@@ -1,7 +1,9 @@
 """Source abstraction (counterpart of ``hyperspace_tpu/sources/interfaces.py``).
 
 A relation describes a file-based dataset (root paths + format + schema) and
-exposes what the rules and actions need: file listing and fingerprint input.
+exposes what the rules and actions need: file listing, fingerprint input,
+and the hook through which a versioned source adds its properties to an
+index's log entry.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ class FileBasedRelation:
         raise NotImplementedError
 
     @property
+    def data_file_format(self) -> str:
+        """The format of the leaf files (a versioned table format is a
+        logical wrapper over parquet parts)."""
+        return self.file_format
+
+    @property
     def options(self) -> Dict[str, str]:
         return {}
 
@@ -53,6 +61,13 @@ class FileBasedRelation:
     def describe(self) -> str:
         return f"{self.file_format} {','.join(self.root_paths)}"
 
+    def enrich_index_properties(self, props: Dict[str, str],
+                                index_log_version: int) -> Dict[str, str]:
+        """Source-specific properties for an index log entry committed at
+        ``index_log_version`` (a delta table records its version history);
+        none by default."""
+        return props
+
     def refresh(self) -> "FileBasedRelation":
         """The same relation listed anew (a refresh diffs it against the
         files the index recorded)."""
@@ -66,6 +81,9 @@ class FileBasedRelation:
 
 class FileBasedSourceProvider:
     """Builds relations it understands; returns None for ones it doesn't."""
+
+    def name(self) -> str:
+        return type(self).__name__
 
     def get_relation(self, plan_leaf) -> Optional[FileBasedRelation]:
         """If the leaf Scan's relation belongs to this provider, return it."""
@@ -93,6 +111,9 @@ class FileBasedSourceProviderManager:
                 f"Exactly one provider must respond to {fn_name}{args[1:2]}; "
                 f"got {len(answers)} of {len(self._providers)} ({names}).")
         return answers[0]
+
+    def get_relation(self, plan_leaf) -> FileBasedRelation:
+        return self._run("get_relation", plan_leaf)
 
     def build_relation(self, paths: Sequence[str], fmt: str,
                        options: Dict[str, str]) -> FileBasedRelation:

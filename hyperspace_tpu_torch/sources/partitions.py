@@ -154,7 +154,7 @@ def read_relation_files(relation, files: Sequence[str], cols: Optional[Sequence[
     walks directory by directory, so runs are partitions)."""
     from ..execution.columnar import Table, parquet_row_counts, read_parquet
 
-    fmt = relation.file_format
+    fmt = relation.data_file_format
     fields = relation.partition_fields()
     part_names = {f.name for f in fields}
     if not fields or (cols is not None and not any(c in part_names for c in cols)):

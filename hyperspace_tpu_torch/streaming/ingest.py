@@ -48,6 +48,7 @@ import torch
 from ..actions.action import Action
 from ..exceptions import HyperspaceException
 from ..index.constants import STABLE_STATES, IndexConstants, States
+from ..index import data_store
 from ..index.data_manager import IndexDataManager
 from ..index.log_entry import (Content, FileIdTracker, FileInfo, Hdfs, IndexLogEntry,
                                IngestedTable, LogicalPlanFingerprint, Relation, Signature,
@@ -919,7 +920,7 @@ class _LandDeltasBase(Action):
         latest = self.data_manager.get_latest_version_id()
         version = 0 if latest is None else latest + 1
         out_dir = self.data_manager.get_path(version)
-        os.makedirs(out_dir, exist_ok=True)
+        file_utils.makedirs(out_dir)
         return version, out_dir
 
     def event(self, message: str) -> _ev.StreamingIndexDeltaEvent:
@@ -974,7 +975,8 @@ class _LandSketchDeltas(_LandDeltasBase):
         from ..actions import create_skipping as cs
         prev = self.prev_entry
         # partitioning=None: v__=<n> must not read as a hive column.
-        old = pq.read_table(cs._sketch_file(prev), partitioning=None)
+        fs, old_path = data_store.fs_and_path(cs._sketch_file(prev))
+        old = pq.read_table(old_path, filesystem=fs, partitioning=None)
         tracker = FileIdTracker()
         tracker.add_file_info(prev.source_file_info_set)
         batch_infos = []
@@ -991,7 +993,8 @@ class _LandSketchDeltas(_LandDeltasBase):
                             schema=old.schema)
         merged = pa.concat_tables([old, appended])
         version, out_dir = self._new_version_dir()
-        pq.write_table(merged, os.path.join(out_dir, cs.SKETCH_FILE_NAME))
+        fs, merged_path = data_store.fs_and_path(os.path.join(out_dir, cs.SKETCH_FILE_NAME))
+        pq.write_table(merged, merged_path, filesystem=fs)
         index_content = Content.from_directory(out_dir, tracker)
         source = _pinned_source(self.table_path, prev, batch_infos)
         entry = IndexLogEntry.create(prev.name, prev.derivedDataset, index_content, source,

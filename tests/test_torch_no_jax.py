@@ -14,7 +14,9 @@ commit landing a covering and a sketch delta, a standing query's
 delivery, ``compact()`` and ``recover()``; and the formats, the writer and
 the optimizer: every reader and writer format, bucket_by, partition_by,
 avro, BucketUnion, indexes over csv and orc, and a reordered join with its
-actuals and explain section) still run end to end on the CPU, with the
+actuals and explain section; and the lake tier: delta and iceberg tables
+with time travel, Hybrid Scan and an index on the ``hsmem://`` object
+store) still run end to end on the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -346,6 +348,87 @@ def test_formats_writer_and_optimizer_run_without_jax():
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "FORMATS_OK" in proc.stdout
+
+
+LAKE = textwrap.dedent("""
+    import os, sys, tempfile, uuid
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants, col
+    from hyperspace_tpu_torch.index import data_store, log_store
+    from hyperspace_tpu_torch.lake.delta import DeltaTable
+    from hyperspace_tpu_torch.lake.iceberg import IcebergTable
+    from hyperspace_tpu_torch.plan.nodes import IndexScan
+    from hyperspace_tpu_torch.sources.delta import DeltaLakeRelation
+    from hyperspace_tpu_torch.sources.iceberg import IcebergRelation
+    root = tempfile.mkdtemp()
+
+    def rows(lo, hi):
+        return pa.table({{"k": np.arange(lo, hi, dtype=np.int64),
+                          "grp": (np.arange(lo, hi) % 13).astype(np.int64)}})
+
+    def index_ids(df):
+        return [leaf.index_entry.id for leaf in df.optimized_plan().collect_leaves()
+                if isinstance(leaf, IndexScan)]
+
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu",
+                   conf={{"hyperspace.index.numBuckets": "4"}})
+    hs = ht.Hyperspace(s)
+    d = DeltaTable(os.path.join(root, "d"))
+    d.create(rows(0, 2000))
+    hs.create_index(s.read.delta(d.path), ht.IndexConfig("dix", ["grp"], ["k"]))
+    d.append(rows(2000, 2400))
+    s.enable_hyperspace()
+    s.conf.set(IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    q = s.read.delta(d.path).filter(col("grp") == 2).select("k")
+    assert index_ids(q) == [1] and q.count() == int((np.arange(2400) % 13 == 2).sum())
+    s.conf.set(IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
+    hs.refresh_index("dix", "incremental")
+    assert index_ids(s.read.delta(d.path, version_as_of=0).filter(col("grp") == 2)) == [1]
+    assert index_ids(s.read.delta(d.path).filter(col("grp") == 2)) == [3]
+    assert DeltaLakeRelation(d.path, {{"versionAsOf": "0"}}).describe().endswith("@v0")
+    ib = IcebergTable(os.path.join(root, "i"))
+    s0 = ib.create(rows(0, 100))
+    ib.append(rows(100, 150))
+    hs.create_index(s.read.iceberg(ib.path), ht.IndexConfig("iix", ["grp"], ["k"]))
+    assert index_ids(s.read.iceberg(ib.path).filter(col("grp") == 3)) == [1]
+    assert s.read.iceberg(ib.path, snapshot_id=s0).count() == 100
+    assert IcebergRelation(ib.path).snapshot_id != s0
+    src = os.path.join(root, "src")
+    os.makedirs(src)
+    pq.write_table(rows(0, 300), os.path.join(src, "p0.parquet"))
+    m = ht.Session(system_path=f"hsmem://nojax-{{uuid.uuid4().hex}}/ix", device="cpu")
+    mhs = ht.Hyperspace(m)
+    mhs.create_index(m.read.parquet(src), ht.IndexConfig("mix", ["k"], ["grp"]))
+    m.enable_hyperspace()
+    mq = m.read.parquet(src).filter(col("k") == 7).select("grp")
+    assert index_ids(mq) == [1] and mq.to_arrow().column("grp").to_pylist() == [7]
+    files = m.index_collection_manager.get_index("mix").content.files
+    assert files and all(f.startswith("hsmem://") for f in files)
+    assert isinstance(log_store.store_for_path("hsmem://x/y"),
+                      data_store._MemConditionalPutLogStore)
+    mhs.delete_index("mix")
+    mhs.vacuum_index("mix")
+    bad = [n for n, v in sys.modules.items() if v is not None and (
+        n == "jax" or n.startswith("jax.") or n.startswith("hyperspace_tpu."))]
+    assert not bad, bad
+    print("LAKE_OK")
+""")
+
+
+def test_lake_runs_without_jax():
+    """Delta and iceberg tables with time travel and Hybrid Scan, and an
+    index on the hsmem:// object store, with ``jax`` and
+    ``hyperspace_tpu`` unimportable."""
+    proc = subprocess.run([sys.executable, "-c", LAKE.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LAKE_OK" in proc.stdout
 
 
 TELEMETRY = textwrap.dedent("""
