@@ -116,6 +116,19 @@ Phases, each of which fails the run on any error:
               the index's files under the store's root and nowhere else.
               Every answer equals pyarrow's over the snapshot's files,
               cold and warm; prints the ``lake`` line;
+   advisor -- after the lake path, on a lake and session of its own
+              (run_advisor_path): phase 3's orders (hard links) and a
+              skewed star (tests/test_adaptive.py's shape, a fact table of
+              orders' 15M rows in 4 files); a captured workload of eight
+              orders queries, what-if and recommend leaving the system path
+              byte for byte as it was, the adaptive builder's passes (the
+              advisor's covering indexes and a MinMax sketch, within the
+              1 GiB budget), the workload again on them against pyarrow, an
+              unused index retired and restored, SLO admission degrading the
+              window sum to a sampled answer (held to numpy over the kept
+              files) and shedding it, and the star's three-way join with one
+              mid-query re-plan and its q-error run by run; then it clears
+              the process-wide adaptive state; prints the ``advisor`` line;
    reorder -- after the sql path, on its lake: each of the nine texts
               optimized with optimizer.joinReorder.enabled off and on; a
               text whose tree changes runs twice each way (warm seconds),
@@ -168,7 +181,8 @@ Phases, each of which fails the run on any error:
               (sql_li_ship; each member alone with the range kernel), the
               result cache (16 device-tier hits on a repeat, misses after
               delete_index and restore_index, host-tier hits after
-              demotion); prints the ``serving`` line;
+              demotion), no submission rejected; prints the ``serving``
+              line;
    streaming -- after the serving path, on its lake and session: the
               TPC-H New Sales Refresh (RF1: SF x 1,500 orders and their
               1-7 lineitems) in 8 rounds (at least 4: no later one starts
@@ -179,8 +193,10 @@ Phases, each of which fails the run on any error:
               standing Q6 queries (Q6_PARAMS) delivering after every
               lineitem commit within 1e-9 of the reference; one bulk round
               of a quarter of each table; a child killed by SIGKILL at
-              ingest.publish and rolled back by recover(); compact()
-              (run_streaming_path); prints the ``streaming`` line;
+              ingest.publish and rolled back by recover(); compact(); a
+              continuous source polling an empty drop directory throughout,
+              never paused (run_streaming_path); prints the ``streaming``
+              line;
    telemetry -- after the streaming path, on the main path's lake and
               session (run_telemetry_path): indexed Q3 and the cutoff
               filter indexed, warm 10 runs and cold (the buffer pool
@@ -205,13 +221,13 @@ Phases, each of which fails the run on any error:
               scale 0.01, which must be equal bit for bit.
 
 Launch counters are reset just before each path (lineitem, orders,
-joins and sources of phases 4-5, io, formats, lake, sql, reorder, serving,
-streaming, telemetry (its capture counted with it), then mutations) and
-read just after it. Phase 5 runs each
+joins and sources of phases 4-5, io, formats, lake, advisor, sql, reorder,
+serving, streaming, telemetry (its capture counted with it), then
+mutations) and read just after it. Phase 5 runs each
 query twice: since the buffer pool is on, the second run is warm; phase 7
 empties the pool before each query it times. The last lines of standard
-output are the summary, ``formats``, ``lake``, ``reorder``, ``serving``,
-``streaming``, ``telemetry`` and ``kernels`` JSON objects, the card's name and power
+output are the summary, ``formats``, ``lake``, ``advisor``, ``reorder``,
+``serving``, ``streaming``, ``telemetry`` and ``kernels`` JSON objects, the card's name and power
 limit as nvidia-smi reports them, and the status object ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -272,6 +288,11 @@ PATH_KERNELS = {
     # their indexes; ib_od_skip's build and refresh over the iceberg table.
     "lake": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
              "masked_minmax"),
+    # The builder's covering builds (hash, histogram) and MinMax sketch
+    # (minmax); the date windows (range) and the point count (compare) on
+    # what it built.
+    "advisor": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
+                "masked_minmax"),
     # The reordered text (Q17) filters strings and compares floats: no
     # kernel of the repo.
     "reorder": (),
@@ -2103,6 +2124,507 @@ def run_lake_path(root: str, od_dir: str, n_od: int, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The advisor path: the self-tuning tier (advisor/, adaptive/) on a lake of
+# its own.
+# ---------------------------------------------------------------------------
+
+ADVISOR_WINDOWS = ((datetime.date(1993, 1, 1), datetime.date(1993, 1, 31)),
+                   (datetime.date(1994, 6, 1), datetime.date(1994, 7, 31)),
+                   (datetime.date(1995, 3, 1), datetime.date(1995, 3, 31)),
+                   (datetime.date(1996, 9, 1), datetime.date(1996, 9, 30)))
+# Inside the first quarter of the time-ordered orders files: the sampled
+# prefix SLO degrade keeps holds the window's rows.
+ADVISOR_SUM_WINDOW = (datetime.date(1992, 7, 1), datetime.date(1993, 4, 30))
+ADVISOR_POINT = datetime.date(1995, 3, 15)
+ADVISOR_BUILD_CALLS = 4
+ADVISOR_FEEDBACK_RUNS = 6
+ADVISOR_OFF_RUNS = 2
+# The skewed star of tests/test_adaptive.py at the fact size of orders:
+# 95% of fact rows hit the one dim1 key whose category "b" the query picks.
+STAR_FILES = 4
+STAR_DIM1, STAR_DIM2 = 50, 20
+
+
+def events_total() -> int:
+    """How many events the process's flight recorder has rung so far."""
+    from hyperspace_tpu_torch.telemetry import flight_recorder
+    return flight_recorder.get_recorder().stats()["event_total"]
+
+
+def recorded_events(since: int, name: str) -> list:
+    """The messages of the events named ``name`` that the flight recorder
+    rang after its ``since``-th event, oldest first. Fails if its ring has
+    dropped any of them."""
+    from hyperspace_tpu_torch.telemetry import flight_recorder
+    doc = flight_recorder.get_recorder().dump()
+    ring = [e for e in doc["traceEvents"] if e.get("cat") == "hyperspace.event"]
+    new = doc["otherData"]["stats"]["event_total"] - since
+    if new > len(ring):
+        raise AssertionError(f"the flight recorder's ring dropped {new - len(ring)} events")
+    return [e["args"]["message"] for e in ring[len(ring) - new:] if e["name"] == name]
+
+
+def adaptive_actions(since: int, action: str) -> list:
+    """The subjects of the AdaptiveActionEvents of ``action`` (``builder.build``,
+    ``builder.retire``) rung after the ``since``-th event."""
+    import re
+    out = []
+    for message in recorded_events(since, "AdaptiveActionEvent"):
+        hit = re.fullmatch(r"adaptive action: (\S+)(?: \((.*)\))?", message)
+        if hit and hit.group(1) == action:
+            out.append(hit.group(2) or "")
+    return out
+
+
+def make_skew_star(out_dir: str, n_fact: int, seed: int = 0) -> dict:
+    """fact (``n_fact`` rows in STAR_FILES files: f_d1, f_d2, f_val), dim1
+    (50 rows, d1_key and d1_cat) and dim2 (20 rows, d2_key and d2_cat), the
+    shape of tests/test_adaptive.py's skew_star: every fact row but 5% has
+    f_d1 = 0, the one key whose d1_cat is "b". Returns {table: dir}."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed + 11)
+    f_d1 = np.zeros(n_fact, dtype=np.int64)
+    stragglers = n_fact // 20
+    f_d1[:stragglers] = np.arange(stragglers) % (STAR_DIM1 - 1) + 1
+    rng.shuffle(f_d1)
+    fact = pa.table({
+        "f_d1": pa.array(f_d1),
+        "f_d2": pa.array(rng.integers(0, STAR_DIM2, n_fact).astype(np.int64)),
+        "f_val": pa.array(np.round(rng.uniform(0, 100, n_fact), 3)),
+    })
+    d1_cat = np.array([f"c{i % 9}" for i in range(STAR_DIM1)], dtype=object)
+    d1_cat[0] = "b"
+    tables = {
+        "fact": fact,
+        "dim1": pa.table({"d1_key": pa.array(np.arange(STAR_DIM1, dtype=np.int64)),
+                          "d1_cat": pa.array(d1_cat)}),
+        "dim2": pa.table({"d2_key": pa.array(np.arange(STAR_DIM2, dtype=np.int64)),
+                          "d2_cat": pa.array(rng.choice(["x", "y"], STAR_DIM2))}),
+    }
+    dirs = {}
+    for name, table in tables.items():
+        d = dirs[name] = os.path.join(out_dir, name)
+        os.makedirs(d)
+        parts = STAR_FILES if name == "fact" else 1
+        step = -(-table.num_rows // parts)
+        for i in range(parts):
+            pq.write_table(table.slice(i * step, step), os.path.join(d, f"p{i}.parquet"))
+    return dirs
+
+
+def star_three_way(session, paths: dict, col):
+    """tests/test_adaptive.py's _three_way: fact x dim2, then x dim1
+    filtered to d1_cat = "b" (the text order the reorderer improves)."""
+    fact = session.read.parquet(paths["fact"])
+    d1 = session.read.parquet(paths["dim1"]).filter(col("d1_cat") == "b")
+    d2 = session.read.parquet(paths["dim2"])
+    return (fact.join(d2, on=col("f_d2") == col("d2_key"))
+            .join(d1, on=col("f_d1") == col("d1_key"))
+            .select("d1_cat", "d2_cat", "f_val"))
+
+
+def star_rows_on_card(table) -> list:
+    """The star's answer with its rows sorted, as tensors on the card: the
+    two string columns by their values' rank, then f_val."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    cols = {}
+    for name in ("d1_cat", "d2_cat"):
+        arr = table.column(name)
+        values = pa.array(sorted(v for v in pc.unique(arr).to_pylist()), type=pa.string())
+        cols[name] = pc.index_in(arr, value_set=values).cast(pa.int32())
+    cols["f_val"] = table.column("f_val")
+    return _sorted_columns_on_card(pa.table(cols))
+
+
+def star_q_error(session) -> float:
+    """The worst q-error over the last reorder pass's steps (1.0 when the
+    chain kept its text order)."""
+    qs = []
+    for step in (st for r in (session._last_join_order or []) for st in r["steps"]):
+        actual = session._join_actuals.get(step["key"])
+        if actual is None:
+            continue
+        est, act = max(float(step["est_rows"]), 1.0), max(float(actual), 1.0)
+        qs.append(max(est / act, act / est))
+    return max(qs) if qs else 1.0
+
+
+def tree_hashes(path: str) -> dict:
+    """{file under ``path``: sha256 of its bytes}."""
+    import hashlib
+    out = {}
+    for d, _dirs, names in os.walk(path):
+        for n in names:
+            full = os.path.join(d, n)
+            with open(full, "rb") as f:
+                out[os.path.relpath(full, path)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def run_advisor_path(root: str, od_dir: str, n_od: int, results: dict) -> None:
+    """The self-tuning tier on a lake and session of its own: orders (hard
+    links of phase 3's 16 files) and a skewed star with a fact table of
+    orders' size.
+
+    1. Capture: four o_orderdate windows, two o_orderkey IN lookups, one
+       o_orderdate point count and one window sum, captured with no index;
+       one workload record per query with its scan shape.
+    2. What-if: a covering o_orderdate index over the first window rewrites
+       it with a predicted speedup above 1; the system path's bytes are the
+       same after what_if and after recommend(top_k=5); two recommend calls
+       agree on names, order and costs.
+    3. Build: adaptive.enabled; run_once(force=True) until a call builds
+       nothing (at most ADVISOR_BUILD_CALLS); the ledger's bytes under the
+       1 GiB budget; one builder.build event per index; each index ACTIVE on
+       the system path; the advisor's top recommendation left after the
+       last pass (what one more pass would build). The workload again: every plan reads a built
+       covering index or a Scan narrowed by a built sketch, every answer
+       equals pyarrow's, and every built index is read or retired in step 4.
+    4. Retire: adv_unused (covering o_custkey) is created; with the budget
+       spent and builder.retireMinQueries 8, a pass starts its clock (and
+       retires the built indexes the workload did not read), 8 workload
+       queries run, and the next pass retires adv_unused alone;
+       restore_index brings it back.
+    5. Admission: telemetry.slo.p99Ms 0.001 with minCount 5 over 5 queries;
+       in mode degrade a frontend submit of the window sum answers a numpy
+       sum over the first ceil(16 x 0.25) sorted files scaled by total over
+       kept bytes (1e-9 relative) with its approx_error_bound, recorded
+       beside the exact sum and the bound it states; in mode shed
+       the submit raises ServingRejectedError; disarmed, the first healthy
+       verdict answers exactly.
+    6. Feedback: the star's three-way join ADVISOR_FEEDBACK_RUNS times with
+       adaptive.enabled and join reordering on: one re-plan (one
+       ReplanEvent) in the first run, every answer equal to the switch-off
+       run's with rows sorted, the q-error of each run (second half no worse
+       than the first), and flat q-errors with the switch off.
+
+    At its end the path clears the process-wide correction store, admission
+    controller, builder ledger and SLO monitor, so no later path can be
+    shed, degraded or re-planned by its state."""
+    import math
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConfig, IndexConstants
+    from hyperspace_tpu_torch.adaptive import admission, builder, feedback
+    from hyperspace_tpu_torch.adaptive.constants import ADMISSION_SAMPLE_FRACTION
+    from hyperspace_tpu_torch.adaptive.constants import REPLAN_ERROR_THRESHOLD
+    from hyperspace_tpu_torch.adaptive.constants import AdaptiveConstants as AC
+    from hyperspace_tpu_torch.advisor.constants import AdvisorConstants
+    from hyperspace_tpu_torch.exceptions import ServingRejectedError
+    from hyperspace_tpu_torch.optimizer.constants import OptimizerConstants
+    from hyperspace_tpu_torch.plan.expr import col, count, sum_
+    from hyperspace_tpu_torch.plan.nodes import IndexScan, Scan
+    from hyperspace_tpu_torch.serving.frontend import ServingFrontend
+    from hyperspace_tpu_torch.telemetry import slo
+    from hyperspace_tpu_torch.telemetry.constants import TelemetryConstants as TC
+
+    t_path = time.perf_counter()
+    out = results["advisor"] = {"seconds_of": {}}
+    secs_of = out["seconds_of"]
+    base = os.path.join(root, "advisor")
+    os.makedirs(base)
+    system_path = os.path.join(base, "indexes")
+    t0 = time.perf_counter()
+    adv_od = os.path.join(base, "orders")
+    os.makedirs(adv_od)
+    for f in sorted(os.listdir(od_dir)):
+        os.link(os.path.join(od_dir, f), os.path.join(adv_od, f))
+    star = make_skew_star(os.path.join(base, "star"), n_od)
+    secs_of["data"] = time.perf_counter() - t0
+    log(f"advisor: orders linked, star of {n_od:,} fact rows written in {secs_of['data']:.2f} s")
+
+    def step_done(name, t0):
+        torch.cuda.synchronize()
+        secs_of[name] = time.perf_counter() - t0
+        log(f"advisor: {name} in {secs_of[name]:.3f} s")
+
+    session = ht.Session(system_path=system_path, device="cuda")
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, LAKE_BUCKETS)
+    session.enable_hyperspace()
+    hs = ht.Hyperspace(session)
+    od = session.read.parquet(adv_od)
+    date = pc.field("o_orderdate")
+    keys = [[(n_od * (7 * j + i)) // 40 for i in range(5)] for j in (1, 3)]
+    workload = []  # (name, DataFrame, pyarrow reference)
+    for i, (lo, hi) in enumerate(ADVISOR_WINDOWS):
+        workload.append((f"window{i}", od.filter(col("o_orderdate").between(lo, hi)).select(
+            "o_orderkey", "o_totalprice"), reference(adv_od, (date >= lo) & (date <= hi),
+                                                     ["o_orderkey", "o_totalprice"])))
+    for j, ks in enumerate(keys):
+        workload.append((f"keys{j}", od.filter(col("o_orderkey").isin(ks)).select("o_orderdate"),
+                         reference(adv_od, pc.field("o_orderkey").isin(ks), ["o_orderdate"])))
+    n_point = reference(adv_od, date == ADVISOR_POINT, ["o_orderkey"]).num_rows
+    workload.append(("point_count", od.filter(col("o_orderdate") == ADVISOR_POINT).agg(
+        count().alias("n")), pa.table({"n": pa.array([n_point], type=pa.int64())})))
+    lo, hi = ADVISOR_SUM_WINDOW
+    window_rows = reference(adv_od, (date >= lo) & (date <= hi), ["o_totalprice"])
+    window_sum = float(np.sum(window_rows.column(0).to_numpy()))
+    sum_query = od.filter(col("o_orderdate").between(lo, hi)).agg(
+        sum_(col("o_totalprice")).alias("revenue"))
+    workload.append(("window_sum", sum_query, window_sum))
+
+    def check_answer(name, got, ref):
+        if isinstance(ref, float):
+            value = got.column(0)[0].as_py()
+            if not close(value, ref):
+                raise AssertionError(f"advisor {name}: {value} != numpy's {ref}")
+        elif not same_rows(got, ref):
+            raise AssertionError(f"advisor {name}: the answer differs from pyarrow's")
+
+    def run_workload(tag):
+        for name, df, ref in workload:
+            check_answer(f"{tag} {name}", df.to_arrow(), ref)
+
+    # 1. Capture.
+    t0 = time.perf_counter()
+    session.conf.set(AdvisorConstants.CAPTURE_ENABLED, "true")
+    run_workload("capture")
+    session.conf.set(AdvisorConstants.CAPTURE_ENABLED, "false")
+    records = session._workload_log.snapshot()
+    rows = hs.workload()
+    if len(records) != len(workload) or len(rows) != len(workload) \
+            or any(len(r.scan_shapes) != 1 or r.scan_shapes[0].root_paths != (adv_od,)
+                   or r.applied_indexes for r in records):
+        raise AssertionError(f"advisor capture: {len(records)} records for {len(workload)} "
+                             f"queries, shapes {[r.scan_shapes for r in records]}")
+    out["capture"] = {"records": len(records), "shapes": [
+        {"filter": list(r.scan_shapes[0].filter_cols),
+         "project": list(r.scan_shapes[0].project_cols),
+         "equality": list(r.scan_shapes[0].equality_cols),
+         "range": list(r.scan_shapes[0].range_cols)} for r in records]}
+    step_done("capture", t0)
+
+    # 2. What-if and recommend, metadata only.
+    t0 = time.perf_counter()
+    before = tree_hashes(system_path)
+    outcome = hs.what_if(workload[0][1], [IndexConfig("adv_whatif", ["o_orderdate"],
+                                                      ["o_orderkey", "o_totalprice"])])
+    if not outcome.rewritten or not outcome.predicted_speedup > 1.0:
+        raise AssertionError(f"advisor what-if:\n{outcome.explain()}")
+    if tree_hashes(system_path) != before:
+        raise AssertionError("advisor: what_if changed the system path")
+    reports = [hs.recommend(top_k=5), hs.recommend(top_k=5)]
+    if tree_hashes(system_path) != before:
+        raise AssertionError("advisor: recommend changed the system path")
+    ranked = [[(r.rank, r.names, r.predicted_benefit_s, r.predicted_speedup,
+                r.queries_matched) for r in rep.recommendations] for rep in reports]
+    if ranked[0] != ranked[1] or not ranked[0]:
+        raise AssertionError(f"advisor: two recommend calls differ: {ranked}")
+    out["what_if"] = {"applied": list(outcome.applied), "cost_before_bytes":
+                      outcome.cost_before_bytes, "cost_after_bytes": outcome.cost_after_bytes,
+                      "predicted_speedup": outcome.predicted_speedup,
+                      "system_path_files": len(before)}
+    out["recommendations"] = [{"rank": r[0], "names": list(r[1]), "benefit_s": r[2],
+                               "speedup": r[3], "matched": r[4]} for r in ranked[0]]
+    log("advisor: " + reports[0].explain().replace("\n", "\n  "))
+    step_done("what_if_recommend", t0)
+
+    # 3. The builder, within its default budget.
+    session.conf.set(AC.ENABLED, "true")
+    ledger = builder.get_ledger()
+    ledger.clear()
+    b = hs.adaptive_builder()
+    calls, built, build_events = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(ADVISOR_BUILD_CALLS):
+        t1 = time.perf_counter()
+        n_events = events_total()
+        done = b.run_once(force=True)
+        torch.cuda.synchronize()
+        calls.append({"built": done["built"], "retired": done["retired"],
+                      "seconds": time.perf_counter() - t1})
+        build_events += adaptive_actions(n_events, "builder.build")
+        log(f"advisor: run_once built {done['built']} in {calls[-1]['seconds']:.3f} s")
+        if not done["ran"]:
+            raise AssertionError(f"advisor: the builder did not run: {done}")
+        built += done["built"]
+        if not done["built"]:
+            break
+    stats = ledger.stats()
+    budget = session.hs_conf.adaptive_builder_max_bytes()
+    if not built or stats["built"] != built or build_events != built \
+            or not 0 < stats["bytes_spent"] < budget or stats["in_progress"]:
+        raise AssertionError(f"advisor build: built {built}, events {build_events}, ledger "
+                             f"{stats}, budget {budget}")
+    kinds = {}
+    for name in built:
+        entry = hs.index_manager.get_index(name)
+        if entry is None or entry.state != "ACTIVE" \
+                or not os.path.isdir(os.path.join(system_path, name)):
+            raise AssertionError(f"advisor: {name} is not ACTIVE on the system path")
+        kinds[name] = entry.derivedDataset.kind
+    if "CoveringIndex" not in kinds.values() or "DataSkippingIndex" not in kinds.values():
+        raise AssertionError(f"advisor: the builder built {kinds}, not both kinds")
+    # What a further pass would build (recommend only; nothing is built).
+    left = hs.recommend(top_k=1).recommendations
+    next_rec = [{"kind": r.kind, "names": list(r.names), "benefit_s": r.predicted_benefit_s,
+                 "speedup": r.predicted_speedup, "matched": r.queries_matched,
+                 "indexes": [repr(c) for c in r.configs]} for r in left]
+    out["build"] = {"calls": calls, "built": built, "kinds": kinds,
+                    "bytes_spent": stats["bytes_spent"], "budget": budget,
+                    "next_recommendation": next_rec}
+    log(f"advisor: the ledger holds {stats['bytes_spent']:,} bytes of a {budget:,}-byte budget;"
+        f" a further pass would build {next_rec}")
+    step_done("build", t0)
+
+    # The workload on what the builder built.
+    t0 = time.perf_counter()
+    plans = {}
+    for name, df, _ in workload:
+        leaves = session.optimize(df.plan, diagnostic=True).collect_leaves()
+        reads = [leaf.index_entry.name for leaf in leaves if isinstance(leaf, IndexScan)]
+        narrowed = [leaf for leaf in leaves if isinstance(leaf, Scan) and leaf.skipping_note]
+        if not set(reads) & set(built) and not narrowed:
+            raise AssertionError(f"advisor {name}: the plan reads no built index: "
+                                 f"{[leaf.simple_string() for leaf in leaves]}")
+        plans[name] = reads or [leaves[0].simple_string()]
+    usage0 = dict(session._index_usage_counts)
+    run_workload("built")
+    usage = {n: session._index_usage_counts.get(n, 0) - usage0.get(n, 0) for n in built}
+    unread = sorted(n for n, u in usage.items() if u == 0)
+    if any(kinds[n] == "CoveringIndex" for n in unread):
+        raise AssertionError(f"advisor: a built covering index went unread: {usage}")
+    out["rerun"] = {"plans": plans, "usage": usage}
+    step_done("rerun", t0)
+
+    # 4. Retire: adv_unused, which no query reads.
+    t0 = time.perf_counter()
+    hs.create_index(od, IndexConfig("adv_unused", ["o_custkey"], ["o_totalprice"]))
+    session.conf.set(AC.BUILDER_MAX_BYTES, "1")  # the pass only retires
+    session.conf.set(AC.BUILDER_RETIRE_MIN_QUERIES, "8")
+    first = b.run_once(force=True)
+    if first["built"] or "adv_unused" in first["retired"] or sorted(first["retired"]) != unread:
+        raise AssertionError(f"advisor retire: the observing pass gave {first}; unread {unread}")
+    for name, df, ref in workload:
+        check_answer(f"retire {name}", df.to_arrow(), ref)
+    n_events = events_total()
+    second = b.run_once(force=True)
+    retires = adaptive_actions(n_events, "builder.retire")
+    state = {n: hs.index_manager.get_index(n).state for n in ["adv_unused", *built]}
+    if second["retired"] != ["adv_unused"] or retires != ["adv_unused"] \
+            or state["adv_unused"] != "DELETED" \
+            or any(state[n] != "ACTIVE" for n in built if n not in unread):
+        raise AssertionError(f"advisor retire: {second}, events {retires}, states {state}")
+    hs.restore_index("adv_unused")
+    if hs.index_manager.get_index("adv_unused").state != "ACTIVE":
+        raise AssertionError("advisor: restore_index did not bring adv_unused back")
+    out["retire"] = {"observing_pass": first["retired"], "retired": second["retired"],
+                     "states": state}
+    step_done("retire", t0)
+
+    # 5. SLO admission.
+    t0 = time.perf_counter()
+    controller = admission.get_controller()
+    controller.reset()
+    session.conf.set(TC.SLO_P99_MS, "0.001")
+    session.conf.set(TC.SLO_MIN_COUNT, "5")
+    for name, df, ref in workload[:5]:
+        check_answer(f"slo {name}", df.to_arrow(), ref)
+    if not hs.health()["objectives"][slo.OBJECTIVE_P99]["breached"]:
+        raise AssertionError(f"advisor: the p99 objective is not breached: {hs.health()}")
+    fe = ServingFrontend(session)
+    degraded = fe.submit(sum_query).result(timeout=600)
+    bound = getattr(degraded, "approx_error_bound", None)
+    files = sorted(os.path.join(adv_od, f) for f in os.listdir(adv_od))
+    keep = math.ceil(len(files) * ADMISSION_SAMPLE_FRACTION)
+    kept = pa.concat_tables(pq.read_table(f, columns=["o_orderdate", "o_totalprice"])
+                            for f in files[:keep])
+    kept = kept.filter((pc.field("o_orderdate") >= lo) & (pc.field("o_orderdate") <= hi))
+    scale = sum(os.path.getsize(f) for f in files) / sum(os.path.getsize(f)
+                                                         for f in files[:keep])
+    want = float(np.sum(kept.column("o_totalprice").to_numpy())) * scale
+    got = degraded.to_arrow().column(0)[0].as_py()
+    if bound is None or bound["scaled"] != ["revenue"] or not want > 0 or not close(got, want):
+        raise AssertionError(f"advisor degrade: {got} (bound {bound}) against numpy's {want} "
+                             f"over the first {keep} files")
+    session.conf.set(AC.ADMISSION_MODE, "shed")
+    try:
+        fe.submit(sum_query)
+        raise AssertionError("advisor: a shed submit was admitted")
+    except ServingRejectedError:
+        pass
+    session.conf.set(AC.ADMISSION_MODE, "degrade")
+    session.conf.set(TC.SLO_P99_MS, "0")
+    if controller.refresh(session, force=True):
+        raise AssertionError("advisor: the disarmed objective still reads overloaded")
+    exact = fe.submit(sum_query).result(timeout=600)
+    fe.drain()
+    if getattr(exact, "approx_error_bound", None) is not None \
+            or not close(exact.to_arrow().column(0)[0].as_py(), window_sum):
+        raise AssertionError("advisor: the first healthy verdict did not answer exactly")
+    # The sum window lies in the kept prefix (the files are time-ordered), so
+    # the scaled sum is about total/kept bytes times the exact one: recorded
+    # beside the bound the answer states, which it need not meet here.
+    rel_err = abs(got - window_sum) / window_sum
+    log(f"advisor degrade: approx/exact {got / window_sum:.6f}, relative error {rel_err:.6f} "
+        f"against the stated {bound['confidence']:.0%} bound {bound['bound']}")
+    out["admission"] = {"approx": got, "numpy": want, "exact": window_sum, "bound": bound,
+                        "approx_over_exact": got / window_sum, "relative_error": rel_err,
+                        "within_stated_bound": rel_err <= bound["bound"],
+                        "kept_files": keep, "controller": controller.stats(),
+                        "frontend_rejected": fe.stats()["rejected"]}
+    step_done("admission", t0)
+
+    # 6. Feedback-corrected planning and the mid-query re-plan on the star.
+    t0 = time.perf_counter()
+    feedback.get_store().clear()
+    session.conf.set(OptimizerConstants.JOIN_REORDER_ENABLED, "true")
+    off = ht.Session(system_path=os.path.join(base, "off_indexes"), device="cuda")
+    off.conf.set(OptimizerConstants.JOIN_REORDER_ENABLED, "true")
+    q_off, ref_rows = [], None
+    for _ in range(ADVISOR_OFF_RUNS):
+        table = star_three_way(off, star, col).to_arrow()
+        q_off.append(star_q_error(off))
+        ref_rows = ref_rows or star_rows_on_card(table)
+    q_on, replans, replan_events = [], [], []
+    for run in range(ADVISOR_FEEDBACK_RUNS):
+        n_events = events_total()
+        table = star_three_way(session, star, col).to_arrow()
+        replan_events += recorded_events(n_events, "ReplanEvent")
+        q_on.append(star_q_error(session))
+        if not all(torch.equal(x, y) for x, y in zip(star_rows_on_card(table), ref_rows)):
+            raise AssertionError(f"advisor feedback run {run}: the answer differs from the "
+                                 "switch-off run's")
+        replans.append(feedback.get_store().stats()["replans"])
+    half = ADVISOR_FEEDBACK_RUNS // 2
+    if replans != [1] * ADVISOR_FEEDBACK_RUNS or len(replan_events) != 1 \
+            or max(q_on[half:]) > max(q_on[:half]) or len(set(q_off)) != 1:
+        raise AssertionError(f"advisor feedback: replans {replans}, events "
+                             f"{len(replan_events)}, q-error on {q_on}, off {q_off}")
+    out["feedback"] = {"fact_rows": n_od, "answer_rows": table.num_rows, "q_error_on": q_on,
+                       "q_error_off": q_off, "replans": replans[-1],
+                       "replan_event": replan_events[0], "threshold": REPLAN_ERROR_THRESHOLD,
+                       "store": feedback.get_store().stats()}
+    log(f"advisor feedback: q-error on {q_on}, off {q_off}; one re-plan")
+    step_done("feedback", t0)
+
+    # The process-wide state goes, so no later path meets it.
+    out["adaptive_stats"] = hs.adaptive_stats()
+    for key in (TC.SLO_P99_MS, TC.SLO_ERROR_RATE):
+        session.conf.set(key, "0")
+    session.conf.set(AC.ENABLED, "false")
+    feedback.get_store().clear()
+    controller.reset()
+    ledger.clear()
+    builder._BUILDER = None
+    slo._MONITOR = None
+    del session, hs, off, fe
+    shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_path
+
+
+# ---------------------------------------------------------------------------
 # The reorder path: cost-based join reordering over the sql path's lake.
 # ---------------------------------------------------------------------------
 
@@ -3204,6 +3726,12 @@ def run_serving_path(session, dirs: dict, results: dict) -> None:
                                 "host_entries": n - 1})
         cache_pass("host hits", {"misses": n, "host_hits": n - 1, "device_hits": 1})
         out["cache"] = passes
+        # No submission of the path is refused: no SLO objective is armed
+        # here, and the advisor path left no admission state behind.
+        out["rejected"] = (out["scanned"]["stats"]["rejected"]
+                           + out["indexed"]["stats"]["rejected"] + fe.stats()["rejected"])
+        if out["rejected"]:
+            raise AssertionError(f"serving: {out['rejected']} submissions rejected")
     finally:
         session.disable_hyperspace()
         session.conf.set(SC.RESULT_CACHE_ENABLED, "false")
@@ -3224,7 +3752,7 @@ STREAMING_ROUNDS = 8
 # H100 host where the whole script takes about 930 s the last round starts
 # near 600 s, so all eight run.
 STREAMING_MIN_ROUNDS = 4
-STREAMING_LATE_S = 720
+STREAMING_LATE_S = 680
 STREAMING_APPENDERS = 4
 STREAMING_CONF = {"hyperspace.tpu.streaming.enabled": "true",
                   "hyperspace.tpu.streaming.groupCommit.windowMs": "50"}
@@ -3454,6 +3982,11 @@ def run_streaming_path(root: str, session, dirs: dict, rows: dict, q6_refs: list
     session.enable_hyperspace()
     fe = ServingFrontend(session)
     subs = [fe.subscribe(session.sql(t), client=f"standing{i}") for i, t in enumerate(texts)]
+    # A continuous source over an empty drop directory polls for the whole
+    # path: every poll asks the admission controller whether to pause.
+    drop_dir = os.path.join(root, "streaming_drop")
+    os.makedirs(drop_dir)
+    source = hs.tail_directory(drop_dir, od_dir, name="orders_drop")
     n_rf1 = max(int(round(RF1_ORDERS_PER_SF * rows["orders"] / 1_500_000)), 1)
     next_key = rows["orders"] + 1
     li_log = table_log_dir(session, li_dir)
@@ -3677,6 +4210,10 @@ def run_streaming_path(root: str, session, dirs: dict, rows: dict, q6_refs: list
     log(f"streaming: compact() in {out['compaction_s']:.2f} s: {out['compaction']}")
     for sub in subs:
         sub.unsubscribe()
+    src = source.stop()
+    out["source"] = {"polls": src["polls"], "pauses": src["pauses"]}
+    if src["pauses"] or not src["polls"] or src["errors"]:
+        raise AssertionError(f"streaming: the continuous source paused or failed: {src}")
     session.disable_hyperspace()
     fe.drain()
     torch.cuda.synchronize()
@@ -3700,7 +4237,8 @@ def streaming_summary(st: dict, launches: dict, card: str) -> dict:
     writes apart), rows a second, commit and peak device bytes; recover
     and compaction seconds, entries folded and versions vacuumed per log;
     a standing fire's seconds with the buffer pool emptied and warm; the
-    path's peak device bytes, launches and seconds; the card."""
+    continuous source's polls and overload pauses; the path's peak device
+    bytes, launches and seconds; the card."""
     def pct(values):
         return {"p50": _percentile(values, 50), "p99": _percentile(values, 99)}
     bulk = st["bulk"]
@@ -3725,7 +4263,8 @@ def streaming_summary(st: dict, launches: dict, card: str) -> dict:
                                           for k, v in st["compaction"].items()},
                        "versions_vacuumed": {k: v["versions_vacuumed"]
                                              for k, v in st["compaction"].items()}},
-        "adhoc_s": st["adhoc_s"], "peak_bytes": st["peak_bytes"], "launches": launches,
+        "adhoc_s": st["adhoc_s"], "source": st["source"], "peak_bytes": st["peak_bytes"],
+        "launches": launches,
         "seconds": st["seconds"], "card": card}
 
 
@@ -4766,7 +5305,7 @@ def copy_rate(x) -> dict:
 # a slow host ends inside the 1200 s limit (on an H100 host where the whole
 # script takes about 875 s it starts near 760 s). The lake path's time (22.5 s
 # there, rounded up to 30 s) comes out of phase 7's share, not the limit's.
-BREAKDOWN_LATE_S = 910
+BREAKDOWN_LATE_S = 870
 
 def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
               n_od: int) -> dict:
@@ -5135,7 +5674,9 @@ def telemetry_summary(tm: dict, launches: dict, card: str) -> dict:
 
 def serving_summary(sv: dict, launches: dict, card: str) -> dict:
     """The serving line: members, batches, shared scans and their hits,
-    member reruns and mask-kernel launches of each wave; the result cache's hits and misses by tier and its device bytes;
+    member reruns, rejections and mask-kernel launches of each wave; the
+    result cache's hits and misses by tier and its device bytes; the
+    path's rejected submissions (SLO admission included);
     each wave's wall time against its 16 serial runs; member latency p50
     and p99; the path's seconds; the card."""
     waves = {}
@@ -5145,6 +5686,7 @@ def serving_summary(sv: dict, launches: dict, card: str) -> dict:
                        "shared_scans": w["stats"]["shared_scans"],
                        "shared_scan_hits": w["stats"]["shared_scan_hits"],
                        "member_fallbacks": w["stats"]["member_fallbacks"],
+                       "rejected": w["stats"]["rejected"],
                        "mask_launches": w["stats"]["mask_launches"], "wave_s": w["wave_s"],
                        "serial_s": w["serial_s"], "p50_s": w["p50_s"], "p99_s": w["p99_s"]}
     cache = {name: {"wave_s": p["wave_s"], "p50_s": p["p50_s"], "p99_s": p["p99_s"],
@@ -5152,7 +5694,8 @@ def serving_summary(sv: dict, launches: dict, card: str) -> dict:
                         "device_hits", "host_hits", "spill_hits", "misses", "demotions",
                         "device_nbytes", "host_nbytes")}}
              for name, p in sv["cache"].items()}
-    return {"waves": waves, "result_cache": cache, "launches": launches, "seconds": sv["seconds"], "card": card}
+    return {"waves": waves, "result_cache": cache, "rejected": sv["rejected"],
+            "launches": launches, "seconds": sv["seconds"], "card": card}
 
 
 def gpu_line() -> str:
@@ -5244,6 +5787,11 @@ def main(argv=None) -> int:
         launches["lake"] = dict(ck.LAUNCHES)
         results["lake"]["seconds"] = time.perf_counter() - t0
         log(f"lake: launches {launches['lake']}; {results['lake']['seconds']:.1f} s")
+        ck.reset_launches()
+        run_advisor_path(root, od_dir, n_od, results)
+        launches["advisor"] = dict(ck.LAUNCHES)
+        log(f"advisor: launches {launches['advisor']}; "
+            f"{results['advisor']['seconds']:.1f} s")
         ck.reset_launches()
         t0 = time.perf_counter()
         sql_session_, sql_dirs = run_sql_path(root, args.scale, results)
@@ -5373,6 +5921,8 @@ def main(argv=None) -> int:
                                       card=card)}, default=str))
     print(json.dumps({"lake": dict(results["lake"], launches=launches["lake"], card=card)},
                      default=str))
+    print(json.dumps({"advisor": dict(results["advisor"], launches=launches["advisor"],
+                                      card=card)}, default=str))
     print(json.dumps({"reorder": dict(results["reorder"], launches=launches["reorder"],
                                       card=card)}, default=str))
     print(json.dumps({"serving": serving_summary(results["serving"], launches["serving"],

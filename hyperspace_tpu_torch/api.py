@@ -4,8 +4,10 @@ and cancel; the introspection calls indexes, index, explain and why_not;
 the streaming tier's append, commit, compact, recover and continuous
 sources; the telemetry surfaces metrics, metrics_delta, metrics_text,
 serve_metrics, health, dump_flight_recorder, explain_analyze and
-last_trace). The JAX package's fleet_metrics (cluster tier), spmd_stats
-(mesh tier) and advisor calls wait with their tiers."""
+last_trace; the advisor's recommend, what_if, build_recommendation and
+workload; the adaptive tier's adaptive_builder and adaptive_stats). The
+JAX package's fleet_metrics (cluster tier) and spmd_stats (mesh tier) wait
+with their tiers."""
 
 from __future__ import annotations
 
@@ -324,9 +326,29 @@ class Hyperspace:
         """This session's SLO objectives (``hyperspace.tpu.telemetry.slo.*``)
         evaluated now over the sliding window of completed queries:
         ``healthy`` and, per objective, observed, threshold and breached.
-        A healthy→breached transition emits SloBreachEvent."""
+        A healthy→breached transition emits SloBreachEvent; with
+        ``hyperspace.tpu.adaptive.enabled`` the verdicts drive
+        the serving frontend's shed and degrade admission
+        (adaptive/admission.py)."""
         from .telemetry.slo import health
         return health(self.session)
+
+    def adaptive_builder(self):
+        """The process-default budgeted builder (adaptive/builder.py):
+        ``run_once()`` for one maintenance pass, ``start()``/``stop()`` for
+        its daemon loop. A pass acts only in a serving idle window and only
+        while ``hyperspace.tpu.adaptive.builder.enabled`` holds."""
+        from .adaptive.builder import get_builder
+        return get_builder(self)
+
+    def adaptive_stats(self) -> dict:
+        """The adaptive control plane's counters: the correction store's,
+        the admission controller's and the builder's ledger."""
+        from .adaptive.admission import get_controller
+        from .adaptive.builder import get_ledger
+        from .adaptive.feedback import get_store
+        return {"feedback": get_store().stats(), "admission": get_controller().stats(),
+                "builder": get_ledger().stats()}
 
     def dump_flight_recorder(self, path: Optional[str] = None) -> str:
         """The flight recorder's rings (retained traces, recent events,
@@ -410,3 +432,36 @@ class Hyperspace:
         ctx = ReasonCollector(enabled=True, silent=True)
         apply_hyperspace(self.session, prune_columns(df.plan), ctx)
         return ctx.format(index_name)
+
+    # The advisor: workload capture, what-if, recommendation (advisor/).
+
+    def recommend(self, top_k: int = 5):
+        """Cost-ranked index recommendations from the captured workload
+        (``hyperspace.tpu.advisor.capture.enabled``). Pure planning: builds
+        nothing and leaves the index log store's bytes as they were.
+        Returns an AdvisorReport (``.recommendations``, ``.explain()``)."""
+        from .advisor.recommend import recommend
+        return recommend(self.session, top_k=top_k)
+
+    def what_if(self, df, configs):
+        """Would building ``configs`` (IndexConfig / DataSkippingIndexConfig)
+        rewrite this query? Metadata-only hypothetical entries go through
+        the rules' ``candidates_for`` hook and the index selection runs
+        again; nothing is built or written. Returns a WhatIfOutcome
+        (``.rewritten``, ``.predicted_speedup``, ``.explain()``)."""
+        from .advisor.whatif import what_if
+        return what_if(self.session, df.plan, configs)
+
+    def build_recommendation(self, recommendation) -> None:
+        """Build one recommendation's configs through the normal create
+        path (this one DOES build index data)."""
+        from .advisor.recommend import build_recommendation
+        build_recommendation(self, recommendation)
+
+    def workload(self):
+        """The captured workload log as a pandas DataFrame (empty until
+        ``hyperspace.tpu.advisor.capture.enabled`` is set)."""
+        import pandas as pd
+        from .advisor.workload import log_for
+        return pd.DataFrame(log_for(self.session).to_rows(), columns=[
+            "fingerprint", "tables", "latency_s", "appliedIndexes", "rulesFired"])

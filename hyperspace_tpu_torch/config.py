@@ -9,6 +9,8 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
+from .adaptive.constants import AdaptiveConstants
+from .advisor.constants import AdvisorConstants
 from .index.constants import IndexConstants
 from .optimizer.constants import OptimizerConstants
 from .robustness.constants import RobustnessConstants
@@ -335,6 +337,52 @@ class HyperspaceConf:
     def telemetry_profiler_dir(self) -> str:
         return self._conf.get(TelemetryConstants.PROFILER_DIR,
                               TelemetryConstants.PROFILER_DIR_DEFAULT) or ""
+
+    # The advisor (advisor/constants.py): workload capture, recommendation.
+
+    def advisor_capture_enabled(self) -> bool:
+        return self._get_bool(AdvisorConstants.CAPTURE_ENABLED,
+                              AdvisorConstants.CAPTURE_ENABLED_DEFAULT)
+
+    def advisor_capture_max_entries(self) -> int:
+        return int(self._conf.get(AdvisorConstants.CAPTURE_MAX_ENTRIES,
+                                  AdvisorConstants.CAPTURE_MAX_ENTRIES_DEFAULT))
+
+    def advisor_min_support(self) -> int:
+        return int(self._conf.get(AdvisorConstants.MIN_SUPPORT,
+                                  AdvisorConstants.MIN_SUPPORT_DEFAULT))
+
+    # The adaptive control plane (adaptive/constants.py): every feature is
+    # off while the master switch is; feedback and admission follow it.
+
+    def adaptive_enabled(self) -> bool:
+        return self._get_bool(AdaptiveConstants.ENABLED, AdaptiveConstants.ENABLED_DEFAULT)
+
+    def adaptive_replan_enabled(self) -> bool:
+        return self.adaptive_enabled() and self._get_bool(
+            AdaptiveConstants.REPLAN_ENABLED, AdaptiveConstants.REPLAN_ENABLED_DEFAULT)
+
+    def adaptive_builder_enabled(self) -> bool:
+        return self.adaptive_enabled() and self._get_bool(
+            AdaptiveConstants.BUILDER_ENABLED, AdaptiveConstants.BUILDER_ENABLED_DEFAULT)
+
+    def adaptive_builder_max_bytes(self) -> int:
+        return max(int(self._conf.get(AdaptiveConstants.BUILDER_MAX_BYTES,
+                                      AdaptiveConstants.BUILDER_MAX_BYTES_DEFAULT)), 0)
+
+    def adaptive_builder_idle_ms(self) -> float:
+        return max(float(self._conf.get(AdaptiveConstants.BUILDER_IDLE_MS,
+                                        AdaptiveConstants.BUILDER_IDLE_MS_DEFAULT)), 0.0)
+
+    def adaptive_builder_retire_min_queries(self) -> int:
+        return max(int(self._conf.get(AdaptiveConstants.BUILDER_RETIRE_MIN_QUERIES,
+                                      AdaptiveConstants.BUILDER_RETIRE_MIN_QUERIES_DEFAULT)),
+                   1)
+
+    def adaptive_admission_mode(self) -> str:
+        mode = (self._conf.get(AdaptiveConstants.ADMISSION_MODE,
+                               AdaptiveConstants.ADMISSION_MODE_DEFAULT) or "").strip().lower()
+        return mode if mode in ("shed", "degrade") else "degrade"
 
     def _get_bool(self, key: str, default: str) -> bool:
         return (self._conf.get(key, default) or "").strip().lower() == "true"

@@ -203,15 +203,25 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
 
 
 def _record_join_actual(plan: Join, table: Table, session) -> None:
-    """An inner join's output rows, kept on the session by
-    ``join_actual_key`` for explain's "Join order:" section (estimate
-    beside actual), its only reader, which shows only with join
-    reordering on."""
-    if plan.join_type != "inner" or plan.condition is None \
-            or not session.hs_conf.join_reorder_enabled():
+    """Every executed inner join's output rows, kept on the session by
+    ``join_actual_key`` whatever the reorder flag: explain's "Join order:"
+    section pairs them with the reorderer's estimates, and with the
+    adaptive loop on they feed the correction store (keyed by both sides,
+    so corrections never cross table pairs).
+
+    This is also the mid-query re-plan trigger (adaptive/feedback.py): the
+    executor owns the join boundaries, so after the write-back the
+    adaptive tier may raise ReplanRequested here, which
+    Session._execute_uncaptured catches to plan again. The executor has no
+    path that turns an error into a fallback, so nothing stands between
+    the raise and that catch."""
+    if plan.join_type != "inner" or plan.condition is None:
         return
-    qctx.record_join_actual(session, qctx.join_actual_key(plan.condition, plan.left, plan.right),
-                            table.num_rows)
+    key = qctx.join_actual_key(plan.condition, plan.left, plan.right)
+    qctx.record_join_actual(session, key, table.num_rows)
+    if session.hs_conf.adaptive_replan_enabled():
+        from ..adaptive import feedback as _feedback
+        _feedback.maybe_replan(session, key, table.num_rows)
 
 
 def _filter_table(table: Table, condition) -> Table:

@@ -88,6 +88,12 @@ def reset_launches() -> None:
 # Build and load.
 # ---------------------------------------------------------------------------
 
+class KernelError(HyperspaceException):
+    """A kernel that did not build, load or launch. The control plane's
+    error handling (adaptive/) re-raises it: it never passes for a step
+    that found nothing to do."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -95,7 +101,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise HyperspaceException("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
 def build_dir() -> str:
@@ -136,7 +142,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
                 continue
             os.replace(tmp, paths[n])
         if failures:
-            raise HyperspaceException("nvcc failed for " + "\n".join(failures))
+            raise KernelError("nvcc failed for " + "\n".join(failures))
     return paths
 
 
@@ -162,7 +168,10 @@ def _entry(name: str):
     fn = _ENTRIES.get(name)
     if fn is None:
         symbol, argtypes = _ARGTYPES[name]
-        fn = getattr(ctypes.CDLL(build([name])[name]), symbol)
+        try:
+            fn = getattr(ctypes.CDLL(build([name])[name]), symbol)
+        except OSError as e:
+            raise KernelError(f"CUDA kernel {name} did not load: {e}") from e
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
@@ -202,8 +211,7 @@ def _launch(name: str, x: torch.Tensor, *args, scratch: bool = False) -> None:
         args += (_scratch(device, stream),)
     rc = fn(*args, stream)
     if rc != 0:
-        raise HyperspaceException(
-            f"CUDA kernel {name} failed to launch: error {rc}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1
 
 

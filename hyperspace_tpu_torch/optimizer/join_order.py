@@ -25,8 +25,9 @@ chain leaves a record on ``session._last_join_order``, which explain's
 "Join order:" section reads. The pass runs under the
 ``optimize.join_reorder`` span; a pass that is not diagnostic and changed
 an order emits one JoinReorderEvent per reordered chain and one
-CardinalityEstimateEvent per step. The JAX package's adaptive correction
-hook waits for the adaptive tier.
+CardinalityEstimateEvent per step. While ``adaptive.enabled`` is on, each
+step's estimate is corrected by what execution taught the adaptive tier
+(``_Corrector``, adaptive/feedback.py).
 """
 
 from __future__ import annotations
@@ -201,6 +202,54 @@ def _cap_ndv(ndv: Dict[str, Optional[float]],
 # Order enumeration.
 # ---------------------------------------------------------------------------
 
+class _Corrector:
+    """The adaptive feedback hook (adaptive/feedback.py): scales each
+    enumeration step's estimate by its table pair's learned actual/estimate
+    ratio, and takes the observed rows of a rebuilt join that ran before.
+    Made only while ``adaptive.enabled`` is on; without it the reorderer
+    takes ``_NO_CORRECTION`` and the cost model is the uncorrected one.
+    Side signatures use the leaf identities the executor keys actuals by
+    (serving/context.join_actual_key), so keys made here, before index
+    substitution and partition pruning, pair with those of execution."""
+
+    def __init__(self, session, items: List[LogicalPlan]):
+        from ..adaptive.feedback import get_store
+        from ..serving.context import _leaf_identity
+        self._store = get_store()
+        self._ids: List[List[str]] = [
+            [_leaf_identity(leaf) for leaf in it.collect_leaves()] for it in items]
+        self._sig_cache: Dict[frozenset, str] = {}
+
+    def _sig(self, idxs) -> str:
+        key = frozenset(idxs)
+        s = self._sig_cache.get(key)
+        if s is None:
+            parts: List[str] = []
+            for i in key:
+                parts.extend(self._ids[i])
+            s = self._sig_cache[key] = "+".join(sorted(parts))
+        return s
+
+    def adjust(self, joined, t: int, est: float) -> float:
+        return self._store.corrected_rows(self._sig(joined), self._sig([t]), est)
+
+    def exact(self, key: str) -> Optional[float]:
+        return self._store.exact_rows(key)
+
+
+class _NoCorrection:
+    """The corrector while adaptive feedback is off: estimates unchanged."""
+
+    def adjust(self, joined, t: int, est: float) -> float:
+        return est
+
+    def exact(self, key: str) -> Optional[float]:
+        return None
+
+
+_NO_CORRECTION = _NoCorrection()
+
+
 def _step(rows: float, ndv: Dict[str, Optional[float]], item: _Est,
           conds: List[Tuple[str, str]]) -> Tuple[float, Dict]:
     """One left-deep join step: current intermediate x ``item`` over the
@@ -227,7 +276,8 @@ def _edge_conds(edges, joined: frozenset, t: int) -> List[Tuple[str, str]]:
     return out
 
 
-def _enumerate_greedy(ests: List[_Est], edges) -> List[int]:
+def _enumerate_greedy(ests: List[_Est], edges,
+                      corr=_NO_CORRECTION) -> List[int]:
     n = len(ests)
     best_pair = None
     for i in range(n):
@@ -236,6 +286,7 @@ def _enumerate_greedy(ests: List[_Est], edges) -> List[int]:
             if not conds:
                 continue
             rows, _ = _step(ests[i].rows, ests[i].ndv, ests[j], conds)
+            rows = corr.adjust([i], j, rows)
             if best_pair is None or rows < best_pair[0]:
                 best_pair = (rows, i, j)
     if best_pair is None:
@@ -245,6 +296,7 @@ def _enumerate_greedy(ests: List[_Est], edges) -> List[int]:
     joined = frozenset(order)
     rows, ndv = _step(ests[i].rows, ests[i].ndv, ests[j],
                       _edge_conds(edges, frozenset([i]), j))
+    rows = corr.adjust([i], j, rows)
     while len(order) < n:
         best = None
         for t in range(n):
@@ -254,6 +306,7 @@ def _enumerate_greedy(ests: List[_Est], edges) -> List[int]:
             if not conds:
                 continue
             out, nd = _step(rows, ndv, ests[t], conds)
+            out = corr.adjust(joined, t, out)
             if best is None or out < best[0]:
                 best = (out, t, nd)
         if best is None:
@@ -266,7 +319,8 @@ def _enumerate_greedy(ests: List[_Est], edges) -> List[int]:
     return order
 
 
-def _enumerate_dp(ests: List[_Est], edges) -> List[int]:
+def _enumerate_dp(ests: List[_Est], edges,
+                  corr=_NO_CORRECTION) -> List[int]:
     """Exhaustive left-deep search over connected subsets (Selinger-style
     DP): state per subset keeps the cheapest cumulative intermediate-row
     total. Falls back to greedy on any gap (disconnected subsets)."""
@@ -281,6 +335,7 @@ def _enumerate_dp(ests: List[_Est], edges) -> List[int]:
             if not conds:
                 continue
             rows, ndv = _step(ests[i].rows, ests[i].ndv, ests[j], conds)
+            rows = corr.adjust([i], j, rows)
             key = frozenset((i, j))
             if key not in states or rows < states[key][0]:
                 states[key] = (rows, rows, ndv, [i, j])
@@ -296,6 +351,7 @@ def _enumerate_dp(ests: List[_Est], edges) -> List[int]:
                 if not conds:
                     continue
                 out, nd = _step(rows, ndv, ests[t], conds)
+                out = corr.adjust(subset, t, out)
                 key = subset | {t}
                 cand = (cost + out, out, nd, order + [t])
                 prev = additions.get(key) or states.get(key)
@@ -304,7 +360,7 @@ def _enumerate_dp(ests: List[_Est], edges) -> List[int]:
         states.update(additions)
     full = states.get(frozenset(range(n)))
     if full is None:
-        return _enumerate_greedy(ests, edges)
+        return _enumerate_greedy(ests, edges, corr)
     return full[3]
 
 
@@ -425,10 +481,12 @@ def _reorder_chain(session, node: Join, items: List[LogicalPlan],
         {"label": labels[i], "est_rows": ests[i].rows}
         for i in range(len(items))]
 
+    corr = _Corrector(session, items) if session.hs_conf.adaptive_enabled() \
+        else _NO_CORRECTION
     if len(items) <= JOIN_REORDER_DP_THRESHOLD:
-        order = _enumerate_dp(ests, edges)
+        order = _enumerate_dp(ests, edges, corr)
     else:
-        order = _enumerate_greedy(ests, edges)
+        order = _enumerate_greedy(ests, edges, corr)
     if order == list(range(len(items))):
         record["note"] = "original order already cheapest"
         return _rebuild_same(node, mapping)
@@ -438,8 +496,9 @@ def _reorder_chain(session, node: Join, items: List[LogicalPlan],
     # Any constructor rejection (e.g. an ambiguity an interposed pruning
     # Project used to resolve) falls back to the original order.
     # Step keys are the join_actual_key strings the executor records
-    # actuals under for the Join nodes built here, so explain pairs each
-    # estimate with its actual and never across table pairs.
+    # actuals under for the Join nodes built here, so explain and the
+    # adaptive loops pair each estimate with its actual and never across
+    # table pairs.
     from ..serving.context import join_actual_key
     joined = frozenset([order[0]])
     cur = items[order[0]]
@@ -457,6 +516,10 @@ def _reorder_chain(session, node: Join, items: List[LogicalPlan],
                               _edge_conds(edges, joined, t))
             condition = E.conjoin(conds)
             key = join_actual_key(condition, cur, items[t])
+            rows = corr.adjust(joined, t, rows)
+            exact = corr.exact(key)
+            if exact is not None:
+                rows = exact
             cur = Join(cur, items[t], condition, "inner",
                        reorder_note=f"reordered, est~{rows:.0f} rows")
             steps.append({"right": labels[t], "key": key,

@@ -10,14 +10,15 @@ diagnostic pass: it counts no index usage. With ``diagnostics`` follow the
 once the reader pool or a prefetch stream has done work, and the
 "Serving:" section while the serving tier is enabled or a frontend has
 taken queries, the "SLO:" section once the SLO monitor's window holds
-queries, and the "Trace:" section once a trace was retained. While
-``optimizer.joinReorder.enabled`` is set, the "Join order:" section shows
-each join chain's order and its estimates beside the actual rows of its
-last run. The JAX package's other runtime sections wait with their tiers:
-"Compilation:" (eager torch compiles no programs), "Distributed:" (the
-mesh tier), "Robustness:" (the rest of robustness/) and "Advisor:"; its
-"Serving:" section's program-bank line and its "SLO:" section's admission
-line have no counterpart here.
+queries (with the admission controller's line while adaptive admission is
+on), and the "Trace:" section once a trace was retained. The "Advisor:"
+section follows while workload capture is on or has recorded queries.
+While ``optimizer.joinReorder.enabled`` is set, the "Join order:" section
+shows each join chain's order and its estimates beside the actual rows of
+its last run. The JAX package's other runtime sections wait with their
+tiers: "Compilation:" (eager torch compiles no programs), "Distributed:"
+(the mesh tier) and "Robustness:" (the rest of robustness/); its
+"Serving:" section's program-bank line has no counterpart here.
 """
 
 from __future__ import annotations
@@ -124,6 +125,7 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
         _write_serving_section(buf, session)
         _write_slo_section(buf, session)
         _write_trace_section(buf, session)
+    _write_advisor_section(buf, session, with_index)
     _write_join_order_section(buf, session)
     if verbose:
         buf.write_line()
@@ -251,6 +253,13 @@ def _write_slo_section(buf: BufferStream, session) -> None:
                        f"{'n/a' if observed is None else f'{observed:.4g}'} "
                        f"objective {obj['threshold']:g}"
                        + (" BREACHED" if obj["breached"] else ""))
+    if session.hs_conf.adaptive_enabled():
+        from ..adaptive.admission import get_controller
+        s = get_controller().stats()
+        buf.write_line(f"admission ({session.hs_conf.adaptive_admission_mode()}): "
+                       f"{'overloaded' if s['overloaded'] else 'admitting'} "
+                       f"breaches={s['breaches']} recoveries={s['recoveries']} "
+                       f"sheds={s['sheds']} degrades={s['degrades']}")
 
 
 def _write_trace_section(buf: BufferStream, session) -> None:
@@ -268,6 +277,26 @@ def _write_trace_section(buf: BufferStream, session) -> None:
                    f"(hs.last_trace().to_chrome_json() exports it)")
     for line in render_timeline(trace):
         buf.write_line(line)
+
+
+def _write_advisor_section(buf: BufferStream, session, with_index: LogicalPlan) -> None:
+    """The advisor's capture state and the session's applied counts of the
+    indexes this plan uses; rendered only while capture is on or the
+    workload log holds records."""
+    from ..advisor.workload import log_for
+    log = log_for(session)
+    capture_on = session.hs_conf.advisor_capture_enabled()
+    if len(log) == 0 and not capture_on:
+        return
+    buf.write_line()
+    _header(buf, "Advisor:")
+    buf.write_line(f"workload capture: {'on' if capture_on else 'off'} "
+                   f"({len(log)} record(s); hs.recommend() ranks index candidates from them)")
+    counts = session._index_usage_counts
+    for leaf in with_index.collect_leaves():
+        if isinstance(leaf, IndexScan):
+            name = leaf.index_entry.name
+            buf.write_line(f"index '{name}' applied {counts.get(name, 0)} time(s) this session")
 
 
 def _write_join_order_section(buf: BufferStream, session) -> None:

@@ -65,4 +65,8 @@ def _apply_hyperspace(session, plan: LogicalPlan,
     ctx.applied = applied_index_names(plan)
     # Data skipping last: the covering rewrite is the better win when it
     # applies, and skipping only narrows the Scan leaves left in place.
-    return DataSkippingIndexRule().apply(session, plan, ctx)
+    plan = DataSkippingIndexRule().apply(session, plan, ctx)
+    if not ctx.silent:
+        # The advisor's capture reads this pass's applied names.
+        session._last_reason_collector = ctx
+    return plan

@@ -21,8 +21,8 @@ session attributes:
   feed the SLO monitor (telemetry/slo.py).
 
 :func:`record_join_actual` keeps an executed inner join's output rows on
-its session, keyed by :func:`join_actual_key`, which explain pairs with the
-join reorderer's estimates.
+its session, keyed by :func:`join_actual_key`, which explain and the
+adaptive feedback loop pair with the join reorderer's estimates.
 
 A contextvar, not a thread-local: the prefetch producers and the frontend's
 workers run in copied contexts, so attribution follows the query across
@@ -51,8 +51,11 @@ class QueryContext:
     """Everything one query execution needs, made explicit."""
 
     def __init__(self, session, result_cache=None, client: str = "",
-                 query_id: Optional[int] = None, deadline_s: Optional[float] = None):
+                 query_id: Optional[int] = None, deadline_s: Optional[float] = None,
+                 capture: bool = False):
         self.session = session
+        # The advisor's capture decision, pinned when the context is made.
+        self.capture = bool(capture)
         self.query_id = query_id if query_id is not None else next(_QUERY_IDS)
         self.client = client
         self.created_s = time.perf_counter()
@@ -82,7 +85,7 @@ class QueryContext:
         allocated at submit time."""
         cache = shared_cache if shared_cache is not None else session.result_cache
         return cls(session, result_cache=cache, client=client, deadline_s=deadline_s,
-                   query_id=query_id)
+                   query_id=query_id, capture=session.hs_conf.advisor_capture_enabled())
 
     @contextlib.contextmanager
     def activate(self):
@@ -141,13 +144,20 @@ def join_actual_key(condition, left, right) -> str:
 
 def record_join_actual(session, key: str, rows: int) -> None:
     """An executed inner join's output rows onto the session's bounded,
-    locked LRU store."""
+    locked LRU store; with ``adaptive.enabled``, into the
+    process's correction store too (adaptive/feedback.py)."""
     with session._join_actuals_lock:
         actuals = session._join_actuals
         actuals[key] = int(rows)
         actuals.move_to_end(key)
         while len(actuals) > _JOIN_ACTUALS_MAX:
             actuals.popitem(last=False)
+    try:
+        if session.hs_conf.adaptive_enabled():
+            from ..adaptive import feedback as _feedback
+            _feedback.get_store().observe(session, key, int(rows))
+    except Exception:
+        pass  # feedback accounting never fails a query
 
 
 def next_query_id() -> int:

@@ -33,9 +33,14 @@ governing session at each decision. Telemetry: the ServingAdmit, Reject
 and Batch events; a sweep's members nest their ``query`` spans under one
 shared ``serving.sweep`` span; every completed query feeds the
 ``serving.latency_ms`` histogram; the process-default frontend is the
-``serving`` collector. Not ported here: the SLO admission controller and
-the fault points (with the adaptive and robustness tiers); neither changes
-an answer.
+``serving`` collector.
+
+SLO admission (adaptive/admission.py): while an armed objective is
+breached and ``adaptive.enabled`` holds, a submission is shed
+(ServingRejectedError, as a full queue) or degraded: it runs alone, never
+in a sweep, and an eligible aggregate runs over a sampled prefix of its
+files and carries ``approx_error_bound``. Not ported here: the fault
+points (with the rest of the robustness tier), which change no answer.
 """
 
 from __future__ import annotations
@@ -120,9 +125,11 @@ class PendingQuery:
 
 
 class _Entry:
-    __slots__ = ("plan", "norm", "session", "ctx", "pending", "batch_key", "deadline_s")
+    __slots__ = ("plan", "norm", "session", "ctx", "pending", "batch_key", "deadline_s",
+                 "approx")
 
-    def __init__(self, plan, norm, session, ctx, pending, batch_key, deadline_s=None):
+    def __init__(self, plan, norm, session, ctx, pending, batch_key, deadline_s=None,
+                 approx=False):
         self.plan = plan
         self.norm = norm
         self.session = session
@@ -130,6 +137,7 @@ class _Entry:
         self.pending = pending
         self.batch_key = batch_key  # None: never batched
         self.deadline_s = deadline_s  # absolute perf_counter, or None
+        self.approx = approx  # SLO degrade: try the approximate tier
 
 
 class ServingFrontend:
@@ -191,6 +199,10 @@ class ServingFrontend:
         est = estimate_recompute_bytes(norm)
         batch_key = batcher.template_key(session, norm) \
             if self._hs_conf.serving_batching_enabled() else None
+        # A degraded query never joins a sweep, which shares exact scans.
+        approx = self._slo_admission(session, client, est)
+        if approx:
+            batch_key = None
         pending = PendingQuery(next_query_id(), client, est)
         deadline_s = time.perf_counter() + deadline_ms / 1000.0 \
             if deadline_ms is not None and deadline_ms > 0 else None
@@ -200,7 +212,7 @@ class ServingFrontend:
             self._stats["submitted"] += 1
             self._admit_or_raise(session, client, est, depth, max_bytes)
             entry = _Entry(plan, norm, session, contextvars.copy_context(), pending,
-                           batch_key, deadline_s)
+                           batch_key, deadline_s, approx)
             self._queue.append(entry)
             queued = len(self._queue)
             spawn = self._active_workers < self._hs_conf.serving_max_concurrency()
@@ -226,6 +238,23 @@ class ServingFrontend:
                         self._stats["admitted"] -= 1
                 raise
         return pending
+
+    def _slo_admission(self, session, client: str, est: int) -> bool:
+        """The admission controller's verdict for one submission
+        (adaptive/admission.py): raises ServingRejectedError when it sheds,
+        returns True when it degrades, False when it admits."""
+        if not session.hs_conf.adaptive_enabled():
+            return False
+        from ..adaptive.admission import get_controller
+        verdict = get_controller().decide(session)
+        if verdict == "shed":
+            with self._lock:
+                self._stats["submitted"] += 1
+                self._stats["rejected"] += 1
+            reason = "slo breach: shedding load"
+            self._emit_reject(session, client, est, reason)
+            raise ServingRejectedError(f"serving admission rejected query: {reason}")
+        return verdict == "degrade"
 
     def _admit_or_raise(self, session, client: str, est: int, depth: int,
                         max_bytes: int) -> None:
@@ -263,6 +292,7 @@ class ServingFrontend:
             try:
                 norm = normalize(plan)
                 est = estimate_recompute_bytes(norm)
+                approx = self._slo_admission(session, client, est)
                 pending = PendingQuery(next_query_id(), client, est)
                 deadline_s = time.perf_counter() + deadline_ms / 1000.0 \
                     if deadline_ms is not None and deadline_ms > 0 else None
@@ -272,7 +302,7 @@ class ServingFrontend:
                     queued = len(self._queue)
                 self._emit_admit(session, client, est, queued)
                 entries.append(_Entry(plan, norm, session, contextvars.copy_context(),
-                                      pending, None, deadline_s))
+                                      pending, None, deadline_s, approx))
                 out.append(pending)
             except Exception as e:  # the member's own refusal, returned in place
                 out.append(e)
@@ -294,14 +324,19 @@ class ServingFrontend:
         return out
 
     def _drain_wave(self, entries: List[_Entry]) -> None:
-        """One caller-formed wave: a single member alone, more as one
-        sweep. Any escape releases the unstarted members to run alone, and
-        the worker slot always comes back."""
+        """One caller-formed wave: the degraded members alone, then a single
+        other member alone, more as one sweep. Any escape releases the
+        unstarted members to run alone, and the worker slot always comes
+        back."""
         try:
-            if len(entries) == 1:
-                self._run_single(entries[0])
-            else:
-                self._run_batch(entries)
+            sweepers = [e for e in entries if not e.approx]
+            for e in entries:
+                if e.approx:
+                    self._run_single(e)
+            if len(sweepers) == 1:
+                self._run_single(sweepers[0])
+            elif sweepers:
+                self._run_batch(sweepers)
         except BaseException as e:
             self._release_batch(entries, e)
         finally:
@@ -504,6 +539,17 @@ class ServingFrontend:
         # outcome is the query's real SLO sample.
         qc.slo_suppress_error = sweep is not None
         entry.pending.context = qc
+        if entry.approx and sweep is None:
+            # The SLO degrade tier: an eligible plan runs sampled, its result
+            # carries its stated error bound and counts as degraded.
+            from ..adaptive.admission import approximate_plan
+            hit = approximate_plan(entry.session, entry.plan)
+            if hit is not None:
+                approx_plan, bound = hit
+                qc.degraded = True
+                result = entry.session.execute(approx_plan, context=qc)
+                result.approx_error_bound = dict(bound)
+                return result
         with batcher.use_sweep(sweep):
             return entry.session.execute(entry.plan, context=qc)
 

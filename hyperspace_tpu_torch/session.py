@@ -13,10 +13,13 @@ The session holds one caching index manager, which the rules and the
 applied by a real (not a diagnostic) rewrite pass.
 
 ``execute(plan, context=None)`` runs under a per-query context
-(serving/context.py). With ``serving.result_cache.enabled`` it consults the
-result cache first (``Session.result_cache``, rebuilt whenever its budgets
-change), and ``sql`` memoizes lowered plans by (text, temp-view version,
-case mode).
+(serving/context.py). With ``advisor.capture.enabled`` it records the
+query in the session's workload log (advisor/workload.py); with
+``adaptive.replan.enabled`` it runs a query once more when a join boundary
+asks for a re-plan (adaptive/feedback.py). With
+``serving.result_cache.enabled`` it consults the result cache first
+(``Session.result_cache``, rebuilt whenever its budgets change), and
+``sql`` memoizes lowered plans by (text, temp-view version, case mode).
 
 Each execution opens a span-tree trace (telemetry/trace.py) while
 ``telemetry.trace.enabled`` is on (the default), with the
@@ -88,6 +91,13 @@ class Session:
         # (rules/rule_utils.log_index_usage increments under the lock).
         self._index_usage_counts: Dict[str, int] = {}
         self._usage_counts_lock = threading.Lock()
+        # The advisor's workload log (advisor/workload.py), made here so the
+        # serving workers' concurrent captures share one; and, per thread,
+        # the reason collector of the last real rewrite pass, whose applied
+        # names a capture records.
+        from .advisor.workload import WorkloadLog
+        self._workload_log = WorkloadLog()
+        self._reason_tls = threading.local()
         # Temp views by lower-cased name (view names are case-insensitive);
         # every registration bumps the version the SQL plan memo keys on.
         self._temp_views: Dict[str, LogicalPlan] = {}
@@ -104,7 +114,8 @@ class Session:
         # (optimizer/stats.provider_for attaches it on first use), the
         # chain records of the last join-reorder pass, and the output rows
         # of recent inner joins by join_actual_key (bounded LRU, written
-        # by the executor under the lock); explain reads the last two.
+        # by the executor under the lock); explain and the adaptive
+        # feedback loop read the last two.
         self._stats_provider = None
         self._last_join_order: Optional[list] = None
         self._join_actuals: "OrderedDict[str, int]" = OrderedDict()
@@ -112,6 +123,15 @@ class Session:
         # The span tree of the most recent retained trace (telemetry/trace.py);
         # Hyperspace.last_trace() and explain's "Trace:" section read it.
         self._last_trace = None
+
+    @property
+    def _last_reason_collector(self):
+        """The calling thread's last real rewrite pass's reason collector."""
+        return getattr(self._reason_tls, "collector", None)
+
+    @_last_reason_collector.setter
+    def _last_reason_collector(self, ctx) -> None:
+        self._reason_tls.collector = ctx
 
     @property
     def index_collection_manager(self):
@@ -236,26 +256,28 @@ class Session:
     def execute(self, plan: LogicalPlan, context=None):
         """Execute a plan under a :class:`~.serving.context.QueryContext`:
         the one given (the serving frontend's), else one made for this
-        call. The context pins the result cache, carries the query's io
-        counters, its deadline and its trace. The trace root and the
-        one-shot profiler capture bracket the whole execution; the SLO
-        monitor records every query's latency and outcome."""
+        call. The context pins the result cache and the advisor's capture
+        decision, carries the query's io counters, its deadline and its
+        trace. The trace root and the one-shot profiler capture bracket the
+        whole execution; the SLO monitor records every query's latency and
+        outcome."""
         from .serving.context import QueryContext
         ctx = context if context is not None else QueryContext.for_session(self)
         with ctx.activate(), _trace.maybe_profile(self), _trace.query_trace(self, ctx):
             t0 = time.perf_counter()
             error = suppress = False
             try:
-                cache = ctx.result_cache
-                if cache is not None:
-                    # A hit skips the rewrite and the execution; a miss
-                    # executes and applies the admission floors. The
-                    # frontend's context may carry its cross-session cache:
-                    # the keys pin the plan, the sources, the index
-                    # versions and this session's conf.
-                    from .serving.result_cache import execute_with_cache
-                    return execute_with_cache(self, cache, plan)
-                return self._run_optimized(self.optimize(plan))
+                if not ctx.capture:
+                    return self._execute_uncaptured(plan, ctx)
+                # Workload capture (advisor/workload.py) times whatever
+                # path runs. The collector is cleared first, so the applied
+                # names are this execution's (a result-cache hit runs no
+                # rewrite and records none).
+                self._last_reason_collector = None
+                table = self._execute_uncaptured(plan, ctx)
+                from .advisor.workload import capture_execution
+                capture_execution(self, plan, time.perf_counter() - t0)
+                return table
             except BaseException as exc:
                 error = True
                 # A failed query is tail-keep-worthy by definition.
@@ -270,6 +292,32 @@ class Session:
                     from .telemetry import slo as _slo
                     _slo.observe_query(self, (time.perf_counter() - t0) * 1000.0,
                                        error=error, degraded=ctx.degraded)
+
+    def _execute_uncaptured(self, plan: LogicalPlan, ctx):
+        """One execution; with ``adaptive.replan.enabled``, a second one
+        when a join boundary asks for a re-plan (adaptive/feedback.py). The
+        observation is in the correction store by then, so the second plan
+        uses it; that attempt runs to its end (one re-plan a query)."""
+        if not self.hs_conf.adaptive_replan_enabled():
+            return self._execute_once(plan, ctx)
+        from .adaptive import feedback as _feedback
+        try:
+            return self._execute_once(plan, ctx)
+        except _feedback.ReplanRequested as rr:
+            _feedback.emit_replan_event(self, rr)
+            with _feedback.suppress_replans():
+                return self._execute_once(plan, ctx)
+
+    def _execute_once(self, plan: LogicalPlan, ctx):
+        cache = ctx.result_cache
+        if cache is not None:
+            # A hit skips the rewrite and the execution; a miss executes and
+            # applies the admission floors. The frontend's context may carry
+            # its cross-session cache: the keys pin the plan, the sources,
+            # the index versions and this session's conf.
+            from .serving.result_cache import execute_with_cache
+            return execute_with_cache(self, cache, plan)
+        return self._run_optimized(self.optimize(plan))
 
     def _run_optimized(self, optimized: LogicalPlan):
         from .execution.executor import execute

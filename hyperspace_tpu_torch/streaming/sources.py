@@ -18,9 +18,9 @@ again, and the daemon never dies of a poll error.
 - :class:`LogTailSource` tails a JSONL log by byte offset; each poll
   appends the complete new lines as one dict-of-columns batch.
 
-Not ported here: the JAX package's pause on an SLO overload verdict (its
-admission controller is part of the adaptive tier), so this source never
-pauses and ``pauses`` stays 0.
+While the SLO admission controller reports overload
+(adaptive/admission.should_pause_ingest), a poll pulls no new input and
+counts a pause: under load, serving drains first and ingest waits.
 """
 
 from __future__ import annotations
@@ -150,6 +150,12 @@ class ContinuousSource:
         with self._lock:
             self._stats["polls"] += 1
         _faults.fault_point(_fn.STREAMING_SOURCE)
+        # The overload pause: staged work still commits, serving drains.
+        from ..adaptive.admission import get_controller
+        if get_controller().should_pause_ingest(self._session):
+            with self._lock:
+                self._stats["pauses"] += 1
+            return False
         items = self._discover()
         if not items:
             return False

@@ -4,8 +4,8 @@ emits).
 
 One event class per action (start/success/failure carried in
 ``message``), the index-usage event of the rewrite rules, and the events
-of the read, serving, streaming and robustness tiers. The mesh, advisor,
-program-bank, kernel-compile, adaptive, artifact and cluster events wait
+of the read, serving, streaming, robustness, advisor and adaptive tiers.
+The mesh, program-bank, kernel-compile, artifact and cluster events wait
 with their tiers (``KernelCompileEvent`` counts XLA compiles, which eager
 torch does not do).
 """
@@ -202,6 +202,51 @@ class CardinalityEstimateEvent(HyperspaceEvent):
 
     subject: str = ""
     estimated_rows: float = 0.0
+
+
+@dataclass
+class AdvisorWhatIfEvent(HyperspaceEvent):
+    """Emitted per user-facing what-if analysis (advisor/whatif.py):
+    ``index_names`` the hypothetical configs, ``applied_names`` those the
+    plan would use. The passes inside ``recommend`` emit none."""
+
+    index_names: List[str] = field(default_factory=list)
+    applied_names: List[str] = field(default_factory=list)
+
+
+@dataclass
+class AdvisorRecommendationEvent(HyperspaceEvent):
+    """Emitted per ``Hyperspace.recommend`` run (advisor/recommend.py): the
+    ranked index names and the evidence behind them."""
+
+    recommended: List[str] = field(default_factory=list)
+    candidates_evaluated: int = 0
+    records_considered: int = 0
+
+
+@dataclass
+class ReplanEvent(HyperspaceEvent):
+    """Emitted per mid-query re-plan (adaptive/feedback.py): a join
+    boundary observed ``actual_rows`` against the reorderer's
+    ``est_rows`` for the key, past the re-plan threshold (``adaptive/constants.REPLAN_ERROR_THRESHOLD``); the
+    query planned again with the fresh correction and ran once more."""
+
+    key: str = ""
+    est_rows: float = 0.0
+    actual_rows: int = 0
+    threshold: float = 0.0
+
+
+@dataclass
+class AdaptiveActionEvent(HyperspaceEvent):
+    """One control-plane decision (adaptive/): ``action`` is
+    ``builder.build`` / ``builder.retire`` / ``builder.maintain`` (the
+    builder) or ``admission.engage`` / ``admission.recover`` (SLO
+    admission); ``subject`` the index, table or mode acted on."""
+
+    action: str = ""
+    subject: str = ""
+    detail: str = ""
 
 
 @dataclass

@@ -16,7 +16,9 @@ the optimizer: every reader and writer format, bucket_by, partition_by,
 avro, BucketUnion, indexes over csv and orc, and a reordered join with its
 actuals and explain section; and the lake tier: delta and iceberg tables
 with time travel, Hybrid Scan and an index on the ``hsmem://`` object
-store) still run end to end on the CPU, with the
+store; and the self-tuning tier: every advisor and adaptive module,
+capture, what-if, recommend and a builder pass) still run end to end on
+the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -477,6 +479,57 @@ def test_telemetry_runs_without_jax():
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "TELEMETRY_OK" in proc.stdout
+
+
+SELF_TUNING = textwrap.dedent("""
+    import datetime, glob, importlib, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import col
+    for tier in ("advisor", "adaptive"):
+        pkg_dir = os.path.join({root!r}, "hyperspace_tpu_torch", tier)
+        for f in sorted(glob.glob(os.path.join(pkg_dir, "*.py"))):
+            name = os.path.basename(f)[:-3]
+            if name != "__init__":
+                importlib.import_module(f"hyperspace_tpu_torch.{{tier}}." + name)
+    root = tempfile.mkdtemp()
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
+    s.conf.set("hyperspace.tpu.adaptive.enabled", "true")
+    s.enable_hyperspace()
+    hs = ht.Hyperspace(s)
+    od = s.read.parquet(od_dir)
+    lo, hi = datetime.date(1994, 6, 1), datetime.date(1994, 7, 31)
+    q = od.filter(col("o_orderdate").between(lo, hi)).select("o_orderkey", "o_totalprice")
+    s.conf.set("hyperspace.tpu.advisor.capture.enabled", "true")
+    want = q.to_arrow()
+    s.conf.set("hyperspace.tpu.advisor.capture.enabled", "false")
+    out = hs.what_if(q, [ht.IndexConfig("hypo", ["o_orderdate"],
+                                        ["o_orderkey", "o_totalprice"])])
+    assert out.rewritten, out.explain()
+    assert hs.recommend(top_k=3).recommendations
+    built = hs.adaptive_builder().run_once(force=True)["built"]
+    assert built, built
+    assert "IndexScan" in q.optimized_plan().tree_string()
+    assert q.to_arrow().sort_by("o_orderkey").equals(want.sort_by("o_orderkey"))
+    assert s._index_usage_counts[built[0]] > 0, s._index_usage_counts
+    assert hs.adaptive_stats()["builder"]["built"] == built
+    assert sys.modules["jax"] is None and sys.modules["hyperspace_tpu"] is None
+    print("SELF_TUNING_OK", built)
+""")
+
+
+def test_self_tuning_runs_without_jax():
+    """Every advisor and adaptive module imports, and capture, what-if,
+    recommend and the builder's pass build an index a query then reads,
+    with ``jax`` and ``hyperspace_tpu`` unimportable."""
+    proc = subprocess.run([sys.executable, "-c", SELF_TUNING.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "SELF_TUNING_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

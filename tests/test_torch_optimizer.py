@@ -263,8 +263,10 @@ def test_star_reorder_equals_jax(star):
     off = plans_both(ss, lambda s, pkg: three_way(s, pkg, paths), reorder=False)
     assert off["torch"][1] == off["jax"][1] and "[reordered" not in off["torch"][1]
     plain = sorted_frame(off["torch"][0].to_arrow())
-    # With reordering off the port records no actuals: nothing reads them.
-    assert len(ss["torch"]._join_actuals) == 2
+    off["jax"][0].to_arrow()
+    # With reordering off both packages record the text-order joins too.
+    assert len(ss["torch"]._join_actuals) == 4
+    assert ss["torch"]._join_actuals == ss["jax"]._join_actuals
     assert_frames_close(reordered["torch"], plain)
     assert_frames_close(reordered["torch"], reordered["jax"])
 
@@ -399,6 +401,21 @@ def test_explain_join_order_section_equals_jax(star):
     ss["torch"].conf.set(REORDER, "false")
     assert "Join order:" not in texplain(ss["torch"], three_way(ss["torch"], "torch",
                                                                 paths).plan)
+
+
+def test_join_actuals_recorded_with_reorder_off(star):
+    """An executed inner join's actual rows are recorded whatever the
+    reorder flag: after one join with reordering off, the port's session
+    holds the JAX session's actuals, key for key and row for row."""
+    ss, paths = star
+    for pkg in PKGS:
+        s = ss[pkg]
+        s.conf.set(REORDER, "false")
+        col = E(pkg).col
+        s.read.parquet(paths["fact"]).join(
+            s.read.parquet(paths["dim2"]), on=col("f_d2") == col("d2_key")).to_arrow()
+    assert len(ss["jax"]._join_actuals) == 1
+    assert ss["torch"]._join_actuals == ss["jax"]._join_actuals
 
 
 def test_join_actuals_are_bounded(star):
