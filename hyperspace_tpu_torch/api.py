@@ -305,9 +305,44 @@ class Hyperspace:
 
     def metrics_text(self) -> str:
         """The whole ``metrics()`` surface as OpenMetrics text exposition
-        (telemetry/exposition.py)."""
+        (telemetry/exposition.py). With a live cluster node every sample
+        carries a ``worker="<id>"`` label; single-process text is the
+        unlabelled format (``maybe_node`` never starts a node)."""
+        from .cluster.worker import maybe_node
         from .telemetry.exposition import render_text
-        return render_text(self.metrics())
+        node = maybe_node()
+        return render_text(self.metrics(), worker=node.worker_id if node else "")
+
+    def fleet_metrics(self) -> dict:
+        """Every live cluster worker's metrics snapshot, keyed by worker
+        id, and an ``aggregate`` dict summing the numeric leaves over the
+        fleet: this process's own surface, the peers' over the cluster
+        transport (a peer that does not answer is skipped; staleness drops
+        it from the roster). With the cluster disabled: this process, as
+        ``local``."""
+        from .cluster import transport
+        from .cluster.worker import get_node
+        from .telemetry.exposition import flatten
+        workers: dict = {}
+        node = get_node(self.session)
+        if node is None:
+            workers["local"] = self.metrics()
+        else:
+            workers[node.worker_id] = self.metrics()
+            timeout_s = self.session.hs_conf.cluster_forward_timeout_ms() / 1000.0
+            for peer in node.membership.peers():
+                try:
+                    response = transport.send_request(peer.host, peer.port, {"op": "metrics"},
+                                                      timeout_s=timeout_s, session=self.session)
+                except OSError:
+                    continue  # a dead peer: staleness routes around it
+                if response.get("ok"):
+                    workers[peer.worker_id] = response["metrics"]
+        aggregate: dict = {}
+        for snap in workers.values():
+            for key, value in flatten(snap).items():
+                aggregate[key] = aggregate.get(key, 0.0) + value
+        return {"workers": workers, "aggregate": aggregate}
 
     def serve_metrics(self, port: Optional[int] = None) -> int:
         """Start the opt-in scrape endpoint (``GET

@@ -11,6 +11,7 @@ from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
 from .adaptive.constants import AdaptiveConstants
 from .advisor.constants import AdvisorConstants
+from .cluster.constants import ClusterConstants
 from .index.constants import IndexConstants
 from .optimizer.constants import OptimizerConstants
 from .robustness.constants import RobustnessConstants
@@ -286,7 +287,8 @@ class HyperspaceConf:
         return max(int(self._conf.get(StreamingConstants.SUBSCRIPTION_HISTORY,
                                       StreamingConstants.SUBSCRIPTION_HISTORY_DEFAULT)), 1)
 
-    # Fault injection (robustness/constants.py).
+    # Robustness (robustness/constants.py): fault injection, deadlines,
+    # retry, the degradation ladders.
 
     def robustness_fault_specs(self) -> Dict[str, str]:
         """``{point name: spec string}`` from every
@@ -295,6 +297,62 @@ class HyperspaceConf:
         prefix = RobustnessConstants.FAULTS_PREFIX + "."
         return {k[len(prefix):]: v for k, v in self._conf.as_dict().items()
                 if k.startswith(prefix)}
+
+    def robustness_deadline_ms(self) -> float:
+        return max(float(self._conf.get(RobustnessConstants.DEADLINE_MS,
+                                        RobustnessConstants.DEADLINE_MS_DEFAULT)), 0.0)
+
+    def robustness_retry_max_attempts(self) -> int:
+        return max(int(self._conf.get(RobustnessConstants.RETRY_MAX_ATTEMPTS,
+                                      RobustnessConstants.RETRY_MAX_ATTEMPTS_DEFAULT)), 1)
+
+    def robustness_retry_base_ms(self) -> float:
+        return max(float(self._conf.get(RobustnessConstants.RETRY_BASE_MS,
+                                        RobustnessConstants.RETRY_BASE_MS_DEFAULT)), 0.0)
+
+    def robustness_degrade_enabled(self) -> bool:
+        return self._get_bool(RobustnessConstants.DEGRADE_ENABLED,
+                              RobustnessConstants.DEGRADE_ENABLED_DEFAULT)
+
+    # The serving cluster (cluster/constants.py).
+
+    def cluster_enabled(self) -> bool:
+        return self._get_bool(ClusterConstants.ENABLED, ClusterConstants.ENABLED_DEFAULT)
+
+    def cluster_worker_id(self) -> str:
+        return (self._conf.get(ClusterConstants.WORKER_ID,
+                               ClusterConstants.WORKER_ID_DEFAULT) or "").strip()
+
+    def cluster_bind(self) -> str:
+        return (self._conf.get(ClusterConstants.BIND, ClusterConstants.BIND_DEFAULT)
+                or "127.0.0.1").strip()
+
+    def cluster_port(self) -> int:
+        return max(int(self._conf.get(ClusterConstants.PORT, ClusterConstants.PORT_DEFAULT)), 0)
+
+    def cluster_dir(self) -> str:
+        return (self._conf.get(ClusterConstants.DIR, ClusterConstants.DIR_DEFAULT) or "").strip()
+
+    def cluster_heartbeat_ms(self) -> float:
+        return max(float(self._conf.get(ClusterConstants.HEARTBEAT_MS,
+                                        ClusterConstants.HEARTBEAT_MS_DEFAULT)), 50.0)
+
+    def cluster_staleness_ms(self) -> float:
+        return max(float(self._conf.get(ClusterConstants.STALENESS_MS,
+                                        ClusterConstants.STALENESS_MS_DEFAULT)), 100.0)
+
+    def cluster_routing_enabled(self) -> bool:
+        return self.cluster_enabled() and self._get_bool(
+            ClusterConstants.ROUTING_ENABLED, ClusterConstants.ROUTING_ENABLED_DEFAULT)
+
+    def cluster_forward_timeout_ms(self) -> float:
+        return max(float(self._conf.get(ClusterConstants.FORWARD_TIMEOUT_MS,
+                                        ClusterConstants.FORWARD_TIMEOUT_MS_DEFAULT)), 10.0)
+
+    def cluster_gather_mode(self) -> str:
+        mode = (self._conf.get(ClusterConstants.GATHER, ClusterConstants.GATHER_DEFAULT)
+                or "").strip().lower()
+        return mode if mode in ("auto", "native", "host") else "auto"
 
     # Cost-based optimizer (optimizer/constants.py).
 

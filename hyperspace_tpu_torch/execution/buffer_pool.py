@@ -16,9 +16,15 @@ host->device copy. Three namespaces use it:
 
 A file that changes gets a new signature, so its old entries are never
 found again and age out of the LRU. Eviction runs device -> host -> drop;
-the copies run outside the lock. A failed load raises: the pool has no
-silent-miss path. Tables that come out of the pool are shared by every
-query that hits them, so nothing may write into their tensors in place.
+the copies run outside the lock. Tables that come out of the pool are
+shared by every query that hits them, so nothing may write into their
+tensors in place.
+
+The degrade contract (robustness/faults.degrade_enabled): a load that
+fails at the ``buffer.load`` fault point drops the entry and reports a
+miss, so the caller reads the files again; a failed promotion serves the
+host copy; a failed demotion drops the victim. With degrade off each of
+them raises.
 
 Every probe emits a BufferPoolHitEvent or BufferPoolMissEvent, and every
 step down the eviction ladder a BufferPoolEvictEvent, through the
@@ -32,6 +38,8 @@ import threading
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+from ..robustness import fault_names as _fn
+from ..robustness import faults as _faults
 from ..telemetry import metric_names as _mn
 from ..telemetry import metrics as _metrics
 
@@ -170,7 +178,9 @@ class BufferPool:
     lists, dropped on eviction). Counters: ``device_hits``/``host_hits``/
     ``misses`` per probe, ``admissions``/``rejections`` per put, ``loads``
     (admitted decodes), ``promotions`` (host->device copies; with loads, the
-    pool's ``transfers``), ``demotions``/``evictions`` down the ladder.
+    pool's ``transfers``), ``demotions``/``evictions`` down the ladder,
+    ``invalidations`` (entries a load fault or a failed promotion dropped)
+    and ``degraded_loads``.
     """
 
     def __init__(self, device_bytes: int, host_bytes: int):
@@ -214,43 +224,82 @@ class BufferPool:
     # Probe and admit.
 
     def get(self, pk: PoolKey):
-        """The cached payload, or None (a miss: the caller reads)."""
+        """The cached payload, or None (a miss: the caller reads). The
+        ``buffer.load`` fault point fires here: a load failure, like a
+        failed promotion of a host-tier entry, drops the entry and is a
+        miss (``degraded_loads``, ``invalidations``)."""
         full = (pk.ns,) + tuple(pk.key)
-        promote = None
-        tier = "device"
+        try:
+            _faults.fault_point(_fn.BUFFER_LOAD)
+        except Exception:
+            if not _faults.degrade_enabled():
+                raise
+            _faults.note(degraded_buffer_loads=1)
+            with self._lock:
+                if self._drop(full):
+                    self.invalidations += 1
+                self.degraded_loads += 1
+                self.misses += 1
+                self._bump_ns(pk.ns, "misses")
+            _note_query(pool_misses=1)
+            _emit_event(_miss_event, pk.ns, "fault")
+            return None
+        host = None
         with self._lock:
             e = self._device.get(full)
             if e is not None:
                 self._device.move_to_end(full)
-                self.device_hits += 1
+                self._count_hit(pk.ns, e, "device")
+                payload = e.payload
             else:
-                e = self._host.get(full)
+                e = host = self._host.get(full)
                 if e is None:
                     self.misses += 1
                     self._bump_ns(pk.ns, "misses")
-                else:
-                    self._host.move_to_end(full)
-                    self.host_hits += 1
-                    promote, tier = e, "host"
-            if e is not None:
-                self.decode_bytes_saved += e.source_bytes
-                self._bump_ns(pk.ns, "hits")
-                payload = e.payload
         if e is None:
             _note_query(pool_misses=1)
             _emit_event(_miss_event, pk.ns, "")
             return None
-        if promote is not None:
-            payload = self._promote(full, promote)
+        if host is not None:
+            payload = self._promote(pk.ns, full, host)
+            if payload is None:
+                _note_query(pool_misses=1)
+                _emit_event(_miss_event, pk.ns, "fault")
+                return None
         _note_query(pool_hits=1, pool_bytes_saved=e.source_bytes)
-        _emit_event(_hit_event, pk.ns, tier, e.nbytes)
+        _emit_event(_hit_event, pk.ns, "device" if host is None else "host", e.nbytes)
         return payload
 
-    def _promote(self, full: tuple, e: _Entry):
+    def _count_hit(self, ns: str, e: _Entry, tier: str) -> None:
+        if tier == "device":
+            self.device_hits += 1
+        else:
+            self.host_hits += 1
+        self.decode_bytes_saved += e.source_bytes
+        self._bump_ns(ns, "hits")
+
+    def _promote(self, ns: str, full: tuple, e: _Entry):
         """A host-tier hit goes back to the device (copied outside the
-        lock) and its entry moves to the device tier."""
-        dev_payload = _table_to_device(e.payload, e.device)
+        lock) and its entry moves to the device tier. A failed copy, with
+        degrade on, drops the entry and turns the hit into a miss (None):
+        the caller reads the files again onto its session's device, where
+        a device that is truly broken fails loudly. The host copy is never
+        served in place of the device's."""
+        try:
+            dev_payload = _table_to_device(e.payload, e.device)
+        except Exception:
+            if not _faults.degrade_enabled():
+                raise
+            _faults.note(degraded_buffer_loads=1)
+            with self._lock:
+                if self._drop(full):
+                    self.invalidations += 1
+                self.degraded_loads += 1
+                self.misses += 1
+                self._bump_ns(ns, "misses")
+            return None
         with self._lock:
+            self._count_hit(ns, e, "host")
             cur = self._host.pop(full, None)
             if cur is None:  # a concurrent clear or eviction: serve, don't re-admit.
                 return dev_payload
@@ -291,7 +340,14 @@ class BufferPool:
             if e.device_only or self.host_bytes <= 0:
                 dropped.append(("device", e.nbytes, False))
                 continue
-            e.payload = _table_to_host(e.payload)
+            try:
+                host_payload = _table_to_host(e.payload)
+            except Exception:
+                if not _faults.degrade_enabled():
+                    raise
+                dropped.append(("device", e.nbytes, False))
+                continue
+            e.payload = host_payload
             with self._lock:
                 self._host[full] = e
                 self._host_nbytes += e.nbytes
@@ -345,6 +401,8 @@ class BufferPool:
                 "transfers": self.loads + self.promotions,
                 "demotions": self.demotions,
                 "evictions": self.evictions,
+                "invalidations": self.invalidations,
+                "degraded_loads": self.degraded_loads,
                 "decode_bytes_saved": self.decode_bytes_saved,
                 "device_entries": len(self._device),
                 "host_entries": len(self._host),
@@ -361,7 +419,7 @@ class BufferPool:
             self.device_hits = self.host_hits = self.misses = 0
             self.admissions = self.rejections = 0
             self.loads = self.promotions = self.demotions = self.evictions = 0
-            self.decode_bytes_saved = 0
+            self.invalidations = self.degraded_loads = self.decode_bytes_saved = 0
             self._ns.clear()
 
 

@@ -447,11 +447,17 @@ def read_parquet(files: Sequence[str], columns: Optional[Sequence[str]], device,
     a nested leaf but name it by its last part).
 
     ``pool=True`` (the executor's bulk scans) probes the buffer pool first
-    and admits the table read on a miss; builds read around it."""
+    and admits the table read on a miss; builds read around it.
+
+    The ``scan.parquet_decode`` fault point fires on entry, before the pool
+    probe, so a fault is the same with the pool on and off."""
     from ..index import data_store
+    from ..robustness import fault_names as _fn
+    from ..robustness import faults as _faults
     from . import buffer_pool as bp
     if not files:
         raise HyperspaceException("read_parquet: no files")
+    _faults.fault_point(_fn.SCAN_PARQUET_DECODE)
     if fmt != "parquet":
         return Table.from_arrow(read_format(files, columns, fmt), device)
     pool_key = None

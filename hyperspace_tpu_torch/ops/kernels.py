@@ -294,8 +294,11 @@ def _segment_minmax(data: torch.Tensor, gids: torch.Tensor, num_groups: int,
                     op: str) -> torch.Tensor:
     if data.is_floating_point():
         return _segment_float(data, gids, num_groups, op)
-    return torch.zeros(num_groups, dtype=data.dtype, device=data.device).scatter_reduce_(
-        0, gids, data, "amin" if op == "min" else "amax", include_self=False)
+    # Seeded with the dtype's far end, so a segment with no rows holds it,
+    # as the reference's staged path gives.
+    return torch.full((num_groups,), _sentinel(data.dtype, op == "min"), dtype=data.dtype,
+                      device=data.device).scatter_reduce_(
+        0, gids, data, "amin" if op == "min" else "amax", include_self=True)
 
 
 def segment_min(data: torch.Tensor, gids: torch.Tensor, num_groups: int) -> torch.Tensor:

@@ -16,8 +16,11 @@ count:
 
 None reorders anything, so file-to-row provenance (lineage ids, the
 ``FileIdTracker``'s ids, string dictionaries) does not depend on the thread
-count. A failed read raises at the consumer; nothing falls back to another
-path. A pooled task that itself fans out runs that fan-out sequentially
+count. A pooled read's transient error is retried (robustness/retry.py,
+with the ``io.pooled_read`` fault point inside the retried call); any
+other failure raises at the consumer, and nothing falls back to another
+path. The prefetch producer carries the ``io.prefetch_produce`` point, and
+a query with a deadline polls it while it waits on a read or a producer. A pooled task that itself fans out runs that fan-out sequentially
 inside the worker, so the pool never waits on itself. The conf is the
 ``hyperspace.tpu.io.*`` keys of the session that ``use_session`` scopes
 (the executor and the action framework set it).
@@ -38,10 +41,14 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass
 from typing import Callable, Iterable, Iterator, Optional
 
-from ..serving.context import active_context
+from ..robustness import fault_names as _fn
+from ..robustness import faults as _faults
+from ..robustness import retry as _retry
+from ..serving.context import active_context, check_deadline, deadline_remaining_s
 from ..telemetry import metric_names as _mn
 from ..telemetry import metrics as _metrics
 from ..telemetry import span_names as _sn
@@ -254,10 +261,27 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
     Sequential (a plain loop) when the pool is disabled, threads <= 1, for
     one item, or inside a pool worker. ``label`` names the fan-out in its
     span and event; ``session`` receives the event (else the scoped one).
+
+    Each call is retried on a transient error (robustness/retry.py) with
+    the ``io.pooled_read`` fault point inside the retried function; a query
+    with a deadline polls it while it waits for a read.
     """
     items = list(items)
     p = params if params is not None else active_params()
     n = p.resolved_threads()
+    # Taken on the consumer's side (pool workers see no contextvar): the
+    # armed fault registry and the governing session's retry policy.
+    reg = _faults.armed()
+    sess = session if session is not None else _SESSION.get()
+    pol = _retry.policy_from_conf(sess.hs_conf) if sess is not None else _retry.DEFAULT_POLICY
+
+    def _read(it):
+        def _attempt():
+            _faults.fault_point(_fn.IO_POOLED_READ, reg=reg)
+            return fn(it)
+
+        return _retry.call(_attempt, where="io.pooled_read", policy=pol, session=sess)
+
     if not p.enabled or n <= 1 or len(items) <= 1 or in_worker():
         # The process-wide counters count pooled work only; the active
         # query context is charged for these reads all the same.
@@ -267,13 +291,13 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
                         read_bytes=sum(int(weight(it)) for it in items)
                         if weight is not None else 0)
         for it in items:
-            yield fn(it)
+            yield _read(it)
         return
 
     def _task(it):
         _IN_WORKER.flag = True
         t0 = time.perf_counter()
-        return fn(it), time.perf_counter() - t0
+        return _read(it), time.perf_counter() - t0
 
     ex = _executor(n)
 
@@ -304,12 +328,29 @@ def imap_ordered(fn: Callable, items: Iterable, *, weight: Optional[Callable] = 
             inflight += w
             i += 1
 
+    has_deadline = deadline_remaining_s() is not None
     try:
         _refill()
         while pending:
             fut, w = pending.popleft()
             t0 = time.perf_counter()
-            result, task_s = fut.result()
+            if has_deadline:
+                # A query with a deadline polls instead of blocking on a
+                # wedged read; the finally cancels the window.
+                while True:
+                    check_deadline("io.read")
+                    try:
+                        result, task_s = fut.result(timeout=0.05)
+                        break
+                    except FutureTimeout:
+                        if fut.done():
+                            # Done in the race after the wait timed out, or
+                            # the task itself raised TimeoutError (the same
+                            # class from 3.11): its own outcome.
+                            result, task_s = fut.result()
+                            break
+            else:
+                result, task_s = fut.result()
             wait_s += time.perf_counter() - t0
             inflight -= w
             done += 1
@@ -410,6 +451,10 @@ def prefetch_iter(source: Iterable, *, nbytes: Optional[Callable] = None,
                         break
                 t0 = time.perf_counter()
                 try:
+                    # The producer runs under a copy of the consumer's
+                    # context, so the armed registry reaches it; an error
+                    # crosses the queue and raises at the consumer.
+                    _faults.fault_point(_fn.IO_PREFETCH_PRODUCE)
                     item = next(it)
                 except StopIteration:
                     break
@@ -445,12 +490,17 @@ def prefetch_iter(source: Iterable, *, nbytes: Optional[Callable] = None,
     wait_s = 0.0
     items = 0
     t_start = time.perf_counter()
+    has_deadline = deadline_remaining_s() is not None
     try:
         while True:
             t0 = time.perf_counter()
             with cond:
                 while not buf and state["error"] is None:
-                    cond.wait()
+                    # A query with a deadline polls the wait, so a stalled
+                    # producer cannot outlive the cancellation.
+                    cond.wait(0.05 if has_deadline else None)
+                    if has_deadline:
+                        check_deadline("io.prefetch")
                 if state["error"] is not None and not buf:
                     raise state["error"]
                 item, w = buf.popleft()

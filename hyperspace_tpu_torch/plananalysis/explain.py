@@ -9,16 +9,18 @@ diagnostic pass: it counts no index usage. With ``diagnostics`` follow the
 "Result cache:" section while the result cache is enabled, the I/O section
 once the reader pool or a prefetch stream has done work, and the
 "Serving:" section while the serving tier is enabled or a frontend has
-taken queries, the "SLO:" section once the SLO monitor's window holds
+taken queries, the "Robustness:" section while the session sets a
+deadline, arms a fault point or turns degrade off, or once a robustness
+counter moved, the "SLO:" section once the SLO monitor's window holds
 queries (with the admission controller's line while adaptive admission is
 on), and the "Trace:" section once a trace was retained. The "Advisor:"
 section follows while workload capture is on or has recorded queries.
 While ``optimizer.joinReorder.enabled`` is set, the "Join order:" section
 shows each join chain's order and its estimates beside the actual rows of
 its last run. The JAX package's other runtime sections wait with their
-tiers: "Compilation:" (eager torch compiles no programs), "Distributed:"
-(the mesh tier) and "Robustness:" (the rest of robustness/); its
-"Serving:" section's program-bank line has no counterpart here.
+tiers: "Compilation:" (eager torch compiles no programs) and
+"Distributed:" (the mesh tier); its "Serving:" section's program-bank line
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -123,6 +125,7 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
         _write_cache_section(buf, session, plan)
         _write_io_section(buf, session)
         _write_serving_section(buf, session)
+        _write_robustness_section(buf, session)
         _write_slo_section(buf, session)
         _write_trace_section(buf, session)
     _write_advisor_section(buf, session, with_index)
@@ -231,6 +234,37 @@ def _write_serving_section(buf: BufferStream, session) -> None:
                        f"batched_queries={s['batched_queries']} "
                        f"shared_scans={s['shared_scans']} "
                        f"member_fallbacks={s['member_fallbacks']}")
+
+
+def _write_robustness_section(buf: BufferStream, session) -> None:
+    """The deadline, retry and degrade knobs, the armed fault points and
+    the process's counters of every ladder; rendered only when the session
+    configures the layer or something already happened (a retry, an
+    injected fault, a degradation, a cancellation)."""
+    from ..robustness import faults as _faults
+    conf = session.hs_conf
+    s = _faults.stats()
+    armed = conf.robustness_fault_specs()
+    configured = bool(armed) or conf.robustness_deadline_ms() > 0 or \
+        not conf.robustness_degrade_enabled()
+    if not configured and not any(s.values()):
+        return
+    buf.write_line()
+    _header(buf, "Robustness:")
+    buf.write_line(f"deadlineMs={conf.robustness_deadline_ms():g} "
+                   f"retry.maxAttempts={conf.robustness_retry_max_attempts()} "
+                   f"retry.baseMs={conf.robustness_retry_base_ms():g} "
+                   f"degrade={'on' if conf.robustness_degrade_enabled() else 'off'}")
+    buf.write_line(f"fault points armed: {len(armed)}"
+                   + (f" ({', '.join(sorted(armed))})" if armed else ""))
+    buf.write_line(f"retries={s['retries']} retry_failures={s['retry_failures']} "
+                   f"injected={s['injected']} cancellations={s['deadline_cancellations']}")
+    buf.write_line(f"degradations: spmd={s['degraded_spmd']} "
+                   f"bank_compile={s['degraded_bank_compile']} "
+                   f"device_put={s['degraded_device_put']} "
+                   f"spill_corrupt={s['spill_corruptions']} "
+                   f"sweep_member={s['member_fallbacks']} "
+                   f"worker_release={s['worker_releases']}")
 
 
 def _write_slo_section(buf: BufferStream, session) -> None:

@@ -1,10 +1,33 @@
 """The fault-point names (counterpart of
 ``hyperspace_tpu/robustness/fault_names.py``, the points this package
 places). Every ``faults.fault_point(...)`` site names one of these; a
-conf key naming any other point is refused.
+conf key naming any other point is refused. The reference's
+``spmd.dispatch`` and ``spmd.compile`` wait for the mesh tier;
+``bank.compile``, ``artifacts.write`` and ``artifacts.read`` belong to
+modules this package leaves out (eager torch compiles no program).
 """
 
 from __future__ import annotations
+
+# One pooled reader task (parallel/io.py imap_ordered): fires inside the
+# retried read, so a transient injection runs the retry path on worker
+# threads and on the sequential loop alike.
+IO_POOLED_READ = "io.pooled_read"
+
+# The prefetch producer advancing its source one item (parallel/io.py
+# prefetch_iter): an error crosses the queue and raises at the consumer.
+IO_PREFETCH_PRODUCE = "io.prefetch_produce"
+
+# The entry of the multi-file scan decode (execution/columnar.read_parquet;
+# every format funnels through it).
+SCAN_PARQUET_DECODE = "scan.parquet_decode"
+
+# Result-cache residency moves (serving/result_cache.py): the copy onto the
+# device at device-tier admission (a failure puts the entry in the host
+# tier), and the spill read-back (a failure is a miss, never a wrong
+# answer).
+RESULT_CACHE_DEVICE_PUT = "result_cache.device_put"
+RESULT_CACHE_SPILL_READ = "result_cache.spill_read"
 
 # Op-log writes (index/log_manager.py): the conditional entry put and the
 # latestStable overwrite.
@@ -14,6 +37,13 @@ LOG_STABLE = "log.stable"
 # The start of an action's op() body (actions/action.py): a crash here
 # leaves the transient log state with partial (or no) index data.
 ACTION_OP = "action.op"
+
+# A serving worker between popping an entry and executing it
+# (serving/frontend._drain): its death releases the held members to run
+# alone. The point fires under the head entry's submit-time context, so
+# arm it with ``faults.scope(registry)`` around the submits; a query's
+# own conf arms its execution, which comes after this point.
+SERVING_WORKER = "serving.worker"
 
 # Streaming ingestion (streaming/ingest.py). INGEST_STAGE fires inside
 # append() before the staged batch's parquet is written; INGEST_PUBLISH
@@ -26,7 +56,23 @@ INGEST_PUBLISH = "ingest.publish"
 # error costs only that poll.
 STREAMING_SOURCE = "streaming.source"
 
+# The serving cluster (cluster/worker.py). CLUSTER_FORWARD fires at the
+# sender before a routed submission ships to its shard owner (an error
+# runs the query locally, to the same bytes); CLUSTER_BROADCAST before
+# each peer's commit notice (an error costs that peer one standing-query
+# fire, never the commit).
+CLUSTER_FORWARD = "cluster.forward"
+CLUSTER_BROADCAST = "cluster.broadcast"
+
+# The buffer pool's probe (execution/buffer_pool.py get()): a load
+# failure drops the entry and reports a miss, so the caller reads the
+# files again; with degrade off it raises.
+BUFFER_LOAD = "buffer.load"
+
 FAULT_NAMES = frozenset({
-    LOG_WRITE, LOG_STABLE, ACTION_OP,
+    IO_POOLED_READ, IO_PREFETCH_PRODUCE, SCAN_PARQUET_DECODE,
+    RESULT_CACHE_DEVICE_PUT, RESULT_CACHE_SPILL_READ,
+    LOG_WRITE, LOG_STABLE, ACTION_OP, SERVING_WORKER,
     INGEST_STAGE, INGEST_PUBLISH, STREAMING_SOURCE,
+    CLUSTER_FORWARD, CLUSTER_BROADCAST, BUFFER_LOAD,
 })

@@ -1,18 +1,29 @@
-"""Fault-injection registry (counterpart of
-``hyperspace_tpu/robustness/faults.py``).
+"""Fault-injection registry, degradation switch and counters (counterpart
+of ``hyperspace_tpu/robustness/faults.py``).
 
-Named fault points (fault_names.py) sit at the op-log and ingestion
-boundaries; ``hyperspace.tpu.robustness.faults.<point>`` conf arms them.
-Disarmed, :func:`fault_point` is one contextvar read.
+Named fault points (fault_names.py) sit at every risky boundary of the
+ported tiers: pooled reads and prefetch producers, parquet decode, the
+buffer pool's probe, the result cache's device copy and spill read-back,
+op-log writes, action bodies, serving workers, ingestion and the cluster's
+forward and broadcast. ``hyperspace.tpu.robustness.faults.<point>`` conf
+arms them. Disarmed, :func:`fault_point` is one contextvar read.
 
-Arming is scoped: ``Action.run``, ``append`` and a continuous source's
-poll loop build one :class:`FaultRegistry` per run from the governing conf
-(:func:`scope_for`), so ``nth=`` and ``times=`` count per run and sessions
-with different fault confs never see each other's injections.
+Arming is scoped: ``Session.execute``, ``Action.run``, ``append`` and a
+continuous source's poll loop build one :class:`FaultRegistry` per run from
+the governing conf (:func:`scope_for`), so ``nth=`` and ``times=`` count
+per run and sessions with different fault confs never see each other's
+injections. :func:`scope` activates a registry built by hand, for a whole
+wave of submissions (``serving.worker`` fires under the submit-time
+context). Reader-pool workers get the registry handed in
+(``fault_point(name, reg=...)``) by the consumer that captured it.
 
 Spec grammar (the conf value): ``kind[:opt=val[,opt=val...]]``, see
 robustness/constants.py. ``kill`` SIGKILLs the process at the point: a
 real kill -9 at an exact protocol position.
+
+:func:`degrade_enabled` is the one switch every degradation ladder asks;
+:func:`note` feeds the process-wide counters (explain's "Robustness:"
+section, the ``robustness`` collector).
 """
 
 from __future__ import annotations
@@ -207,18 +218,55 @@ def scope_for(hs_conf):
         _ARMED.reset(token)
 
 
-# Process-wide robustness counters (the ones this package moves).
-_COUNTER_KEYS = ("injected", "retries", "retry_failures", "deadline_cancellations",
-                 "member_fallbacks", "recovered_indexes", "vacuumed_orphans")
+def degrade_enabled() -> bool:
+    """The ``robustness.degrade.enabled`` switch of the governing session:
+    the active query context's, else the io session scope's (actions),
+    else on. Every degradation ladder asks here."""
+    from ..serving.context import active_context
+    ctx = active_context()
+    session = ctx.session if ctx is not None else None
+    if session is None:
+        from ..parallel import io as pio
+        session = pio.active_session()
+    if session is None:
+        return True
+    return session.hs_conf.robustness_degrade_enabled()
+
+
+# Process-wide robustness counters. ``note`` takes other keys too (the
+# buffer pool's ``degraded_buffer_loads``, the cluster's
+# ``cluster_forward_fallbacks``), which appear once moved.
+_COUNTER_KEYS = (
+    "injected",                # fault points that fired
+    "retries",                 # retry attempts that ran
+    "retry_failures",          # retry sequences that ran out of attempts
+    "deadline_cancellations",  # queries cancelled at a deadline check
+    "degraded_spmd",           # (the mesh tier's; stays 0 here)
+    "degraded_bank_compile",   # (the program bank's; stays 0 here)
+    "degraded_device_put",     # result-cache device copies -> host tier
+    "spill_corruptions",       # corrupt spill files served as misses
+    "artifact_corruptions",    # (the artifact store's; stays 0 here)
+    "member_fallbacks",        # sweep members run again alone
+    "worker_releases",         # entries released from a dying worker
+    "recovered_indexes",       # transient op-log states rolled back
+    "vacuumed_orphans",        # orphaned index data versions removed
+)
 
 # Incidents that make the in-flight query's trace worth keeping under head
 # sampling (telemetry/trace.py tail-keep); not the recovery counters: a
 # maintenance sweep is not a query anomaly.
-_TAIL_KEEP_KEYS = frozenset({"injected", "retries", "retry_failures",
-                             "deadline_cancellations", "member_fallbacks"})
+_TAIL_KEEP_KEYS = frozenset({
+    "injected", "retries", "retry_failures", "deadline_cancellations",
+    "degraded_spmd", "degraded_bank_compile", "degraded_device_put",
+    "spill_corruptions", "artifact_corruptions", "member_fallbacks",
+    "worker_releases",
+})
 # The subset that flips the active QueryContext's ``degraded`` flag (the
 # SLO degrade-rate objective's per-query signal).
-_DEGRADE_KEYS = frozenset({"member_fallbacks"})
+_DEGRADE_KEYS = frozenset({
+    "degraded_spmd", "degraded_bank_compile", "degraded_device_put",
+    "spill_corruptions", "member_fallbacks",
+})
 
 
 class _Stats:
@@ -234,6 +282,11 @@ class _Stats:
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self._counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            for k in self._counts:
+                self._counts[k] = 0
 
 
 _STATS = _Stats()
@@ -256,6 +309,11 @@ def note(**deltas) -> None:
 def stats() -> dict:
     """Process-lifetime robustness counters."""
     return _STATS.snapshot()
+
+
+def reset_stats() -> None:
+    """Zero the counters (between measured phases)."""
+    _STATS.reset()
 
 
 # The robustness counters are a named collector in the process metrics

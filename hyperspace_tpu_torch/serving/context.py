@@ -11,9 +11,10 @@ session attributes:
   session's own), so a conf change mid-query cannot swap it;
 - ``io``: the query's read counters. ``parallel/io.py`` and the buffer pool
   credit the active context beside their process-wide counters;
-- ``deadline_s``: a cooperative deadline, checked at the executor's stage
-  boundaries by :func:`check_deadline`; expiry raises QueryDeadlineError
-  and emits one QueryCancelledEvent;
+- ``deadline_s``: a cooperative deadline (the submit's ``deadline_ms``,
+  else ``robustness.deadlineMs``), checked by :func:`check_deadline` at the
+  executor's stage boundaries, the io waits and the retry backoffs; expiry
+  raises QueryDeadlineError and emits one QueryCancelledEvent;
 - ``trace``: the span tree this query's spans landed in
   (telemetry/trace.py), ``trace_parent`` the shared sweep span a literal
   sweep hands its members, ``trace_force`` (explain_analyze) a trace kept
@@ -81,9 +82,15 @@ class QueryContext:
                     query_id: Optional[int] = None) -> "QueryContext":
         """The context ``Session.execute`` builds when none is handed in.
         ``shared_cache`` (the frontend's cross-session cache) takes
-        precedence over the session's own; ``query_id`` is the frontend's,
+        precedence over the session's own; an explicit ``deadline_s`` (the
+        frontend's submit-time deadline) over the session's
+        ``robustness.deadlineMs``; ``query_id`` is the frontend's,
         allocated at submit time."""
         cache = shared_cache if shared_cache is not None else session.result_cache
+        if deadline_s is None:
+            ms = session.hs_conf.robustness_deadline_ms()
+            if ms > 0:
+                deadline_s = time.perf_counter() + ms / 1000.0
         return cls(session, result_cache=cache, client=client, deadline_s=deadline_s,
                    query_id=query_id, capture=session.hs_conf.advisor_capture_enabled())
 

@@ -39,8 +39,18 @@ SLO admission (adaptive/admission.py): while an armed objective is
 breached and ``adaptive.enabled`` holds, a submission is shed
 (ServingRejectedError, as a full queue) or degraded: it runs alone, never
 in a sweep, and an eligible aggregate runs over a sampled prefix of its
-files and carries ``approx_error_bound``. Not ported here: the fault
-points (with the rest of the robustness tier), which change no answer.
+files and carries ``approx_error_bound``.
+
+Degradation ladders (robustness/, under ``robustness.degrade.enabled``): a
+worker that dies between popping an entry and starting it (the
+``serving.worker`` fault point) releases the held members to run alone
+(``worker_releases``); a sweep member that fails runs again alone
+(``member_fallbacks``). With degrade off both failures land as they are.
+
+Cluster routing (cluster/worker.py): with ``cluster.enabled`` and
+``cluster.routing.enabled``, a submission whose result-cache shard another
+live worker owns is shipped there, and any failure runs it here, to the
+same bytes.
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ from typing import List, Optional
 
 from ..exceptions import HyperspaceException, QueryDeadlineError, ServingRejectedError
 from ..parallel import io as pio
+from ..robustness import fault_names as _fn
+from ..robustness import faults as _faults
 from . import batcher
 from .context import QueryContext, deadline_cancel, next_query_id
 from .fingerprint import estimate_recompute_bytes, normalize
@@ -197,6 +209,18 @@ class ServingFrontend:
             raise HyperspaceException("submit() needs a DataFrame or an explicit session=")
         norm = normalize(plan)
         est = estimate_recompute_bytes(norm)
+        # The cluster router: the finished answer of the shard's owner, or
+        # None to run here. A disabled cluster costs one conf read.
+        if self._hs_conf.cluster_routing_enabled():
+            from ..cluster import worker as _cluster
+            forwarded = _cluster.try_forward(session, plan, norm, client=client,
+                                             deadline_ms=deadline_ms, est=est)
+            if forwarded is not None:
+                with self._lock:
+                    self._stats["submitted"] += 1
+                    self._stats["admitted"] += 1
+                self._observe_latency(forwarded)
+                return forwarded
         batch_key = batcher.template_key(session, norm) \
             if self._hs_conf.serving_batching_enabled() else None
         # A degraded query never joins a sweep, which shares exact scans.
@@ -381,6 +405,9 @@ class ServingFrontend:
             # futures and leak the byte budget: everything past the pop is
             # guarded, and the worker lives on.
             try:
+                # Under the head entry's submit-time context: the submitter's
+                # armed scope reaches this point, the worker carries none.
+                entry.ctx.run(_faults.fault_point, _fn.SERVING_WORKER)
                 window = self._hs_conf.serving_batching_window()
                 limit = self._hs_conf.serving_batching_max_batch()
                 with self._lock:
@@ -406,14 +433,17 @@ class ServingFrontend:
                 self._release_batch(batch, e)
 
     def _release_batch(self, batch: List[_Entry], error) -> None:
-        """After a worker's failure outside any one query: members never
-        started run alone (their own errors land on their own futures);
-        started but unfinished members get the worker's error."""
+        """After a worker's failure outside any one query: with degrade on,
+        members never started run alone (their own errors land on their own
+        futures) and count as degraded; started but unfinished members, and
+        every member with degrade off, get the worker's error."""
+
         for b in batch:
             if b.pending.done():
                 continue
-            if b.pending.started_s is None:
-                self._run_single(b)  # it lands its own outcome
+            if b.pending.started_s is None and b.session.hs_conf.robustness_degrade_enabled():
+                _faults.note(worker_releases=1)
+                self._run_single(b, degraded=True)  # it lands its own outcome
                 continue
             b.pending._finish(error=error)
             self._note(failed=1)
@@ -435,11 +465,11 @@ class ServingFrontend:
         self._queue.clear()
         self._queue.extend(keep)
 
-    def _run_single(self, entry: _Entry) -> None:
+    def _run_single(self, entry: _Entry, degraded: bool = False) -> None:
         entry.pending.started_s = time.perf_counter()
         try:
             self._check_entry_deadline(entry)
-            result = entry.ctx.run(self._execute_entry, entry, None)
+            result = entry.ctx.run(self._execute_entry, entry, None, None, degraded)
             entry.pending._finish(result=result)
             self._note(completed=1)
         except BaseException as e:  # the submitter gets the error
@@ -501,7 +531,9 @@ class ServingFrontend:
                     # neither its siblings nor itself: it runs again alone,
                     # and a lasting error comes from that run unchanged.
                     # The rerun counts as degraded (the SLO degrade rate).
-                    from ..robustness import faults as _faults
+                    # With degrade off the failure is the member's answer.
+                    if not e.session.hs_conf.robustness_degrade_enabled():
+                        raise
                     self._note(member_fallbacks=1)
                     _faults.note(member_fallbacks=1)
                     result = e.ctx.run(self._execute_entry, e, None, trace_parent, True)
@@ -535,9 +567,10 @@ class ServingFrontend:
                                       query_id=entry.pending.query_id)
         qc.trace_parent = trace_parent
         qc.degraded = degraded
-        # A sweep attempt's failure is rescued by a rerun alone, whose
-        # outcome is the query's real SLO sample.
-        qc.slo_suppress_error = sweep is not None
+        # A sweep attempt's failure is rescued by a rerun alone (with degrade
+        # on), whose outcome is the query's real SLO sample.
+        qc.slo_suppress_error = sweep is not None and \
+            entry.session.hs_conf.robustness_degrade_enabled()
         entry.pending.context = qc
         if entry.approx and sweep is None:
             # The SLO degrade tier: an eligible plan runs sampled, its result

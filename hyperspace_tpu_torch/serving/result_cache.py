@@ -14,8 +14,14 @@ Tiers:
             configured, else are evicted;
   spill  -- optional (``serving.result_cache.spillDir``): length-framed
             pickled host tables on disk up to ``spillBytes``. A truncated
-            or corrupt file reads back as a miss (the entry is dropped),
-            never as an error or a wrong answer.
+            or corrupt file (or a read the ``result_cache.spill_read``
+            fault point strikes) reads back as a miss: the entry is
+            dropped and ``spill_corruptions`` counted, never an error or a
+            wrong answer.
+
+A copy onto the device that fails (the ``result_cache.device_put`` fault
+point) puts the entry in the host tier instead (``degraded_device_put``):
+residency never fails the query that computed the result.
 
 Admission is decided by :func:`execute_with_cache` from the execution time
 and the plan's input bytes: a result cheap to recompute is not worth
@@ -34,6 +40,8 @@ from typing import Optional, Tuple
 
 from ..execution.buffer_pool import _moved, _table_to_host
 from ..execution.index_cache import table_nbytes  # noqa: F401 (the shared byte count)
+from ..robustness import fault_names as _fltn
+from ..robustness import faults as _faults
 from .fingerprint import ResultCacheKey, compute_key, estimate_recompute_bytes, normalize
 
 TIER_DEVICE = "device"
@@ -49,6 +57,7 @@ def _to_device(table, device):
     """The table with every tensor on ``device`` (a no-op for a result that
     is there already): the device tier holds device memory, so its budget
     never charges host memory."""
+    _faults.fault_point(_fltn.RESULT_CACHE_DEVICE_PUT)
     if all(c.data.device.type == device.type
            and device.index in (None, c.data.device.index) for c in table.columns.values()):
         return table
@@ -133,6 +142,7 @@ class ResultCache:
                     self.spill_corruptions += 1
             if corrupt:
                 self._unlink(path)
+                _faults.note(spill_corruptions=1)
                 if self._on_spill_corrupt is not None:
                     self._on_spill_corrupt(old[1])
             return None
@@ -173,15 +183,22 @@ class ResultCache:
         no budget."""
         nbytes = table_nbytes(table)
         if nbytes <= self.device_bytes:
-            dev_table = _to_device(table, self.device)  # outside the lock
-            with self._lock:
-                self._drop(key)
-                self._device[key] = (dev_table, nbytes)
-                self._device_nbytes += nbytes
-                self.admissions += 1
-                victims = self._pop_device_victims()
-            self._demote(victims)
-            return TIER_DEVICE
+            try:
+                dev_table = _to_device(table, self.device)  # outside the lock
+            except Exception:
+                if not _faults.degrade_enabled():
+                    raise
+                _faults.note(degraded_device_put=1)
+                dev_table = None  # the host tier below
+            if dev_table is not None:
+                with self._lock:
+                    self._drop(key)
+                    self._device[key] = (dev_table, nbytes)
+                    self._device_nbytes += nbytes
+                    self.admissions += 1
+                    victims = self._pop_device_victims()
+                self._demote(victims)
+                return TIER_DEVICE
         if nbytes <= self.host_bytes:
             host_copy = _table_to_host(table)  # outside the lock
             with self._lock:
@@ -309,8 +326,13 @@ class ResultCache:
 
     @staticmethod
     def _spill_read(path: str):
-        """One spilled table; None for a torn or corrupt file, ``_GONE``
-        for a file a concurrent drop or clear removed."""
+        """One spilled table; None for a torn or corrupt file or a read the
+        ``result_cache.spill_read`` fault point strikes, ``_GONE`` for a
+        file a concurrent drop or clear removed."""
+        try:
+            _faults.fault_point(_fltn.RESULT_CACHE_SPILL_READ)
+        except Exception:
+            return None
         try:
             with open(path, "rb") as f:
                 header = f.read(8)

@@ -259,11 +259,14 @@ class Session:
         call. The context pins the result cache and the advisor's capture
         decision, carries the query's io counters, its deadline and its
         trace. The trace root and the one-shot profiler capture bracket the
-        whole execution; the SLO monitor records every query's latency and
-        outcome."""
+        whole execution, and the session's ``robustness.faults.*`` conf arms
+        its fault points for exactly this execution; the SLO monitor records
+        every query's latency and outcome."""
+        from .robustness import faults as _faults
         from .serving.context import QueryContext
         ctx = context if context is not None else QueryContext.for_session(self)
-        with ctx.activate(), _trace.maybe_profile(self), _trace.query_trace(self, ctx):
+        with ctx.activate(), _faults.scope_for(self.hs_conf), _trace.maybe_profile(self), \
+                _trace.query_trace(self, ctx):
             t0 = time.perf_counter()
             error = suppress = False
             try:

@@ -18,7 +18,9 @@
   change with every commit.
 - Group commit (``CommitCoordinator``, on by default): concurrent
   ``commit()`` callers coalesce into one publication wave, one table-log
-  entry, one delta landing per index and one standing-query fire.
+  entry, one delta landing per index, one standing-query fire and one
+  cluster broadcast (cluster/worker.py: the notice that fires standing
+  queries on the fleet's other workers).
 
 Crash safety (``recover()``): a commit that died before all its batch
 files landed is undone (landed files deleted, the log cancelled, staging
@@ -28,8 +30,7 @@ written). An index delta's wreck recovers through the ordinary index sweep.
 Telemetry: ``ingest.append``, ``ingest.commit`` and ``ingest.wave`` spans
 (a maintenance trace of their own when no query trace is active) and the
 StreamingAppend, StreamingCommit, StreamingIndexDelta and StreamingWave
-events; the commit queue is the ``streaming`` collector. Not ported here:
-the cluster broadcast of a commit (with the cluster tier).
+events; the commit queue is the ``streaming`` collector.
 """
 
 from __future__ import annotations
@@ -438,7 +439,8 @@ class CommitCoordinator:
                     if not truncated:
                         break
                 if agg["committed_batches"]:
-                    agg["subscriptions_fired"] = _fire_subscriptions(session, table_path)
+                    agg["subscriptions_fired"] = _fire_subscriptions(
+                        session, table_path, batches=agg["committed_batches"])
                 agg["sub_waves"] = sub_waves
                 agg["seconds"] = time.perf_counter() - t0
                 if sp is not None:
@@ -1105,7 +1107,8 @@ def commit(session, table_path: str) -> dict:
         return get_coordinator().commit_grouped(session, table_path)
     res, _ = _commit_once(session, table_path)
     if res["committed_batches"]:
-        res["subscriptions_fired"] = _fire_subscriptions(session, table_path)
+        res["subscriptions_fired"] = _fire_subscriptions(session, table_path,
+                                                         batches=res["committed_batches"])
     return res
 
 
@@ -1144,7 +1147,11 @@ def _commit_once(session, table_path: str, limit: Optional[int] = None):
              "subscriptions_fired": 0, "seconds": seconds}, truncated)
 
 
-def _fire_subscriptions(session, table_path: str) -> int:
+def _fire_subscriptions(session, table_path: str, batches: int = 0) -> int:
+    """Fire this process's standing queries over the table, then send the
+    commit notice to the cluster's live peers (cluster/worker.py), so they
+    fire on every worker. A peer's failure costs it one fire, never the
+    durable commit; a disabled cluster costs one conf read."""
     from ..serving import frontend as fe
     fired = 0
     for front in fe.all_frontends():
@@ -1156,6 +1163,9 @@ def _fire_subscriptions(session, table_path: str) -> int:
             continue
     if fired:
         get_queue().note(subscription_fires=fired)
+    if session.hs_conf.cluster_enabled():
+        from ..cluster import worker as _cluster
+        _cluster.broadcast_commit(session, table_path, batches=batches)
     return fired
 
 

@@ -4,9 +4,9 @@ emits).
 
 One event class per action (start/success/failure carried in
 ``message``), the index-usage event of the rewrite rules, and the events
-of the read, serving, streaming, robustness, advisor and adaptive tiers.
-The mesh, program-bank, kernel-compile, artifact and cluster events wait
-with their tiers (``KernelCompileEvent`` counts XLA compiles, which eager
+of the read, serving, streaming, robustness, advisor, adaptive and
+cluster tiers. The mesh, program-bank, kernel-compile and artifact events
+wait with their tiers (``KernelCompileEvent`` counts XLA compiles, which eager
 torch does not do).
 """
 
@@ -478,3 +478,53 @@ class BufferPoolEvictEvent(BufferPoolEvent):
     means it survived to the host tier; otherwise it was dropped."""
 
     demoted: bool = False
+
+
+@dataclass
+class ClusterEvent(HyperspaceEvent):
+    """Base of the serving-cluster events (cluster/worker.py).
+    ``worker_id`` is the emitting worker's identity, the label the
+    OpenMetrics exposition stamps on its samples."""
+
+    worker_id: str = ""
+
+
+@dataclass
+class ClusterJoinEvent(ClusterEvent):
+    """This worker registered its membership record and started its
+    heartbeat (``host``/``port`` are its transport address)."""
+
+    host: str = ""
+    port: int = 0
+
+
+@dataclass
+class ClusterLeaveEvent(ClusterEvent):
+    """This worker removed its membership record (a clean stop; a crashed
+    worker leaves by staleness instead)."""
+
+
+@dataclass
+class ClusterForwardEvent(ClusterEvent):
+    """One routed submission shipped to its shard ``owner``. ``ok`` False:
+    the owner did not answer or refused (a fingerprint mismatch) and the
+    query ran locally; ``hit`` True: the owner answered from its result
+    cache without executing."""
+
+    owner: str = ""
+    key_digest: str = ""
+    ok: bool = False
+    hit: bool = False
+    millis: float = 0.0
+
+
+@dataclass
+class ClusterBroadcastEvent(ClusterEvent):
+    """One commit notice sent to the live peers, so standing queries fire
+    on every worker (``delivered`` of ``peers`` acknowledged). ``batches``
+    is the wave's width: group commit sends one notice a wave."""
+
+    table: str = ""
+    peers: int = 0
+    delivered: int = 0
+    batches: int = 0

@@ -64,6 +64,10 @@ def delta(before: dict, after: dict) -> Dict[str, float]:
     return out
 
 
+def _escape_label(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
 def _fmt(value: float) -> str:
     f = float(value)
     if f == int(f) and abs(f) < 1e15:
@@ -71,14 +75,19 @@ def _fmt(value: float) -> str:
     return repr(f)
 
 
-def render_text(snapshot: dict) -> str:
+def render_text(snapshot: dict, worker: str = "") -> str:
     """OpenMetrics text exposition of one registry/metrics() snapshot.
 
     Family names are first-wins in emission order (registry counters,
     then gauges, then histogram quantiles, then collector leaves), so a
-    family is never emitted twice (the OpenMetrics grammar forbids it)."""
+    family is never emitted twice (the OpenMetrics grammar forbids it).
+
+    A non-empty ``worker`` stamps every sample with a ``worker="<id>"``
+    label (the cluster identity that keeps two workers' series apart);
+    empty, the text is the unlabelled format."""
     lines = []
     seen = set()
+    labels = f'{{worker="{_escape_label(worker)}"}}' if worker else ""
 
     def emit(name: str, mtype: str, value: float,
              help_text: str = "") -> None:
@@ -89,7 +98,7 @@ def render_text(snapshot: dict) -> str:
             lines.append(f"# HELP {name} {help_text}")
         lines.append(f"# TYPE {name} {mtype}")
         sample = name + ("_total" if mtype == "counter" else "")
-        lines.append(f"{sample} {_fmt(value)}")
+        lines.append(f"{sample}{labels} {_fmt(value)}")
 
     for name in sorted(snapshot.get("counters", {})):
         emit(_sanitize(name), "counter",

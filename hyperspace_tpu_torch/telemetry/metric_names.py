@@ -10,8 +10,8 @@ on these strings, which equal the JAX package's.
 
 The reference's other names wait with their tiers: the
 ``serving.sweep_invocations`` counter (the stacked literal-sweep mask,
-left out on purpose) and the ``program_bank``, ``fusion``, ``artifacts``
-and ``cluster`` collectors.
+left out on purpose) and the ``program_bank``, ``fusion`` and
+``artifacts`` collectors.
 """
 
 from __future__ import annotations
@@ -49,10 +49,11 @@ COLLECTOR_ROBUSTNESS = "robustness"
 COLLECTOR_STREAMING = "streaming"
 COLLECTOR_FLIGHT_RECORDER = "flight_recorder"
 COLLECTOR_BUFFER_POOL = "buffer_pool"
+COLLECTOR_CLUSTER = "cluster"
 
 METRIC_NAMES = frozenset({
     TRACE_SAMPLED, TRACE_TAIL_KEPT, TRACE_DISCARDED, FLIGHT_ANOMALIES,
     SLO_BREACHES, SERVING_LATENCY_MS, QUERY_LATENCY_MS, COLLECTOR_IO,
     COLLECTOR_SERVING, COLLECTOR_ROBUSTNESS, COLLECTOR_STREAMING,
-    COLLECTOR_FLIGHT_RECORDER, COLLECTOR_BUFFER_POOL,
+    COLLECTOR_FLIGHT_RECORDER, COLLECTOR_BUFFER_POOL, COLLECTOR_CLUSTER,
 })

@@ -11,8 +11,7 @@ dashboards and explain's "Trace:" section read the same strings.
 
 The reference's other names wait with their tiers: ``bank.*`` (no program
 bank: eager torch compiles no programs), ``exec.fused`` (fusion),
-``spmd.*`` (the mesh tier), ``artifact.*`` (left out by design) and
-``cluster.*`` (the cluster tier).
+``spmd.*`` (the mesh tier) and ``artifact.*`` (left out by design).
 """
 
 from __future__ import annotations
@@ -55,8 +54,16 @@ INGEST_COMPACT = "ingest.compact"
 INGEST_WAVE = "ingest.wave"
 INGEST_SOURCE = "ingest.source"
 
+# Serving cluster (cluster/): one CLUSTER_FORWARD per routed submission
+# (attributes ``owner`` and ``ok``), one CLUSTER_BROADCAST per commit
+# notice to the live peers, one CLUSTER_GATHER per host allgather.
+CLUSTER_FORWARD = "cluster.forward"
+CLUSTER_BROADCAST = "cluster.broadcast"
+CLUSTER_GATHER = "cluster.gather"
+
 SPAN_NAMES = frozenset({
     QUERY, PLAN_NORMALIZE, JOIN_REORDER, INDEX_REWRITE, CACHE_LOOKUP,
     EXEC_STAGE, IO_READ, IO_PREFETCH, SERVING_SWEEP,
     INGEST_APPEND, INGEST_COMMIT, INGEST_COMPACT, INGEST_WAVE, INGEST_SOURCE,
+    CLUSTER_FORWARD, CLUSTER_BROADCAST, CLUSTER_GATHER,
 })

@@ -17,8 +17,9 @@ avro, BucketUnion, indexes over csv and orc, and a reordered join with its
 actuals and explain section; and the lake tier: delta and iceberg tables
 with time travel, Hybrid Scan and an index on the ``hsmem://`` object
 store; and the self-tuning tier: every advisor and adaptive module,
-capture, what-if, recommend and a builder pass) still run end to end on
-the CPU, with the
+capture, what-if, recommend and a builder pass; and the robustness tier
+and the cluster: fault points, retries, ladders, a deadline, a one-worker
+cluster and a two-rank gather) still run end to end on the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -530,6 +531,82 @@ def test_self_tuning_runs_without_jax():
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "SELF_TUNING_OK" in proc.stdout
+
+
+ROBUSTNESS_AND_CLUSTER = textwrap.dedent("""
+    import os, sys, tempfile, threading
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import numpy as np
+    import chip_smoke
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import col
+    from hyperspace_tpu_torch.cluster import (constants, gather, hashring, membership,
+                                              transport, worker)
+    from hyperspace_tpu_torch.execution import buffer_pool
+    from hyperspace_tpu_torch.robustness import faults
+    from hyperspace_tpu_torch.serving.frontend import ServingFrontend
+    root = tempfile.mkdtemp()
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
+    s.conf.set("serving.result_cache.enabled", "true")
+    s.conf.set("serving.result_cache.minComputeSeconds", "0")
+    q = s.read.parquet(li_dir).filter(col("l_quantity") < 20).select("l_orderkey")
+    want = q.to_arrow()
+    before = faults.stats()
+    s.result_cache.clear()
+    buffer_pool.get_pool().clear()
+    for point, spec in (("io.pooled_read", "transient:times=2"), ("buffer.load", "error"),
+                        ("result_cache.device_put", "error")):
+        s.conf.set("hyperspace.tpu.robustness.faults." + point, spec)
+    assert q.to_arrow().equals(want) and q.to_arrow().equals(want)
+    after = faults.stats()
+    assert after["injected"] > before["injected"], (before, after)
+    assert after["degraded_device_put"] == before["degraded_device_put"] + 1, after
+    s.conf.set("hyperspace.tpu.robustness.deadlineMs", "0.001")
+    try:
+        s.read.parquet(od_dir).select("o_orderkey").to_arrow()
+        raise AssertionError("no deadline")
+    except ht.exceptions.QueryDeadlineError:
+        pass
+    s.conf.unset("hyperspace.tpu.robustness.deadlineMs")
+    s.conf.set("hyperspace.tpu.cluster.enabled", "true")
+    s.conf.set("hyperspace.tpu.cluster.worker.id", "w-alone")
+    fe = ServingFrontend(s)
+    assert fe.submit(q).result(timeout=120).to_arrow().equals(want)
+    node = worker.get_node(s)
+    assert node.stats()["members"] == 1 and worker.broadcast_commit(s, li_dir) == 0
+    assert hashring.HashRing(["a", "b"]).owner("x") in ("a", "b")
+    assert membership.membership_dir(s).endswith(constants.CLUSTER_DIR_NAME)
+    me = node.membership.live_members()[0]
+    assert transport.send_request(me.host, me.port, {{"op": "ping"}})["worker"] == "w-alone"
+    fleet = ht.Hyperspace(s).fleet_metrics()
+    assert list(fleet["workers"]) == ["w-alone"], fleet
+    gather.init_process(0, 2, "no-jax-" + root)
+    rdv = gather._rendezvous_dir(gather.process_identity()[2])
+    t = threading.Thread(target=gather.host_allgather, args=(np.array([2]),),
+                         kwargs=dict(rank=1, n=2, seq=1, rendezvous_dir=rdv))
+    t.start()
+    assert gather.allgather(np.array([1])).tolist() == [[1], [2]]
+    t.join()
+    worker.shutdown_for_tests()
+    gather.reset_for_tests()
+    assert sys.modules["jax"] is None and sys.modules["hyperspace_tpu"] is None
+    print("ROBUSTNESS_CLUSTER_OK")
+""")
+
+
+def test_robustness_and_cluster_run_without_jax():
+    """The six cluster modules and the new fault points, retries, ladders
+    and deadline run, with ``jax`` and ``hyperspace_tpu`` unimportable: a
+    pooled-read retry, a buffer-pool load fault and a result-cache device
+    copy fault give the same answer, a deadline cancels, and a one-worker
+    cluster serves, pings, reports fleet metrics and gathers over two ranks."""
+    proc = subprocess.run([sys.executable, "-c", ROBUSTNESS_AND_CLUSTER.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ROBUSTNESS_CLUSTER_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

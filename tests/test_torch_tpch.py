@@ -351,6 +351,33 @@ def test_empty_global_sum_follows_the_staged_path(null_lake):
     assert fused.to_pydict() == {"sv": [None], "aq": [0.0], "c": [0]}
 
 
+@pytest.mark.parametrize("fn", ["min_", "max_"])
+@pytest.mark.parametrize("column", ["k32", "k64", "d", "s"])
+def test_empty_global_min_max_follows_the_staged_path(null_lake, column, fn):
+    """Queue C 20: a global MIN/MAX over no rows of an int32, a nullable
+    int64, a date or a string column. The JAX package's staged path gives
+    the dtype's far end (int32's max for MIN, its min for MAX; the string
+    MIN's code reads back as '' and the MAX's as NULL); the port follows
+    it. The fused default gives NULL for the nullable int64 (queue C 3's
+    pattern), which the port does not follow."""
+    def query(s, E):
+        return s.read.parquet(str(null_lake["root"] / "left")).filter(E.col("q") > 1000) \
+            .agg(getattr(E, fn)(E.col(column)).alias("m"))
+
+    got = query(null_lake["torch"], TE).to_arrow()
+    staged = query(hst.Session(conf={**CONF, "hyperspace.tpu.execution.fusion.enabled": "false"},
+                               system_path=str(null_lake["root"] / "staged")), JE).to_arrow()
+    assert got.schema == staged.schema and got.equals(staged)
+    if column in ("k32", "d"):
+        far = 2147483647 if fn == "min_" else -2147483648
+        assert got.column(0).combine_chunks().view(pa.int32()).to_pylist() == [far]
+    elif column == "k64":
+        assert got.to_pydict() == {"m": [2 ** 63 - 1 if fn == "min_" else -2 ** 63]}
+        assert query(null_lake["jax"], JE).to_arrow().to_pydict() == {"m": [None]}
+    else:
+        assert got.to_pydict() == {"m": ["" if fn == "min_" else None]}
+
+
 # ---------------------------------------------------------------------------
 # The ops, on the same numpy inputs through both packages.
 # ---------------------------------------------------------------------------

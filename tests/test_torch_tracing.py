@@ -548,7 +548,50 @@ OBSERVED_BY = {
     SN.INGEST_WAVE: "test_streaming_append_and_commit_trees_equal_jax",
     SN.INGEST_COMPACT: "test_compaction_and_source_spans",
     SN.INGEST_SOURCE: "test_compaction_and_source_spans",
+    SN.CLUSTER_FORWARD: "test_cluster_forward_broadcast_and_gather_spans",
+    SN.CLUSTER_BROADCAST: "test_cluster_forward_broadcast_and_gather_spans",
+    SN.CLUSTER_GATHER: "test_cluster_forward_broadcast_and_gather_spans",
 }
+
+
+def test_cluster_forward_broadcast_and_gather_spans(tmp_path):
+    """A forward to a peer nobody runs (degraded), a commit notice to it,
+    and a two-rank host gather (rank 1 a thread) each record their span."""
+    import threading
+    import time
+    from hyperspace_tpu_torch.cluster import gather, membership, worker
+    from hyperspace_tpu_torch.cluster.constants import ClusterConstants as CC
+    from hyperspace_tpu_torch.parallel import io as pio
+    session = make_session("torch", str(tmp_path / "ix"),
+                           dict(CONF, **{CC.ENABLED: "true", CC.WORKER_ID: "w-span",
+                                         CC.FORWARD_TIMEOUT_MS: "300"}))
+    node = worker.get_node(session)
+    try:
+        root = membership.membership_dir(session)
+        now = time.time() * 1000.0
+        with open(os.path.join(root, "member-w-gone.json"), "w") as f:
+            f.write(json.dumps({"worker_id": "w-gone", "host": "127.0.0.1", "port": 1,
+                                "pid": 999999, "started_ms": now, "heartbeat_ms": now}))
+        gone = next(m for m in node.membership.live_members() if m.worker_id == "w-gone")
+        gather.init_process(0, 2, f"tracing-{tmp_path}")
+        rdv = gather._rendezvous_dir(gather.process_identity()[2])
+        rank1 = threading.Thread(target=gather.host_allgather, args=(np.array([2]),),
+                                 kwargs=dict(rank=1, n=2, seq=1, rendezvous_dir=rdv))
+        with ttrace.maintenance_trace(session, "cluster") as tr:
+            assert node.forward(gone, None, "digest") is None
+            assert node.broadcast_commit("tbl") == 0
+            rank1.start()
+            with pio.use_session(session):
+                stacked = gather.allgather(np.array([1]))
+            rank1.join(timeout=60)
+        assert stacked.tolist() == [[1], [2]]
+        assert len(tr.find(SN.CLUSTER_FORWARD)) == 1
+        bc, = tr.find(SN.CLUSTER_BROADCAST)
+        assert (bc.attrs["peers"], bc.attrs["delivered"]) == (1, 0)
+        assert len(tr.find(SN.CLUSTER_GATHER)) == 1
+    finally:
+        worker.shutdown_for_tests()
+        gather.reset_for_tests()
 
 
 def test_every_registered_span_is_observed():
