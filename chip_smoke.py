@@ -221,6 +221,27 @@ Phases, each of which fails the run on any error:
               ad-hoc Q6), and a commit under cluster.broadcast=error that
               still lands; a worker killed by SIGKILL leaving the ring
               after the staleness window; prints the ``cluster`` line;
+   mesh    -- after the cluster path (run_mesh_path): TPC-H at SF1 (the
+              largest lineitem the SPMD dispatch's budget takes whole);
+              under the default conf (singleDevice auto: the one-device
+              dispatch on the card) a Q6 window (range kernel), the
+              cutoff sorted and limited (compare kernel; one card sorts
+              the gathered rows once), Q3, Q17, and a left outer and an
+              anti join of orders against lineitem: each dispatched with
+              its ShardedExecutionEvent mode, equal to its run at
+              singleDevice=off (keys, counts, order; float64 within 1e-9)
+              and to pyarrow, warm seconds both ways (median of 3); the
+              sample sort forced on the card, the cutoff's rows again;
+              spmd.dispatch armed (degraded with
+              its event, raised with degrade off); the lineitem mesh
+              build on a mesh of the one card against the single-device
+              build, bucket for bucket; spmd_stats() and explain's
+              "Distributed:" section; the six on the card against the CPU
+              at singleDevice=on, bit for bit at scale 0.01; prints the
+              ``mesh`` line. Since the dispatch is the default on the
+              card, every earlier path's query whose leaf fits
+              maxChunkRows takes it too; the run fails if the SPMD ladder
+              degraded outside an armed fault;
    telemetry -- after the streaming path, on the main path's lake and
               session (run_telemetry_path): indexed Q3 and the cutoff
               filter indexed, warm 10 runs and cold (the buffer pool
@@ -242,16 +263,18 @@ Phases, each of which fails the run on any error:
 8. parity  -- Q3 and Q17 on a small lake on the card and through the
               port on the CPU (which the tests hold to the JAX package),
               reported bit for bit; the sql path's queries on a lake at
-              scale 0.01, which must be equal bit for bit.
+              scale 0.01, which must be equal bit for bit; the CPU side
+              at singleDevice=on, route for route with the card.
 
 Launch counters are reset just before each path (lineitem, orders,
 joins and sources of phases 4-5, io, formats, lake, advisor, sql, reorder,
-serving, streaming, telemetry (its capture counted with it), then
-mutations) and read just after it. Phase 5 runs each
+serving, faults, streaming, cluster, mesh, telemetry (its capture
+counted with it), then mutations) and read just after it. Phase 5 runs each
 query twice: since the buffer pool is on, the second run is warm; phase 7
 empties the pool before each query it times. The last lines of standard
 output are the summary, ``formats``, ``lake``, ``advisor``, ``reorder``,
-``serving``, ``streaming``, ``telemetry`` and ``kernels`` JSON objects, the card's name and power
+``serving``, ``faults``, ``streaming``, ``cluster``, ``mesh``, ``telemetry`` and ``kernels``
+JSON objects, the card's name and power
 limit as nvidia-smi reports them, and the status object ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.
@@ -327,6 +350,9 @@ PATH_KERNELS = {
     # histogram) and its own Q6 runs (range). Each worker's range_mask is
     # read from its metrics reply.
     "cluster": ("hash_bucket", "bucket_histogram", "range_mask"),
+    # The mesh path: the cutoff filter (compare) and the Q6 window (range)
+    # inside the dispatched program, and the one-card mesh build's hash.
+    "mesh": ("hash_bucket", "compare_mask", "range_mask"),
     # Q3 and the cutoff filter (compare); the capture's range query, the
     # pt_idx rebuild (hash, histogram) and the od_skip rebuild (minmax).
     "telemetry": ("hash_bucket", "bucket_histogram", "compare_mask", "range_mask",
@@ -2755,6 +2781,9 @@ def card_against_cpu(root: str) -> dict:
         session = ht.Session(system_path=os.path.join(root, f"parity_indexes{i}"),
                              device=device)
         session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
+        # Route for route: the CPU takes the SPMD dispatch where the card's
+        # default (singleDevice auto) takes it.
+        session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "on")
         hs = ht.Hyperspace(session)
         hs.create_index(session.read.parquet(li_dir), IndexConfig(
             "li_idx", ["l_orderkey"], ["l_extendedprice", "l_discount", "l_shipdate"]))
@@ -3427,6 +3456,10 @@ def sql_session(dirs: dict, system_path: str, device: str, n_li: int):
     session = ht.Session(system_path=system_path, device=device)
     session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 32)
     session.conf.set(IndexConstants.TPU_MAX_CHUNK_ROWS, n_li + 1)
+    if device == "cpu":
+        # Route for route with the card, whose default (singleDevice auto)
+        # takes the SPMD dispatch.
+        session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "on")
     for name, d in dirs.items():
         session.create_temp_view(name, session.read.parquet(d))
     hs = ht.Hyperspace(session)
@@ -4028,7 +4061,13 @@ def run_faults_path(session, dirs: dict, scanned: list, indexed: list, n_li: int
                 disarm()
             return {"error": err}
         step("scan_decode", scan_decode)
-        expect_counters("scan_decode", {"injected": 1})
+        # On the card the scanned Q6 takes the SPMD dispatch (its leaf fits
+        # the budget this session sets): the fault fires in the dispatch's
+        # read, the SPMD ladder degrades to the single-device run, which
+        # meets the fault again and raises the typed error.
+        from hyperspace_tpu_torch.execution import spmd
+        expect_counters("scan_decode", {"injected": 2, "degraded_spmd": 1}
+                        if spmd._spmd_eligible(session) else {"injected": 1})
 
         def prefetch():
             pool.clear()
@@ -5035,6 +5074,362 @@ def cluster_summary(cl: dict, launches: dict, card: str) -> dict:
 # build and Hybrid Scan at the default device budget.
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The mesh path: the SPMD dispatch on the card's one-device mesh.
+# ---------------------------------------------------------------------------
+
+# TPC-H SF1: the largest lineitem the dispatch's own budget (maxChunkRows,
+# 8,388,608 rows) takes whole; above it the reference falls back too.
+MESH_SCALE = 1.0
+MESH_RUNS = 3
+MESH_Q6 = (datetime.date(1994, 1, 1), datetime.date(1994, 12, 31))
+MESH_TOP = 100
+
+
+class MeshEventLog:
+    """The mesh path's event sink, loaded by dotted name
+    (``chip_smoke.MeshEventLog``): that import is another module object
+    than the running script, so read it through :func:`mesh_events`."""
+
+    events = []
+
+    def log_event(self, event):
+        MeshEventLog.events.append(event)
+
+
+def mesh_events() -> list:
+    import importlib
+    return importlib.import_module("chip_smoke").MeshEventLog.events
+
+
+def mesh_queries(session, li_dir: str, od_dir: str, pt_dir: str) -> dict:
+    """The mesh path's six queries: name -> (DataFrame, the ShardedExecution
+    mode its dispatch must take)."""
+    from hyperspace_tpu_torch.plan.expr import col, count, sum_
+
+    li = session.read.parquet(li_dir)
+    od = session.read.parquet(od_dir)
+    ship = col("l_shipdate")
+    q6 = li.filter(((ship >= MESH_Q6[0]) & (ship <= MESH_Q6[1]))
+                   & ((col("l_discount") >= 0.05) & (col("l_discount") <= 0.07))
+                   & (col("l_quantity") < 24)) \
+        .agg(sum_(col("l_extendedprice") * col("l_discount")).alias("revenue"))
+    cutoff = li.filter(ship > CUTOFF) \
+        .select("l_orderkey", "l_extendedprice", "l_shipdate") \
+        .sort(("l_extendedprice", False), "l_orderkey").limit(MESH_TOP)
+    left = od.join(li, on=col("o_orderkey") == col("l_orderkey"), how="left") \
+        .agg(count(None).alias("rows"), count(col("l_orderkey")).alias("matched"),
+             sum_(col("l_quantity")).alias("qty"))
+    anti = od.join(li, on=col("o_orderkey") == col("l_orderkey"), how="anti") \
+        .select("o_orderkey", "o_orderdate")
+    # On one card the cutoff's Sort runs over the gathered rows (the sample
+    # sort needs several devices; run_mesh_path forces it once).
+    return {"q6": (q6, "global-agg"), "cutoff_sort": (cutoff, "stream"),
+            "q3": (build_q3(session, li_dir, od_dir), "grouped-agg"),
+            "q17": (build_q17(session, li_dir, pt_dir), "global-agg"),
+            "left_outer": (left, "global-agg"), "anti": (anti, "stream")}
+
+
+def mesh_references(li_dir: str, od_dir: str, pt_dir: str) -> dict:
+    """Each mesh query by pyarrow alone."""
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+
+    li = ds.dataset(li_dir, format="parquet").to_table(
+        columns=["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_shipdate"])
+    od = ds.dataset(od_dir, format="parquet").to_table(columns=["o_orderkey", "o_orderdate"])
+    ship = li["l_shipdate"]
+    keep = pc.and_(pc.and_(pc.greater_equal(ship, MESH_Q6[0]), pc.less_equal(ship, MESH_Q6[1])),
+                   pc.and_(pc.and_(pc.greater_equal(li["l_discount"], 0.05),
+                                   pc.less_equal(li["l_discount"], 0.07)),
+                           pc.less(li["l_quantity"], 24)))
+    q6 = li.filter(keep)
+    after = li.filter(pc.greater(ship, CUTOFF)).select(
+        ["l_orderkey", "l_extendedprice", "l_shipdate"])
+    top = after.sort_by([("l_extendedprice", "descending"), ("l_orderkey", "ascending")]) \
+        .slice(0, MESH_TOP)
+    matched = od.join(li.select(["l_orderkey", "l_quantity"]), keys="o_orderkey",
+                      right_keys="l_orderkey", join_type="inner")
+    has_items = pc.is_in(od["o_orderkey"], value_set=pc.unique(li["l_orderkey"]))
+    alone = od.filter(pc.invert(has_items))
+    return {
+        "q6": pc.sum(pc.multiply(q6["l_extendedprice"], q6["l_discount"])).as_py(),
+        "cutoff_sort": top.to_pydict(),
+        "q3": q3_reference(li_dir, od_dir),
+        "q17": q17_reference(li_dir, pt_dir),
+        "left_outer": {"rows": matched.num_rows + alone.num_rows,
+                       "matched": matched.num_rows,
+                       "qty": pc.sum(matched["l_quantity"]).as_py()},
+        "anti": alone.to_pydict(),
+    }
+
+
+def check_mesh_answer(name: str, got, ref, what: str) -> None:
+    """A mesh query against its pyarrow reference: keys and counts exact,
+    float64 within REL_TOL."""
+    if name == "q3":
+        check_q3(got, ref[0], ref[1], what)
+        return
+    if name == "q17":
+        check_q17(got, ref, what)
+        return
+    d = got.to_pydict()
+    if name == "q6":
+        if len(d["revenue"]) != 1 or not close(d["revenue"][0], ref):
+            raise AssertionError(f"mesh {what}: q6 revenue {d['revenue']} against {ref}")
+        return
+    if name == "left_outer":
+        if {k: v[0] for k, v in d.items()} != ref:
+            raise AssertionError(f"mesh {what}: left outer {d} against {ref}")
+        return
+    if name == "cutoff_sort":
+        if d["l_orderkey"] != ref["l_orderkey"] or len(d["l_extendedprice"]) != MESH_TOP \
+                or any(not close(a, b) for a, b in zip(d["l_extendedprice"],
+                                                       ref["l_extendedprice"])) \
+                or any(x <= CUTOFF for x in d["l_shipdate"]):
+            raise AssertionError(f"mesh {what}: the cutoff's top {MESH_TOP} differ")
+        return
+    if d != ref:
+        raise AssertionError(f"mesh {what}: {name} differs from its reference "
+                             f"({got.num_rows} rows against {len(ref['o_orderkey'])})")
+
+
+def same_but_floats(a, b) -> bool:
+    """Keys, counts and order equal; float64 values within REL_TOL."""
+    if a.column_names != b.column_names or a.num_rows != b.num_rows:
+        return False
+    for c in a.column_names:
+        if str(a.column(c).type) == "double":
+            if any(not close(x, y) for x, y in zip(a.column(c).to_pylist(),
+                                                   b.column(c).to_pylist())):
+                return False
+        elif not a.column(c).equals(b.column(c)):
+            return False
+    return True
+
+
+def mesh_card_against_cpu(root: str) -> dict:
+    """The mesh path's queries at PARITY_SCALE on the card (singleDevice
+    auto) and through the port on the CPU with singleDevice=on: both take
+    the SPMD dispatch, and every answer must be equal bit for bit."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants
+    from hyperspace_tpu_torch.execution import spmd
+
+    li_dir, od_dir, pt_dir, n_li, _ = make_tpch(os.path.join(root, "mesh_parity"),
+                                                PARITY_SCALE)
+    tables = {}
+    for i, device in enumerate(("cuda", "cpu")):
+        session = ht.Session(system_path=os.path.join(root, f"mesh_parity_ix{i}"),
+                             device=device)
+        if device == "cpu":
+            session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "on")
+        for name, (df, _mode) in mesh_queries(session, li_dir, od_dir, pt_dir).items():
+            before = spmd.DISPATCH_COUNT
+            tables[(device, name)] = df.to_arrow()
+            if spmd.DISPATCH_COUNT == before:
+                raise AssertionError(f"mesh parity: {name} on the {device} did not dispatch")
+    out, unequal = {}, []
+    for (device, name) in list(tables):
+        if device != "cuda":
+            continue
+        card, cpu = tables[("cuda", name)], tables[("cpu", name)]
+        out[name] = card.equals(cpu) and float_bits(card) == float_bits(cpu)
+        if not out[name]:
+            unequal.append(name)
+    log(f"mesh: card against the CPU at scale {PARITY_SCALE} ({n_li} lineitem rows): "
+        f"{'all equal bit for bit' if not unequal else unequal}")
+    if unequal:
+        raise AssertionError(f"mesh: the card and the CPU differ on {unequal}")
+    return out
+
+
+def run_mesh_path(root: str, results: dict) -> None:
+    """The SPMD dispatch on the card: TPC-H SF1 under the default conf
+    (singleDevice auto), six queries each dispatched with the right mode,
+    equal to singleDevice=off (keys, counts, order; float64 within
+    REL_TOL) and to a pyarrow reference, their warm seconds both ways; the
+    sample sort forced on the one card, giving the cutoff's rows; an
+    armed spmd.dispatch fault degrading with its event and raising with
+    degrade off; the mesh build on a mesh of the one card against the
+    single-device build; and the card against the CPU at PARITY_SCALE."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants
+    from hyperspace_tpu_torch.execution import spmd
+    from hyperspace_tpu_torch.execution.columnar import Table, read_parquet
+    from hyperspace_tpu_torch.ops import index_build
+    from hyperspace_tpu_torch.parallel import distributed_build
+    from hyperspace_tpu_torch.parallel.mesh import Mesh
+    from hyperspace_tpu_torch.plananalysis.explain import explain_string
+    from hyperspace_tpu_torch.robustness import faults
+    from hyperspace_tpu_torch.robustness.constants import RobustnessConstants
+
+    t_path = time.perf_counter()
+    out = {"scale": MESH_SCALE, "queries": {}}
+    t0 = time.perf_counter()
+    li_dir, od_dir, pt_dir, n_li, n_od = make_tpch(os.path.join(root, "mesh_data"), MESH_SCALE)
+    out["rows"] = {"lineitem": n_li, "orders": n_od}
+    out["datagen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = mesh_references(li_dir, od_dir, pt_dir)
+    out["reference_s"] = time.perf_counter() - t0
+    session = ht.Session(system_path=os.path.join(root, "mesh_indexes"), device="cuda")
+    session.conf.set(IndexConstants.EVENT_LOGGER_CLASS, "chip_smoke.MeshEventLog")
+    if session.hs_conf.distributed_single_device() != "auto" \
+            or not spmd._spmd_eligible(session):
+        raise AssertionError("mesh: the default conf does not take the dispatch on the card")
+    degraded0 = faults.stats()["degraded_spmd"]
+    queries = mesh_queries(session, li_dir, od_dir, pt_dir)
+    answers = {}
+
+    def timed(df):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        table = df.to_arrow()
+        torch.cuda.synchronize()
+        return table, time.perf_counter() - t
+
+    for name, (df, mode) in queries.items():
+        q = {}
+        events = mesh_events()
+        events.clear()
+        d0, s0 = spmd.DISPATCH_COUNT, spmd.SORT_DISPATCH_COUNT
+        on, q["cold_on_s"] = timed(df)
+        counter = spmd.SORT_DISPATCH_COUNT - s0 if mode == "sort" else spmd.DISPATCH_COUNT - d0
+        modes = [e.mode for e in events if type(e).__name__ == "ShardedExecutionEvent"]
+        faulted = [e.reason for e in events if type(e).__name__ == "DistributedFallbackEvent"
+                   and e.reason.startswith("fault:")]
+        if counter < 1 or mode not in modes or faulted:
+            raise AssertionError(f"mesh {name}: dispatches {counter}, modes {modes}, "
+                                 f"fault fallbacks {faulted}")
+        q["dispatches"] = spmd.DISPATCH_COUNT - d0
+        q["modes"] = modes
+        q["collectives"] = spmd.last_collectives()
+        check_mesh_answer(name, on, refs[name], f"{name} dispatched")
+        runs_on = [timed(df)[1] for _ in range(MESH_RUNS)]
+        session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "off")
+        d1 = spmd.DISPATCH_COUNT
+        off, q["cold_off_s"] = timed(df)
+        runs_off = [timed(df)[1] for _ in range(MESH_RUNS)]
+        session.conf.unset(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE)
+        if spmd.DISPATCH_COUNT != d1:
+            raise AssertionError(f"mesh {name}: singleDevice=off still dispatched")
+        if not same_but_floats(on, off):
+            raise AssertionError(f"mesh {name}: the dispatch and singleDevice=off differ")
+        check_mesh_answer(name, off, refs[name], f"{name} at singleDevice=off")
+        q["warm_on_s"] = sorted(runs_on)[MESH_RUNS // 2]
+        q["warm_off_s"] = sorted(runs_off)[MESH_RUNS // 2]
+        q["rows"] = on.num_rows
+        answers[name] = on
+        out["queries"][name] = q
+        log(f"mesh {name}: {modes} dispatched, warm {q['warm_on_s']:.4f} s on, "
+            f"{q['warm_off_s']:.4f} s off (median of {MESH_RUNS}); cold {q['cold_on_s']:.3f} / "
+            f"{q['cold_off_s']:.3f} s")
+
+    # The sample sort: a mesh of several cards takes it for an ORDER BY; on
+    # one card the gathered rows are sorted once instead. Forced here, it
+    # runs on the card and must give the cutoff's rows.
+    df = queries["cutoff_sort"][0]
+    use_spmd_sort = spmd._use_spmd_sort
+    spmd._use_spmd_sort = lambda session=None: True
+    try:
+        s0 = spmd.SORT_DISPATCH_COUNT
+        forced, cold_s = timed(df)
+        runs = [timed(df)[1] for _ in range(MESH_RUNS)]
+        sorts = spmd.SORT_DISPATCH_COUNT - s0
+    finally:
+        spmd._use_spmd_sort = use_spmd_sort
+    if sorts != MESH_RUNS + 1 or not same_but_floats(forced, answers["cutoff_sort"]):
+        raise AssertionError(f"mesh sample sort: {sorts} sort dispatches, or its rows "
+                             "differ from the one-card sort's")
+    out["sample_sort"] = {"warm_s": sorted(runs)[MESH_RUNS // 2], "cold_s": cold_s,
+                          "sort_dispatches": sorts}
+    log(f"mesh sample sort (forced on one card): warm {out['sample_sort']['warm_s']:.4f} s, "
+        f"the cutoff's rows")
+
+    # An armed spmd.dispatch fault: degraded with its event and the same
+    # answer, and raised with degrade off.
+    t0 = time.perf_counter()
+    df = queries["q6"][0]
+    fault_key = "hyperspace.tpu.robustness.faults.spmd.dispatch"
+    before = faults.stats()["degraded_spmd"]
+    events = mesh_events()
+    events.clear()
+    session.conf.set(fault_key, "error")
+    degraded = df.to_arrow()
+    reasons = [e.reason for e in events if type(e).__name__ == "DistributedFallbackEvent"]
+    moved = faults.stats()["degraded_spmd"] - before
+    check_mesh_answer("q6", degraded, refs["q6"], "q6 under the armed fault")
+    if moved != 1 or not any(r.startswith("fault:") for r in reasons):
+        raise AssertionError(f"mesh fault: degraded_spmd moved {moved}, reasons {reasons}")
+    session.conf.set(RobustnessConstants.DEGRADE_ENABLED, "false")
+    try:
+        df.to_arrow()
+        raise AssertionError("mesh fault: degrade off did not raise")
+    except AssertionError:
+        raise
+    except Exception as e:
+        raised = type(e).__name__
+    session.conf.unset(RobustnessConstants.DEGRADE_ENABLED)
+    session.conf.unset(fault_key)
+    out["fault"] = {"degraded_spmd": moved, "reason": reasons[0], "raised_with_degrade_off":
+                    raised, "seconds": time.perf_counter() - t0}
+    degraded_total = faults.stats()["degraded_spmd"] - degraded0
+    if degraded_total != moved:
+        raise AssertionError(f"mesh: degraded_spmd moved {degraded_total} outside the armed "
+                             f"step's {moved}")
+
+    # The mesh build on a mesh of the one card against the single-device
+    # build (_use_mesh_build declines one device, so it is called here).
+    t0 = time.perf_counter()
+    table = read_parquet(sorted(os.path.join(li_dir, f) for f in os.listdir(li_dir)),
+                         ["l_orderkey", "l_partkey", "l_extendedprice"], "cuda")
+    b0 = distributed_build.DISPATCH_COUNT
+    tables, bids = distributed_build.distributed_build_sorted_buckets(
+        table, ["l_orderkey"], 32, Mesh([torch.device("cuda", 0)]))
+    whole, bounds = index_build.build_sorted_buckets(table, ["l_orderkey"], 32)
+    got_bounds = torch.searchsorted(bids[0].to(torch.int64),
+                                    torch.arange(33, device=bids[0].device)).cpu().numpy()
+    same = all(torch.equal(tables[0].column(c).data, whole.column(c).data)
+               for c in whole.names) and (got_bounds == bounds).all()
+    if distributed_build.DISPATCH_COUNT != b0 + 1 or not same:
+        raise AssertionError("mesh build: the one-card mesh build differs from the "
+                             "single-device build")
+    torch.cuda.synchronize()
+    out["build"] = {"rows": table.num_rows, "buckets": 32, "bucket_for_bucket_equal": True,
+                    "collectives": distributed_build.last_collectives(),
+                    "seconds": time.perf_counter() - t0}
+    del table, tables, whole
+    out["stats"] = ht.Hyperspace(session).spmd_stats()
+    text = explain_string(session, queries["q6"][0].plan)
+    section = text[text.index("Distributed:") - 61:].split("\n\n")[0]
+    log("mesh: spmd_stats " + json.dumps(out["stats"]))
+    log("mesh: explain's section\n" + section)
+    out["explain"] = section
+    session.conf.unset(IndexConstants.EVENT_LOGGER_CLASS)
+    del session
+    shutil.rmtree(os.path.join(root, "mesh_data"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "mesh_indexes"), ignore_errors=True)
+    t0 = time.perf_counter()
+    out["card_against_cpu"] = mesh_card_against_cpu(root)
+    out["card_against_cpu_s"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(root, "mesh_parity"), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_path
+    results["mesh"] = out
+
+
+def mesh_summary(ms: dict, launches: dict, card: str) -> dict:
+    return {"seconds": ms["seconds"], "card": card, "launches": launches,
+            "rows": ms["rows"], "datagen_s": ms["datagen_s"],
+            "queries": {k: {f: v[f] for f in ("warm_on_s", "warm_off_s", "cold_on_s",
+                                              "cold_off_s", "modes", "rows")}
+                        for k, v in ms["queries"].items()},
+            "sample_sort": ms["sample_sort"], "fault": ms["fault"], "build": ms["build"],
+            "card_against_cpu": ms["card_against_cpu"], "stats": ms["stats"]}
+
+
 def append_lineitem_files(li_dir: str, n_li: int, seed: int = 99) -> int:
     """BASELINE config #5's append, as bench.py makes it: about 5% new rows
     in one fresh part file (inside the 0.3 Hybrid Scan appended-bytes
@@ -5088,11 +5483,15 @@ def append_orders_file(od_dir: str, n_rows: int, first_key: int, part: int,
 class Spans:
     """Host-clock seconds per label around the wrapped functions, the
     device synchronized before and after each call; a generator's time is
-    counted per item it yields."""
+    counted per item it yields. With ``outermost`` a call made inside
+    another wrapped call is not counted again, so the spans add up to no
+    more than the wall time."""
 
-    def __init__(self, patches):
+    def __init__(self, patches, outermost: bool = False):
         self.patches = patches
         self.spans: dict = {}
+        self.outermost = outermost
+        self._depth = threading.local()
 
     def _add(self, label, t0):
         import torch
@@ -5117,11 +5516,16 @@ class Spans:
                 yield item
 
         def wrapper(*a, **k):
+            depth = getattr(self._depth, "n", 0)
+            if self.outermost and depth:
+                return fn(*a, **k)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            self._depth.n = depth + 1
             try:
                 out = fn(*a, **k)
             finally:
+                self._depth.n = depth
                 self._add(label, t0)
             return gen(out) if inspect.isgenerator(out) else out
         return wrapper
@@ -6087,7 +6491,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
     from hyperspace_tpu_torch import (BloomFilterSketch, DataSkippingIndexConfig,
                                       IndexConfig, IndexConstants, MinMaxSketch)
     from hyperspace_tpu_torch.actions import create, create_skipping
-    from hyperspace_tpu_torch.execution import buffer_pool, executor
+    from hyperspace_tpu_torch.execution import buffer_pool, executor, spmd
     from hyperspace_tpu_torch.execution.columnar import Table
     from hyperspace_tpu_torch.index.manager import CachingIndexCollectionManager
     from hyperspace_tpu_torch.ops import cuda_kernels, index_build, kernels, sketches
@@ -6141,6 +6545,17 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
             ("build od_bloom", lambda: drop("od_bloom"),
              lambda: hs.create_index(od, bloom_config),
              sketch_spans + [(sketches, "bloom_bits", "bloom hash + scatter + pack (device)")])]
+    # The SPMD dispatch's own stages (every main-path query whose leaf fits
+    # maxChunkRows takes it on the card): the body's filter masks, its
+    # joins, its partials and merges, the sample sort.
+    spmd_spans = [(spmd, "eval_predicate_mask", "filter (device)"),
+                  (spmd, "_broadcast_probe", "join: broadcast probe (device, dispatch)"),
+                  (spmd, "_exchange_join", "join: exchange (device, dispatch)"),
+                  (spmd._AggSpec, "partials", "aggregate (device)"),
+                  (spmd, "_grouped_partials", "aggregate (device)"),
+                  (spmd, "_merge_global", "aggregate (device)"),
+                  (spmd, "_merge_grouped", "aggregate (device)"),
+                  (spmd, "_sample_sort", "sort + limit (device)")]
     join_spans = [(executor, "_probe_keys", "join: keys, null drop, composite or sort (device)"),
                   (kernels, "merge_join_indices", "join: bounds + expansion (device)"),
                   (executor, "_gather_join_output", "join: gathers (device)"),
@@ -6152,7 +6567,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
             spans_of = [(executor, "read_parquet", "parquet read -> device"),
                         (executor, "read_relation_files", "parquet read -> device"),
                         (executor, "_filter_table", "filter (device)"),
-                        (Table, "to_arrow", "result -> host arrow")]
+                        (Table, "to_arrow", "result -> host arrow")] + spmd_spans
             if name in ("q3", "q17"):
                 spans_of += join_spans
             if indexed:
@@ -6165,7 +6580,7 @@ def breakdown(session, hs, queries, li_dir: str, od_dir: str, pt_dir: str,
                          lambda n=name, i=indexed: run(n, i), spans_of))
     out = {}
     for label, prep, fn, patches in work:
-        with Spans(patches) as timer:
+        with Spans(patches, outermost=True) as timer:
             if prep:
                 prep()
             torch.cuda.synchronize()
@@ -6220,11 +6635,31 @@ def _stage_nodes(plan) -> list:
     return out
 
 
+def _dispatched_stage_nodes(plan) -> list:
+    """The stages of a plan whose Aggregate takes the SPMD dispatch: the
+    nodes down to the Aggregate, then inside its ``spmd.dispatch`` the
+    stream leaf's read (Q3's is not narrowed by its filter, so it is a
+    stage of its own) and each join's other side, bottom-up. The chain's
+    filters, projects and joins run inside the program."""
+    if plan.node_name != "Aggregate":
+        return [plan.node_name] + [n for c in plan.children
+                                   for n in _dispatched_stage_nodes(c)]
+    node, joins = plan.child, []
+    while node.children:
+        if node.node_name == "Join":
+            joins.append(node)
+        node = node.children[0]
+    return ["Aggregate", node.node_name] + [n for j in reversed(joins)
+                                             for n in _stage_nodes(j.right)]
+
+
 def check_q3_trace(trace, optimized) -> int:
     """The cold Q3's span tree: the query root over plan.normalize,
     rewrite.index_rules and one exec.stage span per executed plan node (in
-    plan order), with an io.read span under each scan's stage. Returns
-    the span count."""
+    plan order; with the SPMD dispatch, which a CUDA session takes by
+    default, the stages of :func:`_dispatched_stage_nodes` under one
+    spmd.dispatch span), with an io.read span under each scan's stage.
+    Returns the span count."""
     from hyperspace_tpu_torch.telemetry import span_names as SN
 
     root = trace.root
@@ -6247,7 +6682,10 @@ def check_q3_trace(trace, optimized) -> int:
             walk(k)
 
     walk(root)
-    want = _stage_nodes(optimized)
+    dispatched = trace.find(SN.SPMD_DISPATCH)
+    want = _dispatched_stage_nodes(optimized) if dispatched else _stage_nodes(optimized)
+    if len(dispatched) > 1:
+        raise AssertionError(f"telemetry: {len(dispatched)} spmd.dispatch spans in Q3")
     if stages != want:
         raise AssertionError(f"telemetry: exec.stage spans {stages}, plan nodes {want}")
     reads = trace.find(SN.IO_READ)
@@ -6484,6 +6922,8 @@ def main(argv=None) -> int:
     from hyperspace_tpu_torch.ops import cuda_kernels as ck
 
     t_start = time.perf_counter()
+    from hyperspace_tpu_torch.robustness import faults
+    degraded_at_start = faults.stats()["degraded_spmd"]
     card = gpu_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "scale": args.scale}
@@ -6581,8 +7021,10 @@ def main(argv=None) -> int:
         log(f"serving: launches {launches['serving']}; "
             f"{results['serving']['seconds']:.1f} s")
         ck.reset_launches()
+        degraded_before_faults = faults.stats()["degraded_spmd"]
         run_faults_path(sql_session_, sql_dirs, q6_scanned, q6_indexed,
                         results["sql"]["rows"]["lineitem"], results)
+        degraded_armed = faults.stats()["degraded_spmd"] - degraded_before_faults
         launches["faults"] = dict(ck.LAUNCHES)
         log(f"faults: launches {launches['faults']}; {results['faults']['seconds']:.1f} s")
         ck.reset_launches()
@@ -6595,6 +7037,10 @@ def main(argv=None) -> int:
         run_cluster_path(root, sql_session_, sql_dirs, results["sql"]["rows"], results)
         launches["cluster"] = dict(ck.LAUNCHES)
         log(f"cluster: launches {launches['cluster']}; {results['cluster']['seconds']:.1f} s")
+        ck.reset_launches()
+        run_mesh_path(root, results)
+        launches["mesh"] = dict(ck.LAUNCHES)
+        log(f"mesh: launches {launches['mesh']}; {results['mesh']['seconds']:.1f} s")
         ck.reset_launches()
         run_telemetry_path(session, hs, queries, results)
         launches["telemetry"] = dict(ck.LAUNCHES)
@@ -6655,6 +7101,14 @@ def main(argv=None) -> int:
             e["launches"] = sum(e["launches_by_path"].values())
         results["card_against_cpu"] = card_against_cpu(root)
         results["sql_card_against_cpu"] = sql_card_against_cpu(root)
+        # The SPMD ladder may degrade only under an armed fault (the faults
+        # path's steps and the mesh path's armed step): a degradation
+        # anywhere else hides a fault of the port on the card.
+        degraded_armed += results["mesh"]["fault"]["degraded_spmd"]
+        degraded = faults.stats()["degraded_spmd"] - degraded_at_start
+        if degraded != degraded_armed:
+            raise AssertionError(f"degraded_spmd moved {degraded} in the run, "
+                                 f"{degraded_armed} of them under armed faults")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6707,6 +7161,8 @@ def main(argv=None) -> int:
                      default=str))
     print(json.dumps({"cluster": cluster_summary(results["cluster"], launches["cluster"],
                                                  card)}, default=str))
+    print(json.dumps({"mesh": mesh_summary(results["mesh"], launches["mesh"], card)},
+                     default=str))
     print(json.dumps({"telemetry": telemetry_summary(results["telemetry"],
                                                      launches["telemetry"], card)},
                      default=str))

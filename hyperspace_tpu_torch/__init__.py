@@ -15,7 +15,10 @@ Scan reads an index whose source gained or (with lineage) lost files;
 inputs above the device budget stream in chunks. ``df.write`` writes
 results, bucketed by the same hash and histogram kernels or
 hive-partitioned, and the planner can reorder inner-join chains by
-estimated rows. Sketch probes at plan time are host numpy. The
+estimated rows. Eligible queries run as one per-device program over a
+mesh of devices (on one card, the default route of every plan whose
+leaf fits the device budget), and index builds exchange buckets over a
+mesh of several. Sketch probes at plan time are host numpy. The
 on-disk layout and the operation log are the JAX package's, so either
 package reads the other's indexes; an index may live on an object store
 registered for its system path's scheme.

@@ -1,11 +1,11 @@
 """CreateAction: validate + build a covering index on the device
-(counterpart of ``hyperspace_tpu/actions/create.py``; the mesh build is
-not ported).
+(counterpart of ``hyperspace_tpu/actions/create.py``).
 
 ``CreateActionBase`` is the machinery create shares with the refresh and
 optimize actions: the projected read with the optional lineage column, the
-in-memory build, the chunked build for a source above
-``hyperspace.tpu.maxChunkRows`` rows, and the log entry's assembly.
+in-memory build (over the whole mesh when it has more than one device),
+the chunked build for a source above ``hyperspace.tpu.maxChunkRows`` rows,
+and the log entry's assembly.
 """
 
 from __future__ import annotations
@@ -116,15 +116,56 @@ class CreateActionBase(Action):
 
     def _write_index_files(self, table: Table, indexed: List[str], version: int) -> str:
         """Hash-partition + sort on the device, then one parquet file per
-        bucket under the version's directory."""
+        bucket under the version's directory. With more than one device in
+        the mesh the build runs over all of them (one bucket exchange,
+        ``parallel/distributed_build.py``)."""
         num_buckets = self._num_buckets()
         out_dir = self.data_manager.get_path(version)
         file_utils.makedirs(out_dir)
+        if self._use_mesh_build(table):
+            self._write_index_files_distributed(table, indexed, num_buckets, out_dir)
+            return out_dir
         sorted_table, bounds = index_build.build_sorted_buckets(table, indexed, num_buckets)
         # One wholesale fetch; the per-bucket writes then slice host memory.
         write_bucket_files(sorted_table.to_host(), bounds, num_buckets, out_dir,
                            self.session.hs_conf.index_row_group_size())
         return out_dir
+
+    def _use_mesh_build(self, table: Table) -> bool:
+        from ..parallel.mesh import mesh_devices
+        from ..telemetry.logging import emit_distributed_fallback
+        if not self.session.hs_conf.distributed_enabled():
+            return False
+        if len(mesh_devices(self.session)) <= 1:
+            return False
+        if table.num_rows == 0:
+            emit_distributed_fallback(self.session, "index_build", "empty source table")
+            return False
+        # The query dispatch's cost gate (distributed.minStreamRows; 0
+        # disables it).
+        min_rows = self.session.hs_conf.distributed_min_stream_rows()
+        if 0 < table.num_rows < min_rows:
+            emit_distributed_fallback(
+                self.session, "index_build",
+                f"source {table.num_rows} rows below distributed.minStreamRows {min_rows}")
+            return False
+        return True
+
+    def _write_index_files_distributed(self, table: Table, indexed: List[str],
+                                       num_buckets: int, out_dir: str) -> None:
+        """The mesh build: device ``i`` holds exactly the buckets of its
+        range, each sorted, so each bucket's file is a slice of one
+        device's rows (the single-device build's layout)."""
+        from ..parallel.distributed_build import distributed_build_sorted_buckets
+        from ..parallel.mesh import session_mesh
+
+        tables, bids = distributed_build_sorted_buckets(
+            table, indexed, num_buckets, session_mesh(self.session))
+        row_group_size = self.session.hs_conf.index_row_group_size()
+        for t, b in zip(tables, bids):
+            bounds = torch.searchsorted(b.to(torch.int64), torch.arange(
+                num_buckets + 1, device=b.device)).cpu().numpy()
+            write_bucket_files(t, bounds, num_buckets, out_dir, row_group_size)
 
     def _build_chunked(self, relation, indexed: List[str], included: List[str],
                        tracker: FileIdTracker, version: int,

@@ -261,6 +261,29 @@ class Hyperspace:
         out = get_registry().collect(MN.COLLECTOR_IO)
         return out if out is not None else pio.pool_stats()
 
+    def spmd_stats(self) -> dict:
+        """The mesh tier: whether distribution is on, the mesh the next
+        dispatch would span and its platform, the dispatch tallies (queries,
+        sorts, builds), mesh programs compiled (0: eager torch compiles
+        none), the last dispatch's collectives and capacity attempts, and
+        whether a multi-file leaf shards on file boundaries (always)."""
+        from .execution import spmd
+        from .parallel import distributed_build
+        from .parallel.mesh import mesh_devices
+        devices = mesh_devices(self.session)
+        return {
+            "enabled": self.session.hs_conf.distributed_enabled(),
+            "mesh_devices": len(devices),
+            "platform": devices[0].type,
+            "query_dispatches": spmd.DISPATCH_COUNT,
+            "sort_dispatches": spmd.SORT_DISPATCH_COUNT,
+            "build_dispatches": distributed_build.DISPATCH_COUNT,
+            "mesh_programs_compiled": 0,  # eager torch compiles no program
+            "last_collectives": spmd.last_collectives(),
+            "last_cap_attempts": spmd.LAST_CAP_ATTEMPTS,
+            "file_aligned_scan": True,
+        }
+
     def buffer_pool_stats(self) -> dict:
         """The buffer pool's counters (execution/buffer_pool.py): hits per
         tier, misses, admissions, host->device ``transfers`` (0 new ones on

@@ -12,9 +12,9 @@ process gets its array back untouched. Several pick a path by
   stacked in rank order. Sequence numbers are per-process and count up, so
   program order keeps them aligned across ranks. The rendezvous is a port
   file under the system temp dir, keyed by the job's coordinator address.
-- ``native``: a collective of ``torch.distributed``'s process group, which
-  the mesh tier owns; until it lands this raises
-  :class:`NativeGatherUnavailable`.
+- ``native``: ``all_gather`` over ``torch.distributed``'s process group
+  (``parallel/multihost.initialize_multihost`` joins it); without an
+  initialized group it raises :class:`NativeGatherUnavailable`.
 - ``auto``: ``host`` while ``torch.distributed`` has no initialized
   process group (the reference's verdict for a backend without
   multiprocess collectives), else ``native``.
@@ -52,9 +52,8 @@ _IDENTITY: Optional[Tuple[int, int, str]] = None  # (rank, n, coordinator)
 
 
 class NativeGatherUnavailable(HyperspaceException):
-    """``cluster.gather=native`` (or ``auto`` under an initialized
-    process group) before the mesh tier, which owns the process group and
-    its collectives, is ported."""
+    """``cluster.gather=native`` without an initialized
+    ``torch.distributed`` process group."""
 
 
 def init_process(rank: int, n: int, coordinator: str) -> None:
@@ -124,10 +123,7 @@ def allgather(x: np.ndarray) -> np.ndarray:
     if mode == "auto":
         mode = "host" if _process_group() is None else "native"
     if mode == "native":
-        raise NativeGatherUnavailable(
-            "cluster.gather=native needs the mesh tier, which owns the "
-            "torch.distributed process group and is not ported yet; use "
-            "cluster.gather=host (or auto without a process group)")
+        return _native_allgather(x)
     global _SEQ
     with _HUB_LOCK:
         _SEQ += 1
@@ -136,6 +132,27 @@ def allgather(x: np.ndarray) -> np.ndarray:
         return host_allgather(x, rank=rank, n=n, seq=seq,
                               rendezvous_dir=_rendezvous_dir(coordinator),
                               timeout_s=GATHER_TIMEOUT_S)
+
+
+def _native_allgather(x: np.ndarray) -> np.ndarray:
+    """``all_gather`` over the initialized process group (every rank's
+    ``x`` has one shape and dtype, as the host star requires too)."""
+    import torch
+    import torch.distributed as dist
+    if _process_group() is None:
+        raise NativeGatherUnavailable(
+            "cluster.gather=native needs an initialized torch.distributed process group "
+            "(parallel/multihost.initialize_multihost); use cluster.gather=host or auto")
+    src = np.ascontiguousarray(x)
+    wire = src.view(np.uint8) if src.dtype == np.bool_ else src
+    t = torch.from_numpy(wire.copy())
+    if dist.get_backend() == "nccl":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    with _trace.span(SN.CLUSTER_GATHER):
+        dist.all_gather(parts, t)
+    out = np.stack([p.cpu().numpy() for p in parts])
+    return out.view(np.bool_) if src.dtype == np.bool_ else out
 
 
 def _rendezvous_dir(coordinator: str) -> str:

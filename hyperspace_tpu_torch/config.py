@@ -86,6 +86,33 @@ class HyperspaceConf:
         return int(self._conf.get(IndexConstants.INDEX_ROW_GROUP_SIZE,
                                   str(IndexConstants.INDEX_ROW_GROUP_SIZE_DEFAULT)))
 
+    # The mesh tier (execution/spmd.py, parallel/).
+
+    def distributed_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.TPU_DISTRIBUTED_ENABLED,
+                              IndexConstants.TPU_DISTRIBUTED_ENABLED_DEFAULT)
+
+    def distributed_single_device(self) -> str:
+        v = str(self._conf.get(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE,
+                               IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE_DEFAULT)).lower()
+        # The sibling boolean flags' spellings are accepted; anything else
+        # is refused rather than read as "auto".
+        v = {"true": "on", "false": "off"}.get(v, v)
+        if v not in ("auto", "on", "off"):
+            from .exceptions import HyperspaceException
+            raise HyperspaceException(
+                f"{IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE} must be "
+                f"auto/on/off (or true/false), got {v!r}")
+        return v
+
+    def distributed_mesh_max_devices(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_DISTRIBUTED_MESH_MAX_DEVICES,
+                                  IndexConstants.TPU_DISTRIBUTED_MESH_MAX_DEVICES_DEFAULT))
+
+    def distributed_min_stream_rows(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_DISTRIBUTED_MIN_STREAM_ROWS,
+                                  IndexConstants.TPU_DISTRIBUTED_MIN_STREAM_ROWS_DEFAULT))
+
     def max_chunk_rows(self) -> int:
         return int(self._conf.get(IndexConstants.TPU_MAX_CHUNK_ROWS,
                                   IndexConstants.TPU_MAX_CHUNK_ROWS_DEFAULT))

@@ -64,7 +64,47 @@ def execute(plan: LogicalPlan, session) -> Table:
     # Every read under this execution takes the session's io and buffer
     # pool conf.
     with pio.use_session(session):
+        # A {Filter, Project, Join}* chain root (under optional Sort/Limit)
+        # runs SPMD over the mesh, its rows gathered per device
+        # (execution/spmd.py); Aggregate roots dispatch in _execute_node.
+        from . import spmd
+        result = _spmd_with_fault_fallback(
+            lambda: spmd.try_execute_plan(plan, session, _spmd_executor(session)), session)
+        if result is not None:
+            return result
         return _execute(plan, None, session)
+
+
+def _spmd_executor(session):
+    """The single-device executor the SPMD path materializes join sides
+    with."""
+    return lambda plan, needed: _execute(plan, needed, session)
+
+
+def _spmd_with_fault_fallback(run, session) -> Optional[Table]:
+    """The SPMD -> single-device degradation ladder: a fault of the SPMD
+    dispatch degrades to the single-device run of the same stage (the
+    same answer), observable as a DistributedFallbackEvent whose reason
+    starts with "fault:". A structural mismatch already returns None in
+    ``try_execute_*``. A deadline error is a cancellation and a re-plan
+    request a control transfer: both pass through. With
+    ``robustness.degrade.enabled=false`` the fault raises."""
+    from ..exceptions import QueryDeadlineError
+    try:
+        return run()
+    except QueryDeadlineError:
+        raise
+    except Exception as e:
+        from ..adaptive.feedback import ReplanRequested
+        if isinstance(e, ReplanRequested):
+            raise
+        if session is None or not session.hs_conf.robustness_degrade_enabled():
+            raise
+        from ..robustness import faults as _faults
+        from ..telemetry.logging import emit_distributed_fallback
+        _faults.note(degraded_spmd=1)
+        emit_distributed_fallback(session, "spmd_query", f"fault: {type(e).__name__}: {e}")
+        return None
 
 
 def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
@@ -174,6 +214,14 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
         _record_join_actual(plan, table, session)
         return table
     if isinstance(plan, Aggregate):
+        # Eligible aggregation subtrees run SPMD over the mesh; any
+        # mismatch, and through the ladder any dispatch fault, falls back.
+        from . import spmd
+        result = _spmd_with_fault_fallback(
+            lambda: spmd.try_execute_aggregate(plan, session, _spmd_executor(session)),
+            session)
+        if result is not None:
+            return result
         child_needed = set(plan.group_cols)
         for a in plan.aggs:
             child_needed.update(a.references)

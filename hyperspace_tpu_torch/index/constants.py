@@ -97,6 +97,22 @@ class IndexConstants:
     # most this many (ops/index_build.py, execution/executor.py).
     TPU_MAX_CHUNK_ROWS = "hyperspace.tpu.maxChunkRows"
     TPU_MAX_CHUNK_ROWS_DEFAULT = str(8 * 1024 * 1024)
+    # The mesh tier (execution/spmd.py, parallel/): with more than one
+    # device in the mesh, eligible queries run as one per-device program
+    # over it and index builds exchange buckets over it. singleDevice
+    # "auto" takes the one-device dispatch on a CUDA session and skips it on
+    # the CPU; "on"/"off" force. maxDevices caps the mesh (0 = every visible
+    # device); minStreamRows keeps smaller leaves single-device (0 disables
+    # the gate). A multi-file parquet leaf always shards on file
+    # boundaries (the reference's fileAlignedScan default).
+    TPU_DISTRIBUTED_ENABLED = "hyperspace.tpu.distributed.enabled"
+    TPU_DISTRIBUTED_ENABLED_DEFAULT = "true"
+    TPU_DISTRIBUTED_SINGLE_DEVICE = "hyperspace.tpu.distributed.singleDevice"
+    TPU_DISTRIBUTED_SINGLE_DEVICE_DEFAULT = "auto"
+    TPU_DISTRIBUTED_MESH_MAX_DEVICES = "hyperspace.tpu.distributed.mesh.maxDevices"
+    TPU_DISTRIBUTED_MESH_MAX_DEVICES_DEFAULT = "0"
+    TPU_DISTRIBUTED_MIN_STREAM_ROWS = "hyperspace.tpu.distributed.minStreamRows"
+    TPU_DISTRIBUTED_MIN_STREAM_ROWS_DEFAULT = "4096"
     # When set, every plan execution runs under torch.profiler and writes
     # its chrome trace (CPU and CUDA timeline) into this directory, one
     # file per execution (telemetry/trace.profile_into).

@@ -1,1 +1,3 @@
-"""Host-side parallelism: the pooled ordered reader and the prefetcher."""
+"""Parallelism: the pooled ordered reader and the prefetcher (``io``), and
+the mesh tier (``mesh``, ``sharding``, ``distributed_build``,
+``distributed_query``, ``multihost``)."""

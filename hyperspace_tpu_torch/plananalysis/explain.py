@@ -124,6 +124,7 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
     if diagnostics:
         _write_cache_section(buf, session, plan)
         _write_io_section(buf, session)
+        _write_spmd_section(buf, session)
         _write_serving_section(buf, session)
         _write_robustness_section(buf, session)
         _write_slo_section(buf, session)
@@ -173,6 +174,35 @@ def _write_io_section(buf: BufferStream, session) -> None:
                        f"transfers={bp['transfers']} "
                        f"decode_bytes_saved={bp['decode_bytes_saved']} "
                        f"resident={bp['device_nbytes']}+{bp['host_nbytes']}")
+
+
+def _write_spmd_section(buf: BufferStream, session) -> None:
+    """The mesh tier: the mesh the dispatch would span, the dispatch
+    tallies and the last program's collectives. Rendered only once an SPMD
+    program dispatched or a mesh build ran, so explain output of sessions
+    that never went distributed is unchanged."""
+    from ..execution import spmd
+    from ..parallel import distributed_build
+    if spmd.DISPATCH_COUNT + distributed_build.DISPATCH_COUNT == 0:
+        return
+    from ..parallel.mesh import mesh_devices
+    conf = session.hs_conf
+    devices = mesh_devices(session)
+    buf.write_line()
+    _header(buf, "Distributed:")
+    buf.write_line(
+        f"distributed: {'on' if conf.distributed_enabled() else 'off'} "
+        f"(mesh devices={len(devices)} platform={devices[0].type} "
+        f"singleDevice={conf.distributed_single_device()} "
+        "fileAlignedScan=on)")
+    buf.write_line(
+        f"dispatches: queries={spmd.DISPATCH_COUNT} sorts={spmd.SORT_DISPATCH_COUNT} "
+        f"builds={distributed_build.DISPATCH_COUNT} "
+        "mesh programs compiled=0")
+    lc = spmd.last_collectives()
+    if lc:
+        pairs = " ".join(f"{k}={v}" for k, v in sorted(lc.items()) if v)
+        buf.write_line(f"last program collectives: {pairs or 'none'}")
 
 
 def _write_cache_section(buf: BufferStream, session, plan: LogicalPlan) -> None:

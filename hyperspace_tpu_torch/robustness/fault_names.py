@@ -2,9 +2,9 @@
 ``hyperspace_tpu/robustness/fault_names.py``, the points this package
 places). Every ``faults.fault_point(...)`` site names one of these; a
 conf key naming any other point is refused. The reference's
-``spmd.dispatch`` and ``spmd.compile`` wait for the mesh tier;
-``bank.compile``, ``artifacts.write`` and ``artifacts.read`` belong to
-modules this package leaves out (eager torch compiles no program).
+``spmd.compile``, ``bank.compile``, ``artifacts.write`` and
+``artifacts.read`` have no site here: eager torch compiles no program, and
+the program bank and the artifact store are left out.
 """
 
 from __future__ import annotations
@@ -64,6 +64,11 @@ STREAMING_SOURCE = "streaming.source"
 CLUSTER_FORWARD = "cluster.forward"
 CLUSTER_BROADCAST = "cluster.broadcast"
 
+# The SPMD mesh dispatch (execution/spmd._run/_run_stream), before any
+# mesh work: a failure here runs the executor's SPMD -> single-device
+# degradation ladder.
+SPMD_DISPATCH = "spmd.dispatch"
+
 # The buffer pool's probe (execution/buffer_pool.py get()): a load
 # failure drops the entry and reports a miss, so the caller reads the
 # files again; with degrade off it raises.
@@ -74,5 +79,5 @@ FAULT_NAMES = frozenset({
     RESULT_CACHE_DEVICE_PUT, RESULT_CACHE_SPILL_READ,
     LOG_WRITE, LOG_STABLE, ACTION_OP, SERVING_WORKER,
     INGEST_STAGE, INGEST_PUBLISH, STREAMING_SOURCE,
-    CLUSTER_FORWARD, CLUSTER_BROADCAST, BUFFER_LOAD,
+    CLUSTER_FORWARD, CLUSTER_BROADCAST, BUFFER_LOAD, SPMD_DISPATCH,
 })

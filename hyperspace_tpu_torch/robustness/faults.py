@@ -241,7 +241,7 @@ _COUNTER_KEYS = (
     "retries",                 # retry attempts that ran
     "retry_failures",          # retry sequences that ran out of attempts
     "deadline_cancellations",  # queries cancelled at a deadline check
-    "degraded_spmd",           # (the mesh tier's; stays 0 here)
+    "degraded_spmd",           # SPMD faults absorbed by single-device runs
     "degraded_bank_compile",   # (the program bank's; stays 0 here)
     "degraded_device_put",     # result-cache device copies -> host tier
     "spill_corruptions",       # corrupt spill files served as misses

@@ -5,9 +5,10 @@ emits).
 One event class per action (start/success/failure carried in
 ``message``), the index-usage event of the rewrite rules, and the events
 of the read, serving, streaming, robustness, advisor, adaptive and
-cluster tiers. The mesh, program-bank, kernel-compile and artifact events
-wait with their tiers (``KernelCompileEvent`` counts XLA compiles, which eager
-torch does not do).
+cluster tiers, and the mesh tier's fallback, sharded-execution and
+exchange events. The program-bank, kernel-compile and artifact events are
+left out (``KernelCompileEvent`` counts XLA compiles, which eager torch does
+not do).
 """
 
 from __future__ import annotations
@@ -103,6 +104,53 @@ class RefreshQuickActionEvent(HyperspaceIndexCRUDEvent):
 @dataclass
 class OptimizeActionEvent(HyperspaceIndexCRUDEvent):
     pass
+
+
+@dataclass
+class DistributedFallbackEvent(HyperspaceEvent):
+    """A distributed path (the mesh build, an SPMD query) ran single-device
+    instead. ``where`` is "index_build" or "spmd_query"; ``reason`` the
+    cause ("fault: ..." when the degradation ladder absorbed a fault)."""
+
+    where: str = ""
+    reason: str = ""
+
+
+@dataclass
+class ShardedExecutionEvent(HyperspaceEvent):
+    """One successful SPMD dispatch (execution/spmd.py): the mesh it ran
+    over, the layout of its inputs and outputs, whether the leaf sharded
+    on file boundaries, the collectives its body issued ("all-to-all" the
+    exchanges, "all-reduce" the psum/pmin/pmax merges, "all-gather" the
+    sort's samples) and its capacity attempts (always 1: shards are sized
+    exactly)."""
+
+    mode: str = ""            # global-agg | grouped-agg | stream | sort
+    mesh_axes: Optional[List[str]] = None
+    mesh_shape: Optional[List[int]] = None
+    mesh_platform: str = ""
+    shard_rows: int = 0
+    file_aligned_scan: bool = False
+    in_specs: str = ""
+    out_specs: str = ""
+    collectives: Optional[dict] = None
+    cap_attempts: int = 1
+
+
+@dataclass
+class SpmdExchangeEvent(HyperspaceEvent):
+    """One join stage (or the sort's range exchange) of an SPMD dispatch:
+    the strategy (``broadcast``, ``exchange`` or ``sort-route``), the
+    largest block one device sent one device (``capacity``), the largest
+    per-device output (``output_slots``) and the all-to-alls the stage
+    asked for."""
+
+    stage: int = -1
+    join_type: str = ""
+    strategy: str = ""        # broadcast | exchange | sort-route
+    capacity: int = 0
+    output_slots: int = 0
+    all_to_all: int = 0
 
 
 @dataclass

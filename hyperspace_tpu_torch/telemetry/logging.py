@@ -44,3 +44,13 @@ def get_logger(class_name: Optional[str]) -> EventLogger:
 def log_event(session, event: HyperspaceEvent) -> None:
     """Emit ``event`` through ``session``'s conf-selected logger."""
     get_logger(session.hs_conf.event_logger_class()).log_event(event)
+
+
+def emit_distributed_fallback(session, where: str, reason: str) -> None:
+    """Record that a distributed path ran single-device instead: the one
+    emission point of every fallback site."""
+    from .events import DistributedFallbackEvent
+    get_logger(session.hs_conf.event_logger_class()).log_event(
+        DistributedFallbackEvent(
+            message=f"{where} fell back to single-device execution",
+            where=where, reason=reason))

@@ -9,9 +9,9 @@ Variable detail (node kinds, hit/miss, byte counts) rides in span
 attributes, never in the name. The names equal the JAX package's, so
 dashboards and explain's "Trace:" section read the same strings.
 
-The reference's other names wait with their tiers: ``bank.*`` (no program
-bank: eager torch compiles no programs), ``exec.fused`` (fusion),
-``spmd.*`` (the mesh tier) and ``artifact.*`` (left out by design).
+The reference's other names are left out: ``bank.*`` and ``spmd.compile``
+(eager torch compiles no programs), ``exec.fused`` (fusion, not ported)
+and ``artifact.*`` (left out by design).
 """
 
 from __future__ import annotations
@@ -54,6 +54,10 @@ INGEST_COMPACT = "ingest.compact"
 INGEST_WAVE = "ingest.wave"
 INGEST_SOURCE = "ingest.source"
 
+# One SPMD mesh dispatch (execution/spmd._run/_run_stream; attributes
+# ``mode``, ``rows``, ``cap_attempts``).
+SPMD_DISPATCH = "spmd.dispatch"
+
 # Serving cluster (cluster/): one CLUSTER_FORWARD per routed submission
 # (attributes ``owner`` and ``ok``), one CLUSTER_BROADCAST per commit
 # notice to the live peers, one CLUSTER_GATHER per host allgather.
@@ -63,7 +67,7 @@ CLUSTER_GATHER = "cluster.gather"
 
 SPAN_NAMES = frozenset({
     QUERY, PLAN_NORMALIZE, JOIN_REORDER, INDEX_REWRITE, CACHE_LOOKUP,
-    EXEC_STAGE, IO_READ, IO_PREFETCH, SERVING_SWEEP,
+    EXEC_STAGE, IO_READ, IO_PREFETCH, SPMD_DISPATCH, SERVING_SWEEP,
     INGEST_APPEND, INGEST_COMMIT, INGEST_COMPACT, INGEST_WAVE, INGEST_SOURCE,
     CLUSTER_FORWARD, CLUSTER_BROADCAST, CLUSTER_GATHER,
 })

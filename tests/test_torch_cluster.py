@@ -8,7 +8,7 @@ package's ``cluster/``. The oracle is the JAX package's
 - membership records are one format: either package reads the other's,
   and staleness expires them alike;
 - the host gather stacks like ``np.stack`` (threads as ranks), a single
-  process gets its array back, and ``native`` waits for the mesh tier;
+  process gets its array back, and ``native`` gathers over a torch.distributed group;
 - disabled, the cluster is a no-op with the same bytes;
 - one enabled worker degrades as the JAX one does (node counters and
   events compared scenario by scenario);
@@ -389,8 +389,10 @@ def test_threaded_three_rank_star_equals_np_stack(tmp_path, pkg):
 
 def test_allgather_modes(tmp_path):
     """Two ranks through ``allgather`` (rank 1 a thread through the star);
-    ``native`` raises the typed error naming the mesh tier; ``auto``
-    without a process group takes the host path."""
+    ``native`` without a torch.distributed process group raises the typed
+    error naming the group (with one it gathers over it:
+    tests/test_torch_multihost.py); ``auto`` without a process group takes
+    the host path."""
     tgather.init_process(0, 2, f"test-{tmp_path}")
     ident = tgather.process_identity()
     rdv = tgather._rendezvous_dir(ident[2])
@@ -407,7 +409,7 @@ def test_allgather_modes(tmp_path):
     np.testing.assert_array_equal(got, [[3, 4], [5, 6]])
     np.testing.assert_array_equal(other["out"], got)
     tgather.force_mode("native")
-    with pytest.raises(tgather.NativeGatherUnavailable, match="mesh tier"):
+    with pytest.raises(tgather.NativeGatherUnavailable, match="process group"):
         tgather.allgather(np.array([1]))
     tgather.force_mode(None)
     assert tgather._mode() == "auto"

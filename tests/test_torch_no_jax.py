@@ -609,6 +609,56 @@ def test_robustness_and_cluster_run_without_jax():
     assert "ROBUSTNESS_CLUSTER_OK" in proc.stdout
 
 
+MESH = textwrap.dedent("""
+    import importlib, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import torch
+    import chip_smoke
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants
+    from hyperspace_tpu_torch.plan.expr import col, count, sum_
+    for name in ("parallel.mesh", "parallel.sharding", "parallel.distributed_build",
+                 "parallel.distributed_query", "parallel.multihost", "execution.spmd"):
+        importlib.import_module("hyperspace_tpu_torch." + name)
+    from hyperspace_tpu_torch.execution import spmd
+    from hyperspace_tpu_torch.parallel import distributed_build, multihost
+    root = tempfile.mkdtemp()
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
+    s.conf.set(IndexConstants.TPU_DISTRIBUTED_MIN_STREAM_ROWS, "0")
+    q = lambda: s.read.parquet(li_dir).filter(col("l_quantity") < 20).group_by(
+        "l_partkey").agg(count(None).alias("n"), sum_(col("l_quantity")).alias("q"))
+    staged = q().to_arrow()
+    s.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "on")
+    before = spmd.DISPATCH_COUNT
+    assert q().to_arrow().equals(staged)
+    assert spmd.DISPATCH_COUNT == before + 1
+    from hyperspace_tpu_torch.parallel import mesh as pmesh
+    pmesh.mesh_devices = lambda session=None: [torch.device("cpu")] * 4
+    assert q().to_arrow().equals(staged)
+    b0 = distributed_build.DISPATCH_COUNT
+    ht.Hyperspace(s).create_index(s.read.parquet(od_dir),
+                                  ht.IndexConfig("od_mesh", ["o_orderkey"], ["o_totalprice"]))
+    assert distributed_build.DISPATCH_COUNT == b0 + 1
+    assert ht.Hyperspace(s).spmd_stats()["mesh_devices"] == 4
+    assert multihost.initialize_multihost()["process_count"] == 1
+    assert sys.modules["jax"] is None and sys.modules["hyperspace_tpu"] is None
+    print("MESH_OK")
+""")
+
+
+def test_mesh_tier_runs_without_jax():
+    """The mesh tier's six modules import, a one-device SPMD dispatch and a
+    4-device CPU mesh give the staged answer, and a mesh build runs, with
+    ``jax`` and ``hyperspace_tpu`` unimportable."""
+    proc = subprocess.run([sys.executable, "-c", MESH.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "MESH_OK" in proc.stdout
+
+
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ht.HyperspaceException, match="CUDA is not available"):

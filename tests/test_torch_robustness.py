@@ -27,6 +27,7 @@ import pandas as pd
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+import torch
 
 import hyperspace_tpu as hst
 import hyperspace_tpu_torch as ht
@@ -197,13 +198,15 @@ def both(tmp_path, scenario):
 # Names, specs and registries.
 # ---------------------------------------------------------------------------
 
-LEFT_OUT = {"spmd.dispatch", "spmd.compile", "bank.compile", "artifacts.write",
-            "artifacts.read"}
+LEFT_OUT = {"spmd.compile", "bank.compile", "artifacts.write", "artifacts.read"}
 
 
 def test_fault_names_are_the_reference_less_the_five_refused():
+    """Queue C item 14, narrowed to four with the mesh tier: spmd.dispatch
+    is placed, the four compile and artifact points stay refused."""
     assert TFN.FAULT_NAMES == JFN.FAULT_NAMES - LEFT_OUT
-    assert len(TFN.FAULT_NAMES) == 15
+    assert len(TFN.FAULT_NAMES) == 16
+    assert TFN.SPMD_DISPATCH == "spmd.dispatch"
     for name in TFN.FAULT_NAMES:
         const = [k for k, v in vars(TFN).items() if v == name and k.isupper()]
         assert const and all(getattr(JFN, k) == name for k in const)
@@ -977,3 +980,46 @@ def test_kill9_mid_create_then_recover(tmp_path, point):
     j, t = both(tmp_path, scenario)
     assert j == t and j[0]
     assert j[1][0] == ["kx"]
+
+
+# ---------------------------------------------------------------------------
+# The SPMD -> single-device ladder (spmd.dispatch, placed with the mesh tier).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("degrade", ["true", "false"])
+def test_spmd_dispatch_fault_degrades_or_raises_as_jax(tmp_path, monkeypatch, degrade):
+    """An armed ``spmd.dispatch`` on a one-device mesh (singleDevice=on in
+    both packages): with degrade on, the same answer as unarmed, one
+    ``degraded_spmd`` and a fallback event whose reason starts "fault:";
+    with degrade off, the injected error. The same in both packages."""
+    from hyperspace_tpu.execution import spmd as jspmd
+    from hyperspace_tpu_torch.execution import spmd as tspmd
+    monkeypatch.setattr(jspmd, "_device_count", lambda *a: 1)
+    monkeypatch.setattr("hyperspace_tpu_torch.parallel.mesh.mesh_devices",
+                        lambda session=None: [torch.device("cpu")])
+    d = write(tmp_path / "data")
+    out = {}
+    for p in PKGS:
+        s = p.session(tmp_path / p.name, **{
+            "hyperspace.tpu.distributed.enabled": "true",
+            IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE: "on",
+            IndexConstants.TPU_DISTRIBUTED_MIN_STREAM_ROWS: "0",
+            RC.DEGRADE_ENABLED: degrade})
+        want = ipc(query(p, s, d))
+        capture_logger().events.clear()
+        before = p.faults.stats()
+        s.conf.set(fkey(p.FN.SPMD_DISPATCH), "error")
+        try:
+            got = ("answer", ipc(query(p, s, d)) == want)
+        except Exception as e:
+            got = ("error", type(e).__name__)
+        after = p.faults.stats()
+        reasons = [e.reason.split(":")[0] for e in capture_logger().events
+                   if type(e).__name__ == "DistributedFallbackEvent"]
+        out[p.name] = (got, after["degraded_spmd"] - before["degraded_spmd"],
+                       after["injected"] - before["injected"], reasons)
+    assert out["torch"] == out["jax"]
+    if degrade == "true":
+        assert out["torch"] == (("answer", True), 1, 1, ["fault"])
+    else:
+        assert out["torch"] == (("error", "InjectedFaultError"), 0, 1, [])

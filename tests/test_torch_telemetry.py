@@ -238,8 +238,16 @@ def test_io_and_buffer_pool_stats_read_through_the_registry(tmp_path, monkeypatc
     assert hs.buffer_pool_stats() == {"from": 2}
 
 
-def test_metrics_text_names_equal_jax_and_parse_strictly(tmp_path):
+def test_metrics_text_names_equal_jax_and_parse_strictly(tmp_path, monkeypatch):
     from prometheus_client.openmetrics.parser import text_string_to_metric_families
+
+    from hyperspace_tpu.robustness import faults as jfaults
+    from hyperspace_tpu_torch.robustness import faults as tfaults
+    # The robustness counters are process-wide and take keys that appear
+    # once moved: start both packages' anew, so a counter an earlier test
+    # moved in one package only is not read as a name the other lacks.
+    monkeypatch.setattr(jfaults, "_STATS", jfaults._Stats())
+    monkeypatch.setattr(tfaults, "_STATS", tfaults._Stats())
     families = {}
     for pkg in PKGS:
         session, d = make_pair(str(tmp_path), pkg)

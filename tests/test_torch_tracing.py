@@ -27,6 +27,7 @@ import json
 import os
 
 import numpy as np
+import torch
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
@@ -551,7 +552,31 @@ OBSERVED_BY = {
     SN.CLUSTER_FORWARD: "test_cluster_forward_broadcast_and_gather_spans",
     SN.CLUSTER_BROADCAST: "test_cluster_forward_broadcast_and_gather_spans",
     SN.CLUSTER_GATHER: "test_cluster_forward_broadcast_and_gather_spans",
+    SN.SPMD_DISPATCH: "test_spmd_dispatch_span_equals_jax",
 }
+
+
+def test_spmd_dispatch_span_equals_jax(lake, monkeypatch):
+    """A one-device SPMD dispatch (singleDevice=on, both packages on a
+    one-device mesh) records one spmd.dispatch span under the aggregate's
+    stage, with the same mode and rows."""
+    from hyperspace_tpu.execution import spmd as jspmd
+    from hyperspace_tpu_torch.execution import spmd as tspmd
+    monkeypatch.setattr(jspmd, "_device_count", lambda *a: 1)
+    monkeypatch.setattr("hyperspace_tpu_torch.parallel.mesh.mesh_devices",
+                        lambda session=None: [torch.device("cpu")])
+    conf = dict(CONF, **{"hyperspace.tpu.distributed.enabled": "true",
+                         "hyperspace.tpu.distributed.singleDevice": "on",
+                         "hyperspace.tpu.distributed.minStreamRows": "0"})
+    got = {}
+    for pkg, mod in PKGS.items():
+        session = make_session(pkg, str(lake["root"] / f"{pkg}_spmd"), conf)
+        E = expr_module(pkg)
+        session.read.parquet(lake["dirs"]["lineitem"]).filter(
+            E.col("l_quantity") < 20).agg(E.count(None).alias("n")).to_arrow()
+        spans = mod.Hyperspace(session).last_trace().find(SN.SPMD_DISPATCH)
+        got[pkg] = [(sp.attrs["mode"], sp.attrs["rows"]) for sp in spans]
+    assert got["torch"] == got["jax"] == [("agg", 1)]
 
 
 def test_cluster_forward_broadcast_and_gather_spans(tmp_path):
