@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (hyperspace_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scale 10] [--out chiprun_out/chip_smoke.json]
+    python3 chip_smoke.py [--scale 10] [--sql-scale 2] [--out chiprun_out/chip_smoke.json]
 
 Phases, each of which fails the run on any error:
 
@@ -161,10 +161,11 @@ Phases, each of which fails the run on any error:
               full refresh of od_lin_idx, each checked against the files
               and a reference;
    sql     -- after the io path: a TPC-H lake with the columns the nine
-              texts of tests/test_tpch_sql.py read, at SF10 row counts
-              (lineitem 60M rows in 4 files, orders 15M in 16, customer
-              1.5M, part 2M, partsupp 8M, supplier 100k), TPC-H's value
-              domains, seeded; covering indexes sql_li_ship (l_shipdate),
+              texts of tests/test_tpch_sql.py read, at ``--sql-scale``
+              (SF2: lineitem 12M rows in 4 files, orders 3M in 16,
+              customer 300k, part 400k, partsupp 1.6M, supplier 20k; the
+              serving, faults, streaming and cluster paths run on this
+              lake too), TPC-H's value domains, seeded; covering indexes sql_li_ship (l_shipdate),
               sql_li_pk (l_partkey) and sql_pt_pk (p_partkey); the nine
               texts, Q13's outer join and a rank and running sum over each
               customer's orders through session.sql, twice indexed and
@@ -228,9 +229,15 @@ Phases, each of which fails the run on any error:
               cutoff sorted and limited (compare kernel; one card sorts
               the gathered rows once), Q3, Q17, and a left outer and an
               anti join of orders against lineitem: each dispatched with
-              its ShardedExecutionEvent mode, equal to its run at
-              singleDevice=off (keys, counts, order; float64 within 1e-9)
-              and to pyarrow, warm seconds both ways (median of 3); the
+              its ShardedExecutionEvent mode; at singleDevice=off each
+              takes the fused route (execution/fusion.py) where the CPU
+              run at scale 0.01 takes it (fused regions and boundary
+              kinds), the mask kernels launching inside the regions, and
+              with fusion.enabled=false the staged route; the three
+              routes' answers equal bit for bit and equal to pyarrow,
+              warm seconds of each (median of 3); a global SUM/MIN of a
+              nullable column under a filter that keeps nothing: NULL
+              fused, the staged values staged, as on the CPU; the
               sample sort forced on the card, the cutoff's rows again;
               spmd.dispatch armed (degraded with
               its event, raised with degrade off); the lineitem mesh
@@ -2816,9 +2823,15 @@ def card_against_cpu(root: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # The sql path: TPC-H texts through session.sql on a lake with the TPC-H
-# schema's columns at SF10 row counts.
+# schema's columns at --sql-scale row counts (SQL_SCALE by default).
 # ---------------------------------------------------------------------------
 
+# The sql lake's default scale factor. It is smaller than the main lake's:
+# the sql path and the four paths on its lake (serving, faults, streaming,
+# cluster) read every table again and again, and at SF10 they took about
+# 520 s of a whole run that came within reach of its 1,200 s limit on a slow
+# host. At SF2 every text still selects rows (Q19 about 300 lineitem rows).
+SQL_SCALE = 2.0
 # Rows per scale factor and files per table (TPC-H v3.0.1 4.2.5).
 TPCH_SQL_ROWS = {"lineitem": 6_000_000, "orders": 1_500_000, "customer": 150_000,
                  "part": 200_000, "partsupp": 800_000, "supplier": 10_000}
@@ -3608,7 +3621,7 @@ def _q6_params(count: int = 16, seed: int = 6) -> list:
 
 Q6_PARAMS = _q6_params()
 # The serving path's frontend conf. Each member's input estimate is the
-# whole lineitem at SF10 (2.8 GB of files): the admission budget must hold
+# whole lineitem (2.8 GB of files at SF10): the admission budget must hold
 # the 16 of a wave, as a deployment serving such sweeps would set it.
 SERVING_CONF = {"hyperspace.tpu.serving.maxConcurrency": "1",
                 "hyperspace.tpu.serving.batching.window": "0.3",
@@ -4063,11 +4076,15 @@ def run_faults_path(session, dirs: dict, scanned: list, indexed: list, n_li: int
         step("scan_decode", scan_decode)
         # On the card the scanned Q6 takes the SPMD dispatch (its leaf fits
         # the budget this session sets): the fault fires in the dispatch's
-        # read, the SPMD ladder degrades to the single-device run, which
-        # meets the fault again and raises the typed error.
+        # read, and the SPMD ladder degrades to the single-device run. There
+        # the Aggregate's fused region meets it in its leaf read and, degrade
+        # being on, runs staged; the Project-over-Filter below is a region of
+        # its own and meets it too; the staged read meets it last and raises
+        # the typed error. The reference's single-device run counts the same
+        # three.
         from hyperspace_tpu_torch.execution import spmd
-        expect_counters("scan_decode", {"injected": 2, "degraded_spmd": 1}
-                        if spmd._spmd_eligible(session) else {"injected": 1})
+        expect_counters("scan_decode", {"injected": 4, "degraded_spmd": 1}
+                        if spmd._spmd_eligible(session) else {"injected": 3})
 
         def prefetch():
             pool.clear()
@@ -5214,11 +5231,11 @@ def mesh_card_against_cpu(root: str) -> dict:
     the SPMD dispatch, and every answer must be equal bit for bit."""
     import hyperspace_tpu_torch as ht
     from hyperspace_tpu_torch import IndexConstants
-    from hyperspace_tpu_torch.execution import spmd
+    from hyperspace_tpu_torch.execution import fusion, spmd
 
     li_dir, od_dir, pt_dir, n_li, _ = make_tpch(os.path.join(root, "mesh_parity"),
                                                 PARITY_SCALE)
-    tables = {}
+    tables, routes = {}, {}
     for i, device in enumerate(("cuda", "cpu")):
         session = ht.Session(system_path=os.path.join(root, f"mesh_parity_ix{i}"),
                              device=device)
@@ -5229,6 +5246,13 @@ def mesh_card_against_cpu(root: str) -> dict:
             tables[(device, name)] = df.to_arrow()
             if spmd.DISPATCH_COUNT == before:
                 raise AssertionError(f"mesh parity: {name} on the {device} did not dispatch")
+            if device == "cpu":
+                # The route the card's singleDevice=off run must take.
+                session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "off")
+                f0, fb0 = fusion.DISPATCH_COUNT, fusion.stats()["fallbacks"]
+                df.to_arrow()
+                routes[name] = fusion_route(fb0, f0)
+                session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "on")
     out, unequal = {}, []
     for (device, name) in list(tables):
         if device != "cuda":
@@ -5241,14 +5265,72 @@ def mesh_card_against_cpu(root: str) -> dict:
         f"{'all equal bit for bit' if not unequal else unequal}")
     if unequal:
         raise AssertionError(f"mesh: the card and the CPU differ on {unequal}")
+    return out, routes
+
+
+def same_bits(a, b) -> bool:
+    """Equal tables, float64 columns bit for bit."""
+    return a.schema == b.schema and a.equals(b) and float_bits(a) == float_bits(b)
+
+
+def fusion_route(before: dict, fused0: int) -> dict:
+    """A run's route through execution/fusion.py: the regions it fused and
+    the boundary kinds it noted since ``before`` (the fallbacks counts) and
+    ``fused0`` (DISPATCH_COUNT)."""
+    from hyperspace_tpu_torch.execution import fusion
+    after = fusion.stats()["fallbacks"]
+    return {"fused": fusion.DISPATCH_COUNT - fused0,
+            "boundaries": sorted(k for k in after if after[k] != before.get(k, 0))}
+
+
+def fused_program_errors() -> int:
+    """Fused regions in this process that failed and, degrade being on,
+    ran staged. A failure outside an armed fault hides a fault of the
+    port's fused body behind the staged answer."""
+    from hyperspace_tpu_torch.execution import fusion
+    return fusion.stats()["fallbacks"].get("fused-program-error", 0)
+
+
+def mesh_empty_aggregate(root: str, device: str) -> dict:
+    """A global SUM and MIN of a nullable float64 column under a filter that
+    keeps no row, fused (the default) and staged (fusion.enabled=false) at
+    singleDevice=off: {route: answer as a dict}."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants
+    from hyperspace_tpu_torch.plan.expr import col, min_, sum_
+
+    d = os.path.join(root, "mesh_empty")
+    if not os.path.isdir(d):
+        os.makedirs(d)
+        rng = np.random.default_rng(18)
+        n = 10_000
+        pq.write_table(pa.table({"k": rng.integers(0, 1000, n).astype("int64"),
+                                 "v": pa.array(rng.uniform(-1, 1, n), mask=rng.random(n) < 0.1)}),
+                       os.path.join(d, "part0.parquet"))
+    session = ht.Session(system_path=os.path.join(root, f"mesh_empty_ix_{device}"),
+                         device=device)
+    session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "off")
+    out = {}
+    for route, on in (("fused", "true"), ("staged", "false")):
+        session.conf.set(IndexConstants.TPU_FUSION_ENABLED, on)
+        out[route] = session.read.parquet(d).filter(col("k") > 5000).agg(
+            sum_(col("v")).alias("s"), min_(col("v")).alias("m")).to_arrow().to_pydict()
     return out
 
 
 def run_mesh_path(root: str, results: dict) -> None:
     """The SPMD dispatch on the card: TPC-H SF1 under the default conf
-    (singleDevice auto), six queries each dispatched with the right mode,
-    equal to singleDevice=off (keys, counts, order; float64 within
-    REL_TOL) and to a pyarrow reference, their warm seconds both ways; the
+    (singleDevice auto), six queries each dispatched with the right mode;
+    at singleDevice=off the fused route where the region planner takes the
+    plan (the regions and boundary kinds the CPU run at PARITY_SCALE
+    shows), and with fusion off the staged route; the three routes equal
+    bit for bit and equal to a pyarrow reference, their warm seconds each;
+    an empty-filter global aggregate of a nullable column, NULL fused and
+    the staged values staged, on the card as on the CPU; the
     sample sort forced on the one card, giving the cutoff's rows; an
     armed spmd.dispatch fault degrading with its event and raising with
     degrade off; the mesh build on a mesh of the one card against the
@@ -5257,8 +5339,9 @@ def run_mesh_path(root: str, results: dict) -> None:
 
     import hyperspace_tpu_torch as ht
     from hyperspace_tpu_torch import IndexConstants
-    from hyperspace_tpu_torch.execution import spmd
+    from hyperspace_tpu_torch.execution import fusion, spmd
     from hyperspace_tpu_torch.execution.columnar import Table, read_parquet
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
     from hyperspace_tpu_torch.ops import index_build
     from hyperspace_tpu_torch.parallel import distributed_build
     from hyperspace_tpu_torch.parallel.mesh import Mesh
@@ -5281,6 +5364,7 @@ def run_mesh_path(root: str, results: dict) -> None:
             or not spmd._spmd_eligible(session):
         raise AssertionError("mesh: the default conf does not take the dispatch on the card")
     degraded0 = faults.stats()["degraded_spmd"]
+    fused_errors0 = fused_program_errors()
     queries = mesh_queries(session, li_dir, od_dir, pt_dir)
     answers = {}
 
@@ -5309,24 +5393,56 @@ def run_mesh_path(root: str, results: dict) -> None:
         q["collectives"] = spmd.last_collectives()
         check_mesh_answer(name, on, refs[name], f"{name} dispatched")
         runs_on = [timed(df)[1] for _ in range(MESH_RUNS)]
+        # singleDevice=off: the fused route where the region planner takes
+        # the plan, its mask kernels counted; then fusion off: staged.
         session.conf.set(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE, "off")
         d1 = spmd.DISPATCH_COUNT
+        masks0 = {k: ck.LAUNCHES[k] for k in ("compare_mask", "range_mask")}
+        f0, fb0 = fusion.DISPATCH_COUNT, fusion.stats()["fallbacks"]
         off, q["cold_off_s"] = timed(df)
+        q["route_off"] = fusion_route(fb0, f0)
         runs_off = [timed(df)[1] for _ in range(MESH_RUNS)]
+        q["fused_mask_launches"] = {k: ck.LAUNCHES[k] - v for k, v in masks0.items()}
+        session.conf.set(IndexConstants.TPU_FUSION_ENABLED, "false")
+        f1 = fusion.DISPATCH_COUNT
+        staged, q["cold_staged_s"] = timed(df)
+        runs_staged = [timed(df)[1] for _ in range(MESH_RUNS)]
+        session.conf.unset(IndexConstants.TPU_FUSION_ENABLED)
         session.conf.unset(IndexConstants.TPU_DISTRIBUTED_SINGLE_DEVICE)
-        if spmd.DISPATCH_COUNT != d1:
-            raise AssertionError(f"mesh {name}: singleDevice=off still dispatched")
-        if not same_but_floats(on, off):
-            raise AssertionError(f"mesh {name}: the dispatch and singleDevice=off differ")
+        if spmd.DISPATCH_COUNT != d1 or fusion.DISPATCH_COUNT != f1:
+            raise AssertionError(f"mesh {name}: singleDevice=off still dispatched, or "
+                                 "fusion.enabled=false still fused")
+        if not (same_bits(on, off) and same_bits(off, staged)):
+            raise AssertionError(f"mesh {name}: the dispatched, fused and staged answers "
+                                 "differ")
         check_mesh_answer(name, off, refs[name], f"{name} at singleDevice=off")
+        check_mesh_answer(name, staged, refs[name], f"{name} staged")
         q["warm_on_s"] = sorted(runs_on)[MESH_RUNS // 2]
         q["warm_off_s"] = sorted(runs_off)[MESH_RUNS // 2]
+        q["warm_staged_s"] = sorted(runs_staged)[MESH_RUNS // 2]
         q["rows"] = on.num_rows
         answers[name] = on
         out["queries"][name] = q
-        log(f"mesh {name}: {modes} dispatched, warm {q['warm_on_s']:.4f} s on, "
-            f"{q['warm_off_s']:.4f} s off (median of {MESH_RUNS}); cold {q['cold_on_s']:.3f} / "
-            f"{q['cold_off_s']:.3f} s")
+        log(f"mesh {name}: {modes} dispatched; at singleDevice=off {q['route_off']}; warm "
+            f"dispatched / fused / staged {q['warm_on_s']:.4f} / {q['warm_off_s']:.4f} / "
+            f"{q['warm_staged_s']:.4f} s (median of {MESH_RUNS}); cold {q['cold_on_s']:.3f} / "
+            f"{q['cold_off_s']:.3f} / {q['cold_staged_s']:.3f} s")
+    out["fused_mask_launches"] = {
+        k: sum(q["fused_mask_launches"][k] for q in out["queries"].values())
+        for k in ("compare_mask", "range_mask")}
+    if min(out["fused_mask_launches"].values()) < 1:
+        raise AssertionError(f"mesh: fused regions launched the mask kernels "
+                             f"{out['fused_mask_launches']}")
+    t0 = time.perf_counter()
+    out["empty_aggregate"] = mesh_empty_aggregate(root, "cuda")
+    want = {"fused": {"s": [None], "m": [None]}, "staged": {"s": [0.0], "m": [float("inf")]}}
+    cpu = mesh_empty_aggregate(root, "cpu")
+    if out["empty_aggregate"] != want or cpu != want:
+        raise AssertionError(f"mesh: the empty global aggregate gives {out['empty_aggregate']} "
+                             f"on the card and {cpu} on the CPU, not {want}")
+    out["empty_aggregate_s"] = time.perf_counter() - t0
+    log(f"mesh: empty-filter global SUM/MIN of a nullable column: {out['empty_aggregate']}, "
+        "as on the CPU")
 
     # The sample sort: a mesh of several cards takes it for an ORDER BY; on
     # one card the gathered rows are sorted once instead. Forced here, it
@@ -5355,6 +5471,7 @@ def run_mesh_path(root: str, results: dict) -> None:
     df = queries["q6"][0]
     fault_key = "hyperspace.tpu.robustness.faults.spmd.dispatch"
     before = faults.stats()["degraded_spmd"]
+    fused_errors_before = fused_program_errors()
     events = mesh_events()
     events.clear()
     session.conf.set(fault_key, "error")
@@ -5375,7 +5492,8 @@ def run_mesh_path(root: str, results: dict) -> None:
     session.conf.unset(RobustnessConstants.DEGRADE_ENABLED)
     session.conf.unset(fault_key)
     out["fault"] = {"degraded_spmd": moved, "reason": reasons[0], "raised_with_degrade_off":
-                    raised, "seconds": time.perf_counter() - t0}
+                    raised, "fused_program_error": fused_program_errors() - fused_errors_before,
+                    "seconds": time.perf_counter() - t0}
     degraded_total = faults.stats()["degraded_spmd"] - degraded0
     if degraded_total != moved:
         raise AssertionError(f"mesh: degraded_spmd moved {degraded_total} outside the armed "
@@ -5413,9 +5531,21 @@ def run_mesh_path(root: str, results: dict) -> None:
     shutil.rmtree(os.path.join(root, "mesh_data"), ignore_errors=True)
     shutil.rmtree(os.path.join(root, "mesh_indexes"), ignore_errors=True)
     t0 = time.perf_counter()
-    out["card_against_cpu"] = mesh_card_against_cpu(root)
+    out["card_against_cpu"], cpu_routes = mesh_card_against_cpu(root)
     out["card_against_cpu_s"] = time.perf_counter() - t0
-    shutil.rmtree(os.path.join(root, "mesh_parity"), ignore_errors=True)
+    routes = {k: q["route_off"] for k, q in out["queries"].items()}
+    if routes != cpu_routes:
+        raise AssertionError(f"mesh: the fused routes at singleDevice=off differ from the "
+                             f"CPU's: card {routes}, CPU {cpu_routes}")
+    log(f"mesh: each query's route at singleDevice=off equals the CPU's: {routes}")
+    for d in ("mesh_parity", "mesh_empty", "mesh_empty_ix_cuda", "mesh_empty_ix_cpu"):
+        shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    out["fused_program_error"] = {"path": fused_program_errors() - fused_errors0,
+                                  "armed": out["fault"]["fused_program_error"]}
+    if out["fused_program_error"]["path"] != out["fused_program_error"]["armed"]:
+        raise AssertionError(f"mesh: fused-program-error moved "
+                             f"{out['fused_program_error']['path']} outside the armed step")
+    log(f"mesh: fused-program-error {out['fused_program_error']}")
     out["seconds"] = time.perf_counter() - t_path
     results["mesh"] = out
 
@@ -5423,9 +5553,14 @@ def run_mesh_path(root: str, results: dict) -> None:
 def mesh_summary(ms: dict, launches: dict, card: str) -> dict:
     return {"seconds": ms["seconds"], "card": card, "launches": launches,
             "rows": ms["rows"], "datagen_s": ms["datagen_s"],
-            "queries": {k: {f: v[f] for f in ("warm_on_s", "warm_off_s", "cold_on_s",
-                                              "cold_off_s", "modes", "rows")}
+            "queries": {k: {f: v[f] for f in ("warm_on_s", "warm_off_s", "warm_staged_s",
+                                              "cold_on_s", "cold_off_s", "cold_staged_s",
+                                              "route_off", "fused_mask_launches", "modes",
+                                              "rows")}
                         for k, v in ms["queries"].items()},
+            "fused_mask_launches": ms["fused_mask_launches"],
+            "empty_aggregate": ms["empty_aggregate"],
+            "fused_program_error": ms["fused_program_error"],
             "sample_sort": ms["sample_sort"], "fault": ms["fault"], "build": ms["build"],
             "card_against_cpu": ms["card_against_cpu"], "stats": ms["stats"]}
 
@@ -6286,7 +6421,7 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
     import torch
 
     from hyperspace_tpu_torch.ops import cuda_kernels as ck
-    from hyperspace_tpu_torch.ops import sketches
+    from hyperspace_tpu_torch.shapes import padded_length
 
     lo, hi = (RANGE_LO - EPOCH).days, (RANGE_HI - EPOCH).days
     cut = (CUTOFF - EPOCH).days
@@ -6337,7 +6472,7 @@ def time_kernels(inputs: dict, launches: dict, errors: dict):
         # package's length classes. Beside it, the public (min, max) call,
         # which adds two 0-d views.
         n = x.shape[0]
-        pad = sketches.length_class(n) != n or ck.pallas_pads(n)
+        pad = padded_length(n) != n or ck.pallas_pads(n)
         e = entry("masked_minmax", f"o_orderdate int32[{n}], no mask ({tag}); "
                   "masked_minmax_words as minmax_values calls it",
                   lambda: ck.masked_minmax_words(x, None, pad),
@@ -6911,6 +7046,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--scale", type=float, default=10.0,
                         help="TPC-H scale factor (10 = 60M lineitem and 15M orders rows)")
+    parser.add_argument("--sql-scale", type=float, default=SQL_SCALE,
+                        help="TPC-H scale factor of the sql lake, on which the sql, serving, "
+                             "faults, streaming and cluster paths run (at most --scale)")
     parser.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"),
                         help="where to write the full result record")
     args = parser.parse_args(argv)
@@ -6924,9 +7062,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     from hyperspace_tpu_torch.robustness import faults
     degraded_at_start = faults.stats()["degraded_spmd"]
+    fused_errors_at_start = fused_program_errors()
     card = gpu_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "scale": args.scale}
+               "scale": args.scale, "sql_scale": min(args.sql_scale, args.scale)}
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -6998,7 +7137,7 @@ def main(argv=None) -> int:
             f"{results['advisor']['seconds']:.1f} s")
         ck.reset_launches()
         t0 = time.perf_counter()
-        sql_session_, sql_dirs = run_sql_path(root, args.scale, results)
+        sql_session_, sql_dirs = run_sql_path(root, results["sql_scale"], results)
         launches["sql"] = dict(ck.LAUNCHES)
         results["sql"]["seconds"] = time.perf_counter() - t0
         torch.cuda.synchronize()
@@ -7022,9 +7161,11 @@ def main(argv=None) -> int:
             f"{results['serving']['seconds']:.1f} s")
         ck.reset_launches()
         degraded_before_faults = faults.stats()["degraded_spmd"]
+        fused_errors_before_faults = fused_program_errors()
         run_faults_path(sql_session_, sql_dirs, q6_scanned, q6_indexed,
                         results["sql"]["rows"]["lineitem"], results)
         degraded_armed = faults.stats()["degraded_spmd"] - degraded_before_faults
+        fused_errors_armed = fused_program_errors() - fused_errors_before_faults
         launches["faults"] = dict(ck.LAUNCHES)
         log(f"faults: launches {launches['faults']}; {results['faults']['seconds']:.1f} s")
         ck.reset_launches()
@@ -7109,6 +7250,15 @@ def main(argv=None) -> int:
         if degraded != degraded_armed:
             raise AssertionError(f"degraded_spmd moved {degraded} in the run, "
                                  f"{degraded_armed} of them under armed faults")
+        # So may a fused region fail and run staged: anywhere else, a fault
+        # of the port's fused body would hide behind the staged answer.
+        fused_errors_armed += results["mesh"]["fault"]["fused_program_error"]
+        fused_errors = fused_program_errors() - fused_errors_at_start
+        results["mesh"]["fused_program_error"].update(run=fused_errors,
+                                                      run_armed=fused_errors_armed)
+        if fused_errors != fused_errors_armed:
+            raise AssertionError(f"fused-program-error moved {fused_errors} in the run, "
+                                 f"{fused_errors_armed} of them under armed faults")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

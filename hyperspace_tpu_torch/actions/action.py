@@ -66,11 +66,14 @@ class Action:
     def run(self) -> None:
         logger = get_logger(self.session.hs_conf.event_logger_class())
         # Reads under this action (sketch builds, chunk streams, the spill
-        # merge) take the session's io conf; the fault scope arms the
-        # session's robustness.faults.* conf for exactly this run.
+        # merge) take the session's io conf, and its sketch reductions and
+        # mesh builds the session's length classes; the fault scope arms
+        # the session's robustness.faults.* conf for exactly this run.
+        from .. import shapes
         try:
             logger.log_event(self.event("Operation started."))
-            with pio.use_session(self.session), _faults.scope_for(self.session.hs_conf):
+            with shapes.use_conf(self.session.hs_conf), pio.use_session(self.session), \
+                    _faults.scope_for(self.session.hs_conf):
                 self.validate()
                 self._begin()
                 _faults.fault_point(_fn.ACTION_OP)

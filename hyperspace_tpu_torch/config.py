@@ -117,6 +117,34 @@ class HyperspaceConf:
         return int(self._conf.get(IndexConstants.TPU_MAX_CHUNK_ROWS,
                                   IndexConstants.TPU_MAX_CHUNK_ROWS_DEFAULT))
 
+    # Length classes (shapes.py) and whole-plan fusion
+    # (execution/fusion.py).
+
+    def shape_bucketing_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.TPU_SHAPE_BUCKETING_ENABLED,
+                              IndexConstants.TPU_SHAPE_BUCKETING_ENABLED_DEFAULT)
+
+    def shape_bucketing_growth_factor(self) -> float:
+        return float(self._conf.get(IndexConstants.TPU_SHAPE_BUCKETING_GROWTH_FACTOR,
+                                    IndexConstants.TPU_SHAPE_BUCKETING_GROWTH_FACTOR_DEFAULT))
+
+    def shape_bucketing_min_pad(self) -> int:
+        return int(self._conf.get(IndexConstants.TPU_SHAPE_BUCKETING_MIN_PAD,
+                                  IndexConstants.TPU_SHAPE_BUCKETING_MIN_PAD_DEFAULT))
+
+    def shape_bucketing_max_waste_ratio(self) -> float:
+        return float(self._conf.get(IndexConstants.TPU_SHAPE_BUCKETING_MAX_WASTE_RATIO,
+                                    IndexConstants.TPU_SHAPE_BUCKETING_MAX_WASTE_RATIO_DEFAULT))
+
+    def shape_bucketing_exact_fallback_rows(self) -> int:
+        return int(self._conf.get(
+            IndexConstants.TPU_SHAPE_BUCKETING_EXACT_FALLBACK_ROWS,
+            IndexConstants.TPU_SHAPE_BUCKETING_EXACT_FALLBACK_ROWS_DEFAULT))
+
+    def fusion_enabled(self) -> bool:
+        return self._get_bool(IndexConstants.TPU_FUSION_ENABLED,
+                              IndexConstants.TPU_FUSION_ENABLED_DEFAULT)
+
     def io_enabled(self) -> bool:
         return self._get_bool(IndexConstants.TPU_IO_ENABLED,
                               IndexConstants.TPU_IO_ENABLED_DEFAULT)

@@ -25,6 +25,11 @@ merge join), and a group-by whose keys are the bucket keys skips its sort
 are the JAX package's: one for a filter's survivor count, one for a join's
 output length (and one for the fast path's key-width check), one for a
 group count.
+
+Where the mesh tier declines a plan, a Filter, Project or Join chain root,
+and an Aggregate over such a chain, runs as one fused region
+(execution/fusion.py) unless ``hyperspace.tpu.execution.fusion.enabled``
+is false; what the region does not absorb runs stage by stage here.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 import pyarrow.parquet as pq
 import torch
 
+from .. import shapes
 from ..exceptions import HyperspaceException
 from ..ops import kernels
 from ..index.constants import IndexConstants
@@ -51,7 +57,7 @@ from ..serving.fingerprint import _node_detail
 from ..sources.partitions import read_relation_files
 from ..telemetry import span_names as SN
 from ..telemetry import trace as _trace
-from . import index_cache
+from . import fusion, index_cache
 from .buffer_pool import file_signature
 from .columnar import (DEVICE_DTYPE, Column, Table, dictionaries_equal, empty_table,
                        iter_dataset_chunks, literal_to_device, parquet_row_counts,
@@ -62,8 +68,8 @@ from .pushdown import pruned_index_read_filter, pushable_filter
 
 def execute(plan: LogicalPlan, session) -> Table:
     # Every read under this execution takes the session's io and buffer
-    # pool conf.
-    with pio.use_session(session):
+    # pool conf, and the mesh's shard boundaries its length classes.
+    with shapes.use_conf(session.hs_conf), pio.use_session(session):
         # A {Filter, Project, Join}* chain root (under optional Sort/Limit)
         # runs SPMD over the mesh, its rows gathered per device
         # (execution/spmd.py); Aggregate roots dispatch in _execute_node.
@@ -115,6 +121,16 @@ def _execute(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Table:
     boundary, on entry and on exit, is a cancellation point for the
     query's deadline (serving/context.py)."""
     qctx.check_deadline("exec.stage")
+    if isinstance(plan, (Filter, Project, Join)):
+        # Whole-plan fusion (execution/fusion.py): a chain root opening a
+        # fusible region runs as one region, with no exec.stage span (and
+        # no Table) for its interior nodes. Aggregate roots try it in
+        # _execute_node, after the SPMD dispatch; chain roots reach here
+        # only once execute()'s spmd.try_execute_plan declined.
+        fused = fusion.try_execute(plan, needed, session)
+        if fused is not None:
+            qctx.check_deadline("exec.stage")
+            return fused
     if _trace.idle():
         table = _execute_node(plan, needed, session)
         qctx.check_deadline("exec.stage")
@@ -222,6 +238,9 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
             session)
         if result is not None:
             return result
+        fused = fusion.try_execute(plan, needed, session)
+        if fused is not None:
+            return fused
         child_needed = set(plan.group_cols)
         for a in plan.aggs:
             child_needed.update(a.references)

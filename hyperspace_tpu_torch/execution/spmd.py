@@ -56,15 +56,17 @@ import torch
 
 from ..ops import kernels
 from ..parallel import mesh as pmesh
-from ..parallel.mesh import Mesh, pad_and_shard, pad_and_shard_blocks, padded_length
+from ..parallel.mesh import Mesh, pad_and_shard, pad_and_shard_blocks
 from ..parallel.sharding import collective_counts, device_view, mesh_signature
 from ..plan import expr as E
 from ..plan.nodes import Aggregate, Filter, IndexScan, Join, LogicalPlan, Project, Scan
 from ..schema import FLOAT32, FLOAT64, INT32, INT64, STRING
+from ..shapes import padded_length
 from ..telemetry import span_names as SN
 from ..telemetry import trace as _trace
 from .columnar import DEVICE_DTYPE, Column, Table, dictionaries_equal, translate_codes
 from .evaluator import eval_expr, eval_predicate_mask
+from .leaf import leaf_rows, load_leaf, meta_column, within_budget
 
 # Successful SPMD executions, and those that sorted on the mesh, in this
 # process. Concurrent serving workers bump them and tests read them
@@ -86,13 +88,6 @@ _SORT_SAMPLES = 64
 
 class _Unsupported(Exception):
     """Plan/dtype/shape not handled by the SPMD path: fall back."""
-
-
-def _meta_column(dt: str, dic, nullable: bool) -> Column:
-    """A zero-length column carrying a column's metadata (the prep walk
-    evaluates expressions over these to learn output dtypes)."""
-    return Column(dt, torch.zeros(0, dtype=DEVICE_DTYPE[dt]),
-                  torch.zeros(0, dtype=torch.bool) if nullable else None, dic)
 
 
 # ---------------------------------------------------------------------------
@@ -118,40 +113,6 @@ def _linearize(plan: LogicalPlan):
             node = node.left
         else:
             raise _Unsupported(node.node_name)
-
-
-def _load_leaf(leaf, stages, needed, session) -> Table:
-    """The stream leaf, its read narrowed by the filters directly above it
-    (necessary conditions on the raw rows), as the single-device
-    Filter-over-leaf does. A narrowed read that keeps nothing falls
-    through to the full read, so the stream still runs (an all-false
-    mask)."""
-    from . import executor as ex
-    from .pushdown import pruned_index_read_filter, pushable_filter
-
-    conds = []
-    for kind, node in stages:
-        if kind != "filter":
-            break
-        conds.append(node.condition)
-    if conds:
-        combined = conds[0]
-        for c in conds[1:]:
-            combined = E.And(combined, c)
-        if isinstance(leaf, IndexScan):
-            pa_filter = pruned_index_read_filter(leaf.index_entry, combined, leaf.schema)
-            if pa_filter is not None:
-                table = ex._execute_index_scan(leaf, needed, session.device, pa_filter,
-                                               prefer_pruned_read=True)
-                if table.num_rows > 0:
-                    return table
-        else:  # a source's struct leaves are no physical columns.
-            pa_filter = pushable_filter(combined, leaf.schema, allow_nested=False)
-            if pa_filter is not None:
-                table = ex._execute_scan(leaf, needed, session.device, pa_filter)
-                if table.num_rows > 0:
-                    return table
-    return ex._execute(leaf, needed, session)
 
 
 def _normalized_join_pairs(join: Join) -> List[Tuple[str, str]]:
@@ -504,37 +465,26 @@ def _spmd_eligible(session) -> bool:
     return torch.device(session.device).type == "cuda"
 
 
+def _stream_leaf(root):
+    """The chain's stream leaf, or None when the plan is no chain."""
+    try:
+        return _linearize(root)[0]
+    except _Unsupported:
+        return None
+
+
 def _stream_leaf_rows(root) -> Optional[int]:
     """The stream leaf's rows from parquet metadata only, or None when
     unknowable."""
-    from .columnar import parquet_row_counts
-
-    try:
-        leaf, _ = _linearize(root)
-    except _Unsupported:
-        return None
-    if isinstance(leaf, IndexScan):
-        try:
-            return sum(parquet_row_counts(list(leaf.index_entry.content.files)
-                                          + list(leaf.appended_files)))
-        except Exception:
-            return None
-    if not isinstance(leaf, Scan):
-        return None
-    relation = leaf.relation
-    if relation.data_file_format != "parquet":
-        return None
-    try:
-        return sum(parquet_row_counts(relation.all_files()))
-    except Exception:
-        return None
+    leaf = _stream_leaf(root)
+    return None if leaf is None else leaf_rows(leaf)
 
 
 def _leaf_within_budget(root, session) -> bool:
     """False when the leaf exceeds ``maxChunkRows``: the program
     materializes the leaf, so a bigger one takes the chunked path."""
-    total = _stream_leaf_rows(root)
-    return total is None or total <= session.hs_conf.max_chunk_rows()
+    leaf = _stream_leaf(root)
+    return leaf is None or within_budget(leaf, session)
 
 
 def _passes_min_rows(root, session) -> bool:
@@ -707,7 +657,7 @@ def _prepare(root, executor, session) -> _Prepared:
     leaf, stages = _linearize(root)
     leaf_needed, right_needed, right_used, project_live = _needed_per_stage(
         set(root.schema.names), stages)
-    leaf_table = _load_leaf(leaf, stages, set(leaf_needed) if leaf_needed else None, session)
+    leaf_table = load_leaf(leaf, stages, set(leaf_needed) if leaf_needed else None, session)
     if leaf_table.num_rows == 0:
         raise _Unsupported("empty stream")
 
@@ -738,7 +688,7 @@ def _prepare(root, executor, session) -> _Prepared:
     joins: Dict[int, Tuple] = {}
     bcast_arrays: Dict[str, torch.Tensor] = {}
     xch_arrays: Dict[str, List[torch.Tensor]] = {}
-    tiny = {n: _meta_column(dt, dic, nul) for n, (dt, dic, nul) in col_meta.items()}
+    tiny = {n: meta_column(dt, dic, nul) for n, (dt, dic, nul) in col_meta.items()}
     for i, (kind, node) in enumerate(stages):
         if kind == "filter":
             continue
@@ -786,7 +736,7 @@ def _prepare(root, executor, session) -> _Prepared:
         if jt in ("right", "full"):
             for n, c in list(tiny.items()):
                 col_meta[n] = (c.dtype, c.dictionary, True)
-                tiny[n] = _meta_column(c.dtype, c.dictionary, True)
+                tiny[n] = meta_column(c.dtype, c.dictionary, True)
         rnames = {r for _, r in pairs}
         side_meta = side.table_meta if isinstance(side, _ExchangeSide) else \
             {n: (side.table.column(n).dtype, side.table.column(n).dictionary,
@@ -795,7 +745,7 @@ def _prepare(root, executor, session) -> _Prepared:
             if jt in ("left", "full"):
                 nul = True
             if n not in rnames:
-                tiny[n] = _meta_column(dt, dic, nul)
+                tiny[n] = meta_column(dt, dic, nul)
             col_meta[n] = (dt, dic, nul)
         for lname, rname in pairs:
             if rname in tiny:
@@ -816,7 +766,7 @@ def _prepare(root, executor, session) -> _Prepared:
                 lc = tiny[lname]
                 dt, dic = lc.dtype, lc.dictionary
                 nul = lc.validity is not None or jt in ("left", "full")
-            tiny[rname] = _meta_column(dt, dic, nul)
+            tiny[rname] = meta_column(dt, dic, nul)
             col_meta[rname] = (dt, dic, nul)
     final_meta = {n: (c.dtype, c.dictionary, c.validity is not None) for n, c in tiny.items()}
     return _Prepared(mesh, sharded, valid, bcast_arrays, xch_arrays, stages, joins, col_meta,
@@ -910,7 +860,7 @@ def _run_impl(plan: Aggregate, executor, session) -> Table:
     prep = _prepare(plan.child, executor, session)
 
     def probe(e: E.Expr) -> Column:
-        t = {n: _meta_column(dt, dic, nul) for n, (dt, dic, nul) in prep.final_meta.items()}
+        t = {n: meta_column(dt, dic, nul) for n, (dt, dic, nul) in prep.final_meta.items()}
         return eval_expr(Table(t), e)
 
     agg_specs = tuple(_AggSpec.build(a, probe) for a in plan.aggs)

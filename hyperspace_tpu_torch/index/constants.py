@@ -113,6 +113,34 @@ class IndexConstants:
     TPU_DISTRIBUTED_MESH_MAX_DEVICES_DEFAULT = "0"
     TPU_DISTRIBUTED_MIN_STREAM_ROWS = "hyperspace.tpu.distributed.minStreamRows"
     TPU_DISTRIBUTED_MIN_STREAM_ROWS_DEFAULT = "4096"
+    # Length classes (shapes.py): a length pads to the first
+    # rung at or above it of the geometric ladder from minPadElements by
+    # growthFactor, unless bucketing is off, or the array holds at least
+    # exactFallbackRows rows and the rung would pad it by more than
+    # maxWasteRatio of its size. Eager torch compiles nothing per length;
+    # the classes are where answers depend on them: the mesh's shard
+    # boundaries and the sentinels a MinMax sketch of a short column sees.
+    TPU_SHAPE_BUCKETING_ENABLED = "hyperspace.tpu.execution.shapeBucketing.enabled"
+    TPU_SHAPE_BUCKETING_ENABLED_DEFAULT = "true"
+    TPU_SHAPE_BUCKETING_GROWTH_FACTOR = "hyperspace.tpu.execution.shapeBucketing.growthFactor"
+    TPU_SHAPE_BUCKETING_GROWTH_FACTOR_DEFAULT = "2.0"
+    TPU_SHAPE_BUCKETING_MIN_PAD = "hyperspace.tpu.execution.shapeBucketing.minPadElements"
+    TPU_SHAPE_BUCKETING_MIN_PAD_DEFAULT = "1024"
+    TPU_SHAPE_BUCKETING_MAX_WASTE_RATIO = "hyperspace.tpu.execution.shapeBucketing.maxWasteRatio"
+    TPU_SHAPE_BUCKETING_MAX_WASTE_RATIO_DEFAULT = "0.25"
+    TPU_SHAPE_BUCKETING_EXACT_FALLBACK_ROWS = \
+        "hyperspace.tpu.execution.shapeBucketing.exactFallbackRows"
+    TPU_SHAPE_BUCKETING_EXACT_FALLBACK_ROWS_DEFAULT = str(4 * 1024 * 1024)
+
+    # Whole-plan fusion (execution/fusion.py): a maximal {Filter, Project,
+    # inner/semi/anti Join}* chain of at least two nodes, under an optional
+    # Aggregate, runs as one region over a keep mask instead of stage by
+    # stage. Off gives the staged executor, with the same answers but for
+    # a global aggregate over no kept rows (NULL fused, as in the JAX
+    # package's default).
+    TPU_FUSION_ENABLED = "hyperspace.tpu.execution.fusion.enabled"
+    TPU_FUSION_ENABLED_DEFAULT = "true"
+
     # When set, every plan execution runs under torch.profiler and writes
     # its chrome trace (CPU and CUDA timeline) into this directory, one
     # file per execution (telemetry/trace.profile_into).

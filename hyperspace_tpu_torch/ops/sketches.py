@@ -14,7 +14,7 @@ There is no shape-class padding here (the JAX package pads each file's
 column to a length class so that files share one compiled program): a
 column is reduced at its own length, and the MinMax sketch takes the
 length class into account only where it changes the result (the
-sentinels that padded rows bring in, :func:`length_class`).
+sentinels that padded rows bring in, ``shapes.padded_length``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 from ..exceptions import HyperspaceException
 from ..execution.columnar import Column
 from ..schema import DATE, STRING
+from ..shapes import padded_length
 from . import cuda_kernels, kernels
 
 # Second hash for double hashing: mix of the first with a golden-ratio salt
@@ -119,36 +120,6 @@ def value_list(col: Column, max_values: int) -> Optional[list]:
     return [v.item() for v in uniq]
 
 
-# The JAX package's default shape-bucketing parameters
-# (hyperspace_tpu/index/constants.py:185-197, the shapeBucketing.* conf
-# defaults). A JAX session that sets other values pads to other classes,
-# and its MinMax sketches of +-inf columns then differ from these.
-SHAPE_MIN_PAD = 1024
-SHAPE_GROWTH_FACTOR = 2.0
-SHAPE_MAX_WASTE_RATIO = 0.25
-SHAPE_EXACT_FALLBACK_ROWS = 4 * 1024 * 1024
-
-
-def length_class(n: int) -> int:
-    """The JAX package's length class of an ``n``-row column at its default
-    shape parameters (``hyperspace_tpu/execution/shapes.py``
-    padded_length): the first rung of the geometric ladder from
-    ``SHAPE_MIN_PAD`` at or above ``n``, or ``n`` itself from
-    ``SHAPE_EXACT_FALLBACK_ROWS`` on where the rung would pad by more than
-    ``SHAPE_MAX_WASTE_RATIO`` of ``n``. The JAX MinMax sketch pads each
-    file's column to its class with invalid rows, and the padded rows bring
-    the sentinels into the reduction; so does :func:`minmax_values` here,
-    without the padding."""
-    if n <= 0:
-        return n
-    c = SHAPE_MIN_PAD
-    while c < n:
-        c = int(math.ceil(c * SHAPE_GROWTH_FACTOR))
-    if n >= SHAPE_EXACT_FALLBACK_ROWS and c - n > SHAPE_MAX_WASTE_RATIO * n:
-        return n
-    return c
-
-
 def minmax_values(col: Column) -> Tuple[Optional[object], Optional[object]]:
     """(min, max) of the column's valid values as host python objects in the
     column's logical domain (dates as datetime.date, strings as str).
@@ -166,7 +137,7 @@ def minmax_values(col: Column) -> Tuple[Optional[object], Optional[object]]:
     if n == 0:
         return None, None
     data, valid = col.data, col.validity
-    pad = length_class(n) != n
+    pad = padded_length(n) != n
     if data.dtype in (torch.int32, torch.float32):
         words = cuda_kernels.masked_minmax_words(
             data, valid, pad or cuda_kernels.pallas_pads(n))

@@ -8,9 +8,10 @@ grouped for the bucketed parquet write.
 A row-sharded array is a list of per-device tensors, one per local device
 (device ``i``'s rows ``[i * shard, (i + 1) * shard)`` of the padded
 whole), with a validity mask sharded the same way. Torch needs no static
-shapes, but the shard boundaries are the JAX package's (the padded length
-class of the rows, split evenly), so every device holds the rows it holds
-there: partial sums and exchange orders then agree.
+shapes, but the shard boundaries are the JAX package's (the rows' length
+class under the session's ``shapeBucketing.*`` conf, from ``shapes.py``,
+split evenly), so every device holds the rows it holds there: partial sums
+and exchange orders then agree.
 
 A mesh that spans several processes (``parallel/multihost.global_mesh``)
 lists this process's devices and carries the job's process count; its
@@ -19,7 +20,6 @@ collectives cross processes over ``torch.distributed``.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,27 +28,6 @@ import torch
 from ..exceptions import HyperspaceException
 
 DATA_AXIS = "d"
-
-# The JAX package's length classes (its execution/shapes.py defaults): a
-# leaf pads to its class before the device split, so shard boundaries
-# agree with the reference's.
-_MIN_PAD = 1024
-_GROWTH = 2.0
-_MAX_WASTE = 0.25
-_EXACT_FALLBACK_ROWS = 4 * 1024 * 1024
-
-
-def padded_length(n: int) -> int:
-    """The geometric length class of ``n`` (``n`` itself when the padding
-    would waste more than a quarter of a huge array)."""
-    if n <= 0:
-        return n
-    c = _MIN_PAD
-    while c < n:
-        c = int(math.ceil(c * _GROWTH))
-    if n >= _EXACT_FALLBACK_ROWS and (c - n) > _MAX_WASTE * n:
-        return n
-    return c
 
 
 class Mesh:

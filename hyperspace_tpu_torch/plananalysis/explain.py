@@ -17,10 +17,11 @@ on), and the "Trace:" section once a trace was retained. The "Advisor:"
 section follows while workload capture is on or has recorded queries.
 While ``optimizer.joinReorder.enabled`` is set, the "Join order:" section
 shows each join chain's order and its estimates beside the actual rows of
-its last run. The JAX package's other runtime sections wait with their
-tiers: "Compilation:" (eager torch compiles no programs) and
-"Distributed:" (the mesh tier); its "Serving:" section's program-bank line
-has no counterpart here.
+its last run, and the "Distributed:" section once the mesh tier
+dispatched or built. The JAX package's "Compilation:" section stays out:
+it reports XLA compiles (execution/shapes.py's counter), and eager torch,
+fused regions included, compiles no programs; for the same reason its
+"Serving:" section's program-bank line has no counterpart here.
 """
 
 from __future__ import annotations

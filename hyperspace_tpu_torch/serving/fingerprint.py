@@ -125,10 +125,14 @@ def index_versions(session) -> Tuple[Tuple[str, int, str], ...]:
     return session.index_collection_manager.latest_log_ids()
 
 
-# Conf families that steer no answer: the serving knobs (this cache's own
+# Conf families left out of the key: the serving knobs (this cache's own
 # budgets and floors), telemetry, robustness, fusion, the buffer pool
 # (pool on and off answer alike), artifacts and cluster. Hashing them would
-# orphan warm entries on every such tweak.
+# orphan warm entries on every such tweak. Fusion steers one answer, as
+# in the JAX package, whose key leaves it out too: a global aggregate of a
+# nullable column over no kept rows is NULL fused and 0.0 (or a far end)
+# staged, so a cached answer crosses a fusion.enabled switch (ROADMAP
+# queue C 24).
 _UNHASHED_PREFIXES = ("serving.", "hyperspace.tpu.serving.", "hyperspace.tpu.telemetry.",
                       "hyperspace.tpu.robustness.", "hyperspace.tpu.execution.fusion.",
                       "hyperspace.tpu.execution.bufferPool.", "hyperspace.tpu.artifacts.",

@@ -647,8 +647,11 @@ def append(session, table_path: str, batch, block: bool = False) -> dict:
             staged = StagedBatch(batch_id, table_path, staged_path, final_path, at.num_rows,
                                  nbytes, mtime_ms, Schema.from_arrow(at.schema))
             if session.hs_conf.streaming_load_time_indexing():
+                # As in an action: the sketch reductions read the session's
+                # length classes, the reads its io conf.
+                from .. import shapes
                 from ..parallel import io as pio
-                with pio.use_session(session):
+                with shapes.use_conf(session.hs_conf), pio.use_session(session):
                     _prebuild_deltas(session, queue, staged, at)
             queue.push(staged, max_staged, block=block, timeout_s=timeout_s if block else None)
             get_coordinator().note_push(table_path)

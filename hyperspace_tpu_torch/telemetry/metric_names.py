@@ -8,10 +8,10 @@ one of these constants. The OpenMetrics exposition
 (telemetry/exposition.py), ``Hyperspace.metrics_delta()`` and scrapers key
 on these strings, which equal the JAX package's.
 
-The reference's other names wait with their tiers: the
+The reference's other names are left out: the
 ``serving.sweep_invocations`` counter (the stacked literal-sweep mask,
-left out on purpose) and the ``program_bank``, ``fusion`` and
-``artifacts`` collectors.
+left out on purpose), the ``program_bank`` collector (eager torch compiles
+no programs) and the ``artifacts`` collector (left out by design).
 """
 
 from __future__ import annotations
@@ -50,10 +50,12 @@ COLLECTOR_STREAMING = "streaming"
 COLLECTOR_FLIGHT_RECORDER = "flight_recorder"
 COLLECTOR_BUFFER_POOL = "buffer_pool"
 COLLECTOR_CLUSTER = "cluster"
+COLLECTOR_FUSION = "fusion"
 
 METRIC_NAMES = frozenset({
     TRACE_SAMPLED, TRACE_TAIL_KEPT, TRACE_DISCARDED, FLIGHT_ANOMALIES,
     SLO_BREACHES, SERVING_LATENCY_MS, QUERY_LATENCY_MS, COLLECTOR_IO,
     COLLECTOR_SERVING, COLLECTOR_ROBUSTNESS, COLLECTOR_STREAMING,
     COLLECTOR_FLIGHT_RECORDER, COLLECTOR_BUFFER_POOL, COLLECTOR_CLUSTER,
+    COLLECTOR_FUSION,
 })

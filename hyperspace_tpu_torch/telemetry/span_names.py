@@ -10,8 +10,8 @@ attributes, never in the name. The names equal the JAX package's, so
 dashboards and explain's "Trace:" section read the same strings.
 
 The reference's other names are left out: ``bank.*`` and ``spmd.compile``
-(eager torch compiles no programs), ``exec.fused`` (fusion, not ported)
-and ``artifact.*`` (left out by design).
+(eager torch compiles no programs) and ``artifact.*`` (left out by
+design).
 """
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ CACHE_LOOKUP = "serving.cache_lookup"
 
 # One span per executed plan node (execution/executor._execute).
 EXEC_STAGE = "exec.stage"
+
+# One fused region (execution/fusion.py; attributes ``fused_nodes``,
+# ``root`` and ``rows``): its interior nodes record no exec.stage span.
+EXEC_FUSED = "exec.fused"
 
 # Pooled multi-file read fan-out / prefetch stream (parallel/io.py),
 # recorded on the consumer side of the per-query io attribution.
@@ -67,7 +71,7 @@ CLUSTER_GATHER = "cluster.gather"
 
 SPAN_NAMES = frozenset({
     QUERY, PLAN_NORMALIZE, JOIN_REORDER, INDEX_REWRITE, CACHE_LOOKUP,
-    EXEC_STAGE, IO_READ, IO_PREFETCH, SPMD_DISPATCH, SERVING_SWEEP,
+    EXEC_STAGE, EXEC_FUSED, IO_READ, IO_PREFETCH, SPMD_DISPATCH, SERVING_SWEEP,
     INGEST_APPEND, INGEST_COMMIT, INGEST_COMPACT, INGEST_WAVE, INGEST_SOURCE,
     CLUSTER_FORWARD, CLUSTER_BROADCAST, CLUSTER_GATHER,
 })

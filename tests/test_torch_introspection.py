@@ -26,16 +26,20 @@ from hyperspace_tpu.api import (BloomFilterSketch as JBloom,
                                 DataSkippingIndexConfig as JSkipping,
                                 MinMaxSketch as JMinMax)
 from hyperspace_tpu.execution import buffer_pool as jbuffer_pool
+from hyperspace_tpu.execution import spmd as jspmd
+from hyperspace_tpu.parallel import distributed_build as jdistributed_build
 from hyperspace_tpu.parallel import io as jio
 from hyperspace_tpu.plan.expr import col as jcol, sum_ as jsum
 from hyperspace_tpu.plananalysis.explain import explain_string as jax_explain_string
 from hyperspace_tpu.rules import data_skipping_rule as jax_skipping_rule
 from hyperspace_tpu_torch.execution import buffer_pool as tbuffer_pool
+from hyperspace_tpu_torch.execution import spmd as tspmd
 from hyperspace_tpu_torch.index import cache as tcache
 from hyperspace_tpu_torch.index.constants import IndexConstants, States
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager, get_lookup_cache
 from hyperspace_tpu_torch.index.manager import IndexCollectionManager
 from hyperspace_tpu_torch.index.statistics import IndexStatistics
+from hyperspace_tpu_torch.parallel import distributed_build as tdistributed_build
 from hyperspace_tpu_torch.parallel import io as tio
 from hyperspace_tpu_torch.plan.expr import sum_ as tsum
 from test_torch_mutability import _begin_refresh
@@ -391,12 +395,16 @@ QUERIES = _queries()
 
 def fresh_io_counters() -> None:
     """Zero both packages' process-wide reader-pool counters, empty their
-    buffer pools and start their SLO monitors anew: explain's I/O and SLO
-    sections render from them once any read has been pooled, or any query
-    run, in the process."""
+    buffer pools, start their SLO monitors anew and zero their dispatch
+    counts: explain's I/O, SLO and "Distributed:" sections render from
+    them once any read has been pooled, any query run, or any SPMD
+    program or mesh build dispatched, in the process."""
     for io_mod, bp in ((jio, jbuffer_pool), (tio, tbuffer_pool)):
         io_mod.reset_stats()
         bp.get_pool().clear()
+    for spmd_mod, build_mod in ((jspmd, jdistributed_build), (tspmd, tdistributed_build)):
+        spmd_mod.DISPATCH_COUNT = spmd_mod.SORT_DISPATCH_COUNT = 0
+        build_mod.DISPATCH_COUNT = 0
     fresh_telemetry_state()
 
 

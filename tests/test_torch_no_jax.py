@@ -19,7 +19,8 @@ with time travel, Hybrid Scan and an index on the ``hsmem://`` object
 store; and the self-tuning tier: every advisor and adaptive module,
 capture, what-if, recommend and a builder pass; and the robustness tier
 and the cluster: fault points, retries, ladders, a deadline, a one-worker
-cluster and a two-rank gather) still run end to end on the CPU, with the
+cluster and a two-rank gather; and whole-plan fusion and the length
+classes) still run end to end on the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -657,6 +658,49 @@ def test_mesh_tier_runs_without_jax():
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "MESH_OK" in proc.stdout
+
+
+FUSION = textwrap.dedent("""
+    import importlib, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import IndexConstants
+    from hyperspace_tpu_torch.plan.expr import col, count, sum_
+    for name in ("shapes", "execution.fusion_boundaries", "execution.fusion",
+                 "execution.leaf"):
+        importlib.import_module("hyperspace_tpu_torch." + name)
+    from hyperspace_tpu_torch import shapes
+    from hyperspace_tpu_torch.execution import fusion
+    root = tempfile.mkdtemp()
+    li_dir, od_dir, pt_dir, n_li, n_od = chip_smoke.make_tpch(root, 0.002)
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu")
+    q = lambda: s.read.parquet(li_dir).filter(col("l_quantity") < 20).group_by(
+        "l_partkey").agg(count(None).alias("n"), sum_(col("l_quantity")).alias("q"))
+    before = fusion.DISPATCH_COUNT
+    fused = q().to_arrow()
+    assert fusion.DISPATCH_COUNT == before + 1
+    s.conf.set(IndexConstants.TPU_FUSION_ENABLED, "false")
+    assert q().to_arrow().equals(fused)
+    assert fusion.DISPATCH_COUNT == before + 1
+    assert "fusion" in ht.Hyperspace(s).metrics()["collectors"]
+    with shapes.use_conf(s.hs_conf):
+        assert shapes.padded_length(1025) == 2048
+    assert sys.modules["jax"] is None and sys.modules["hyperspace_tpu"] is None
+    print("FUSION_OK")
+""")
+
+
+def test_fusion_and_shapes_run_without_jax():
+    """The three modules of whole-plan fusion and length classes import,
+    a region fuses and equals the staged answer, with ``jax`` and
+    ``hyperspace_tpu`` unimportable."""
+    proc = subprocess.run([sys.executable, "-c", FUSION.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "FUSION_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from hyperspace_tpu.execution import spmd as jspmd
 from hyperspace_tpu.parallel import mesh as jmesh
 from hyperspace_tpu.parallel import sharding as jsharding
+from hyperspace_tpu_torch import shapes as tshapes
 from hyperspace_tpu_torch.execution import spmd as tspmd
 from hyperspace_tpu_torch.parallel import mesh as tmesh
 from hyperspace_tpu_torch.parallel import sharding as tsharding
@@ -65,7 +66,7 @@ def test_pad_and_shard_blocks_equals_jax(bounds, shard_rows):
 @pytest.mark.parametrize("n", [0, 1, 1000, 1024, 1025, 3000, 5_000_000, 6_000_000])
 def test_length_classes_equal_jax(n):
     from hyperspace_tpu.execution.shapes import padded_length
-    assert tmesh.padded_length(n) == padded_length(n)
+    assert tshapes.padded_length(n) == padded_length(n)
 
 
 @pytest.mark.parametrize("n_dev,buckets", [(8, 32), (3, 10), (8, 5)])
@@ -211,8 +212,8 @@ def test_one_device_shard_is_the_leaf_unpadded(n_dev, rows):
         assert shards["x"][0].data_ptr() == x.data_ptr() and shards["x"][0].shape[0] == rows
         assert bool(valid[0].all())
     else:
-        assert tspmd._pad_rows(mesh, rows) == tmesh.padded_length(rows)
-        assert sum(int(s.shape[0]) for s in shards["x"]) == tmesh.padded_length(rows)
+        assert tspmd._pad_rows(mesh, rows) == tshapes.padded_length(rows)
+        assert sum(int(s.shape[0]) for s in shards["x"]) == tshapes.padded_length(rows)
 
 
 def test_session_mesh_lists_the_session_devices(monkeypatch, tmp_path):

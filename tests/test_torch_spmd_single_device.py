@@ -177,7 +177,7 @@ def test_one_device_float_sum_keeps_the_staged_order(tmp_path):
     bit for bit; the reference's one-device program adds in XLA's tree
     order over its padded shard. Each side equals its own oracle, and here
     the two differ."""
-    from hyperspace_tpu_torch.parallel.mesh import padded_length
+    from hyperspace_tpu_torch.shapes import padded_length
     rng = np.random.default_rng(11)
     n = 6000
     k = rng.integers(0, 500, n).astype(np.int64)

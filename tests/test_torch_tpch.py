@@ -136,7 +136,8 @@ def test_q17_reads_the_partkey_index_under_both_joins_and_the_threshold(lake):
 def test_indexed_takes_the_sort_free_paths(lake, monkeypatch, name):
     """Indexed Q3 merges without a sort and aggregates its join output in
     two phases; indexed Q17 merges its first join and its threshold
-    group-by skips the sort. Scanned, neither happens."""
+    group-by skips the sort. Scanned, neither happens. These are the
+    staged executor's paths: the scanned runs would otherwise fuse."""
     seen = {"merge": [], "two_phase": 0}
     real_merge, real_two = tex._bucketed_merge_keys, tex._execute_aggregate_two_phase
 
@@ -151,13 +152,17 @@ def test_indexed_takes_the_sort_free_paths(lake, monkeypatch, name):
 
     monkeypatch.setattr(tex, "_bucketed_merge_keys", merge)
     monkeypatch.setattr(tex, "_execute_aggregate_two_phase", two_phase)
-    for indexed in (True, False):
-        seen.update(merge=[], two_phase=0)
-        run(lake, "torch", name, indexed)
-        if name == "q3":
-            assert seen == {"merge": [indexed], "two_phase": int(indexed)}
-        else:
-            assert seen == {"merge": [indexed, indexed], "two_phase": 0}
+    lake["torch"].conf.set(IndexConstants.TPU_FUSION_ENABLED, "false")
+    try:
+        for indexed in (True, False):
+            seen.update(merge=[], two_phase=0)
+            run(lake, "torch", name, indexed)
+            if name == "q3":
+                assert seen == {"merge": [indexed], "two_phase": int(indexed)}
+            else:
+                assert seen == {"merge": [indexed, indexed], "two_phase": 0}
+    finally:
+        lake["torch"].conf.unset(IndexConstants.TPU_FUSION_ENABLED)
 
 
 def test_indexed_q17_sorts_nothing(lake, monkeypatch):
@@ -334,48 +339,81 @@ def test_operators_equal_across_packages(null_lake, name):
     assert float_bits(got) == float_bits(want)
 
 
+STAGED = {"hyperspace.tpu.execution.fusion.enabled": "false"}
+
+
+def both_routes(null_lake, query, jax_raises=()):
+    """{route: (port's table, JAX package's table)} of ``query(session, E)``
+    on each package's default (fused) route and its staged route; on a
+    route in ``jax_raises`` the JAX package's ``to_arrow`` must raise
+    IndexError, and its table is None."""
+    out = {}
+    for route, extra in (("default", {}), ("staged", STAGED)):
+        tables = {}
+        for pkg, mod, E in (("torch", ht, TE), ("jax", hst, JE)):
+            kw = {"device": "cpu"} if pkg == "torch" else {}
+            s = mod.Session(conf={**CONF, **extra},
+                            system_path=str(null_lake["root"] / f"{pkg}_{route}"), **kw)
+            if pkg == "jax" and route in jax_raises:
+                with pytest.raises(IndexError):
+                    query(s, E).to_arrow()
+                tables[pkg] = None
+            else:
+                tables[pkg] = query(s, E).to_arrow()
+        out[route] = (tables["torch"], tables["jax"])
+    return out
+
+
 def test_empty_global_sum_follows_the_staged_path(null_lake):
-    """Queue C: a global sum of a nullable column over no rows. The JAX
-    package's staged executor gives 0.0 and its fused region (on by
-    default) NULL; the port runs the staged path and gives 0.0."""
+    """Queue C 3: a global sum of a nullable column over no kept rows. Each
+    package's default route fuses the region, reads the column whole (its
+    pushed-down read keeps nothing) and answers NULL; its staged route
+    answers 0.0. The port equals the JAX package route for route. AVG of
+    the non-null q stays 0.0 on both."""
     def query(s, E):
         return s.read.parquet(str(null_lake["root"] / "left")).filter(E.col("q") > 1000) \
             .agg(E.sum_(E.col("v")).alias("sv"), E.avg(E.col("q")).alias("aq"),
                  E.count().alias("c"))
 
-    got = query(null_lake["torch"], TE).to_arrow()
-    staged = query(hst.Session(conf={**CONF, "hyperspace.tpu.execution.fusion.enabled": "false"},
-                               system_path=str(null_lake["root"] / "staged")), JE).to_arrow()
-    fused = query(null_lake["jax"], JE).to_arrow()
-    assert got.equals(staged) and got.to_pydict() == {"sv": [0.0], "aq": [0.0], "c": [0]}
-    assert fused.to_pydict() == {"sv": [None], "aq": [0.0], "c": [0]}
+    out = both_routes(null_lake, query)
+    for got, want in out.values():
+        assert got.equals(want)
+    assert out["default"][0].to_pydict() == {"sv": [None], "aq": [0.0], "c": [0]}
+    assert out["staged"][0].to_pydict() == {"sv": [0.0], "aq": [0.0], "c": [0]}
 
 
 @pytest.mark.parametrize("fn", ["min_", "max_"])
 @pytest.mark.parametrize("column", ["k32", "k64", "d", "s"])
 def test_empty_global_min_max_follows_the_staged_path(null_lake, column, fn):
-    """Queue C 20: a global MIN/MAX over no rows of an int32, a nullable
-    int64, a date or a string column. The JAX package's staged path gives
-    the dtype's far end (int32's max for MIN, its min for MAX; the string
-    MIN's code reads back as '' and the MAX's as NULL); the port follows
-    it. The fused default gives NULL for the nullable int64 (queue C 3's
-    pattern), which the port does not follow."""
+    """Queue C 20: a global MIN/MAX over no kept rows of an int32, a
+    nullable int64, a date or a nullable string column. The staged route
+    gives the dtype's far end (int32's max for MIN, its min for MAX; the
+    string MIN's code reads back as '' and the MAX's as NULL); the default
+    (fused) route gives NULL for the nullable columns (queue C 3's
+    pattern) and the far end for the others. The port equals the JAX
+    package route for route (as arrow tables: a far-end date is no Python
+    date). One exception: the JAX package's fused string MIN holds the
+    int32 maximum under its NULL, and its ``to_arrow`` indexes the
+    dictionary with it and raises IndexError; the port answers NULL."""
     def query(s, E):
         return s.read.parquet(str(null_lake["root"] / "left")).filter(E.col("q") > 1000) \
             .agg(getattr(E, fn)(E.col(column)).alias("m"))
 
-    got = query(null_lake["torch"], TE).to_arrow()
-    staged = query(hst.Session(conf={**CONF, "hyperspace.tpu.execution.fusion.enabled": "false"},
-                               system_path=str(null_lake["root"] / "staged")), JE).to_arrow()
-    assert got.schema == staged.schema and got.equals(staged)
+    jax_raises = ("default",) if (column, fn) == ("s", "min_") else ()
+    out = both_routes(null_lake, query, jax_raises)
+    for got, want in out.values():
+        assert want is None or (got.schema == want.schema and got.equals(want))
+    staged, fused = out["staged"][0], out["default"][0]
     if column in ("k32", "d"):
         far = 2147483647 if fn == "min_" else -2147483648
-        assert got.column(0).combine_chunks().view(pa.int32()).to_pylist() == [far]
+        for got in (staged, fused):
+            assert got.column(0).combine_chunks().view(pa.int32()).to_pylist() == [far]
     elif column == "k64":
-        assert got.to_pydict() == {"m": [2 ** 63 - 1 if fn == "min_" else -2 ** 63]}
-        assert query(null_lake["jax"], JE).to_arrow().to_pydict() == {"m": [None]}
+        assert staged.to_pydict() == {"m": [2 ** 63 - 1 if fn == "min_" else -2 ** 63]}
+        assert fused.to_pydict() == {"m": [None]}
     else:
-        assert got.to_pydict() == {"m": ["" if fn == "min_" else None]}
+        assert staged.to_pydict() == {"m": ["" if fn == "min_" else None]}
+        assert fused.to_pydict() == {"m": [None]}
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,15 @@
 ``hyperspace_tpu/telemetry/trace.py``).
 
 One numpy-seeded TPC-H-shaped lake (``bench.make_tpch_like``) runs the
-same steps through both packages: the JAX package on the CPU with its
-staged path (fusion and the distributed tier off: the port has neither,
-and their ``exec.fused``/``spmd.*`` spans wait with those tiers), the port
+same steps through both packages, each on its staged path (fusion and
+the distributed tier off; a fused Q3 and a one-device dispatch are held
+to the JAX package's on their own), the JAX package on the CPU, the port
 with ``device="cpu"``. For a filter query, an indexed Q3, a serving sweep
 of four members, a join-reordered Q17 and a streaming append and commit,
 the span trees must be equal as lists of (name, depth, node, rows, hit,
-tier, files, members), with no tolerance. Spans of tiers the port does not
-have (the program bank's, fusion's) are left out of the JAX tree, and
-depth counts the spans kept. Times and ids are never compared.
+tier, files, members), with no tolerance. Spans the port does not have
+(the program bank's) are left out of the JAX tree, and depth counts the
+spans kept. Times and ids are never compared.
 
 Within the port: tracing off gives byte-identical answers and opens no
 trace; every span name the package opens is a constant of its
@@ -177,6 +177,28 @@ def test_query_span_tree_equals_jax(lake, name, indexed):
     assert {SN.QUERY, SN.PLAN_NORMALIZE, SN.EXEC_STAGE} <= names
     assert (SN.INDEX_REWRITE in names) == indexed
     assert rows[0][:2] == (SN.QUERY, 0)
+
+
+@pytest.mark.parametrize("indexed", [True, False])
+def test_fused_region_span_tree_equals_jax(lake, indexed):
+    """With fusion on in both packages, Q3's fused regions record one
+    exec.fused span each in place of their nodes' exec.stage spans, and
+    the trees are equal. Indexed, the covering indexes' bucket order keeps
+    the staged merge join: no region fuses."""
+    from hyperspace_tpu_torch.execution import fusion as tfusion
+    for session in (lake["torch"], lake["jax"]):
+        session.conf.set(IndexConstants.TPU_FUSION_ENABLED, "true")
+    try:
+        d0 = tfusion.DISPATCH_COUNT
+        got, rows = traced_cold_run(lake, "torch", q3, indexed)
+        want, jrows = traced_cold_run(lake, "jax", q3, indexed)
+    finally:
+        for session in (lake["torch"], lake["jax"]):
+            session.conf.set(IndexConstants.TPU_FUSION_ENABLED, "false")
+    assert got.equals(want)
+    assert rows == jrows
+    assert (tfusion.DISPATCH_COUNT > d0) == (not indexed)
+    assert (SN.EXEC_FUSED in {r[0] for r in rows}) == (not indexed)
 
 
 def test_q3_tree_has_a_stage_per_plan_node_and_reads_under_scans(lake):
@@ -539,6 +561,7 @@ OBSERVED_BY = {
     SN.PLAN_NORMALIZE: "test_query_span_tree_equals_jax",
     SN.INDEX_REWRITE: "test_query_span_tree_equals_jax",
     SN.EXEC_STAGE: "test_query_span_tree_equals_jax",
+    SN.EXEC_FUSED: "test_fused_region_span_tree_equals_jax",
     SN.IO_READ: "test_q3_tree_has_a_stage_per_plan_node_and_reads_under_scans",
     SN.IO_PREFETCH: "test_prefetch_stream_records_its_span",
     SN.CACHE_LOOKUP: "test_cache_hit_and_miss_trees_equal_jax",
