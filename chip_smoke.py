@@ -13,6 +13,20 @@ Phases, each of which fails the run on any error:
               patterns, sentinels, the any-valid word), and masked_minmax's
               per-stream scratch reused across 100 calls on each of two
               streams;
+2b. artifacts -- phase 1's five libraries published to an artifact store
+              (``hyperspace.tpu.artifacts.*``) on a small lake of its own
+              (SF0.05); a child process with an empty build directory and
+              ``artifacts.preload.enabled`` preloads them, calls warmup(),
+              runs the cutoff and range filters, a covering and a MinMax
+              sketch build and two indexed queries with no nvcc run (five
+              store hits, no KernelCompileEvent), every kernel launched and
+              equal to its plain version at phase 2's sizes, answers equal
+              this process's; one blob is corrupted, and a second child
+              quarantines it, builds that kernel alone with nvcc (equal
+              answers), then dies at an armed artifacts.write kill, whose
+              temp compact() sweeps; prints the ``artifacts`` line (cold
+              nvcc seconds, the child's warmup and first-query seconds,
+              hits, misses, bytes);
 3. datagen -- TPC-H lineitem, orders and part at ``--scale`` (SF10:
               60,000,000 lineitem rows in 4 parquet files, 15,000,000
               orders rows in 16 time-ordered files, 2,000,000 part rows in
@@ -86,7 +100,9 @@ Phases, each of which fails the run on any error:
               an o_orderdate window: 1 of 5 files kept); orders as 16 csv
               appends, one orc file (pyarrow's writer), and one orders
               file as json and avro, each read back through session.read
-              and equal to the source under pyarrow's type inference; over
+              and equal to the source under pyarrow's type inference (avro
+              through the native decoder, whose table equals the plain
+              Python decoder's, timed on the same file); over
               the csv copy csv_od_idx (o_orderkey, in memory) and
               csv_od_skip (MinMax on o_orderdate), a point query
               (IndexScan), a date window (2-3 of 16 files kept) and the
@@ -183,7 +199,7 @@ Phases, each of which fails the run on any error:
               result cache (16 device-tier hits on a repeat, misses after
               delete_index and restore_index, host-tier hits after
               demotion), no submission rejected; prints the ``serving``
-              line;
+              line, with the program bank's stats() delta over the path;
    faults  -- after the serving path, on its lake and conf
               (run_faults_path): pooled-read retries under a scanned wave,
               a serving worker's death releasing a member, result-cache
@@ -242,7 +258,8 @@ Phases, each of which fails the run on any error:
               spmd.dispatch armed (degraded with
               its event, raised with degrade off); the lineitem mesh
               build on a mesh of the one card against the single-device
-              build, bucket for bucket; spmd_stats() and explain's
+              build, bucket for bucket; the program bank's stats() delta
+              over the path; spmd_stats() and explain's
               "Distributed:" section; the six on the card against the CPU
               at singleDevice=on, bit for bit at scale 0.01; prints the
               ``mesh`` line. Since the dispatch is the default on the
@@ -1687,6 +1704,18 @@ def run_formats_path(root: str, li_dir: str, od_dir: str, n_li: int, n_od: int,
         same_under_mapping(got, one, f"formats {fmt}")
         fmt_times[fmt] = {"rows": one.num_rows, "files": 1, "write_s": w_secs,
                           "read_s": r_secs}
+    # The session's avro read decodes through the native library; the
+    # plain (Python) decoder is timed on the same file here, and only here.
+    from hyperspace_tpu_torch.util import avro as tavro
+    avro_file = os.path.join(base, "orders_avro",
+                             sorted(f for f in os.listdir(os.path.join(base, "orders_avro"))
+                                    if f.endswith(".avro"))[0])
+    native_t, native_s, _ = timed(lambda: tavro.read_avro(avro_file))
+    plain_t, plain_s, _ = timed(lambda: tavro.read_avro_plain(avro_file))
+    if not native_t.equals(plain_t):
+        raise AssertionError("formats avro: the native decoder's table differs from the "
+                             "plain decoder's")
+    fmt_times["avro"].update(decoder="native", decode_s=native_s, plain_decode_s=plain_s)
     out["formats"] = fmt_times
     log(f"formats: write and read back {fmt_times}")
 
@@ -5562,7 +5591,8 @@ def mesh_summary(ms: dict, launches: dict, card: str) -> dict:
             "empty_aggregate": ms["empty_aggregate"],
             "fused_program_error": ms["fused_program_error"],
             "sample_sort": ms["sample_sort"], "fault": ms["fault"], "build": ms["build"],
-            "card_against_cpu": ms["card_against_cpu"], "stats": ms["stats"]}
+            "card_against_cpu": ms["card_against_cpu"], "stats": ms["stats"],
+            "bank": ms["bank"]}
 
 
 def append_lineitem_files(li_dir: str, n_li: int, seed: int = 99) -> int:
@@ -7015,7 +7045,8 @@ def serving_summary(sv: dict, launches: dict, card: str) -> dict:
     result cache's hits and misses by tier and its device bytes; the
     path's rejected submissions (SLO admission included);
     each wave's wall time against its 16 serial runs; member latency p50
-    and p99; the path's seconds; the card."""
+    and p99; the program bank's counters' delta over the path; the path's
+    seconds; the card."""
     waves = {}
     for name in ("scanned", "indexed"):
         w = sv[name]
@@ -7032,7 +7063,302 @@ def serving_summary(sv: dict, launches: dict, card: str) -> dict:
                         "device_nbytes", "host_nbytes")}}
              for name, p in sv["cache"].items()}
     return {"waves": waves, "result_cache": cache, "rejected": sv["rejected"],
-            "launches": launches, "seconds": sv["seconds"], "card": card}
+            "launches": launches, "seconds": sv["seconds"], "bank": sv["bank"], "card": card}
+
+
+# ---------------------------------------------------------------------------
+# The artifacts path: the kernel libraries through the lake's artifact store.
+# ---------------------------------------------------------------------------
+
+# The artifacts path's own small lake (lineitem 300,000 rows): its work
+# launches every kernel once a library is loaded, in seconds.
+ARTIFACTS_SCALE = 0.05
+# The kernel whose blob the second child finds corrupt.
+ARTIFACTS_CORRUPT = "compare_mask"
+ARTIFACTS_CONF = {"hyperspace.tpu.artifacts.enabled": "true",
+                  "hyperspace.tpu.artifacts.usage.flushMs": "0"}
+
+
+def artifacts_work(session, li_dir: str, od_dir: str) -> dict:
+    """The cutoff and range filters (compare_mask, range_mask), a covering
+    index build (hash_bucket, bucket_histogram) and a MinMax sketch build
+    (masked_minmax) on the artifacts lake, and an indexed point query and
+    skipping query over them. Returns name -> arrow table and the first
+    query's seconds."""
+    import torch
+
+    from hyperspace_tpu_torch import (DataSkippingIndexConfig, Hyperspace, IndexConfig,
+                                      IndexConstants, MinMaxSketch, col)
+    hs = Hyperspace(session)
+    li = session.read.parquet(li_dir)
+    od = session.read.parquet(od_dir)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["cutoff"] = li.filter(col("l_shipdate") > CUTOFF).select(
+        "l_orderkey", "l_extendedprice").to_arrow()
+    torch.cuda.synchronize()
+    first_query_s = time.perf_counter() - t0
+    out["range"] = li.filter(col("l_shipdate").between(RANGE_LO, RANGE_HI)).select(
+        "l_orderkey", "l_extendedprice").to_arrow()
+    session.conf.set(IndexConstants.INDEX_NUM_BUCKETS, 8)
+    hs.create_index(li, IndexConfig("art_li_idx", ["l_orderkey"], ["l_extendedprice"]))
+    hs.create_index(od, DataSkippingIndexConfig("art_od_skip", [MinMaxSketch("o_orderdate")]))
+    session.enable_hyperspace()
+    try:
+        out["point"] = li.filter(col("l_orderkey") == 7).select("l_extendedprice").to_arrow()
+        out["skipping"] = od.filter(col("o_orderdate").between(SKIP_LO, SKIP_HI)).select(
+            "o_orderkey", "o_orderdate").to_arrow()
+    finally:
+        session.disable_hyperspace()
+    return {name: sorted_table(t) for name, t in out.items()}, first_query_s
+
+
+def check_store_kernels(errors: dict) -> int:
+    """Every kernel against its plain version at phase 2's sizes (1, 4,097
+    and 1,000,003 rows, and 8,650,755 for the masks), on a reduced grid of
+    phase 2's parameters: the libraries this process loaded from the
+    artifact store."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+    from hyperspace_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    checks = 0
+    for n in (1, 4097, 1_000_003, 8_650_755):
+        checks += check_masks(n, g, errors)
+        if n > 1_000_003:
+            continue
+        words = [kernels.to_words(torch.randint(0, 2 ** 32, (n + 1,), generator=g,
+                                                device=dev, dtype=torch.int64))
+                 for _ in range(8)]
+        for ncols, nb in ((1, 37), (8, 200)):
+            for offset in (0, 1):
+                cols = [w[offset:offset + n] for w in words[:ncols]]
+                h, b = ck.hash_bucket(cols, nb, with_hash=True)
+                ph, pb = ck.hash_bucket_plain(cols, nb, with_hash=True)
+                check_equal("hash_bucket", h, ph, errors)
+                check_equal("hash_bucket", b, pb, errors)
+                checks += 2
+        for nb in (37, 12289):
+            bids = torch.randint(-1, nb + 2, (n + 1,), generator=g, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+            for offset in (0, 1):
+                x = bids[offset:offset + n]
+                check_equal("bucket_histogram", ck.bucket_histogram(x, nb),
+                            ck.bucket_histogram_plain(x, nb), errors)
+                checks += 1
+        col = torch.randn(n + 1, generator=g, device=dev) * 100
+        col[n // 2] = float("nan")
+        valid = torch.rand(n + 1, generator=g, device=dev) < 0.5
+        ints = torch.randint(-2 ** 31, 2 ** 31, (n + 1,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        for offset in (0, 1):
+            for x in (col[offset:offset + n], ints[offset:offset + n]):
+                for v in (None, valid[offset:offset + n]):
+                    for pad in (None, True):
+                        got = ck.masked_minmax_words(x, v, pad)
+                        want = ck.masked_minmax_words_plain(x, v, pad)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                            raise AssertionError(f"masked_minmax from the store: "
+                                                 f"{got.view(torch.int32).tolist()} != plain "
+                                                 f"{want.view(torch.int32).tolist()}")
+                        errors["masked_minmax"] = errors.get("masked_minmax", 0.0)
+                        checks += 1
+    return checks
+
+
+def artifacts_child(store_dir: str, build_root: str, data: dict, out_path: str,
+                    kill_at_write: bool) -> None:
+    """One fresh process on the artifact store ``store_dir`` (its indexes
+    in a system path of its own): an empty build directory,
+    ``artifacts.preload.enabled``, ``warmup()``, the work of
+    :func:`artifacts_work` and, in the first child, every kernel against
+    its plain version. Writes its record to ``out_path``; with
+    ``kill_at_write``, then arms ``artifacts.write`` with a kill and
+    publishes a probe, dying at the point."""
+    import pyarrow as pa
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.artifacts import manager, store
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+    from hyperspace_tpu_torch.robustness import faults
+
+    ck.BUILD_ROOT = build_root
+    events0 = events_total()
+    conf = dict(ARTIFACTS_CONF, **{"hyperspace.tpu.artifacts.preload.enabled": "true",
+                                   "hyperspace.tpu.artifacts.dir": store_dir})
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    session = ht.Session(system_path=os.path.join(os.path.dirname(out_path), "indexes"),
+                         device="cuda", conf=conf)
+    session_s = time.perf_counter() - t0
+    hs = ht.Hyperspace(session)
+    t0 = time.perf_counter()
+    warm = hs.warmup()
+    warmup_s = session_s + time.perf_counter() - t0
+    ck.reset_launches()
+    tables, first_query_s = artifacts_work(session, data["li"], data["od"])
+    launches = dict(ck.LAUNCHES)
+    for name, t in tables.items():
+        with pa.OSFile(os.path.join(os.path.dirname(out_path), f"child_{name}.arrow"),
+                       "wb") as f:
+            with pa.ipc.new_file(f, t.schema) as w:
+                w.write_table(t)
+    errors: dict = {}
+    checks = 0 if kill_at_write else check_store_kernels(errors)
+    record = {"session_s": session_s, "warmup_s": warmup_s, "warmup": warm,
+              "first_query_s": first_query_s, "stats": hs.artifact_stats(),
+              "builds": dict(ck.BUILD_STATS), "built": sorted(ck.BUILD_LOG),
+              "compile_events": len(recorded_events(events0, "KernelCompileEvent")),
+              "launches": launches, "checks": checks, "errors": errors,
+              "corruptions": faults.stats()["artifact_corruptions"]}
+    with open(out_path, "w") as f:
+        json.dump(record, f, default=str)
+    if kill_at_write:
+        session.conf.set("hyperspace.tpu.robustness.faults.artifacts.write", "kill:nth=1")
+        probe = store.key_fields("write-probe", "none")
+        with faults.scope_for(session.hs_conf):
+            manager.manager_for(session).store.publish(probe, b"probe")
+        raise AssertionError("the armed artifacts.write kill did not fire")
+
+
+def _run_artifacts_child(root: str, lake: str, data: dict, name: str,
+                         kill_at_write: bool) -> tuple:
+    build_root = os.path.join(root, f"{name}_build")
+    os.makedirs(build_root)
+    out_dir = os.path.join(root, name)
+    os.makedirs(out_dir)
+    out_path = os.path.join(out_dir, "record.json")
+    store_dir = os.path.join(lake, "_hst_artifacts")
+    code = (f"import chip_smoke; chip_smoke.artifacts_child({store_dir!r}, {build_root!r}, "
+            f"{data!r}, {out_path!r}, {kill_at_write!r})")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if not os.path.exists(out_path) or (proc.returncode != 0 and not kill_at_write):
+        raise AssertionError(f"artifacts {name}: child failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(out_path) as f:
+        record = json.load(f)
+    import pyarrow as pa
+    tables = {}
+    for t in os.listdir(out_dir):
+        if t.startswith("child_"):
+            with pa.memory_map(os.path.join(out_dir, t)) as src:
+                tables[t[len("child_"):-len(".arrow")]] = pa.ipc.open_file(src).read_all()
+    record["process_s"] = seconds
+    return record, tables, proc.returncode
+
+
+def run_artifacts_path(root: str, results: dict, errors: dict) -> None:
+    """Phase 2b. The main process publishes phase 1's five libraries to an
+    artifacts lake. A child with an empty build directory preloads them,
+    runs no nvcc, launches all five on the artifacts work (answers equal
+    this process's) and holds each against its plain version. One blob is
+    then corrupted: a second child quarantines it, builds that kernel alone
+    with nvcc, and dies at an armed ``artifacts.write``; ``compact()``
+    sweeps the temp it left."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.artifacts import manager, store
+    from hyperspace_tpu_torch.ops import cuda_kernels as ck
+
+    t_path = time.perf_counter()
+    base = os.path.join(root, "artifacts")
+    li_dir, od_dir, _pt, n_li, n_od = make_tpch(os.path.join(base, "data"), ARTIFACTS_SCALE)
+    lake = os.path.join(base, "lake")
+    session = ht.Session(system_path=lake, device="cuda", conf=dict(ARTIFACTS_CONF))
+    mgr = manager.manager_for(session)
+    landed = mgr.publish_kernels()
+    if landed != len(ck.SOURCES) or mgr.stats()["blobs"] != len(ck.SOURCES):
+        raise AssertionError(f"artifacts: {landed} blobs published, {mgr.stats()['blobs']} "
+                             f"resident, for {len(ck.SOURCES)} kernels")
+    blob_bytes = mgr.stats()["resident_bytes"]
+    ck.reset_launches()
+    want, main_first_s = artifacts_work(session, li_dir, od_dir)
+    if not all(want[n].num_rows for n in ("cutoff", "range", "point", "skipping")):
+        raise AssertionError(f"artifacts: an empty answer {[(n, t.num_rows) for n, t in want.items()]}")
+    data = {"li": li_dir, "od": od_dir}
+
+    first, tables, _ = _run_artifacts_child(base, lake, data, "child1", False)
+    st = first["stats"]
+    if first["builds"]["builds"] or first["built"] or first["compile_events"]:
+        raise AssertionError(f"artifacts child 1 ran nvcc: {first['builds']}, "
+                             f"{first['built']}, {first['compile_events']} KernelCompileEvents")
+    if st["hits"] < len(ck.SOURCES) or st["misses"] or first["warmup"]["loaded"] \
+            + st["preloaded"] < len(ck.SOURCES):
+        raise AssertionError(f"artifacts child 1: store {st}, warmup {first['warmup']}")
+    missing = [k for k, n in first["launches"].items() if n <= 0]
+    if missing:
+        raise AssertionError(f"artifacts child 1 launched no {missing}")
+    for name, t in want.items():
+        if not tables[name].equals(t):
+            raise AssertionError(f"artifacts child 1: {name} differs from the main process's")
+    for k, v in first["errors"].items():
+        errors[k] = max(errors.get(k, 0.0), v)
+
+    digest = store.key_digest(ck.artifact_fields(ARTIFACTS_CORRUPT))
+    with open(mgr.store.blob_path(digest), "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        last = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([last[0] ^ 0xFF]))
+    second, tables2, rc = _run_artifacts_child(base, lake, data, "child2", True)
+    st2 = second["stats"]
+    if rc != -9:
+        raise AssertionError(f"artifacts child 2 ended with {rc}, not killed at artifacts.write")
+    if second["built"] != [ARTIFACTS_CORRUPT] or second["builds"]["builds"] != 1 \
+            or second["compile_events"] != 1:
+        raise AssertionError(f"artifacts child 2 built {second['built']} "
+                             f"({second['compile_events']} KernelCompileEvents), not "
+                             f"{ARTIFACTS_CORRUPT} alone")
+    if st2["corrupt"] != 1 or st2["misses"] < 1 or second["corruptions"] != 1:
+        raise AssertionError(f"artifacts child 2: store {st2}, corruptions "
+                             f"{second['corruptions']}")
+    for name, t in want.items():
+        if not tables2[name].equals(t):
+            raise AssertionError(f"artifacts child 2: {name} differs from the main process's")
+    temps = [n for n in os.listdir(mgr.store.version_dir) if n.startswith(store.TMP_PREFIX)]
+    if len(temps) != 1:
+        raise AssertionError(f"artifacts: the killed publisher left {temps}")
+    swept = ht.Hyperspace(session).compact()["artifacts"]
+    if swept.get("tmp_removed") != 1:
+        raise AssertionError(f"artifacts: compact() swept {swept}")
+    torch.cuda.synchronize()
+    results["artifacts"] = {
+        "cold_nvcc_s": results["build_s"], "blobs": landed, "blob_bytes": blob_bytes,
+        "main_first_query_s": main_first_s,
+        "child1": {k: first[k] for k in ("process_s", "session_s", "warmup_s", "first_query_s",
+                                         "warmup", "stats", "launches", "checks")},
+        "child2": {k: second[k] for k in ("process_s", "session_s", "warmup_s",
+                                          "first_query_s", "stats", "built", "builds")},
+        "compact": swept, "rows": {"lineitem": n_li, "orders": n_od},
+        "seconds": time.perf_counter() - t_path}
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def artifacts_summary(a: dict, card: str) -> dict:
+    c1, c2 = a["child1"], a["child2"]
+    return {"card": card, "seconds": a["seconds"], "cold_nvcc_s": a["cold_nvcc_s"],
+            "blobs": a["blobs"], "blob_bytes": a["blob_bytes"],
+            "store_warmup_s": c1["warmup_s"], "store_first_query_s": c1["first_query_s"],
+            "main_first_query_s": a["main_first_query_s"],
+            "hits": c1["stats"]["hits"], "misses": c1["stats"]["misses"],
+            "preloaded": c1["stats"]["preloaded"], "loaded_bytes": c1["stats"]["preload_bytes"],
+            "child_process_s": [c1["process_s"], c2["process_s"]],
+            "kernel_checks": c1["checks"],
+            "corrupt": {"built": c2["built"], "build_s": c2["builds"]["build_seconds"],
+                        "misses": c2["stats"]["misses"], "corrupt": c2["stats"]["corrupt"],
+                        "first_query_s": c2["first_query_s"]},
+            "compact": a["compact"]}
 
 
 def gpu_line() -> str:
@@ -7061,7 +7387,10 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     from hyperspace_tpu_torch.robustness import faults
+    from hyperspace_tpu_torch.serving.program_bank import get_bank
+    from hyperspace_tpu_torch.telemetry.exposition import delta as metric_delta
     degraded_at_start = faults.stats()["degraded_spmd"]
+    bank_degraded_at_start = faults.stats()["degraded_bank_compile"]
     fused_errors_at_start = fused_program_errors()
     card = gpu_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -7086,6 +7415,14 @@ def main(argv=None) -> int:
 
     root = tempfile.mkdtemp(prefix="hs_chip_smoke_")
     try:
+        run_artifacts_path(root, results, errors)
+        art = results["artifacts"]
+        log(f"phase 2b: artifacts path in {art['seconds']:.1f} s: {art['blobs']} blobs "
+            f"({art['blob_bytes']:,} bytes); a fresh process preloaded them in "
+            f"{art['child1']['warmup_s']:.3f} s and ran no nvcc (cold nvcc "
+            f"{art['cold_nvcc_s']:.1f} s), {art['child1']['checks']} kernel checks from the "
+            f"store; a corrupt blob rebuilt {art['child2']['built']} alone")
+
         t0 = time.perf_counter()
         li_dir, od_dir, pt_dir, n_li, n_od = make_tpch(os.path.join(root, "data"), args.scale)
         results["lineitem_rows"], results["orders_rows"] = n_li, n_od
@@ -7151,7 +7488,9 @@ def main(argv=None) -> int:
         log(f"reorder: launches {launches['reorder']}; "
             f"{results['reorder']['seconds']:.1f} s")
         ck.reset_launches()
+        bank0 = get_bank().stats()
         q6_refs, q6_scanned, q6_indexed = run_serving_path(sql_session_, sql_dirs, results)
+        results["serving"]["bank"] = metric_delta(bank0, get_bank().stats())
         launches["serving"] = dict(ck.LAUNCHES)
         masks = launches["serving"]["compare_mask"] + launches["serving"]["range_mask"]
         if masks < len(Q6_PARAMS):
@@ -7179,7 +7518,9 @@ def main(argv=None) -> int:
         launches["cluster"] = dict(ck.LAUNCHES)
         log(f"cluster: launches {launches['cluster']}; {results['cluster']['seconds']:.1f} s")
         ck.reset_launches()
+        bank0 = get_bank().stats()
         run_mesh_path(root, results)
+        results["mesh"]["bank"] = metric_delta(bank0, get_bank().stats())
         launches["mesh"] = dict(ck.LAUNCHES)
         log(f"mesh: launches {launches['mesh']}; {results['mesh']['seconds']:.1f} s")
         ck.reset_launches()
@@ -7259,6 +7600,12 @@ def main(argv=None) -> int:
         if fused_errors != fused_errors_armed:
             raise AssertionError(f"fused-program-error moved {fused_errors} in the run, "
                                  f"{fused_errors_armed} of them under armed faults")
+        # No step arms bank.compile: a degraded bank lookup would be a
+        # fault of the port's bank.
+        bank_degraded = faults.stats()["degraded_bank_compile"] - bank_degraded_at_start
+        if bank_degraded:
+            raise AssertionError(f"degraded_bank_compile moved {bank_degraded} with no "
+                                 f"bank.compile fault armed")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -7294,6 +7641,8 @@ def main(argv=None) -> int:
                       "sources": sources, "io": io, "sql": sql, "mutations": mutations,
                       "card_against_cpu": results["card_against_cpu"],
                       "total_s": results["total_s"]}, default=str))
+    print(json.dumps({"artifacts": artifacts_summary(results["artifacts"], card)},
+                     default=str))
     print(json.dumps({"formats": dict(results["formats"], launches=launches["formats"],
                                       card=card)}, default=str))
     print(json.dumps({"lake": dict(results["lake"], launches=launches["lake"], card=card)},

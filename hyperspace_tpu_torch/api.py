@@ -166,12 +166,12 @@ class Hyperspace:
         or redo the streaming tier's torn commits. A healthy lake is a
         no-op. Operator action: run it only while no other process mutates
         the lake. Returns {scanned, cancelled, vacuumed, errors, streaming,
-        artifacts}; ``artifacts`` is ``{"enabled": False}`` (the artifact
-        store is not ported)."""
+        artifacts}; ``artifacts`` is the artifact store's vacuum summary
+        (``{"enabled": False}`` while the store is off)."""
         from .robustness.recovery import recover_indexes
         summary = recover_indexes(self.session, names=index_names)
         self.index_manager.clear_cache()
-        summary["artifacts"] = {"enabled": False}
+        summary["artifacts"] = self._artifact_vacuum()
         return summary
 
     # The streaming tier (streaming/).
@@ -198,12 +198,46 @@ class Hyperspace:
         """Fold each op log's superseded entries into one checkpoint entry
         and vacuum unreferenced index data versions
         (streaming/compaction.py). Operator action, as ``recover``: run it
-        in a quiet window. Returns a summary dict; ``artifacts`` is
-        ``{"enabled": False}``."""
+        in a quiet window. Returns a summary dict; ``artifacts`` is the
+        artifact store's vacuum summary, as in ``recover``."""
         from .streaming.compaction import compact as _compact
         summary = _compact(self.session, names)
-        summary["artifacts"] = {"enabled": False}
+        summary["artifacts"] = self._artifact_vacuum()
         return summary
+
+    def _artifact_vacuum(self) -> dict:
+        """recover()'s and compact()'s sweep of the artifact store: crashed
+        publication temps, blobs of another runtime, corrupt blobs, orphaned
+        usage tallies, the byte budget."""
+        from .artifacts.manager import vacuum as _artifact_vacuum
+        return _artifact_vacuum(self.session)
+
+    # The artifact store (artifacts/).
+
+    def warmup(self) -> dict:
+        """Load the lake's kernel libraries from the artifact store into
+        this process, hottest first (by the persisted usage tallies),
+        within the ``artifacts.preload.maxMs`` / ``maxBytes`` budgets, so
+        the first query launches without an nvcc build. The explicit
+        counterpart of the opt-in preload at Session creation
+        (``artifacts.preload.enabled``). Returns {enabled, loaded, skipped,
+        bytes, ms, budget_hit}."""
+        from .artifacts.manager import preload as _preload
+        return _preload(self.session)
+
+    def artifact_stats(self) -> dict:
+        """The artifact store's counters (hits, misses, corruptions,
+        persists, evictions, resident blobs and bytes) merged with the
+        manager's warm-cache and preload numbers; ``{"enabled": False}``
+        while the store is off. The same dict backs the ``artifacts``
+        metrics collector."""
+        from .artifacts.manager import manager_for
+        mgr = manager_for(self.session)
+        if mgr is None:
+            return {"enabled": False}
+        out = {"enabled": True}
+        out.update(mgr.stats())
+        return out
 
     def tail_directory(self, watch_dir: str, table_path: str, name=None):
         """Start a continuous source tailing ``watch_dir`` for new
@@ -305,14 +339,17 @@ class Hyperspace:
         (``query.latency_ms``, ``serving.latency_ms``: rolling
         p50/p95/p99 and QPS) and every named collector (``io``,
         ``robustness``, ``streaming``, ``serving``, ``buffer_pool``,
-        ``flight_recorder``), plus this session's ``result_cache``."""
+        ``program_bank``, ``flight_recorder``), plus this session's
+        ``result_cache``."""
         from .execution import buffer_pool
         from .parallel import io as pio
+        from .serving.program_bank import get_bank
         from .telemetry import metric_names as MN
         from .telemetry.metrics import get_registry
         snap = get_registry().snapshot()
         cols = snap["collectors"]
         cols.setdefault(MN.COLLECTOR_IO, pio.pool_stats())
+        cols.setdefault(MN.COLLECTOR_PROGRAM_BANK, get_bank().stats())
         cols.setdefault(MN.COLLECTOR_BUFFER_POOL, buffer_pool.pool_stats())
         cols["result_cache"] = self.result_cache_stats()
         if MN.COLLECTOR_SERVING not in cols:
@@ -470,13 +507,15 @@ class Hyperspace:
         return get_frontend(self.session)
 
     def serving_stats(self) -> dict:
-        """The process-default frontend's admission and batching counters
-        and its cross-session result cache (``{"frontend": None}`` before
-        any frontend exists)."""
+        """The process-default frontend's admission and batching counters,
+        its cross-session result cache and the process-wide program bank
+        (``{"frontend": None, "program_bank": ...}`` before any frontend
+        exists)."""
         from .serving import frontend as fe
+        from .serving.program_bank import get_bank
         front = fe._DEFAULT
         if front is None:
-            return {"frontend": None}
+            return {"frontend": None, "program_bank": get_bank().stats()}
         out = front.stats()
         out["frontend"] = True
         return out

@@ -10,6 +10,7 @@ import threading
 from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
 from .adaptive.constants import AdaptiveConstants
+from .artifacts.constants import ArtifactConstants
 from .advisor.constants import AdvisorConstants
 from .cluster.constants import ClusterConstants
 from .index.constants import IndexConstants
@@ -368,6 +369,36 @@ class HyperspaceConf:
     def robustness_degrade_enabled(self) -> bool:
         return self._get_bool(RobustnessConstants.DEGRADE_ENABLED,
                               RobustnessConstants.DEGRADE_ENABLED_DEFAULT)
+
+    # The artifact store (artifacts/constants.py); the JAX package's
+    # defaults and clamps.
+
+    def artifacts_enabled(self) -> bool:
+        return self._get_bool(ArtifactConstants.ENABLED, ArtifactConstants.ENABLED_DEFAULT)
+
+    def artifacts_dir(self) -> str:
+        return (self._conf.get(ArtifactConstants.DIR, ArtifactConstants.DIR_DEFAULT)
+                or "").strip()
+
+    def artifacts_max_bytes(self) -> int:
+        return max(int(self._conf.get(ArtifactConstants.MAX_BYTES,
+                                      ArtifactConstants.MAX_BYTES_DEFAULT)), 0)
+
+    def artifacts_preload_enabled(self) -> bool:
+        return self.artifacts_enabled() and self._get_bool(
+            ArtifactConstants.PRELOAD_ENABLED, ArtifactConstants.PRELOAD_ENABLED_DEFAULT)
+
+    def artifacts_preload_max_ms(self) -> float:
+        return max(float(self._conf.get(ArtifactConstants.PRELOAD_MAX_MS,
+                                        ArtifactConstants.PRELOAD_MAX_MS_DEFAULT)), 0.0)
+
+    def artifacts_preload_max_bytes(self) -> int:
+        return max(int(self._conf.get(ArtifactConstants.PRELOAD_MAX_BYTES,
+                                      ArtifactConstants.PRELOAD_MAX_BYTES_DEFAULT)), 0)
+
+    def artifacts_usage_flush_ms(self) -> float:
+        return max(float(self._conf.get(ArtifactConstants.USAGE_FLUSH_MS,
+                                        ArtifactConstants.USAGE_FLUSH_MS_DEFAULT)), 0.0)
 
     # The serving cluster (cluster/constants.py).
 

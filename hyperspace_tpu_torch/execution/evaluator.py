@@ -29,6 +29,7 @@ from ..exceptions import HyperspaceException
 from ..ops import cuda_kernels, kernels
 from ..plan import expr as E
 from ..schema import BOOL, DATE, FLOAT64, INT64, STRING
+from ..shapes import padded_length
 from .columnar import (DEVICE_DTYPE, Column, Table, dictionaries_equal, literal_to_device,
                        translate_codes)
 
@@ -542,3 +543,122 @@ def _align_for_compare(lc: Column, rc: Column, op_name: str):
                 "is not supported yet")
         return lc.data, translate_codes(lc.dictionary, rc)
     return lc.data, rc.data
+
+
+# ---------------------------------------------------------------------------
+# Program-bank stage keys (the JAX package's fused predicate and arithmetic
+# programs: one compiled program per STRUCTURE, literal values as runtime
+# arguments). The port evaluates eagerly; these keys give its bank lookups
+# the stages the reference registers, so the bank counts alike.
+# ---------------------------------------------------------------------------
+
+class _NotFusable(Exception):
+    pass
+
+
+def _pred_structure(table: Table, e: E.Expr, col_ix: dict, lits: list):
+    """The hashable structure of a predicate the JAX package fuses:
+    Col/Lit comparisons (STRING-vs-literal via dictionary bounds), numeric
+    col-vs-col comparisons, And/Or/Not, In over literals, IsNull. Raises
+    _NotFusable for anything else (LIKE, CASE, arithmetic, string col-col)."""
+    if isinstance(e, (E.And, E.Or)):
+        return (("and" if isinstance(e, E.And) else "or"),
+                _pred_structure(table, e.left, col_ix, lits),
+                _pred_structure(table, e.right, col_ix, lits))
+    if isinstance(e, E.Not):
+        return ("not", _pred_structure(table, e.child, col_ix, lits))
+    if isinstance(e, E.IsNull):
+        if not isinstance(e.child, E.Col):
+            raise _NotFusable()
+        return ("isnull", col_ix[e.child.column], bool(e.negated))
+    if isinstance(e, E.In):
+        if not isinstance(e.value, E.Col) or not all(isinstance(o, E.Lit) for o in e.options):
+            raise _NotFusable()
+        return ("in", col_ix[e.value.column],
+                tuple(_lit_slot(table, e.value.column, o.value, lits) for o in e.options))
+    if isinstance(e, _COMPARISONS):
+        left, right = e.left, e.right
+        flipped = False
+        if isinstance(left, E.Lit) and not isinstance(right, E.Lit):
+            left, right = right, left
+            flipped = True
+        if not isinstance(left, E.Col):
+            raise _NotFusable()
+        if isinstance(right, E.Lit):
+            return ("cmp", _op_name(e, flipped), col_ix[left.column],
+                    _lit_slot(table, left.column, right.value, lits))
+        if not isinstance(right, E.Col):
+            raise _NotFusable()
+        if STRING in (table.column(left.column).dtype, table.column(right.column).dtype):
+            raise _NotFusable()  # dictionary translation is host work
+        return ("colcmp", _op_name(e, False), col_ix[left.column], col_ix[right.column])
+    raise _NotFusable()
+
+
+def _lit_slot(table: Table, column: str, value, lits: list):
+    """A literal's slot descriptor: its slot number and the Python type of
+    its encoded value (the traced scalar's dtype in the reference)."""
+    c = table.column(column)
+    j = len(lits)
+    if c.dtype == STRING:
+        lits.extend(literal_to_device(value, STRING, c.dictionary))
+        return ("slit", j)
+    lit = literal_to_device(value, c.dtype, None)
+    lits.append(lit)
+    return ("lit", j, type(lit).__name__)
+
+
+def _arith_structure(table: Table, e: E.Expr, col_ix: dict, lits: list):
+    """Structure of an arithmetic tree over Col/Lit (the Project and
+    aggregate-child shape, e.g. price * (1 - discount))."""
+    if isinstance(e, E.Alias):
+        return _arith_structure(table, e.child, col_ix, lits)
+    if isinstance(e, E.Col):
+        if table.column(e.column).dtype == STRING:
+            raise _NotFusable()
+        return ("col", col_ix[e.column])
+    if isinstance(e, E.Lit):
+        v = e.value
+        if not isinstance(v, (int, float, bool)) or isinstance(v, bool):
+            raise _NotFusable()
+        lits.append(v)
+        return ("alit", len(lits) - 1, type(v).__name__)
+    if isinstance(e, (E.Add, E.Subtract, E.Multiply, E.Divide)):
+        return ("arith", type(e).__name__, _arith_structure(table, e.left, col_ix, lits),
+                _arith_structure(table, e.right, col_ix, lits))
+    raise _NotFusable()
+
+
+def _bank_key(table: Table, e: E.Expr, walk, tag):
+    names = sorted(set(e.references))
+    if not names or table.num_rows == 0:
+        return None
+    col_ix = {nm: i for i, nm in enumerate(names)}
+    try:
+        spec = walk(table, e, col_ix, [])
+    except _NotFusable:
+        return None
+    cols = [table.column(nm) for nm in names]
+    sig = tuple((c.dtype, c.validity is not None) for c in cols)
+    # Each input's length class: the length the reference's program is
+    # compiled for (its tables ride padded to the class).
+    n = padded_length(int(table.num_rows))
+    return ("fused-predicate", tag + (spec, sig)), tuple(n for _ in cols)
+
+
+def predicate_bank_key(table: Table, condition: E.Expr):
+    """(stage key, shape-class vector) of the JAX package's fused predicate
+    program for a staged Filter, or None where it evaluates eagerly."""
+    try:
+        return _bank_key(table, condition, _pred_structure, ())
+    except KeyError:
+        return None
+
+
+def arith_bank_key(table: Table, e: E.Expr):
+    """(stage key, shape-class vector) of the JAX package's fused
+    arithmetic program for a projected or aggregated expression, or None."""
+    inner = e.child if isinstance(e, E.Alias) else e
+    if not isinstance(inner, (E.Add, E.Subtract, E.Multiply, E.Divide)):
+        return None
+    return _bank_key(table, e, _arith_structure, ("arith",))

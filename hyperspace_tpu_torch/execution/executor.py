@@ -34,6 +34,7 @@ is false; what the region does not absorb runs stage by stage here.
 
 from __future__ import annotations
 
+import contextvars
 import threading
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -62,11 +63,14 @@ from .buffer_pool import file_signature
 from .columnar import (DEVICE_DTYPE, Column, Table, dictionaries_equal, empty_table,
                        iter_dataset_chunks, literal_to_device, parquet_row_counts,
                        read_parquet, translate_codes)
-from .evaluator import eval_expr, eval_predicate_mask
+from .evaluator import arith_bank_key, eval_expr, eval_predicate_mask, predicate_bank_key
 from .pushdown import pruned_index_read_filter, pushable_filter
 
 
 def execute(plan: LogicalPlan, session) -> Table:
+    from ..ops import cuda_kernels
+    builds0 = cuda_kernels.BUILD_STATS["builds"]
+    seconds0 = cuda_kernels.BUILD_STATS["build_seconds"]
     # Every read under this execution takes the session's io and buffer
     # pool conf, and the mesh's shard boundaries its length classes.
     with shapes.use_conf(session.hs_conf), pio.use_session(session):
@@ -76,9 +80,25 @@ def execute(plan: LogicalPlan, session) -> Table:
         from . import spmd
         result = _spmd_with_fault_fallback(
             lambda: spmd.try_execute_plan(plan, session, _spmd_executor(session)), session)
-        if result is not None:
-            return result
-        return _execute(plan, None, session)
+        if result is None:
+            result = _execute(plan, None, session)
+    _emit_compile_event(session, cuda_kernels.BUILD_STATS["builds"] - builds0,
+                        cuda_kernels.BUILD_STATS["build_seconds"] - seconds0)
+    return result
+
+
+def _emit_compile_event(session, count: int, seconds: float) -> None:
+    """The kernel libraries this execution built with nvcc (a process-wide
+    tally, so a concurrent first query's builds can land here) as a
+    KernelCompileEvent; nothing when none was built."""
+    if count <= 0:
+        return
+    from ..ops import cuda_kernels
+    from ..telemetry.events import KernelCompileEvent
+    from ..telemetry.logging import get_logger
+    get_logger(session.hs_conf.event_logger_class()).log_event(KernelCompileEvent(
+        message=f"{count} kernel library build(s) during plan execution",
+        count=count, seconds=round(seconds, 4), total=cuda_kernels.BUILD_STATS["builds"]))
 
 
 def _spmd_executor(session):
@@ -213,7 +233,7 @@ def _execute_node(plan: LogicalPlan, needed: Optional[Set[str]], session) -> Tab
         for e in plan.exprs:
             child_needed.update(e.references)
         table = _execute(plan.child, child_needed, session)
-        out = Table({e.name: eval_expr(table, e) for e in plan.exprs})
+        out = Table({e.name: _eval_expr_banked(table, e) for e in plan.exprs})
         # Pass-through columns, renamed or not, keep the bucket order.
         order = table.bucket_order
         if order:
@@ -291,8 +311,31 @@ def _record_join_actual(plan: Join, table: Table, session) -> None:
         _feedback.maybe_replan(session, key, table.num_rows)
 
 
+# False inside a fused region's body, whose stages the JAX package traces
+# into the region's one program (no stage of their own in the bank).
+_BANK_STAGES: contextvars.ContextVar = contextvars.ContextVar("hst_torch_bank_stages",
+                                                              default=True)
+
+
+def _banked(banked, fn):
+    """``fn`` after the program bank's lookup of its stage (``banked``:
+    (stage key, shape-class vector), or None: unbanked). The bank counts
+    the program the JAX package compiles for this stage; the stage itself
+    is the eager function, called as it stands (nothing compiled to
+    reuse)."""
+    if banked is not None and _BANK_STAGES.get():
+        from ..serving.program_bank import get_bank
+        get_bank().lookup(banked[0], banked[1], lambda: fn)
+    return fn
+
+
 def _filter_table(table: Table, condition) -> Table:
-    return table.filter(eval_predicate_mask(table, condition))
+    mask_fn = _banked(predicate_bank_key(table, condition), eval_predicate_mask)
+    return table.filter(mask_fn(table, condition))
+
+
+def _eval_expr_banked(table: Table, e: E.Expr) -> Column:
+    return _banked(arith_bank_key(table, e), eval_expr)(table, e)
 
 
 def _read_columns(schema_names: List[str], needed: Optional[Set[str]]) -> List[str]:
@@ -944,7 +987,7 @@ def _unwrap_agg(agg: E.Expr) -> E.AggExpr:
 
 
 def _agg_child_column(agg: E.AggExpr, table: Table) -> Column:
-    child = eval_expr(table, agg.child)
+    child = _eval_expr_banked(table, agg.child)
     if child.dtype == STRING and not isinstance(agg, (E.Min, E.Max)):
         raise HyperspaceException("sum/avg over string column")
     return child

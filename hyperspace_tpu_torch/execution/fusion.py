@@ -39,9 +39,11 @@ COUNT DISTINCT, chunked (over-budget) sources, bucket-ordered streams
 sweeps. ``hyperspace.tpu.execution.fusion.enabled=false`` restores the
 staged executor. A region is tried only where the mesh tier declined.
 
-There is no program bank: eager torch compiles nothing, so a region's
-key (its literal-free structure) keys only the memo of regions whose body
-failed, which stay staged.
+A region's key (its literal-free structure) keys its stage in the
+process-wide program bank (serving/program_bank.py), as the JAX package's
+compiled region program is keyed, and the memo of regions whose body
+failed, which stay staged. The body runs eagerly; its aggregate's stages
+take no bank stage of their own (traced into the one program there).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ..plan import expr as E
 from ..plan.nodes import (Aggregate, BucketUnion, Filter, IndexScan, Join, Limit,
                           LogicalPlan, Project, Scan, Sort, Union, Window, infer_dtype)
 from ..schema import STRING
+from ..shapes import padded_length
 from ..telemetry import span_names as SN
 from ..telemetry import trace as _trace
 from . import fusion_boundaries as FB
@@ -310,8 +313,9 @@ def _region_needs(region: _Region, out_names: List[str]):
 def _dict_fp(dic: Optional[np.ndarray]):
     """A dictionary's place in the region key: its size and end entries.
     The JAX key holds the whole dictionary (a compiled program's
-    constant); here the key only remembers failed regions, so a cheap
-    fingerprint will do: a collision only runs a region staged."""
+    constant); here the key remembers failed regions and keys the bank's
+    stage, so a cheap fingerprint will do: a collision only runs a region
+    staged, or counts two regions' programs as one stage's."""
     if dic is None:
         return None
     return (len(dic), str(dic[0]), str(dic[-1])) if len(dic) else (0,)
@@ -441,9 +445,13 @@ def _run_body(region: _Region, stream: Table, sides: List[_SidePrep],
         # count(*) alone references no column: the rows still count.
         any_name = next(iter(cols))
         kept = Table({any_name: cols[any_name].take(idx)})
-    if not agg.group_cols:
-        return ex._execute_global_aggregate(agg, kept), jrows
-    return ex._execute_aggregate(agg, kept), jrows
+    token = ex._BANK_STAGES.set(False)
+    try:
+        if not agg.group_cols:
+            return ex._execute_global_aggregate(agg, kept), jrows
+        return ex._execute_aggregate(agg, kept), jrows
+    finally:
+        ex._BANK_STAGES.reset(token)
 
 
 # ---------------------------------------------------------------------------
@@ -588,7 +596,13 @@ def _execute_region(region: _Region, needed: Optional[Set[str]], session) -> Tab
 def _run_region(region: _Region, key, stream: Table, sides: List[_SidePrep],
                 out_names: List[str], session) -> Table:
     global DISPATCH_COUNT
+    from ..serving.program_bank import get_bank
+    # The region's program in the bank, per shape-class vector of its
+    # inputs: the stream's length class and each join side's.
+    shape_vec = (padded_length(int(stream.num_rows)),) + tuple(
+        padded_length(int(p.keys.shape[0])) for p in sides)
     try:
+        get_bank().lookup(("fused-region", key), shape_vec, lambda: _run_body)
         table, jrows = _run_body(region, stream, sides, out_names)
     except Exception as e:
         # Poison only real defects of the body, which would fail every

@@ -57,7 +57,7 @@ import torch
 from ..ops import kernels
 from ..parallel import mesh as pmesh
 from ..parallel.mesh import Mesh, pad_and_shard, pad_and_shard_blocks
-from ..parallel.sharding import collective_counts, device_view, mesh_signature
+from ..parallel.sharding import bank_program, collective_counts, mesh_signature, shape_vector
 from ..plan import expr as E
 from ..plan.nodes import Aggregate, Filter, IndexScan, Join, LogicalPlan, Project, Scan
 from ..schema import FLOAT32, FLOAT64, INT32, INT64, STRING
@@ -1089,9 +1089,47 @@ def _spmd_program(prep: _Prepared, agg_specs, group_cols, *, grouped: bool, mode
         return _grouped_partials(ax, table, mask, agg_specs, group_cols, flags_out,
                                  routed_merge and n_dev > 1)
 
-    run = device_view(per_device, prep.mesh,
-                      ("sharded", "sharded", "replicated", "sharded"), counts)
-    return run(prep.sharded, prep.valid, prep.bcast, prep.xch), needs
+    specs = ("sharded", "sharded", "replicated", "sharded")
+    args = (prep.sharded, prep.valid, prep.bcast, prep.xch)
+    # The JAX package's "exec" program: one bank stage per (structure,
+    # group capacities, mode), one program per argument shape signature.
+    # Its local group capacity is the shard's rows, at most 65,536 (the
+    # port sizes nothing by it and never retries with a larger one).
+    shape_vec = shape_vector(args, specs)
+    if mode == "agg":
+        g = min(shape_vec[0][0][0] // n_dev, _MAX_LOCAL_GROUPS) if shape_vec else 0
+        caps = (g, g)
+    else:
+        caps = (1, 1)
+    static = (_stage_signature(prep, agg_specs, group_cols, sort_orders), grouped) + caps \
+        + (mode, routed_merge if mode == "agg" else True)
+    launch = bank_program("exec", prep.mesh, static, shape_vec)
+    return launch(per_device, prep.mesh, specs, counts)(*args), needs
+
+
+_MAX_LOCAL_GROUPS = 1 << 16
+
+
+def _stage_signature(prep: _Prepared, agg_specs, group_cols, sort_orders) -> tuple:
+    """The structure of one mesh program, as the JAX package's stage
+    descriptor spells it (string dictionaries by content)."""
+    parts: List = [tuple(group_cols), tuple(sort_orders),
+                   tuple(sorted((i, tuple(sorted(v))) for i, v in prep.project_live.items()))]
+    for i, (kind, node) in enumerate(prep.stages):
+        if kind == "filter":
+            parts.append(("F", repr(node.condition)))
+        elif kind == "project":
+            parts.append(("P", tuple(repr(e) for e in node.exprs)))
+        else:
+            join = prep.joins[i]
+            parts.append(("J", join[0], join[-1], repr(node.condition),
+                          tuple(node.schema.names), getattr(join[2], "pack", None)))
+    for n, (dt, dic, nul) in sorted(prep.col_meta.items()):
+        parts.append((n, dt, None if dic is None else tuple(dic.tolist()), nul))
+    for s in agg_specs:
+        parts.append((s.name, s.kind, repr(s.child), s.out_dtype,
+                      None if s.dictionary is None else tuple(s.dictionary.tolist())))
+    return tuple(parts)
 
 
 def _broadcast_probe(ax, i, node, join, table: Table, mask, bcast, flags_out):

@@ -17,7 +17,11 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and bound with ``ctypes``. The libraries
 are built at first use into ``hyperspace_tpu_torch/_build/<hash of the
 sources>/``; :func:`build` compiles every missing one with all ``nvcc``
-processes started together.
+processes started together. With the active session's
+``hyperspace.tpu.artifacts.enabled`` on, a missing library is first
+fetched from the lake's artifact store (artifacts/), and a library that
+had to be built is published there, so a fresh host skips ``nvcc``.
+``BUILD_STATS`` counts the builds, their seconds and the store loads.
 
 A wrapper checks device, dtype, contiguity and shape, then launches its
 kernel for a CUDA tensor (on PyTorch's current stream) or computes the
@@ -46,6 +50,7 @@ import shutil
 import struct
 import subprocess
 import threading
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -77,6 +82,11 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _ENTRIES: Dict[str, Callable[..., int]] = {}
 _BUILD_LOCK = threading.Lock()
 BUILD_LOG: Dict[str, str] = {}  # kernel -> nvcc's stderr (ptxas -v report)
+
+# Process-lifetime tallies: libraries built with nvcc and their seconds,
+# libraries fetched from the artifact store instead.
+BUILD_STATS = {"builds": 0, "build_seconds": 0.0, "store_loads": 0}
+_FROM_STORE: set = set()  # kernels whose library this process fetched
 
 
 def reset_launches() -> None:
@@ -113,10 +123,59 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
 
-def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+def library_path(name: str) -> str:
+    return os.path.join(build_dir(), f"lib{name}.so")
+
+
+def sources_digest(name: str) -> str:
+    """Digest of the nvcc flags, kernel ``name``'s source and every shared
+    header: the source half of its artifact key."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    parts = [SOURCES[name]] + sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for part in parts:
+        with open(os.path.join(CSRC_DIR, part), "rb") as f:
+            h.update(part.encode() + b"\0" + f.read())
+    return h.hexdigest()[:32]
+
+
+_RUNTIME_ENV: Optional[Dict[str, str]] = None
+
+
+def runtime_env() -> Dict[str, str]:
+    """The environment half of an artifact key: torch's and CUDA's
+    versions, nvcc's version line and the card's compute capability
+    ("none" where absent)."""
+    global _RUNTIME_ENV
+    if _RUNTIME_ENV is None:
+        try:
+            p = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                               timeout=60)
+            lines = [ln for ln in p.stdout.splitlines() if ln.strip()]
+            nvcc_version = lines[-1].strip() if lines else "none"
+        except (KernelError, OSError, subprocess.SubprocessError):
+            nvcc_version = "none"
+        arch = "none"
+        if torch.cuda.is_available():
+            major, minor = torch.cuda.get_device_capability(0)
+            arch = f"sm_{major}{minor}"
+        _RUNTIME_ENV = {"torch": torch.__version__, "cuda": str(torch.version.cuda),
+                        "nvcc": nvcc_version, "arch": arch}
+    return dict(_RUNTIME_ENV)
+
+
+def artifact_fields(name: str) -> Dict[str, str]:
+    """The artifact store key of kernel ``name``'s library."""
+    from ..artifacts.store import key_fields
+    return key_fields(name, sources_digest(name), runtime_env())
+
+
+def build(names: Optional[Sequence[str]] = None, manager=None) -> Dict[str, str]:
     """Compile the named kernels (all by default) that are not built yet,
     one ``nvcc`` per source, all started together. Returns name -> library
-    path. A failed compile raises with nvcc's output."""
+    path. A failed compile raises with nvcc's output. ``manager`` (default:
+    the active session's artifact manager, None while the store is off)
+    is asked for each missing library first; what nvcc builds is then
+    published to it."""
     names = list(SOURCES) if names is None else list(names)
     out_dir = build_dir()
     paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in names}
@@ -125,7 +184,18 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
         if not todo:
             return paths
         os.makedirs(out_dir, exist_ok=True)
+        if manager is None:
+            from ..artifacts.manager import active_manager
+            manager = active_manager()
+        if manager is not None:
+            fetched = [n for n in todo if manager.fetch(artifact_fields(n), paths[n])]
+            BUILD_STATS["store_loads"] += len(fetched)
+            _FROM_STORE.update(fetched)
+            todo = [n for n in todo if n not in fetched]
+            if not todo:
+                return paths
         nvcc = _nvcc()
+        t0 = time.perf_counter()
         procs = []
         for n in todo:
             tmp = f"{paths[n]}.{os.getpid()}.tmp"
@@ -141,8 +211,14 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
                 failures.append(f"{SOURCES[n]} (rc={p.returncode}):\n{stdout}{stderr}")
                 continue
             os.replace(tmp, paths[n])
+        built = [n for n in todo if os.path.exists(paths[n])]
+        BUILD_STATS["builds"] += len(built)
+        BUILD_STATS["build_seconds"] += time.perf_counter() - t0
         if failures:
             raise KernelError("nvcc failed for " + "\n".join(failures))
+        if manager is not None:
+            for n in built:
+                manager.put(artifact_fields(n), paths[n])
     return paths
 
 
@@ -162,20 +238,64 @@ _ARGTYPES = {
 }
 
 
+def _bind(name: str, path: str):
+    symbol, argtypes = _ARGTYPES[name]
+    fn = getattr(ctypes.CDLL(path), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _ENTRIES[name] = fn
+    return fn
+
+
 def _entry(name: str):
-    """The C entry point of kernel ``name``, building and loading its
-    library on first use."""
+    """The C entry point of kernel ``name``, building (or fetching) and
+    loading its library on first use. A fetched library that does not
+    load is dropped from the store and built with nvcc."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        symbol, argtypes = _ARGTYPES[name]
+        path = build([name])[name]
         try:
-            fn = getattr(ctypes.CDLL(build([name])[name]), symbol)
-        except OSError as e:
-            raise KernelError(f"CUDA kernel {name} did not load: {e}") from e
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _ENTRIES[name] = fn
+            fn = _bind(name, path)
+        except (OSError, AttributeError) as e:
+            if name not in _FROM_STORE:
+                raise KernelError(f"CUDA kernel {name} did not load: {e}") from e
+            _drop_store_copy(name, artifact_fields(name))
+            try:
+                fn = _bind(name, build([name])[name])
+            except (OSError, AttributeError) as e2:
+                raise KernelError(f"CUDA kernel {name} did not load: {e2}") from e2
     return fn
+
+
+def load_library(name: str, fields: Dict[str, str], manager=None) -> bool:
+    """Load the library of kernel ``name`` that the artifact store wrote
+    into the build directory; False (and the copy dropped) when it does
+    not load, so the next use builds it."""
+    if name in _ENTRIES:
+        return True
+    _FROM_STORE.add(name)
+    try:
+        _bind(name, library_path(name))
+    except (OSError, AttributeError):
+        _drop_store_copy(name, fields, manager)
+        return False
+    BUILD_STATS["store_loads"] += 1
+    return True
+
+
+def _drop_store_copy(name: str, fields: Dict[str, str], manager=None) -> None:
+    """The corrupt ladder's last rung: a library the store wrote that does
+    not load leaves the build directory and is quarantined on the lake."""
+    try:
+        os.unlink(library_path(name))
+    except OSError:
+        pass
+    _FROM_STORE.discard(name)
+    if manager is None:
+        from ..artifacts.manager import active_manager
+        manager = active_manager()
+    if manager is not None:
+        manager.discard(fields)
 
 
 # (device index, stream handle) -> (words, their address): masked_minmax's

@@ -7,7 +7,7 @@ MinMax sketch runs the masked_minmax kernel over 32-bit columns
 hashes every value with the same murmur-style hash the bucket exchange
 uses (ops/kernels.py), derives k probe positions by double hashing and
 scatters them into a bit array on the device. Probing at plan time is
-host-side (ops/sketch_probe.py): one literal against one row per file is
+host-side (native/): one literal against one row per file is
 no work worth a device round trip.
 
 There is no shape-class padding here (the JAX package pads each file's

@@ -29,7 +29,7 @@ from ..ops import kernels
 from ..ops.index_build import bucket_ids_for
 from ..schema import STRING
 from .mesh import Mesh, bucket_owner, make_mesh, pad_and_shard
-from .sharding import collective_counts, device_view
+from .sharding import bank_program, collective_counts, shape_vector
 
 # Successful mesh builds in this process, and the string-dictionary unions
 # of multi-process builds; bumped under the lock (builds may run
@@ -74,7 +74,14 @@ def _exchange_and_sort(mesh: Mesh, arrays, valid, names: Sequence[str],
                                                     for c in indexed_cols])
         return {name: a[perm2] for name, a in recv.items()}, rbids[perm2]
 
-    return device_view(per_device, mesh, ("sharded", "sharded"), counts)(arrays, valid)
+    specs = ("sharded", "sharded")
+    # The JAX package's "bucket-exchange" program (its static key less the
+    # send capacity, which the port does not size).
+    launch = bank_program(
+        "bucket-exchange", mesh,
+        (num_buckets, n_dev, tuple(indexed_cols), tuple(str(dtypes[c][0]) for c in indexed_cols)),
+        shape_vector((arrays, valid), specs))
+    return launch(per_device, mesh, specs, counts)(arrays, valid)
 
 
 def _union_string_dictionaries(table: Table, mesh: Mesh) -> Table:

@@ -31,7 +31,7 @@ from ..execution.columnar import Table
 from ..execution.spmd import _fsum
 from ..ops import kernels
 from .mesh import Mesh, make_mesh, pad_and_shard
-from .sharding import collective_counts, device_view
+from .sharding import bank_program, collective_counts, shape_vector
 
 
 def _range_mask(fd: torch.Tensor, lo, hi, lo_incl: bool, hi_incl: bool) -> torch.Tensor:
@@ -67,8 +67,10 @@ def distributed_range_agg(table: Table, filter_col: str, lo, hi,
             (), dtype=arrs[name].dtype, device=m.device)))) for name in value_cols}
         return count, sums
 
-    count, sums = device_view(per_device, mesh, ("sharded", "sharded"), counts)(
-        shards, valid)[0]
+    specs = ("sharded", "sharded")
+    launch = bank_program("range-agg", mesh, (tuple(value_cols), lo_incl, hi_incl),
+                          shape_vector((shards, valid), specs))
+    count, sums = launch(per_device, mesh, specs, counts)(shards, valid)[0]
     return int(count), {k: v.item() for k, v in sums.items()}
 
 
@@ -118,7 +120,21 @@ def _join_agg(mesh, left, left_valid, right, right_valid, key, left_value, right
                                     lt.column(left_value).data, rt.column(key).data, rv,
                                     rt.column(right_value).data)
 
-    count, lsum, rsum = device_view(
+    # The JAX package's "join-agg" / "join-filter-agg" programs, their
+    # shape vectors over the key, validity and value columns they take.
+    def cols(tables, name):
+        return [t.column(name).data for t in tables]
+
+    leaves = [cols(left, key), list(left_valid), cols(left, left_value)]
+    if filt is not None:
+        leaves.append(cols(left, filt[0]))
+    leaves += [cols(right, key), list(right_valid), cols(right, right_value)]
+    shape_vec = shape_vector(leaves, ("sharded",) * len(leaves))
+    if filt is None:
+        launch = bank_program("join-agg", mesh, (), shape_vec)
+    else:
+        launch = bank_program("join-filter-agg", mesh, (filt[3], filt[4]), shape_vec)
+    count, lsum, rsum = launch(
         per_device, mesh, ("sharded",) * 4, counts)(left, left_valid, right, right_valid)[0]
     return int(count), lsum.item(), rsum.item()
 

@@ -16,8 +16,12 @@ collective is a rendezvous of all ``n``: each thread leaves its value,
 every thread combines the same ``n`` values in device order, so the answer
 never depends on thread timing.
 
-Eager torch compiles no program, so there is no program bank: a stage is a
-plain call. The launcher counts every collective a body issues (device 0's
+Eager torch compiles no program: a stage is a plain call of
+:func:`device_view`. :func:`bank_program` looks each stage up in the
+process-wide program bank (serving/program_bank.py) under the JAX
+package's key (stage name, static fingerprint, mesh signature), so the
+bank counts the mesh programs the JAX package compiles. The launcher
+counts every collective a body issues (device 0's
 count: each device issues the same sequence), which :func:`last_collectives`
 reports in the JAX package's HLO categories ("all-reduce" for
 psum/pmin/pmax, "all-to-all", "all-gather").
@@ -258,3 +262,39 @@ def device_view(fn: Callable, mesh: Mesh, in_specs: Sequence[str],
 def collective_counts(counts: Dict[str, int]) -> Dict[str, int]:
     """Every category of :data:`COLLECTIVE_OPS`, 0 where none was issued."""
     return {op: int(counts.get(op, 0)) for op in COLLECTIVE_OPS}
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def shape_vector(args, in_specs: Sequence[str]) -> tuple:
+    """The bank's shape-class vector of a launch's arguments: one (global
+    shape, dtype) pair per tensor leaf, dict entries in key order (the JAX
+    package's tree order). A sharded leaf's global length is the sum of
+    its per-device blocks, which are padded as the JAX package pads them."""
+    out = []
+    for arg, spec in zip(args, in_specs):
+        items = [arg[k] for k in sorted(arg)] if isinstance(arg, dict) else [arg]
+        for leaf in items:
+            if spec == "sharded":
+                blocks = list(leaf)
+                if not blocks or not isinstance(blocks[0], torch.Tensor):
+                    continue
+                shape = (sum(int(b.shape[0]) for b in blocks),) + tuple(blocks[0].shape[1:])
+                out.append((shape, _dtype_name(blocks[0])))
+            elif isinstance(leaf, torch.Tensor):
+                out.append((tuple(leaf.shape), _dtype_name(leaf)))
+    return tuple(out)
+
+
+def bank_program(name: str, mesh: Mesh, static_key: tuple, shape_vec: tuple) -> Callable:
+    """Look mesh stage ``name`` up in the process-wide program bank under
+    (stage name, static fingerprint, mesh signature), as the JAX package
+    keys its compiled mesh programs, with ``shape_vec`` as the bank's
+    shape-class vector. Returns the launcher, :func:`device_view`: the
+    stage runs eagerly, nothing compiled to reuse."""
+    from ..serving.program_bank import get_bank
+    key = ("spmd", name, static_key, mesh_signature(mesh))
+    get_bank().lookup(key, shape_vec, lambda: device_view)
+    return device_view

@@ -11,13 +11,12 @@ the caller asked for this query's trace), then renders:
 - estimated against actual rows for every reordered join step, with the
   per-step q-error;
 - the query's tallies: the context's io attribution, the result-cache
-  lookup outcome (from the trace), and the process delta of the robustness
-  counters across this execution.
+  lookup outcome (from the trace), and the process deltas of the program
+  bank's and the robustness counters across this execution.
 
-The robustness delta is a process-wide counter diff, so a concurrent
-query's incidents can leak into it; the io numbers come from the context
-and are exact. The JAX package's "bank:" line has no counterpart (eager
-torch compiles no programs).
+The bank and robustness deltas are process-wide counter diffs, so a
+concurrent query's lookups or incidents can leak into them; the io numbers
+come from the context and are exact.
 """
 
 from __future__ import annotations
@@ -55,6 +54,7 @@ def _join_lines(session) -> list:
 def explain_analyze_string(session, plan) -> str:
     from ..robustness import faults as _faults
     from ..serving.context import QueryContext
+    from ..serving.program_bank import get_bank
     from ..telemetry.exposition import delta
 
     ctx = QueryContext.for_session(session)
@@ -62,10 +62,12 @@ def explain_analyze_string(session, plan) -> str:
     # The "Joins" section must be this execution's: a result-cache hit runs
     # no reorder pass and reports no joins.
     session._last_join_order = None
+    bank0 = get_bank().stats()
     rob0 = _faults.stats()
     t0 = time.perf_counter()
     table = session.execute(plan, context=ctx)
     elapsed_ms = (time.perf_counter() - t0) * 1000.0
+    bank1 = get_bank().stats()
     rob1 = _faults.stats()
     tr = ctx.trace
 
@@ -99,6 +101,9 @@ def explain_analyze_string(session, plan) -> str:
             cache_line = (f"cache: {'hit' if a.get('hit') else 'miss'}"
                           + (f" tier={a['tier']}" if a.get("tier") else ""))
     lines.append(cache_line)
+    bank_d = delta(bank0, bank1)
+    lines.append("bank: " + (" ".join(f"{k}={v:+g}" for k, v in sorted(bank_d.items()))
+                             if bank_d else "no traffic"))
     rob_d = delta(rob0, rob1)
     lines.append("robustness: " + (" ".join(f"{k}={v:+g}" for k, v in sorted(rob_d.items()))
                                    if rob_d else "clean"))

@@ -18,10 +18,10 @@ section follows while workload capture is on or has recorded queries.
 While ``optimizer.joinReorder.enabled`` is set, the "Join order:" section
 shows each join chain's order and its estimates beside the actual rows of
 its last run, and the "Distributed:" section once the mesh tier
-dispatched or built. The JAX package's "Compilation:" section stays out:
-it reports XLA compiles (execution/shapes.py's counter), and eager torch,
-fused regions included, compiles no programs; for the same reason its
-"Serving:" section's program-bank line has no counterpart here.
+dispatched or built. The "Compilation:" section follows the result
+cache's once a kernel library was built with nvcc or loaded from the
+artifact store (where the JAX package counts XLA compiles), and the
+"Serving:" section ends with the program bank's line.
 """
 
 from __future__ import annotations
@@ -124,6 +124,7 @@ def explain_string(session, plan: LogicalPlan, verbose: bool = False,
         buf.write_line(line)
     if diagnostics:
         _write_cache_section(buf, session, plan)
+        _write_compilation_section(buf, session)
         _write_io_section(buf, session)
         _write_spmd_section(buf, session)
         _write_serving_section(buf, session)
@@ -265,6 +266,34 @@ def _write_serving_section(buf: BufferStream, session) -> None:
                        f"batched_queries={s['batched_queries']} "
                        f"shared_scans={s['shared_scans']} "
                        f"member_fallbacks={s['member_fallbacks']}")
+    from ..serving.program_bank import get_bank
+    b = get_bank().stats()
+    buf.write_line(f"program bank: stages={b['stages']} programs={b['programs']} "
+                   f"hits={b['hits']} misses={b['misses']} evictions={b['evictions']}")
+
+
+def _write_compilation_section(buf: BufferStream, session) -> None:
+    """The kernel libraries this process built with nvcc and loaded from
+    the artifact store (where the JAX package counts XLA compiles), and the
+    session's shape-bucketing conf; rendered only once a library was built
+    or loaded, as the reference renders its section only after a compile."""
+    from .. import shapes
+    from ..ops import cuda_kernels
+    st = cuda_kernels.BUILD_STATS
+    if st["builds"] == 0 and st["store_loads"] == 0:
+        return
+    p = shapes.params_from_conf(session.hs_conf)
+    buf.write_line()
+    _header(buf, "Compilation:")
+    buf.write_line(f"kernel builds: total={st['builds']} seconds={st['build_seconds']:.2f} "
+                   f"store_loads={st['store_loads']}")
+    if p.enabled:
+        buf.write_line(f"shape bucketing: on (growth={p.growth_factor:g} "
+                       f"minPad={p.min_pad} maxWaste={p.max_waste_ratio:g} "
+                       f"exactFallbackRows={p.exact_fallback_rows})")
+    else:
+        buf.write_line("shape bucketing: off (every data-dependent "
+                       "length compiles its own programs)")
 
 
 def _write_robustness_section(buf: BufferStream, session) -> None:

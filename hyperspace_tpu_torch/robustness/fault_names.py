@@ -2,9 +2,7 @@
 ``hyperspace_tpu/robustness/fault_names.py``, the points this package
 places). Every ``faults.fault_point(...)`` site names one of these; a
 conf key naming any other point is refused. The reference's
-``spmd.compile``, ``bank.compile``, ``artifacts.write`` and
-``artifacts.read`` have no site here: eager torch compiles no program, and
-the program bank and the artifact store are left out.
+``spmd.compile`` has no site here: eager torch compiles no mesh program.
 """
 
 from __future__ import annotations
@@ -74,10 +72,23 @@ SPMD_DISPATCH = "spmd.dispatch"
 # files again; with degrade off it raises.
 BUFFER_LOAD = "buffer.load"
 
+# Program-bank wrapper construction (serving/program_bank.lookup): a
+# failure runs the stage uncached (degraded_bank_compile).
+BANK_COMPILE = "bank.compile"
+
+# Artifact-store boundaries (artifacts/store.py). ARTIFACTS_WRITE fires
+# between the publication temp write and the link into place, so a kill
+# there leaves only whole blobs (vacuum sweeps the temp); an error costs
+# only persistence. ARTIFACTS_READ fires before the blob read: an error is
+# a miss, and the kernel is built with nvcc.
+ARTIFACTS_WRITE = "artifacts.write"
+ARTIFACTS_READ = "artifacts.read"
+
 FAULT_NAMES = frozenset({
     IO_POOLED_READ, IO_PREFETCH_PRODUCE, SCAN_PARQUET_DECODE,
     RESULT_CACHE_DEVICE_PUT, RESULT_CACHE_SPILL_READ,
     LOG_WRITE, LOG_STABLE, ACTION_OP, SERVING_WORKER,
     INGEST_STAGE, INGEST_PUBLISH, STREAMING_SOURCE,
     CLUSTER_FORWARD, CLUSTER_BROADCAST, BUFFER_LOAD, SPMD_DISPATCH,
+    BANK_COMPILE, ARTIFACTS_WRITE, ARTIFACTS_READ,
 })

@@ -4,8 +4,9 @@ of ``hyperspace_tpu/robustness/faults.py``).
 Named fault points (fault_names.py) sit at every risky boundary of the
 ported tiers: pooled reads and prefetch producers, parquet decode, the
 buffer pool's probe, the result cache's device copy and spill read-back,
-op-log writes, action bodies, serving workers, ingestion and the cluster's
-forward and broadcast. ``hyperspace.tpu.robustness.faults.<point>`` conf
+op-log writes, action bodies, serving workers, ingestion, the cluster's
+forward and broadcast, the program bank's wrapper construction and the
+artifact store's blob write and read. ``hyperspace.tpu.robustness.faults.<point>`` conf
 arms them. Disarmed, :func:`fault_point` is one contextvar read.
 
 Arming is scoped: ``Session.execute``, ``Action.run``, ``append`` and a
@@ -242,10 +243,10 @@ _COUNTER_KEYS = (
     "retry_failures",          # retry sequences that ran out of attempts
     "deadline_cancellations",  # queries cancelled at a deadline check
     "degraded_spmd",           # SPMD faults absorbed by single-device runs
-    "degraded_bank_compile",   # (the program bank's; stays 0 here)
+    "degraded_bank_compile",   # bank wrappers built uncached after a fault
     "degraded_device_put",     # result-cache device copies -> host tier
     "spill_corruptions",       # corrupt spill files served as misses
-    "artifact_corruptions",    # (the artifact store's; stays 0 here)
+    "artifact_corruptions",    # corrupt artifact blobs served as misses
     "member_fallbacks",        # sweep members run again alone
     "worker_releases",         # entries released from a dying worker
     "recovered_indexes",       # transient op-log states rolled back

@@ -4,8 +4,9 @@ source relation is kept, but its file listing is narrowed to the files
 whose sketches cannot refute the filter predicate. The covering-index
 rule runs first; this rule only touches the Scan leaves it left in place.
 
-Sketch probing is host-side numpy over the (one row per file) sketch table
-(ops/sketch_probe.py); unknown predicate shapes keep all files.
+Sketch probing is host-side, over the (one row per file) sketch table:
+numpy, or the native library's C++ loops under ``HST_NATIVE_PROBE``
+(native/); unknown predicate shapes keep all files.
 """
 
 from __future__ import annotations
@@ -16,10 +17,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import pyarrow.parquet as pq
 
+from .. import native
 from ..execution.pushdown import _FLIP
 from ..index.constants import States
 from ..index.log_entry import IndexLogEntry, Sketch
-from ..ops import sketch_probe
 from ..plan import expr as E
 from ..plan.nodes import Filter, LogicalPlan, Scan
 from .rule_utils import _plan_signature, get_relation, log_index_usage
@@ -179,10 +180,10 @@ def _eval_compare(column: str, op: str, value, table, sketch_by_col,
             dtype = relation_schema.field(column).dtype
             pr = prep_cache.get((column, "MinMax"))
             if pr is None:
-                pr = sketch_probe.prepare_minmax(lo, hi, dtype)
+                pr = native.prepare_minmax(lo, hi, dtype)
                 prep_cache[(column, "MinMax")] = pr if pr is not None else "unsupported"
             if pr not in (None, "unsupported"):
-                m = sketch_probe.minmax_prune_prepared(pr, op, value, dtype)
+                m = native.minmax_prune_prepared(pr, op, value, dtype)
             else:
                 # Strings: the generic per-file comparison.
                 m = np.ones(n, dtype=bool)
@@ -212,12 +213,12 @@ def _eval_compare(column: str, op: str, value, table, sketch_by_col,
             num_hashes = int(s.properties["numHashes"])
             pr = prep_cache.get((column, "BloomFilter"))
             if pr is None:
-                pr = sketch_probe.prepare_bloom(table[bloom_col(column)], num_bits)
+                pr = native.prepare_bloom(table[bloom_col(column)], num_bits)
                 prep_cache[(column, "BloomFilter")] = pr
                 # The raw bitsets are never read again: drop them so the
                 # cached table does not hold the bloom bytes twice.
                 table[bloom_col(column)] = None
-            apply_mask(sketch_probe.bloom_probe_prepared(
+            apply_mask(native.bloom_probe_prepared(
                 pr[0], pr[1], value, dtype, num_bits, num_hashes))
     return out
 

@@ -5,12 +5,10 @@ and conf (result_cache.py, fingerprint.py) with the SQL plan memo in
 ``Session.sql``; explicit per-query contexts (context.py); literal sweeps,
 which run queries that differ only in filter literals over one shared scan
 (batcher.py); and the multi-session frontend
-with admission control (frontend.py). The conf keys are
-``serving.result_cache.*`` and ``hyperspace.tpu.serving.*``
-(constants.py).
-
-The JAX package's ``program_bank.py`` has no counterpart: eager torch
-compiles no programs, so there is nothing to bank.
+with admission control (frontend.py); and the process-wide program bank
+(program_bank.py), which counts the fused and mesh stages' programs as the
+JAX package compiles them. The conf keys are ``serving.result_cache.*``
+and ``hyperspace.tpu.serving.*`` (constants.py).
 """
 
 from .constants import ServingConstants  # noqa: F401

@@ -615,6 +615,8 @@ class ServingFrontend:
             out["inflight_bytes"] = self._inflight_bytes
         cache = self.result_cache()
         out["shared_result_cache"] = cache.stats() if cache is not None else None
+        from .program_bank import get_bank
+        out["program_bank"] = get_bank().stats()
         out["subscriptions"] = self._subscriptions.stats()
         return out
 

@@ -123,6 +123,16 @@ class Session:
         # The span tree of the most recent retained trace (telemetry/trace.py);
         # Hyperspace.last_trace() and explain's "Trace:" section read it.
         self._last_trace = None
+        # Opt-in artifact preload: the lake's kernel libraries, hottest
+        # first, within the preload budgets, so this process's first query
+        # runs no nvcc. An unreadable store directory leaves the session up
+        # (a later miss builds).
+        if self.hs_conf.artifacts_preload_enabled():
+            from .artifacts.manager import preload as _artifact_preload
+            try:
+                _artifact_preload(self)
+            except OSError:
+                pass
 
     @property
     def _last_reason_collector(self):

@@ -22,12 +22,14 @@ bucketing is disabled or the array is huge (``exactFallbackRows`` and
 tier's load-time prebuild scope the session's conf with :func:`use_conf`,
 where the JAX package does.
 
-Not ported: the pad primitives (``pad_to``, ``pad_class``, ``unpad``,
-``valid_mask``, ``mask_tail``), which nothing here pads with; the XLA
-compile counter (``compile_count``, ``compile_scope``), its
-``KernelCompileEvent`` and explain's "Compilation:" section, and the XLA
-cache opt-in. Eager torch compiles no programs, so there is nothing to
-count.
+The program bank (serving/program_bank.py) counts its programs per
+class vector under these classes too. Not ported: the pad primitives
+(``pad_to``, ``pad_class``, ``unpad``, ``valid_mask``, ``mask_tail``),
+which nothing here pads with; the XLA compile counter (``compile_count``,
+``compile_scope``) and the XLA cache opt-in. Eager torch compiles no
+programs; ``KernelCompileEvent`` and explain's "Compilation:" section
+count the CUDA kernel libraries' nvcc builds instead
+(ops/cuda_kernels.py).
 """
 
 from __future__ import annotations

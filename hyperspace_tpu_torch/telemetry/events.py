@@ -6,9 +6,9 @@ One event class per action (start/success/failure carried in
 ``message``), the index-usage event of the rewrite rules, and the events
 of the read, serving, streaming, robustness, advisor, adaptive and
 cluster tiers, and the mesh tier's fallback, sharded-execution and
-exchange events. The program-bank, kernel-compile and artifact events are
-left out (``KernelCompileEvent`` counts XLA compiles, which eager torch does
-not do).
+exchange events, the program bank's, the artifact store's, and
+``KernelCompileEvent``, which counts the kernel libraries a plan's
+execution built with nvcc (the JAX package's counts XLA compiles).
 """
 
 from __future__ import annotations
@@ -576,3 +576,77 @@ class ClusterBroadcastEvent(ClusterEvent):
     peers: int = 0
     delivered: int = 0
     batches: int = 0
+
+
+@dataclass
+class KernelCompileEvent(HyperspaceEvent):
+    """Kernel-library builds of one plan execution (ops/cuda_kernels.py):
+    ``count`` libraries built with nvcc by this execution, ``seconds``
+    their summed build time, ``total`` the process-lifetime build count.
+    Loads from the artifact store are not builds; an execution that built
+    nothing emits no event."""
+
+    count: int = 0
+    seconds: float = 0.0
+    total: int = 0
+
+
+@dataclass
+class ProgramBankEvent(HyperspaceEvent):
+    """Base of the program-bank events (serving/program_bank.py).
+    ``stage_digest`` identifies the stage fingerprint; ``shape_vec`` the
+    shape-class vector; ``hits``/``misses`` are the bank's running totals
+    at emission time."""
+
+    stage_digest: str = ""
+    shape_vec: List[int] = field(default_factory=list)
+    hits: int = 0
+    misses: int = 0
+
+
+@dataclass
+class ProgramBankMissEvent(ProgramBankEvent):
+    """A new (stage, shape-class vector) program registered."""
+
+
+@dataclass
+class ProgramBankHitEvent(ProgramBankEvent):
+    """A program's FIRST reuse (later reuses only bump the counters)."""
+
+
+@dataclass
+class ArtifactEvent(HyperspaceEvent):
+    """Base of the artifact store events (artifacts/store.py).
+    ``key_digest`` is the blob filename digest; ``kind`` is "kernel";
+    ``nbytes`` the payload size where the store knows it."""
+
+    key_digest: str = ""
+    kind: str = ""
+    nbytes: int = 0
+
+
+@dataclass
+class ArtifactHitEvent(ArtifactEvent):
+    """A kernel library loaded from the lake: an nvcc build that did NOT
+    happen."""
+
+
+@dataclass
+class ArtifactMissEvent(ArtifactEvent):
+    """``reason`` is "absent" (cold key, or an injected read failure) or
+    "corrupt" (header, checksum or load failure: the blob was quarantined
+    and the kernel is built instead)."""
+
+    reason: str = ""
+
+
+@dataclass
+class ArtifactPersistEvent(ArtifactEvent):
+    """One built library published put-if-absent (this process won the
+    publication race)."""
+
+
+@dataclass
+class ArtifactEvictEvent(ArtifactEvent):
+    """A blob deleted to fit ``artifacts.maxBytes`` (coldest first by the
+    persisted usage order)."""

@@ -8,10 +8,8 @@ one of these constants. The OpenMetrics exposition
 (telemetry/exposition.py), ``Hyperspace.metrics_delta()`` and scrapers key
 on these strings, which equal the JAX package's.
 
-The reference's other names are left out: the
-``serving.sweep_invocations`` counter (the stacked literal-sweep mask,
-left out on purpose), the ``program_bank`` collector (eager torch compiles
-no programs) and the ``artifacts`` collector (left out by design).
+The reference's ``serving.sweep_invocations`` counter (the stacked
+literal-sweep mask) is left out on purpose.
 """
 
 from __future__ import annotations
@@ -51,11 +49,13 @@ COLLECTOR_FLIGHT_RECORDER = "flight_recorder"
 COLLECTOR_BUFFER_POOL = "buffer_pool"
 COLLECTOR_CLUSTER = "cluster"
 COLLECTOR_FUSION = "fusion"
+COLLECTOR_PROGRAM_BANK = "program_bank"
+COLLECTOR_ARTIFACTS = "artifacts"
 
 METRIC_NAMES = frozenset({
     TRACE_SAMPLED, TRACE_TAIL_KEPT, TRACE_DISCARDED, FLIGHT_ANOMALIES,
     SLO_BREACHES, SERVING_LATENCY_MS, QUERY_LATENCY_MS, COLLECTOR_IO,
     COLLECTOR_SERVING, COLLECTOR_ROBUSTNESS, COLLECTOR_STREAMING,
     COLLECTOR_FLIGHT_RECORDER, COLLECTOR_BUFFER_POOL, COLLECTOR_CLUSTER,
-    COLLECTOR_FUSION,
+    COLLECTOR_FUSION, COLLECTOR_PROGRAM_BANK, COLLECTOR_ARTIFACTS,
 })

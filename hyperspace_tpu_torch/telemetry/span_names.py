@@ -9,9 +9,8 @@ Variable detail (node kinds, hit/miss, byte counts) rides in span
 attributes, never in the name. The names equal the JAX package's, so
 dashboards and explain's "Trace:" section read the same strings.
 
-The reference's other names are left out: ``bank.*`` and ``spmd.compile``
-(eager torch compiles no programs) and ``artifact.*`` (left out by
-design).
+The reference's ``spmd.compile`` is left out: eager torch compiles no
+mesh program.
 """
 
 from __future__ import annotations
@@ -31,6 +30,11 @@ INDEX_REWRITE = "rewrite.index_rules"
 
 # Result-cache key computation + probe (serving/result_cache).
 CACHE_LOOKUP = "serving.cache_lookup"
+
+# Program-bank lookup (serving/program_bank; attrs carry hit/miss) and
+# the wrapper construction on a bank miss.
+BANK_LOOKUP = "bank.lookup"
+BANK_COMPILE = "bank.compile"
 
 # One span per executed plan node (execution/executor._execute).
 EXEC_STAGE = "exec.stage"
@@ -69,9 +73,18 @@ CLUSTER_FORWARD = "cluster.forward"
 CLUSTER_BROADCAST = "cluster.broadcast"
 CLUSTER_GATHER = "cluster.gather"
 
+# Artifact store (artifacts/): one ARTIFACT_LOAD per lake probe (attrs
+# carry hit/reason/nbytes), one ARTIFACT_EXPORT per publication of a built
+# kernel library, one ARTIFACT_WARMUP per preload pass (attrs carry the
+# loaded count and bytes).
+ARTIFACT_LOAD = "artifact.load"
+ARTIFACT_EXPORT = "artifact.export"
+ARTIFACT_WARMUP = "artifact.warmup"
+
 SPAN_NAMES = frozenset({
     QUERY, PLAN_NORMALIZE, JOIN_REORDER, INDEX_REWRITE, CACHE_LOOKUP,
     EXEC_STAGE, EXEC_FUSED, IO_READ, IO_PREFETCH, SPMD_DISPATCH, SERVING_SWEEP,
     INGEST_APPEND, INGEST_COMMIT, INGEST_COMPACT, INGEST_WAVE, INGEST_SOURCE,
     CLUSTER_FORWARD, CLUSTER_BROADCAST, CLUSTER_GATHER,
+    BANK_LOOKUP, BANK_COMPILE, ARTIFACT_LOAD, ARTIFACT_EXPORT, ARTIFACT_WARMUP,
 })

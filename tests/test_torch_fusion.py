@@ -160,7 +160,8 @@ class TestFusedExecution:
 
     def test_fused_region_spans_and_dispatch_counts(self, mini):
         """One exec.fused span per region with the JAX package's attributes,
-        no exec.stage span inside one, and fewer execution spans than the
+        no exec.stage span inside one (only the region's program-bank
+        lookup, as in the JAX package), and fewer execution spans than the
         staged run of the same query."""
         sessions, li_dir, od_dir = mini
         fused_spans, traces = {}, {}
@@ -184,7 +185,11 @@ class TestFusedExecution:
         assert len(spans) >= 1 and max(s.attrs["fused_nodes"] for s in spans) >= 3
         assert staged_tr.find(SN.EXEC_FUSED) == []
         fused_ids = {s.span_id for s in spans}
-        assert not any(s.parent_id in fused_ids for s in fused_tr.spans)
+        inside = [s.name for s in fused_tr.spans if s.parent_id in fused_ids]
+        assert inside == [SN.BANK_LOOKUP] * len(spans)
+        assert [s.name for s in traces[("jax", True)].spans
+                if s.parent_id in {j.span_id for j in traces[("jax", True)].find(
+                    SN.EXEC_FUSED)}] == inside
         n_fused = len(fused_tr.find(SN.EXEC_STAGE)) + len(spans)
         assert n_fused < len(staged_tr.find(SN.EXEC_STAGE))
 

@@ -393,19 +393,51 @@ def _queries():
 QUERIES = _queries()
 
 
+def fresh_bank_state() -> None:
+    """Start both packages' program banks and artifact registries anew and
+    zero the port's kernel-build tallies: explain's "program bank:" line,
+    the bank events' running totals and the "Compilation:" section read
+    them."""
+    from hyperspace_tpu.artifacts import manager as jartifacts
+    from hyperspace_tpu.serving import program_bank as jbank
+    from hyperspace_tpu_torch.artifacts import manager as tartifacts
+    from hyperspace_tpu_torch.ops import cuda_kernels
+    from hyperspace_tpu_torch.serving import program_bank as tbank
+    jbank._BANK = None
+    tbank.reset_for_tests()
+    if jartifacts._REGISTRY is not None:
+        with jartifacts._REGISTRY._lock:
+            jartifacts._REGISTRY._by_root.clear()
+    tartifacts.reset_for_tests()
+    cuda_kernels.BUILD_STATS.update(builds=0, build_seconds=0.0, store_loads=0)
+
+
 def fresh_io_counters() -> None:
     """Zero both packages' process-wide reader-pool counters, empty their
     buffer pools, start their SLO monitors anew and zero their dispatch
     counts: explain's I/O, SLO and "Distributed:" sections render from
     them once any read has been pooled, any query run, or any SPMD
-    program or mesh build dispatched, in the process."""
+    program or mesh build dispatched, in the process. Banks, artifact
+    registries and build tallies start anew too (fresh_bank_state), and
+    so do the robustness counters, whose section renders once any moved,
+    and the process-default serving frontends, whose "Serving:" section
+    renders once one took a query."""
+    from hyperspace_tpu.robustness import faults as jfaults
+    from hyperspace_tpu.serving import frontend as jfrontend
+    from hyperspace_tpu_torch.robustness import faults as tfaults
+    from hyperspace_tpu_torch.serving import frontend as tfrontend
+    jfrontend._DEFAULT = None
+    tfrontend._DEFAULT = None
     for io_mod, bp in ((jio, jbuffer_pool), (tio, tbuffer_pool)):
         io_mod.reset_stats()
         bp.get_pool().clear()
+    jfaults.reset_stats()
+    tfaults.reset_stats()
     for spmd_mod, build_mod in ((jspmd, jdistributed_build), (tspmd, tdistributed_build)):
         spmd_mod.DISPATCH_COUNT = spmd_mod.SORT_DISPATCH_COUNT = 0
         build_mod.DISPATCH_COUNT = 0
     fresh_telemetry_state()
+    fresh_bank_state()
 
 
 @pytest.fixture()

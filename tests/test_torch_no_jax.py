@@ -19,8 +19,9 @@ with time travel, Hybrid Scan and an index on the ``hsmem://`` object
 store; and the self-tuning tier: every advisor and adaptive module,
 capture, what-if, recommend and a builder pass; and the robustness tier
 and the cluster: fault points, retries, ladders, a deadline, a one-worker
-cluster and a two-rank gather; and whole-plan fusion and the length
-classes) still run end to end on the CPU, with the
+cluster and a two-rank gather; whole-plan fusion and the length
+classes; and the native runtime, the program bank and the artifact store)
+still run end to end on the CPU, with the
 join, group-by, column-pruning and score-based rule modules imported (in
 a subprocess, because conftest imports jax in this one); the default device refuses to
 run without CUDA; and chip_smoke.py prints no result without a card or
@@ -701,6 +702,54 @@ def test_fusion_and_shapes_run_without_jax():
                           capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "FUSION_OK" in proc.stdout
+
+
+LAST_MODULES = textwrap.dedent("""
+    import os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["hyperspace_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import numpy as np
+    import pyarrow as pa
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.artifacts import constants, manager, store
+    from hyperspace_tpu_torch.serving import program_bank
+    from hyperspace_tpu_torch.util import avro
+    root = tempfile.mkdtemp()
+    tbl = pa.table({{"k": pa.array(np.arange(300, dtype=np.int64)),
+                     "s": pa.array([f"v{{i}}" if i % 3 else None for i in range(300)])}})
+    avro.write_avro(tbl, os.path.join(root, "t.avro"), codec="deflate", block_rows=70)
+    assert avro.read_avro(os.path.join(root, "t.avro")).equals(tbl)
+    assert avro.read_avro_plain(os.path.join(root, "t.avro")).equals(tbl)
+    assert native.minmax_prune([1, 5], [3, 9], "GreaterThan", 4, "int64").tolist() == [False, True]
+    s = ht.Session(system_path=os.path.join(root, "ix"), device="cpu",
+                   conf={{"hyperspace.tpu.artifacts.enabled": "true",
+                          "hyperspace.tpu.execution.fusion.enabled": "false"}})
+    pq_dir = os.path.join(root, "pq")
+    os.makedirs(pq_dir)
+    import pyarrow.parquet as pq
+    pq.write_table(tbl, os.path.join(pq_dir, "p.parquet"))
+    df = s.read.parquet(pq_dir)
+    assert df.filter(ht.col("k") > 100).to_arrow().num_rows == 199
+    assert program_bank.get_bank().stats()["misses"] == 1
+    hs = ht.Hyperspace(s)
+    assert hs.warmup()["enabled"] is True and hs.artifact_stats()["enabled"] is True
+    assert hs.compact()["artifacts"]["enabled"] is True
+    assert constants.ARTIFACT_DIR_NAME == "_hst_artifacts"
+    assert sys.modules["jax"] is None and sys.modules["hyperspace_tpu"] is None
+    print("LAST_MODULES_OK")
+""")
+
+
+def test_native_bank_and_artifacts_run_without_jax():
+    """The native runtime (its avro decoder and sketch probe), the program
+    bank and the artifact store import and run, with ``jax`` and
+    ``hyperspace_tpu`` unimportable."""
+    proc = subprocess.run([sys.executable, "-c", LAST_MODULES.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LAST_MODULES_OK" in proc.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -198,15 +198,18 @@ def both(tmp_path, scenario):
 # Names, specs and registries.
 # ---------------------------------------------------------------------------
 
-LEFT_OUT = {"spmd.compile", "bank.compile", "artifacts.write", "artifacts.read"}
+LEFT_OUT = {"spmd.compile"}
 
 
 def test_fault_names_are_the_reference_less_the_five_refused():
-    """Queue C item 14, narrowed to four with the mesh tier: spmd.dispatch
-    is placed, the four compile and artifact points stay refused."""
+    """Queue C item 14, narrowed to one: spmd.dispatch is placed with the
+    mesh tier, bank.compile with the program bank, artifacts.write and
+    artifacts.read with the artifact store; spmd.compile stays refused."""
     assert TFN.FAULT_NAMES == JFN.FAULT_NAMES - LEFT_OUT
-    assert len(TFN.FAULT_NAMES) == 16
+    assert len(TFN.FAULT_NAMES) == 19
     assert TFN.SPMD_DISPATCH == "spmd.dispatch"
+    assert (TFN.BANK_COMPILE, TFN.ARTIFACTS_WRITE, TFN.ARTIFACTS_READ) == \
+        ("bank.compile", "artifacts.write", "artifacts.read")
     for name in TFN.FAULT_NAMES:
         const = [k for k, v in vars(TFN).items() if v == name and k.isupper()]
         assert const and all(getattr(JFN, k) == name for k in const)

@@ -785,7 +785,9 @@ def test_disabled_serving_explain_silent(tmp_path):
     _write(tmp_path / "d", seed=89)
     s = _session("torch", tmp_path)
     assert "Serving:" not in ht.Hyperspace(s).explain(s.read.parquet(str(tmp_path / "d")))
-    assert ht.Hyperspace(s).serving_stats() == {"frontend": None}
+    from hyperspace_tpu_torch.serving.program_bank import get_bank
+    assert ht.Hyperspace(s).serving_stats() == {"frontend": None,
+                                                "program_bank": get_bank().stats()}
 
 
 def test_default_frontend_requires_enabled(tmp_path):

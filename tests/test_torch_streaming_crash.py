@@ -204,12 +204,14 @@ SPECS = ["error", "error:nth=2", "error:exc=OSError,times=1", "transient:p=0.5",
 BAD = [("ingest.stage", "explode"), ("ingest.stage", "error:nth"),
        ("ingest.stage", "error:bogus=1"), ("ingest.stage", "error:exc=KeyError"),
        ("nope.point", "error")]
-# The reference's points the port refuses by design (ROADMAP queue C 14):
-# the mesh program compile, the program bank's and the artifact store's,
-# which eager torch has no site for. spmd.dispatch came with the mesh tier
-# and is accepted as the JAX package accepts it.
-REFUSED_BY_DESIGN = ("spmd.compile", "bank.compile", "artifacts.write", "artifacts.read")
-PLACED_WITH_THE_MESH_TIER = ("spmd.dispatch",)
+# The reference's point the port refuses by design (ROADMAP queue C 14):
+# the mesh program compile, which eager torch has no site for.
+# spmd.dispatch came with the mesh tier, the program bank's and the
+# artifact store's points with those modules; each is accepted as the JAX
+# package accepts it.
+REFUSED_BY_DESIGN = ("spmd.compile",)
+PLACED_WITH_THE_MESH_TIER = ("spmd.dispatch", "bank.compile", "artifacts.write",
+                             "artifacts.read")
 BAD += [(name, "error") for name in PLACED_WITH_THE_MESH_TIER + REFUSED_BY_DESIGN]
 
 

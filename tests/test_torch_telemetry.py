@@ -7,8 +7,10 @@ Each case runs the same steps, on numpy-seeded files, through both
 packages: the JAX package on the CPU with its staged path (fusion and the
 distributed tier off), the port with ``device="cpu"``. Structure is
 compared with no tolerance; time fields are replaced by a placeholder and
-never compared. Events of tiers the port does not have (the program
-bank's, XLA compile tallies) are left out of the JAX stream.
+never compared. Events of tiers the port does not have are left out of
+the JAX stream, and so is ``KernelCompileEvent``, which counts XLA
+compiles there and nvcc builds here (none on the CPU). Both packages'
+program banks start fresh, so the bank events' running totals compare.
 """
 
 import dataclasses
@@ -99,8 +101,8 @@ def normalized_events(events) -> list:
     keys = {}
     out = []
     for e in events:
-        if not hasattr(tevents, type(e).__name__):
-            continue  # a tier the port does not have
+        if not hasattr(tevents, type(e).__name__) or type(e).__name__ == "KernelCompileEvent":
+            continue  # a tier the port does not have, or another count
         fields = {}
         for f in dataclasses.fields(e):
             if f.name in ID_FIELDS:
@@ -120,10 +122,12 @@ def normalized_events(events) -> list:
 def event_steps(root: str, pkg: str) -> list:
     """Create, refresh incrementally, delete, restore, a result-cache miss
     and hit, and a delete whose log write is retried once."""
+    from test_torch_introspection import fresh_bank_state
     mod = PKGS[pkg]
     session, d = make_pair(root, pkg)
     hs = mod.Hyperspace(session)
     e = expr_module(pkg)
+    fresh_bank_state()
     start = len(recorded())
     hs.create_index(session.read.parquet(d), mod.IndexConfig("kIdx", ["k"], ["v"]))
     write_part(d, "p9.parquet", np.random.default_rng(9), 100)
@@ -390,18 +394,18 @@ def test_rings_are_bounded():
 
 
 def analyze_text(pkg: str, session, df) -> list:
-    """explain_analyze's lines, numbers and ids as placeholders, the
-    program bank's spans and line left out (eager torch has no bank)."""
+    """explain_analyze's lines, numbers and ids as placeholders."""
     text = PKGS[pkg].Hyperspace(session).explain_analyze(df)
-    lines = [line for line in text.splitlines() if not line.startswith("bank:")]
-    lines = normalize_timeline(lines)
+    lines = normalize_timeline(text.splitlines())
     return [re.sub(r"query \d+: <t> ms", "query <n>: <t> ms", re.sub(r"=\d+\.\d+s", "=<t>s", x))
             for x in lines]
 
 
 def test_explain_analyze_equals_jax(tmp_path):
+    from test_torch_introspection import fresh_bank_state
     reports = {}
     for pkg in PKGS:
+        fresh_bank_state()
         session, d = make_pair(str(tmp_path), pkg)
         hs = PKGS[pkg].Hyperspace(session)
         hs.create_index(session.read.parquet(d), PKGS[pkg].IndexConfig("kIdx", ["k"], ["v"]))
@@ -413,6 +417,8 @@ def test_explain_analyze_equals_jax(tmp_path):
     text = "\n".join(reports["torch"])
     assert "== Explain Analyze ==" in text and "exec.stage" in text
     assert "cache: no lookup (result cache off)" in text and "robustness: clean" in text
+    assert "bank: misses=+1 programs=+1 stages=+1 stages_by_kind.fused-predicate=+1" \
+        in text
 
 
 def test_no_telemetry_module_reads_the_environment():
